@@ -1,0 +1,417 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``tpu_dist_nn_torch``) on one GPU.
+
+Run from the root of a checkout, with no arguments::
+
+    python3 chip_smoke.py
+
+It needs one NVIDIA GPU (Hopper: the kernels are built for ``sm_90a``),
+``nvcc`` and ``nvidia-smi``, and imports nothing of JAX or of the JAX
+package. Phases, each fatal on failure (exit 1, no result line):
+
+1. Build every CUDA kernel from ``tpu_dist_nn_torch/kernels/csrc``
+   (one ``nvcc`` per source, in parallel) and print the build time and
+   ptxas' register and shared-memory report.
+2. Hold each kernel against its plain PyTorch version on the card, at
+   the main path's shapes and a few more, with the stated tolerances
+   (TF32 off for every float32 comparison).
+3. Drive the main path with every kernel's launch count set to 0: a
+   seeded MNIST-width FCNN (784-128-64-10) written in the reference
+   JSON schema, ``Engine.up(path, [1, 1, 1])`` and ``run_inference``
+   over 60,000 seeded rows at batch 8192, once in float32 and once with
+   ``quantize="int8"``; the CLI's ``infer`` on a 256-row examples file;
+   and the CLI's ``doctor`` kernel probe. Every kernel must have
+   launched; the float32 outputs must match the float64 oracle and the
+   int8 outputs the plain int8 chain.
+4. Time each kernel, its plain version and the nearest PyTorch library
+   call with CUDA events at the main path's shapes, beside the least
+   time the card could take (its bound).
+
+The second-to-last line is one JSON object with a record per kernel;
+the last is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+MNIST = [784, 128, 64, 10]
+ACTS = ["relu", "relu", "softmax"]
+BATCH = 8192
+ROWS = 60000
+
+# Published dense peaks (NVIDIA data sheets): device memory bytes/s,
+# FP32 FLOP/s on CUDA cores, INT8 tensor-core OP/s. Matched on the name
+# torch reports; the SXM part is the default.
+PEAKS = {
+    "PCIe": (2.0e12, 51e12, 1513e12),
+    "NVL": (3.9e12, 60e12, 1671e12),
+    "SXM": (3.35e12, 67e12, 1979e12),
+}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def peaks_for(name: str) -> tuple[str, tuple[float, float, float]]:
+    for key in ("PCIe", "NVL"):
+        if key in name:
+            return key, PEAKS[key]
+    return "SXM", PEAKS["SXM"]
+
+
+def bound_ms(nbytes: float, ops: float, ops_rate: float, mem_rate: float):
+    t_mem, t_ops = nbytes / mem_rate, ops / ops_rate
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
+
+
+def main() -> None:
+    if not (ROOT / "tpu_dist_nn_torch" / "kernels" / "csrc").is_dir():
+        fail("tpu_dist_nn_torch/ is not beside chip_smoke.py: run it from a "
+             "checkout of the repository")
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
+    sys.path.insert(0, str(ROOT))
+    from tpu_dist_nn_torch.api.engine import Engine
+    from tpu_dist_nn_torch.cli import main as cli_main
+    from tpu_dist_nn_torch.core.activations import apply_activation
+    from tpu_dist_nn_torch.core.schema import LayerSpec, ModelSpec, save_examples, save_model
+    from tpu_dist_nn_torch.kernels import (
+        KERNEL_WRAPPERS,
+        _build,
+        fcnn_fused_forward,
+        fcnn_fused_forward_plain,
+        fcnn_quantized_forward,
+        forward_quantized,
+        fused_dense,
+        fused_dense_plain,
+        quantize_fcnn,
+        reset_launch_counts,
+    )
+    from tpu_dist_nn_torch.models.fcnn import params_from_spec
+    from tpu_dist_nn_torch.testing.oracle import oracle_forward_batch
+    from tpu_dist_nn_torch.utils.profiling import cuda_time_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
+          f"{sys.version.split()[0]} device {name} x{torch.cuda.device_count()}")
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError) as e:
+        fail(f"nvidia-smi: {e}")
+    print("card (nvidia-smi name, power.limit):")
+    print(smi[0])
+    part, (mem_rate, f32_rate, i8_rate) = peaks_for(name)
+    print(f"peaks used for bounds (H100 {part} data sheet): {mem_rate / 1e12:g} TB/s, "
+          f"{f32_rate / 1e12:g} TFLOP/s FP32, {i8_rate / 1e12:g} TOP/s INT8")
+
+    # ---------------------------------------------------------- 1. build
+    t0 = time.monotonic()
+    _build.launcher("fused_dense")
+    print(f"kernel build: {_build.build_seconds:.1f} s compile, "
+          f"{time.monotonic() - t0:.1f} s with load")
+    for lib in _build.LIBRARIES:
+        log = _build.library_path(lib).with_suffix(".log")
+        for line in log.read_text().splitlines() if log.is_file() else []:
+            if "registers" in line or "Compiling entry" in line:
+                print(f"  ptxas {lib}: {line.split('ptxas info    :')[-1].strip()}")
+
+    # ------------------------------------- 2. kernels vs plain versions
+    rng = np.random.default_rng(0)
+    failures: list[str] = []
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def compare(label, got, want, atol, rtol):
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        max_abs = float(diff.max()) if diff.numel() else 0.0
+        max_rel = float((diff / want.float().abs().clamp_min(atol)).max()) if diff.numel() else 0.0
+        ok = (got.shape == want.shape and bool(torch.isfinite(got).all())
+              and bool(torch.allclose(got, want, atol=atol, rtol=rtol)))
+        exact = int((got != want).sum())
+        print(f"check {label}: shape {tuple(got.shape)} max_abs {max_abs:.3e} "
+              f"max_rel {max_rel:.3e} not-bit-equal {exact} | tol atol {atol:g} "
+              f"rtol {rtol:g} | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+        return max_abs
+
+    def he_model(sizes, acts, seed):
+        r = np.random.default_rng(seed)
+        layers = []
+        for i, act in enumerate(acts):
+            fi, fo = sizes[i], sizes[i + 1]
+            layers.append(LayerSpec(
+                weights=r.normal(0.0, math.sqrt(2.0 / fi), (fi, fo)),
+                biases=r.normal(0.0, 0.05, (fo,)),
+                activation=act,
+                type_tag="output" if i == len(acts) - 1 else "hidden",
+            ))
+        return ModelSpec(layers=layers)
+
+    model = he_model(MNIST, ACTS, seed=1)
+    params = params_from_spec(model, device=dev)
+    x = on_card(rng.uniform(0.0, 1.0, (BATCH, MNIST[0])).astype(np.float32))
+    w1, b1 = params[0]["w"], params[0]["b"]
+    err = {}
+
+    # fused_dense: the flagship's first layer under every activation, the
+    # softmax head (N = 10), and a ragged M. f32 FFMA vs cuBLAS f32.
+    for act in ["linear", "relu", "sigmoid", "tanh", "gelu", "softmax"]:
+        e = compare(f"fused_dense 8192x784->128 {act}", fused_dense(x, w1, b1, activation=act),
+                    fused_dense_plain(x, w1, b1, act), 1e-5, 1e-5)
+        if act == "relu":
+            err["fused_dense"] = e
+    h2 = on_card(rng.uniform(0.0, 1.0, (BATCH, 64)).astype(np.float32))
+    compare("fused_dense 8192x64->10 softmax",
+            fused_dense(h2, params[2]["w"], params[2]["b"], activation="softmax"),
+            fused_dense_plain(h2, params[2]["w"], params[2]["b"], "softmax"), 1e-5, 1e-5)
+    compare("fused_dense 8191x784->128 relu (ragged M)",
+            fused_dense(x[:8191], w1, b1, activation="relu"),
+            fused_dense_plain(x[:8191], w1, b1, "relu"), 1e-5, 1e-5)
+
+    # fcnn_fused_forward: tolerance of tests/test_kernels.py's chain checks.
+    err["fcnn_fused_chain"] = compare(
+        "fcnn_fused_forward 784-128-64-10 f32 x8192",
+        fcnn_fused_forward(params, x), fcnn_fused_forward_plain(params, x), 2e-5, 1e-4)
+    compare("fcnn_fused_forward 784-128-64-10 f32 x8191 (ragged)",
+            fcnn_fused_forward(params, x[:8191]), fcnn_fused_forward_plain(params, x[:8191]),
+            2e-5, 1e-4)
+    xu8 = on_card(rng.integers(0, 256, (BATCH, MNIST[0])).astype(np.uint8))
+    compare("fcnn_fused_forward 784-128-64-10 uint8 x8192 input_scale=1/255",
+            fcnn_fused_forward(params, xu8, input_scale=1.0 / 255.0),
+            fcnn_fused_forward_plain(params, xu8, input_scale=1.0 / 255.0), 2e-5, 1e-4)
+
+    # int8 chain: the kernel repeats the plain chain's arithmetic, so relu
+    # interiors with a softmax head agree to a few ulps of the softmax
+    # (rtol 1e-6, atol 1e-7). A gelu/tanh interior may differ from
+    # torch's by an ulp, which can move the next layer's code by one:
+    # atol 1e-2 there.
+    q = quantize_fcnn(params)
+    wide = he_model([1024, 1024, 1024, 10], ACTS, seed=2)
+    q_wide = quantize_fcnn(params_from_spec(wide, device=dev))
+    x_wide = on_card(rng.uniform(0.0, 1.0, (BATCH, 1024)).astype(np.float32))
+    for rows in (BATCH, BATCH - 1):
+        e = compare(f"fcnn_quantized_forward 784-128-64-10 x{rows}",
+                    fcnn_quantized_forward(q, x[:rows]), forward_quantized(q, x[:rows]),
+                    1e-7, 1e-6)
+        if rows == BATCH:
+            err["int8_chain"] = e
+        compare(f"fcnn_quantized_forward 1024-1024-1024-10 x{rows}",
+                fcnn_quantized_forward(q_wide, x_wide[:rows]),
+                forward_quantized(q_wide, x_wide[:rows]), 1e-7, 1e-6)
+    q_gelu = quantize_fcnn(params_from_spec(
+        he_model(MNIST, ["gelu", "tanh", "softmax"], seed=3), device=dev))
+    compare("fcnn_quantized_forward 784-128-64-10 gelu,tanh,softmax x8192",
+            fcnn_quantized_forward(q_gelu, x), forward_quantized(q_gelu, x), 1e-2, 0.0)
+    if failures:
+        fail(f"kernel checks failed: {failures}")
+
+    # ------------------------------------------------------ 3. main path
+    data = rng.uniform(0.0, 1.0, (ROWS, MNIST[0])).astype(np.float32)
+    out_dir = ROOT / ".chip_smoke"  # scratch inside the checkout (.gitignore lists it)
+    out_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=out_dir) as tmp:
+        model_path = Path(tmp) / "mnist_fcnn.json"
+        save_model(model, model_path)
+
+        reset_launch_counts()
+        eng = Engine.up(model_path, [1, 1, 1])
+        res32 = eng.run_inference(data, batch_size=BATCH)
+        engq = Engine.up(model_path, [1, 1, 1], quantize="int8")
+        before = fcnn_quantized_forward.launches
+        resq = engq.run_inference(data, batch_size=BATCH)
+        int8_batch_launches = fcnn_quantized_forward.launches - before
+
+        labels = res32.outputs[:256].argmax(-1)
+        examples = Path(tmp) / "examples_256.json"
+        save_examples(data[:256], labels, examples)
+        cli = subprocess.run(
+            [sys.executable, "-m", "tpu_dist_nn_torch.cli", "infer", "--config",
+             str(model_path), "--inputs", str(examples), "--batch-size", "64",
+             "--quantize", "int8"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT)},
+        )
+        doctor_rc = cli_main(["doctor"])
+        launches = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+    print(f"main path launches: {json.dumps(launches)}")
+    print(f"cli infer --quantize int8 (rc {cli.returncode}):")
+    for line in cli.stdout.strip().splitlines():
+        print(f"  {line}")
+    if cli.returncode != 0:
+        fail(f"cli infer exited {cli.returncode}: {cli.stderr[-2000:]}")
+    if "Correct predictions" not in cli.stdout:
+        fail("cli infer printed no accuracy line")
+    if doctor_rc != 0:
+        fail(f"cli doctor exited {doctor_rc}")
+    missing = [k for k, v in launches.items() if v < 1]
+    if missing:
+        fail(f"kernels never launched on the main path: {missing}")
+    n_batches = math.ceil(ROWS / BATCH)
+    print(f"int8 run_inference: kernel launches {int8_batch_launches} for {n_batches} batches")
+    if int8_batch_launches != n_batches:
+        fail("the int8 engine run did not go through the int8 kernel once per batch")
+
+    for label, res in (("f32", res32), ("int8", resq)):
+        if res.outputs.shape != (ROWS, MNIST[-1]) or not np.isfinite(res.outputs).all():
+            fail(f"{label} engine outputs: shape {res.outputs.shape} or non-finite values")
+    want = oracle_forward_batch(model, data[:2048])
+    o_err = float(np.abs(res32.outputs[:2048] - want).max())
+    print(f"check engine f32 vs float64 oracle (2048 rows): max_abs {o_err:.3e} | tol atol 1e-05"
+          f" | {'ok' if o_err <= 1e-5 else 'FAIL'}")
+    if o_err > 1e-5:
+        fail("f32 engine outputs disagree with the float64 oracle")
+    compare("engine int8 vs plain forward_quantized (60000 rows)",
+            torch.from_numpy(resq.outputs), forward_quantized(q, on_card(data)).cpu(),
+            1e-7, 1e-6)
+    if failures:
+        fail(f"main-path checks failed: {failures}")
+    agree = float((resq.outputs.argmax(-1) == res32.outputs.argmax(-1)).mean())
+    print(f"int8 vs f32 argmax agreement: {agree:.4f}")
+
+    # ----------------------------------------------- 4. card's numbers
+    # The main-path run above is each engine's first pass over the data
+    # (it also fills PyTorch's pinned-memory cache); three more passes
+    # give the steady state.
+    for label, e, first in (("f32", eng, res32), ("int8", engq, resq)):
+        runs = [first] + [e.run_inference(data, batch_size=BATCH) for _ in range(3)]
+        for i, res in enumerate(runs):
+            lat = res.latency_summary()
+            print(f"engine {label} pass {i}: {ROWS / res.seconds:.1f} samples/s over {ROWS} "
+                  f"rows at batch {BATCH}; batch latency p50 {lat['p50_s'] * 1e3:.3f} ms "
+                  f"p90 {lat['p90_s'] * 1e3:.3f} ms max {lat['max_s'] * 1e3:.3f} ms "
+                  f"(n={lat['count']})")
+        print(f"engine {label}: setup {e.setup_seconds:.3f} s; steady median "
+              f"{float(np.median([ROWS / r.seconds for r in runs[1:]])):.1f} samples/s")
+
+    # One batch's stages, each timed alone: the host cast into pinned
+    # memory (host clock), the copy to the card, the kernels, the copy back.
+    host_rows = data[:BATCH]
+    staged = torch.empty((BATCH, MNIST[0]), dtype=torch.float32, pin_memory=True)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        staged.copy_(torch.from_numpy(host_rows))
+    cast_ms = (time.perf_counter() - t0) / 10 * 1e3
+    h2d_ms = cuda_time_ms(lambda: staged.to(dev, non_blocking=True), iters=20)
+    out_dev = fcnn_fused_forward(params, x)
+    back = torch.empty(out_dev.shape, dtype=torch.float32, pin_memory=True)
+    d2h_ms = cuda_time_ms(lambda: back.copy_(out_dev, non_blocking=True), iters=20)
+    print(f"engine batch stages @ {BATCH} rows: host cast to pinned {cast_ms:.3f} ms, "
+          f"host-to-device {h2d_ms:.3f} ms ({BATCH * MNIST[0] * 4 / h2d_ms / 1e6:.1f} GB/s), "
+          f"device-to-host {d2h_ms:.4f} ms; kernel times below")
+
+    # Four distinct inputs (4 x 25.7 MB > the 50 MB L2), cycled, so each
+    # launch reads x from device memory as a freshly copied batch would.
+    xs = [x] + [on_card(rng.uniform(0.0, 1.0, (BATCH, MNIST[0])).astype(np.float32))
+                for _ in range(3)]
+
+    def cycled(fn):
+        state = {"i": 0}
+
+        def call():
+            state["i"] = (state["i"] + 1) % len(xs)
+            return fn(xs[state["i"]])
+        return call
+
+    def addmm_chain(h):
+        for p, act in zip(params, ACTS):
+            h = apply_activation(torch.addmm(p["b"], h, p["w"]), act)
+        return h
+
+    def int_mm_chain(h):
+        # torch._int_mm needs N % 8 == 0: the 10-wide head runs as 16
+        # columns (zero weights) and is sliced back.
+        for p, wq, act in int_mm_layers:
+            absmax = torch.clamp_min(h.abs().amax(dim=-1, keepdim=True), 1e-8)
+            s = absmax / torch.full_like(absmax, 127.0)
+            hq = torch.clamp(torch.round(h / s), -127, 127).to(torch.int8)
+            z = torch._int_mm(hq, wq)[:, : p["wq"].shape[1]]
+            h = apply_activation(z.to(torch.float32) * (s * p["scale"][None, :]) + p["b"], act)
+        return h
+
+    int_mm_layers = []
+    for p, act in zip(q, ACTS):
+        n = p["wq"].shape[1]
+        wq = torch.zeros((p["wq"].shape[0], -(-n // 8) * 8), dtype=torch.int8, device=dev)
+        wq[:, :n] = p["wq"]
+        int_mm_layers.append((p, wq, act))
+    try:
+        int_mm_chain(x)
+        int_mm_ok = True
+    except RuntimeError as e:
+        print(f"torch._int_mm unavailable here ({e}); int8 library_ms is null")
+        int_mm_ok = False
+
+    M, (d0, d1, d2, d3) = BATCH, MNIST
+    flops_chain = 2.0 * M * (d0 * d1 + d1 * d2 + d2 * d3)
+    w_f32 = 4 * sum(a * b + b for a, b in zip(MNIST[:-1], MNIST[1:]))
+    w_i8 = sum(a * b + 8 * b for a, b in zip(MNIST[:-1], MNIST[1:]))
+    specs = [
+        ("fused_dense", "tpu_dist_nn_torch/kernels/csrc/fused_dense.cu",
+         "tpu_dist_nn/kernels/fused_dense.py:75",
+         lambda h: fused_dense(h, w1, b1, activation="relu"),
+         lambda h: fused_dense_plain(h, w1, b1, "relu"),
+         lambda h: torch.relu(torch.addmm(b1, h, w1)),
+         4.0 * (M * d0 + d0 * d1 + d1 + M * d1), 2.0 * M * d0 * d1, f32_rate),
+        ("fcnn_fused_chain", "tpu_dist_nn_torch/kernels/csrc/fcnn_chain.cu",
+         "tpu_dist_nn/kernels/fused_dense.py:118",
+         lambda h: fcnn_fused_forward(params, h),
+         lambda h: fcnn_fused_forward_plain(params, h),
+         addmm_chain, 4.0 * M * d0 + w_f32 + 4.0 * M * d3, flops_chain, f32_rate),
+        ("int8_chain", "tpu_dist_nn_torch/kernels/csrc/int8_chain.cu",
+         "tpu_dist_nn/kernels/quantized.py:96",
+         lambda h: fcnn_quantized_forward(q, h),
+         lambda h: forward_quantized(q, h),
+         int_mm_chain if int_mm_ok else None,
+         4.0 * M * d0 + w_i8 + 4.0 * M * d3, flops_chain, i8_rate),
+    ]
+    records = []
+    for kname, source, replaces, kern, plain, library, nbytes, ops, rate in specs:
+        ms = cuda_time_ms(cycled(kern))
+        plain_ms = cuda_time_ms(cycled(plain))
+        library_ms = cuda_time_ms(cycled(library)) if library is not None else None
+        b_ms, b_by = bound_ms(nbytes, ops, rate, mem_rate)
+        records.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[{"fused_dense": "fused_dense",
+                                  "fcnn_fused_chain": "fcnn_fused_forward",
+                                  "int8_chain": "fcnn_quantized_forward"}[kname]],
+            "max_abs_err": err[kname], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        })
+        print(f"time {kname} @ batch {M}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, bound {b_ms:.4f} ms "
+              f"({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G ops) -> "
+              f"{b_ms / ms * 100:.1f}% of bound")
+
+    torch.cuda.synchronize()
+    print(json.dumps({"kernels": records}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

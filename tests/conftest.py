@@ -293,6 +293,13 @@ QUICK_TESTS = {
     "test_tensor_parallel": ["test_forward_matches_single_chip[spec1]",
                              "test_shard_roundtrip"],
     "test_tpu_hardware": ["*"],
+    "test_torch_cuda": ["*"],
+    "test_torch_engine": ["test_run_inference_matches_jax_engine",
+                          "test_port_runs_with_jax_and_the_jax_package_blocked"],
+    "test_torch_fcnn": ["test_forward_matches_jax_and_oracle",
+                        "test_activation_matches_jax"],
+    "test_torch_kernels": ["test_fused_dense_matches_jax_kernel",
+                           "test_forward_quantized_matches_jax_pallas_chain"],
     # ISSUE 10: the codec fast lane's correctness anchor (byte-exact
     # scalar/vectorized equivalence + fuzz agreement), the decode-into-
     # staging path through a real batcher, the codec A/B perf smoke,

@@ -1,0 +1,129 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test takes the ``cuda`` fixture and skips without a GPU. The
+module imports neither JAX nor the JAX package, so it also runs on a
+GPU machine without them::
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+(``--noconftest``: ``tests/conftest.py`` configures JAX.) Shapes here
+are odd on purpose: ragged tiles, widths that are not multiples of 4,
+more than one 128-column pass, and tiles of fewer than 8 rows.
+``chip_smoke.py`` covers the main path's shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_dist_nn_torch.api.engine import Engine
+from tpu_dist_nn_torch.core.schema import LayerSpec, ModelSpec
+from tpu_dist_nn_torch.kernels import (
+    KERNEL_WRAPPERS,
+    fcnn_fused_forward,
+    fcnn_fused_forward_plain,
+    fcnn_quantized_forward,
+    forward_quantized,
+    fused_dense,
+    fused_dense_plain,
+    quantize_fcnn,
+    reset_launch_counts,
+)
+from tpu_dist_nn_torch.models.fcnn import params_from_spec
+from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
+
+ACTIVATIONS = ["linear", "relu", "sigmoid", "tanh", "gelu", "softmax"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _model(sizes, acts, seed=0):
+    rng = np.random.default_rng(seed)
+    return ModelSpec([
+        LayerSpec(rng.normal(0, (2.0 / sizes[i]) ** 0.5, (sizes[i], sizes[i + 1])),
+                  rng.normal(0, 0.05, (sizes[i + 1],)), act)
+        for i, act in enumerate(acts)
+    ])
+
+
+def _rows(n, d, device, seed=1):
+    return torch.from_numpy(
+        np.random.default_rng(seed).uniform(0, 1, (n, d)).astype(np.float32)).to(device)
+
+
+def test_fused_dense_matches_plain_on_the_card(cuda):
+    reset_launch_counts()
+    rng = np.random.default_rng(3)
+    x, w, b = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        rng.normal(size=(300, 70)), rng.normal(size=(70, 130)) * 0.1, rng.normal(size=130)))
+    for act in ACTIVATIONS:
+        torch.testing.assert_close(fused_dense(x, w, b, activation=act),
+                                   fused_dense_plain(x, w, b, act), atol=1e-5, rtol=1e-5)
+    assert fused_dense.launches == len(ACTIVATIONS)
+
+
+@pytest.mark.parametrize(
+    "sizes,acts",
+    [([70, 300, 33, 5], ["relu", "gelu", "softmax"]),   # 3 column passes, ragged K
+     ([3000, 3000, 10], ["tanh", "softmax"]),           # 8-row tiles
+     ([20000, 8, 4], ["sigmoid", "linear"])],           # 2-row tiles
+    ids=["passes", "tm8", "tm2"],
+)
+def test_fused_chain_matches_plain_on_the_card(cuda, sizes, acts):
+    params = params_from_spec(_model(sizes, acts), device=cuda)
+    x = _rows(37, sizes[0], cuda)
+    torch.testing.assert_close(fcnn_fused_forward(params, x),
+                               fcnn_fused_forward_plain(params, x), atol=2e-5, rtol=1e-4)
+    xu8 = (x * 255).to(torch.uint8)
+    torch.testing.assert_close(
+        fcnn_fused_forward(params, xu8, input_scale=1 / 255),
+        fcnn_fused_forward_plain(params, xu8, input_scale=1 / 255), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize(
+    "sizes,acts",
+    [([70, 300, 33, 5], ["relu", "linear", "softmax"]),
+     ([3000, 2000, 10], ["relu", "softmax"]),
+     ([1023, 1], ["linear"])],
+    ids=["passes", "wide", "one-column"],
+)
+def test_int8_chain_matches_plain_bit_for_bit_on_the_card(cuda, sizes, acts):
+    q = quantize_fcnn(params_from_spec(_model(sizes, acts), device=cuda))
+    x = _rows(45, sizes[0], cuda)
+    got, want = fcnn_quantized_forward(q, x), forward_quantized(q, x)
+    torch.testing.assert_close(got, want, atol=1e-7, rtol=1e-6)
+    if acts[-1] != "softmax":
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("quantize,atol,rtol", [(None, 1e-5, 1e-5), ("int8", 1e-7, 1e-6)])
+def test_engine_on_the_card_matches_the_cpu_engine(cuda, quantize, atol, rtol):
+    model = _model([784, 128, 64, 10], ["relu", "relu", "softmax"])
+    x = np.random.default_rng(2).uniform(0, 1, (1000, 784))
+    reset_launch_counts()
+    gpu = Engine.up(model, [1, 1, 1], quantize=quantize)
+    got = gpu.run_inference(x, batch_size=256).outputs
+    want = Engine.up(model, device="cpu", quantize=quantize).run_inference(x).outputs
+    np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
+    counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    chain = "fcnn_quantized_forward" if quantize else "fcnn_fused_forward"
+    assert counts[chain] == 1 + 4  # warm-up + 4 batches
+    a, b = gpu.infer_async(x[:3]), gpu.infer_async(x[3:10])
+    np.testing.assert_array_equal(gpu.fetch(b), got[3:10])
+    np.testing.assert_array_equal(gpu.fetch(a), got[:3])
+
+
+def test_kernels_raise_on_mixed_devices(cuda):
+    x = torch.zeros(8, 12, device=cuda)
+    with pytest.raises(InvalidArgumentError, match="is on"):
+        fused_dense(x, torch.zeros(12, 6), torch.zeros(6, device=cuda))
+    params = params_from_spec(_model([12, 4], ["relu"]), device="cpu")
+    with pytest.raises(InvalidArgumentError, match="is on"):
+        fcnn_fused_forward(params, x)

@@ -1,0 +1,250 @@
+"""The port's Engine and CLI against the JAX package's, on the CPU.
+
+Both engines are brought up from the same model file and fed the same
+numpy-seeded rows in this process; the port runs with
+``device="cpu"`` (its kernels' plain versions). The int8 comparison
+pins the JAX engine's warm-time int8 auto-disable off
+(``TDN_INT8_AUTO=0``, as ``tests/test_quantized.py`` does), so both
+sides serve the int8 path.
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_dist_nn.api.engine import Engine as JaxEngine
+from tpu_dist_nn.cli import main as tdn_main
+from tpu_dist_nn.core.schema import load_model as jax_load_model
+from tpu_dist_nn.core.schema import save_examples, save_model
+from tpu_dist_nn.testing.factories import random_inputs, random_model
+from tpu_dist_nn_torch.api.engine import Engine
+from tpu_dist_nn_torch.cli import main as port_main
+from tpu_dist_nn_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+from tpu_dist_nn_torch.testing.oracle import oracle_forward_batch
+from tpu_dist_nn_torch.core.schema import load_model
+from tpu_dist_nn_torch.utils.errors import InvalidArgumentError, UnavailableError
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True)
+def _pin_int8_serving(monkeypatch):
+    monkeypatch.setenv("TDN_INT8_AUTO", "0")
+
+
+@pytest.fixture
+def model_file(tmp_path):
+    path = tmp_path / "model.json"
+    save_model(random_model([24, 32, 16, 4], seed=0), path)
+    return path
+
+
+@pytest.fixture
+def inputs_file(tmp_path):
+    x = random_inputs(100, 24, seed=1)
+    y = np.random.default_rng(2).integers(0, 4, 100)
+    path = tmp_path / "inputs.json"
+    save_examples(x, y, path)
+    return path
+
+
+@pytest.mark.parametrize(
+    "quantize,atol,rtol", [(None, 1e-6, 1e-5), ("int8", 1e-7, 1e-6)], ids=["f32", "int8"]
+)
+def test_run_inference_matches_jax_engine(model_file, quantize, atol, rtol):
+    x = random_inputs(100, 24, seed=3)
+    labels = np.random.default_rng(4).integers(0, 4, 100)
+    want = JaxEngine.up(model_file, [3], quantize=quantize).run_inference(
+        x, labels, batch_size=32)
+    eng = Engine.up(model_file, [3], device="cpu", quantize=quantize)
+    got = eng.run_inference(x, labels, batch_size=32)
+    assert got.outputs.shape == (100, 4) and len(got.batch_seconds) == 4
+    np.testing.assert_allclose(got.outputs, want.outputs, atol=atol, rtol=rtol)
+    assert got.metrics == want.metrics
+    whole = eng.run_inference(x)
+    np.testing.assert_array_equal(whole.outputs, got.outputs)
+    assert whole.metrics is None and len(whole.batch_seconds) == 1
+
+
+def test_engine_matches_oracle_and_collapses_placement(model_file, caplog):
+    with caplog.at_level("INFO"):
+        eng = Engine.up(model_file, [1, 1, 1], device="cpu")
+    assert "collapsing to the single-program executor" in caplog.text
+    place = eng.placement()
+    assert place["distribution"] == [3] and not place["pipelined"]
+    assert place["num_stages"] == 1 and place["input_dim"] == 24
+    assert eng.setup_seconds is not None and eng.warm_bucket_count == 1
+    x = random_inputs(9, 24, seed=5)
+    np.testing.assert_allclose(eng.infer(x), oracle_forward_batch(load_model(model_file), x),
+                               rtol=2e-5, atol=1e-6)
+    out, seconds = eng.infer_single(x[0])
+    assert out.shape == (4,) and seconds >= 0
+    np.testing.assert_allclose(out, eng.infer(x[:1])[0])
+
+
+def test_engine_validates_like_the_jax_engine(model_file):
+    with pytest.raises(ValueError, match="sum"):
+        Engine.up(model_file, [1, 1], device="cpu")
+    with pytest.raises(InvalidArgumentError, match="unknown quantize"):
+        Engine.up(model_file, device="cpu", quantize="int4")
+    with pytest.raises(InvalidArgumentError, match="float32"):
+        Engine.up(model_file, device="cpu", dtype=torch.float64)
+    eng = Engine.up(model_file, device="cpu", warmup=False)
+    assert eng.warm_bucket_count == 0
+    with pytest.raises(InvalidArgumentError, match="Expected input dimension 24"):
+        eng.infer(np.zeros((2, 23)))
+    eng.down()
+    eng.down()
+    assert not eng.is_ready
+    with pytest.raises(UnavailableError, match="engine is down"):
+        eng.infer(np.zeros((1, 24)))
+
+
+def test_warm_buckets_step_latency_and_export(model_file, tmp_path):
+    eng = Engine.up(model_file, device="cpu", warm_rows=5)
+    assert eng.warm_bucket_count == 4
+    assert eng.warm_buckets(8) == []
+    assert eng.warm_buckets(9) == [16]
+    lat = eng.step_latency(batch_size=8, iters=3)
+    assert lat["count"] == 3 and lat["num_stages"] == 1
+    assert lat["p50_per_stage_s"] == lat["p50_s"]
+    with pytest.raises(InvalidArgumentError):
+        eng.step_latency(iters=0)
+    out = tmp_path / "exported.json"
+    eng.export(out, metrics={"accuracy": 0.5})
+    back = jax_load_model(out)
+    assert back.metadata["inference_metrics"] == {"accuracy": 0.5}
+    assert back.to_json_dict()["layers"] == jax_load_model(model_file).to_json_dict()["layers"]
+
+
+def test_infer_async_fetch_pairs(model_file):
+    eng = Engine.up(model_file, device="cpu")
+    a, b = random_inputs(3, 24, seed=6), random_inputs(5, 24, seed=7)
+    pa, pb = eng.infer_async(a), eng.infer_async(b)
+    np.testing.assert_array_equal(eng.fetch(pb), eng.infer(b))
+    np.testing.assert_array_equal(eng.fetch(pa), eng.infer(a))
+
+
+def test_without_a_card_entry_points_raise_unless_asked_for_cpu(model_file, inputs_file,
+                                                                capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    with pytest.raises(UnavailableError, match="device='cpu'"):
+        Engine.up(model_file)
+    rc = port_main(["infer", "--config", str(model_file), "--inputs", str(inputs_file)])
+    assert rc == 2 and "no CUDA device" in capsys.readouterr().err
+    reset_launch_counts()
+    Engine.up(model_file, device="cpu").run_inference(random_inputs(40, 24), batch_size=16)
+    Engine.up(model_file, device="cpu", quantize="int8").infer(random_inputs(4, 24))
+    assert [fn.launches for fn in KERNEL_WRAPPERS] == [0, 0, 0]
+
+
+def _lines(text, prefix):
+    return [l for l in text.splitlines() if l.startswith(prefix)]
+
+
+@pytest.mark.parametrize("quantize", [[], ["--quantize", "int8"]], ids=["f32", "int8"])
+def test_cli_infer_prints_the_lines_tdn_prints(model_file, inputs_file, capsys, quantize):
+    common = ["--config", str(model_file), "--inputs", str(inputs_file), *quantize]
+    assert tdn_main(["infer", *common, "--batch-size", "32"]) == 0
+    want = capsys.readouterr().out
+    assert port_main(["infer", *common, "--batch-size", "32", "--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    for prefix in ("Correct predictions:", "Metrics:"):
+        assert _lines(got, prefix) == _lines(want, prefix) and _lines(got, prefix)
+    pattern = r"Total inference time: \d+\.\d{4} seconds \(\d+\.\d samples/sec\)"
+    assert re.fullmatch(pattern, _lines(got, "Total")[0])
+    assert re.fullmatch(pattern, _lines(want, "Total")[0])
+
+    assert tdn_main(["infer", "7", *common]) == 0
+    want = capsys.readouterr().out
+    assert port_main(["infer", "7", *common, "--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert _lines(got, "Label:") == _lines(want, "Label:") and _lines(got, "Label:")
+    g = json.loads(_lines(got, "Output:")[0][len("Output: "):])
+    w = json.loads(_lines(want, "Output:")[0][len("Output: "):])
+    np.testing.assert_allclose(g, w, atol=1e-6, rtol=1e-5)
+    assert re.fullmatch(r"Inference time: \d+\.\d{4} seconds", _lines(got, "Inference")[0])
+
+
+def test_cli_oracle_and_doctor(model_file, inputs_file, capsys):
+    args = ["oracle", "--config", str(model_file), "--inputs", str(inputs_file)]
+    assert tdn_main(args) == 0
+    want = capsys.readouterr().out.splitlines()
+    assert port_main(args) == 0
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want) == 102
+    for g, w in zip(got, want):
+        assert re.sub(r"\d", "0", g) == re.sub(r"\d", "0", w)
+    assert port_main(["doctor", "--device", "cpu"]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["oracle_parity"] and report["fused_dense"] == "ok"
+
+
+_BLOCKED_RUN = r"""
+import importlib, importlib.abc, pkgutil, sys
+for name in list(sys.modules):
+    if name.split(".")[0] in ("jax", "jaxlib", "tpu_dist_nn"):
+        del sys.modules[name]
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "tpu_dist_nn"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+import tpu_dist_nn_torch
+mods = [m.name for m in pkgutil.walk_packages(tpu_dist_nn_torch.__path__, "tpu_dist_nn_torch.")]
+for m in mods:
+    importlib.import_module(m)
+from tpu_dist_nn_torch.api.engine import Engine
+from tpu_dist_nn_torch.cli import main
+from tpu_dist_nn_torch.core.schema import save_model
+from tpu_dist_nn_torch.models.fcnn import forward, init_fcnn, spec_from_params
+import torch
+params = init_fcnn(torch.Generator().manual_seed(0), [12, 8, 3], device="cpu")
+x = torch.rand(6, 12)
+assert forward(params, x).shape == (6, 3)
+save_model(spec_from_params(params, ["relu", "softmax"]), sys.argv[1])
+for q in (None, "int8"):
+    out = Engine.up(sys.argv[1], [1, 1], device="cpu", quantize=q).run_inference(
+        np.random.default_rng(0).uniform(size=(20, 12)), batch_size=8).outputs
+    assert out.shape == (20, 3)
+assert main(["doctor", "--device", "cpu"]) == 0
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist_nn")]
+assert not bad, bad
+print("imported", len(mods), "modules without jax")
+"""
+
+
+def test_port_runs_with_jax_and_the_jax_package_blocked(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_RUN, str(tmp_path / "m.json")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "without jax" in proc.stdout
+
+
+def test_chip_smoke_fails_without_a_card_or_outside_a_checkout(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    proc = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout

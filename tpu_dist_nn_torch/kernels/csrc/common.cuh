@@ -1,0 +1,73 @@
+// Shared device helpers for the dense-layer kernels.
+//
+// Numerics: these sources are built without --use_fast_math. Activations
+// use expf / tanhf (not __expf), divisions are IEEE, and the int8 chain
+// spells out its rounding with __fmul_rn / __fadd_rn / rintf, so each
+// kernel computes what its plain PyTorch version computes.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace tdn {
+
+// Activation ids: the order of tpu_dist_nn_torch/core/activations.py.
+enum Act : int { LINEAR = 0, RELU = 1, SIGMOID = 2, SOFTMAX = 3, TANH = 4, GELU = 5 };
+
+// Element-wise activations. Softmax is a row operation: callers store
+// the pre-activation and run softmax_row_warp over the finished row.
+__device__ __forceinline__ float act_elem(float z, int act) {
+  switch (act) {
+    case RELU:
+      return fmaxf(z, 0.0f);
+    case SIGMOID:
+      return 1.0f / (1.0f + expf(-z));
+    case TANH:
+      return tanhf(z);
+    case GELU: {
+      // tanh form, as jax.nn.gelu's default and F.gelu(approximate="tanh").
+      const float k_beta = 0.7978845608028654f;  // sqrt(2 / pi)
+      const float inner = k_beta * (z + 0.044715f * z * z * z);
+      return 0.5f * z * (1.0f + tanhf(inner));
+    }
+    default:
+      return z;
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Numerically stable softmax of one row of n floats, in place, by one
+// full warp: exp(z - max) / sum.
+__device__ __forceinline__ void softmax_row_warp(float* row, int n, int lane) {
+  float m = -INFINITY;
+  for (int c = lane; c < n; c += 32) m = fmaxf(m, row[c]);
+  m = warp_max(m);
+  float s = 0.0f;
+  for (int c = lane; c < n; c += 32) {
+    const float e = expf(row[c] - m);
+    row[c] = e;
+    s += e;
+  }
+  s = warp_sum(s);
+  for (int c = lane; c < n; c += 32) row[c] = row[c] / s;
+}
+
+}  // namespace tdn
+
+// Each kernel library exports this so the Python wrapper can name a
+// failed launch's error code.
+extern "C" const char* tdn_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

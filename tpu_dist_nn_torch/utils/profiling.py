@@ -1,0 +1,120 @@
+"""Latency profiling: wall-clock spans and CUDA-event kernel timing.
+
+Port of :mod:`tpu_dist_nn.utils.profiling`. :class:`LatencyStats` is a
+copy (the source of the "p50 batch latency" figures);
+:func:`cuda_time_ms` times device work with CUDA events, the card's
+counterpart of the JAX package's device traces.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import dataclasses
+import time
+from typing import Iterator
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class LatencyStats:
+    """Wall-clock samples with percentile summaries.
+
+    The structured replacement for the reference's printed per-batch
+    seconds (``run_grpc_inference.py:195,211,213-215``).
+
+    ``window`` bounds the retained samples to the most recent N (a
+    sliding window): a long-lived serving process can record spans
+    forever without the sample list growing without limit, at the cost
+    of percentiles covering the window rather than all time.
+    ``summary()`` reports the cap so a windowed p99 is never mistaken
+    for an all-time one. ``None`` (the default) keeps everything — the
+    bounded-run behavior existing callers rely on.
+    """
+
+    name: str = "latency"
+    samples_s: list[float] = dataclasses.field(default_factory=list)
+    window: int | None = None
+
+    def __post_init__(self) -> None:
+        if self.window is not None:
+            if self.window < 1:
+                raise ValueError(
+                    f"{self.name}: window must be >= 1, got {self.window}"
+                )
+            # A deque with maxlen IS the sliding window: append is O(1)
+            # and eviction is automatic. Everything downstream only
+            # iterates (np.asarray, sum, len), so the container swap is
+            # invisible to summary()/percentile() callers.
+            self.samples_s = collections.deque(
+                self.samples_s, maxlen=self.window
+            )
+
+    def record(self, seconds: float) -> None:
+        self.samples_s.append(float(seconds))
+
+    @contextlib.contextmanager
+    def time(self) -> Iterator[None]:
+        t0 = time.monotonic()
+        try:
+            yield
+        finally:
+            self.record(time.monotonic() - t0)
+
+    def __len__(self) -> int:
+        return len(self.samples_s)
+
+    @property
+    def total_s(self) -> float:
+        return float(sum(self.samples_s))
+
+    def percentile(self, q: float) -> float:
+        if not self.samples_s:
+            raise ValueError(f"{self.name}: no samples recorded")
+        return float(np.percentile(np.asarray(self.samples_s), q))
+
+    def summary(self) -> dict:
+        """p50/p90/p99/mean/min/max/total over the recorded spans.
+
+        When a ``window`` cap is configured the summary includes it —
+        the numbers then cover (at most) the last ``window`` spans.
+        """
+        if not self.samples_s:
+            base = {"name": self.name, "count": 0}
+            if self.window is not None:
+                base["window"] = self.window
+            return base
+        arr = np.asarray(self.samples_s)
+        return {
+            "name": self.name,
+            **({"window": self.window} if self.window is not None else {}),
+            "count": int(arr.size),
+            "total_s": float(arr.sum()),
+            "mean_s": float(arr.mean()),
+            "min_s": float(arr.min()),
+            "max_s": float(arr.max()),
+            "p50_s": float(np.percentile(arr, 50)),
+            "p90_s": float(np.percentile(arr, 90)),
+            "p99_s": float(np.percentile(arr, 99)),
+        }
+
+
+def cuda_time_ms(fn, *, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device milliseconds per call of ``fn()`` on the current CUDA
+    stream: ``warmup`` untimed calls, then ``iters`` calls between two
+    CUDA events. Raises without a visible GPU (a CPU time is never
+    reported as a device time)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("cuda_time_ms needs a CUDA device")
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
