@@ -15,17 +15,28 @@ package. Phases, each fatal on failure (exit 1, no result line):
 2. Hold each kernel against its plain PyTorch version on the card, at
    the main path's shapes and a few more, with the stated tolerances
    (TF32 off for every float32 comparison).
-3. Drive the main path with every kernel's launch count set to 0: a
-   seeded MNIST-width FCNN (784-128-64-10) written in the reference
-   JSON schema, ``Engine.up(path, [1, 1, 1])`` and ``run_inference``
-   over 60,000 seeded rows at batch 8192, once in float32 and once with
-   ``quantize="int8"``; the CLI's ``infer`` on a 256-row examples file;
-   and the CLI's ``doctor`` kernel probe. Every kernel must have
-   launched; the float32 outputs must match the float64 oracle and the
-   int8 outputs the plain int8 chain.
+3. Drive each main path with every kernel's launch count set to 0
+   just before it and read just after:
+
+   * the dense path: a seeded MNIST-width FCNN (784-128-64-10) written
+     in the reference JSON schema, ``Engine.up(path, [1, 1, 1])`` and
+     ``run_inference`` over 60,000 seeded rows at batch 8192, once in
+     float32 and once with ``quantize="int8"``; the CLI's ``infer`` on
+     a 256-row examples file; and the CLI's ``doctor`` kernel probe.
+     The float32 outputs must match the float64 oracle and the int8
+     outputs the plain int8 chain.
+   * the conv path: the CIFAR-10 conv+MLP network (``init_conv_mlp``'s
+     defaults, 32x32x3 -> conv16+pool -> conv32+pool -> 64 -> 10),
+     ``Engine.up(path, [2, 2, 2])`` and ``run_inference`` over 10,000
+     seeded rows at batch 1024 (two conv launches and one chain launch
+     per batch), held against the float64 oracle on 128 rows; and the
+     CLI's ``infer`` on a 256-row examples file.
+
+   Every kernel of a path must have launched in that path's run.
 4. Time each kernel, its plain version and the nearest PyTorch library
-   call with CUDA events at the main path's shapes, beside the least
-   time the card could take (its bound).
+   call with CUDA events at the main paths' shapes, beside the least
+   time the card could take (its bound); the conv engine's samples/s
+   and batch latency.
 
 The second-to-last line is one JSON object with a record per kernel;
 the last is ``{"ok": true, "device": {...}}``.
@@ -47,6 +58,11 @@ MNIST = [784, 128, 64, 10]
 ACTS = ["relu", "relu", "softmax"]
 BATCH = 8192
 ROWS = 60000
+CIFAR_BATCH = 1024
+CIFAR_ROWS = 10000  # the size of CIFAR-10's test split
+CONV_TOL = (1e-5, 2e-5)  # atol, rtol: tests/test_conv_kernel.py's
+DENSE_PATH_KERNELS = ("fused_dense", "fcnn_fused_forward", "fcnn_quantized_forward")
+CONV_PATH_KERNELS = ("fused_conv2d", "fcnn_fused_forward")
 
 # Published dense peaks (NVIDIA data sheets): device memory bytes/s,
 # FP32 FLOP/s on CUDA cores, INT8 tensor-core OP/s. Matched on the name
@@ -75,12 +91,21 @@ def bound_ms(nbytes: float, ops: float, ops_rate: float, mem_rate: float):
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
+def in_image_taps(size: int, k: int) -> int:
+    """Taps of a stride-1 SAME conv, along one dimension, that land
+    inside the image, summed over the output positions: the padding
+    taps multiply zeros, so the bound does not count them."""
+    pad = (k - 1) // 2
+    return sum(min(o - pad + k, size) - max(o - pad, 0) for o in range(size))
+
+
 def main() -> None:
     if not (ROOT / "tpu_dist_nn_torch" / "kernels" / "csrc").is_dir():
         fail("tpu_dist_nn_torch/ is not beside chip_smoke.py: run it from a "
              "checkout of the repository")
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs an NVIDIA GPU")
@@ -96,14 +121,17 @@ def main() -> None:
         fcnn_fused_forward_plain,
         fcnn_quantized_forward,
         forward_quantized,
+        fused_conv2d,
+        fused_conv2d_plain,
         fused_dense,
         fused_dense_plain,
         quantize_fcnn,
         reset_launch_counts,
     )
     from tpu_dist_nn_torch.models.fcnn import params_from_spec
+    from tpu_dist_nn_torch.models.network import build_network, init_conv_mlp, network_forward
     from tpu_dist_nn_torch.testing.oracle import oracle_forward_batch
-    from tpu_dist_nn_torch.utils.profiling import cuda_time_ms
+    from tpu_dist_nn_torch.utils.profiling import LatencyStats, cuda_time_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -225,6 +253,48 @@ def main() -> None:
         he_model(MNIST, ["gelu", "tanh", "softmax"], seed=3), device=dev))
     compare("fcnn_quantized_forward 784-128-64-10 gelu,tanh,softmax x8192",
             fcnn_quantized_forward(q_gelu, x), forward_quantized(q_gelu, x), 1e-2, 0.0)
+
+    # fused_conv2d: the CIFAR conv+MLP network's two conv+pool stages at
+    # batch 1024 and a ragged 1023, every activation, and the variants
+    # the network does not use (VALID, stride 2, overlapping pool, an
+    # even kernel). Direct f32 FFMA vs the plain tap-sum (cuBLAS f32).
+    conv_model = init_conv_mlp(torch.Generator().manual_seed(0))
+    bias_rng = np.random.default_rng(3)
+    for layer in conv_model.layers:
+        if layer.kind != "maxpool2d":
+            layer.biases = bias_rng.normal(0.0, 0.05, layer.biases.shape)
+    c1, c2 = conv_model.layers[0], conv_model.layers[2]
+    cw1, cb1, cw2, cb2 = (on_card(a.astype(np.float32)) for a in (
+        c1.weights, c1.biases, c2.weights, c2.biases))
+    img1 = on_card(rng.uniform(0.0, 1.0, (CIFAR_BATCH, 32, 32, 3)).astype(np.float32))
+    img2 = on_card(rng.uniform(0.0, 1.0, (CIFAR_BATCH, 16, 16, 16)).astype(np.float32))
+    pool2 = dict(padding="same", pool_window=(2, 2))
+
+    def conv_check(label, imgs, w, b, **kw):
+        return compare(f"fused_conv2d {label}", fused_conv2d(imgs, w, b, **kw),
+                       fused_conv2d_plain(imgs, w, b, **kw), *CONV_TOL)
+
+    conv_errs = []
+    for rows in (CIFAR_BATCH, CIFAR_BATCH - 1):
+        conv_errs.append(conv_check(f"conv1+pool 32x32x3->16 relu x{rows}", img1[:rows],
+                                    cw1, cb1, activation="relu", **pool2))
+        conv_errs.append(conv_check(f"conv2+pool 16x16x16->32 relu x{rows}", img2[:rows],
+                                    cw2, cb2, activation="relu", **pool2))
+    for act in ["linear", "sigmoid", "tanh", "gelu", "softmax"]:
+        conv_check(f"conv2+pool 16x16x16->32 {act} x{CIFAR_BATCH}", img2, cw2, cb2,
+                   activation=act, **pool2)
+    conv_check(f"conv1+pool 32x32x3->16 softmax over 16 channels x{CIFAR_BATCH}", img1, cw1,
+               cb1, activation="softmax", **pool2)
+    conv_check(f"conv2 16x16x16->32 VALID relu, no pool x{CIFAR_BATCH}", img2, cw2, cb2,
+               padding="valid", activation="relu")
+    conv_check(f"conv1 32x32x3->16 stride 2 SAME relu x{CIFAR_BATCH}", img1, cw1, cb1,
+               stride=(2, 2), padding="same", activation="relu")
+    conv_check(f"conv1 32x32x3->16 SAME relu + 3x3/2 pool x{CIFAR_BATCH}", img1, cw1, cb1,
+               padding="same", activation="relu", pool_window=(3, 3), pool_stride=(2, 2))
+    w4 = on_card(rng.normal(0.0, math.sqrt(2.0 / 256), (4, 4, 16, 32)).astype(np.float32))
+    conv_check(f"conv 4x4 16x16x16->32 SAME tanh x{CIFAR_BATCH}", img2, w4, cb2,
+               padding="same", activation="tanh")
+    err["fused_conv2d"] = max(conv_errs)
     if failures:
         fail(f"kernel checks failed: {failures}")
 
@@ -267,9 +337,9 @@ def main() -> None:
         fail("cli infer printed no accuracy line")
     if doctor_rc != 0:
         fail(f"cli doctor exited {doctor_rc}")
-    missing = [k for k, v in launches.items() if v < 1]
+    missing = [k for k in DENSE_PATH_KERNELS if launches[k] < 1]
     if missing:
-        fail(f"kernels never launched on the main path: {missing}")
+        fail(f"kernels never launched on the dense main path: {missing}")
     n_batches = math.ceil(ROWS / BATCH)
     print(f"int8 run_inference: kernel launches {int8_batch_launches} for {n_batches} batches")
     if int8_batch_launches != n_batches:
@@ -292,48 +362,120 @@ def main() -> None:
     agree = float((resq.outputs.argmax(-1) == res32.outputs.argmax(-1)).mean())
     print(f"int8 vs f32 argmax agreement: {agree:.4f}")
 
+    # The conv path: the CIFAR-10 conv+MLP network, each conv with its
+    # pool in one fused_conv2d launch and the dense tail in one chain
+    # launch per batch.
+    data_c = rng.uniform(0.0, 1.0, (CIFAR_ROWS, conv_model.input_dim)).astype(np.float32)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=out_dir) as tmp:
+        conv_path = Path(tmp) / "cifar_conv_mlp.json"
+        save_model(conv_model, conv_path)
+
+        reset_launch_counts()
+        engc = Engine.up(conv_path, [2, 2, 2])
+        before = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+        resc = engc.run_inference(data_c, batch_size=CIFAR_BATCH)
+        run_launches = {fn.__name__: fn.launches - before[fn.__name__]
+                        for fn in KERNEL_WRAPPERS}
+        examples_c = Path(tmp) / "cifar_examples_256.json"
+        save_examples(data_c[:256], resc.outputs[:256].argmax(-1), examples_c)
+        cli_c = subprocess.run(
+            [sys.executable, "-m", "tpu_dist_nn_torch.cli", "infer", "--config",
+             str(conv_path), "--inputs", str(examples_c), "--batch-size", "64"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT)},
+        )
+        conv_launches = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+    c_batches = math.ceil(CIFAR_ROWS / CIFAR_BATCH)
+    print(f"conv main path launches: {json.dumps(conv_launches)}")
+    print(f"conv run_inference over {CIFAR_ROWS} rows at batch {CIFAR_BATCH} ({c_batches} "
+          f"batches): launches {json.dumps(run_launches)}")
+    print(f"cli infer conv model (rc {cli_c.returncode}):")
+    for line in cli_c.stdout.strip().splitlines():
+        print(f"  {line}")
+    if cli_c.returncode != 0:
+        fail(f"cli infer on the conv model exited {cli_c.returncode}: {cli_c.stderr[-2000:]}")
+    if "Correct predictions" not in cli_c.stdout:
+        fail("cli infer on the conv model printed no accuracy line")
+    missing = [k for k in CONV_PATH_KERNELS if conv_launches[k] < 1]
+    if missing:
+        fail(f"kernels never launched on the conv main path: {missing}")
+    if (run_launches["fused_conv2d"] != 2 * c_batches
+            or run_launches["fcnn_fused_forward"] != c_batches):
+        fail("the conv engine run did not launch fused_conv2d twice and the chain kernel "
+             "once per batch")
+    if resc.outputs.shape != (CIFAR_ROWS, 10) or not np.isfinite(resc.outputs).all():
+        fail(f"conv engine outputs: shape {resc.outputs.shape} or non-finite values")
+    # 128 rows spread over every batch of the run, the ragged last one
+    # and the run's last row included.
+    picked = np.linspace(0, CIFAR_ROWS - 1, 128).round().astype(int)
+    want = oracle_forward_batch(conv_model, data_c[picked])
+    c_err = float(np.abs(resc.outputs[picked] - want).max())
+    print(f"check conv engine vs float64 oracle (128 rows across all {c_batches} batches): "
+          f"max_abs {c_err:.3e} | tol atol 1e-05 | {'ok' if c_err <= 1e-5 else 'FAIL'}")
+    if c_err > 1e-5:
+        fail("conv engine outputs disagree with the float64 oracle")
+
     # ----------------------------------------------- 4. card's numbers
     # The main-path run above is each engine's first pass over the data
     # (it also fills PyTorch's pinned-memory cache); three more passes
     # give the steady state.
-    for label, e, first in (("f32", eng, res32), ("int8", engq, resq)):
-        runs = [first] + [e.run_inference(data, batch_size=BATCH) for _ in range(3)]
+    for label, e, first, rows_in, bs in (("f32", eng, res32, data, BATCH),
+                                         ("int8", engq, resq, data, BATCH),
+                                         ("conv", engc, resc, data_c, CIFAR_BATCH)):
+        n = len(rows_in)
+        runs = [first] + [e.run_inference(rows_in, batch_size=bs) for _ in range(3)]
         for i, res in enumerate(runs):
             lat = res.latency_summary()
-            print(f"engine {label} pass {i}: {ROWS / res.seconds:.1f} samples/s over {ROWS} "
-                  f"rows at batch {BATCH}; batch latency p50 {lat['p50_s'] * 1e3:.3f} ms "
+            print(f"engine {label} pass {i}: {n / res.seconds:.1f} samples/s over {n} "
+                  f"rows at batch {bs}; batch latency p50 {lat['p50_s'] * 1e3:.3f} ms "
                   f"p90 {lat['p90_s'] * 1e3:.3f} ms max {lat['max_s'] * 1e3:.3f} ms "
                   f"(n={lat['count']})")
-        print(f"engine {label}: setup {e.setup_seconds:.3f} s; steady median "
-              f"{float(np.median([ROWS / r.seconds for r in runs[1:]])):.1f} samples/s")
+        steady = LatencyStats("steady", [t for r in runs[1:] for t in r.batch_seconds])
+        print(f"engine {label}: setup {e.setup_seconds:.3f} s; steady (passes 1-3) median "
+              f"{float(np.median([n / r.seconds for r in runs[1:]])):.1f} samples/s, batch "
+              f"p50 {steady.percentile(50) * 1e3:.3f} ms p90 {steady.percentile(90) * 1e3:.3f} "
+              f"ms (n={len(steady)})")
 
     # One batch's stages, each timed alone: the host cast into pinned
-    # memory (host clock), the copy to the card, the kernels, the copy back.
-    host_rows = data[:BATCH]
-    staged = torch.empty((BATCH, MNIST[0]), dtype=torch.float32, pin_memory=True)
-    t0 = time.perf_counter()
-    for _ in range(10):
-        staged.copy_(torch.from_numpy(host_rows))
-    cast_ms = (time.perf_counter() - t0) / 10 * 1e3
-    h2d_ms = cuda_time_ms(lambda: staged.to(dev, non_blocking=True), iters=20)
-    out_dev = fcnn_fused_forward(params, x)
-    back = torch.empty(out_dev.shape, dtype=torch.float32, pin_memory=True)
-    d2h_ms = cuda_time_ms(lambda: back.copy_(out_dev, non_blocking=True), iters=20)
-    print(f"engine batch stages @ {BATCH} rows: host cast to pinned {cast_ms:.3f} ms, "
-          f"host-to-device {h2d_ms:.3f} ms ({BATCH * MNIST[0] * 4 / h2d_ms / 1e6:.1f} GB/s), "
-          f"device-to-host {d2h_ms:.4f} ms; kernel times below")
+    # memory (host clock), the copy to the card, the forward on the card
+    # (dense: one chain launch; conv: conv1+pool, conv2+pool and the
+    # 2048-64-10 chain), the copy back.
+    plan_c, params_c = build_network(conv_model, device=dev)
+    for label, host_rows, forward in (
+            ("dense f32", data[:BATCH], lambda h: fcnn_fused_forward(params, h)),
+            ("conv", data_c[:CIFAR_BATCH], lambda h: network_forward(plan_c, params_c, h))):
+        staged = torch.empty(host_rows.shape, dtype=torch.float32, pin_memory=True)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            staged.copy_(torch.from_numpy(host_rows))
+        cast_ms = (time.perf_counter() - t0) / 10 * 1e3
+        h2d_ms = cuda_time_ms(lambda: staged.to(dev, non_blocking=True), iters=20)
+        batch = staged.to(dev)
+        fwd_ms = cuda_time_ms(lambda: forward(batch), iters=20)
+        out_dev = forward(batch)
+        back = torch.empty(out_dev.shape, dtype=torch.float32, pin_memory=True)
+        d2h_ms = cuda_time_ms(lambda: back.copy_(out_dev, non_blocking=True), iters=20)
+        print(f"engine {label} batch stages @ {len(host_rows)} rows: host cast to pinned "
+              f"{cast_ms:.3f} ms, host-to-device {h2d_ms:.3f} ms "
+              f"({host_rows.nbytes / h2d_ms / 1e6:.1f} GB/s), forward {fwd_ms:.4f} ms, "
+              f"device-to-host {d2h_ms:.4f} ms")
+    tail_in = network_forward(plan_c[:4], params_c[:4], batch)
+    tail_ms = cuda_time_ms(lambda: network_forward(plan_c[4:], params_c[4:], tail_in), iters=20)
+    print(f"engine conv batch stages @ {CIFAR_BATCH} rows: of the forward, the 2048-64-10 "
+          f"dense chain {tail_ms:.4f} ms")
 
     # Four distinct inputs (4 x 25.7 MB > the 50 MB L2), cycled, so each
     # launch reads x from device memory as a freshly copied batch would.
     xs = [x] + [on_card(rng.uniform(0.0, 1.0, (BATCH, MNIST[0])).astype(np.float32))
                 for _ in range(3)]
 
-    def cycled(fn):
+    def cycled(fn, inputs=xs):
         state = {"i": 0}
 
         def call():
-            state["i"] = (state["i"] + 1) % len(xs)
-            return fn(xs[state["i"]])
+            state["i"] = (state["i"] + 1) % len(inputs)
+            return fn(inputs[state["i"]])
         return call
 
     def addmm_chain(h):
@@ -406,6 +548,58 @@ def main() -> None:
               f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, bound {b_ms:.4f} ms "
               f"({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G ops) -> "
               f"{b_ms / ms * 100:.1f}% of bound")
+
+    # fused_conv2d at the conv path's two stages, batch 1024, on rotating
+    # inputs (5 x 12.6 MB and 4 x 16.8 MB, more than the 50 MB L2). One
+    # record sums both stages: the conv kernel's share of a batch. The
+    # library yardstick is cuDNN's conv on channels-last tensors (TF32
+    # off), then bias, relu and max_pool2d; the port never calls it.
+    conv_sum = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    conv_by = []
+    for label, img, wt, bias, n_in in (("conv1+pool 32x32x3->16", img1, cw1, cb1, 5),
+                                       ("conv2+pool 16x16x16->32", img2, cw2, cb2, 4)):
+        ins = [img] + [on_card(rng.uniform(0.0, 1.0, tuple(img.shape)).astype(np.float32))
+                       for _ in range(n_in - 1)]
+
+        w_lib = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+        def library(h, w_lib=w_lib, bias=bias):
+            z = F.conv2d(h.permute(0, 3, 1, 2), w_lib, bias, padding="same")
+            return F.max_pool2d(torch.relu(z), 2)
+
+        def kern(h, wt=wt, bias=bias):
+            return fused_conv2d(h, wt, bias, activation="relu", **pool2)
+
+        def plain(h, wt=wt, bias=bias):
+            return fused_conv2d_plain(h, wt, bias, activation="relu", **pool2)
+
+        lib_err = float((library(img).permute(0, 2, 3, 1) - plain(img)).abs().max())
+        ms = cuda_time_ms(cycled(kern, ins))
+        plain_ms = cuda_time_ms(cycled(plain, ins))
+        library_ms = cuda_time_ms(cycled(library, ins))
+        B, H, W, cin = img.shape
+        kh, kw, _, cout = wt.shape
+        ops = 2.0 * B * cout * cin * in_image_taps(H, kh) * in_image_taps(W, kw)
+        nbytes = 4.0 * (img.numel() + wt.numel() + bias.numel() + B * (H // 2) * (W // 2) * cout)
+        b_ms, b_by = bound_ms(nbytes, ops, f32_rate, mem_rate)
+        for key, value in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                           ("bound_ms", b_ms)):
+            conv_sum[key] += value
+        conv_by.append((b_ms, b_by))
+        print(f"time fused_conv2d {label} @ batch {B}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (cuDNN conv2d + relu + "
+              f"max_pool2d; max_abs vs plain {lib_err:.2e}), bound {b_ms:.4f} ms ({b_by}: "
+              f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G ops) -> {b_ms / ms * 100:.1f}% of bound")
+    records.append({
+        "name": "fused_conv2d", "route": "cuda",
+        "source": "tpu_dist_nn_torch/kernels/csrc/conv2d.cu",
+        "replaces": "tpu_dist_nn/kernels/conv2d.py:98",
+        "launches": conv_launches["fused_conv2d"], "max_abs_err": err["fused_conv2d"],
+        **conv_sum, "bound_by": max(conv_by)[1],
+    })
+    print(f"time fused_conv2d, both stages of one batch of {CIFAR_BATCH}: kernel "
+          f"{conv_sum['ms']:.4f} ms, plain {conv_sum['plain_ms']:.4f} ms, library "
+          f"{conv_sum['library_ms']:.4f} ms, bound {conv_sum['bound_ms']:.4f} ms")
 
     torch.cuda.synchronize()
     print(json.dumps({"kernels": records}))

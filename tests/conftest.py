@@ -293,6 +293,8 @@ QUICK_TESTS = {
     "test_tensor_parallel": ["test_forward_matches_single_chip[spec1]",
                              "test_shard_roundtrip"],
     "test_tpu_hardware": ["*"],
+    "test_torch_conv": ["test_plain_conv_matches_the_jax_pallas_kernel[pool2x2]",
+                        "test_network_forward_matches_jax_and_the_oracle[pallas]"],
     "test_torch_cuda": ["*"],
     "test_torch_engine": ["test_run_inference_matches_jax_engine",
                           "test_port_runs_with_jax_and_the_jax_package_blocked"],

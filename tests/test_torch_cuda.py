@@ -8,7 +8,9 @@ GPU machine without them::
 
 (``--noconftest``: ``tests/conftest.py`` configures JAX.) Shapes here
 are odd on purpose: ragged tiles, widths that are not multiples of 4,
-more than one 128-column pass, and tiles of fewer than 8 rows.
+more than one 128-column pass, tiles of fewer than 8 rows, and convs
+with 1, 3 or 5 input channels, 1 or 33 filters, ragged row bands and a
+batch of one.
 ``chip_smoke.py`` covers the main path's shapes.
 """
 
@@ -20,6 +22,8 @@ from tpu_dist_nn_torch.api.engine import Engine
 from tpu_dist_nn_torch.core.schema import LayerSpec, ModelSpec
 from tpu_dist_nn_torch.kernels import (
     KERNEL_WRAPPERS,
+    fused_conv2d,
+    fused_conv2d_plain,
     fcnn_fused_forward,
     fcnn_fused_forward_plain,
     fcnn_quantized_forward,
@@ -29,7 +33,9 @@ from tpu_dist_nn_torch.kernels import (
     quantize_fcnn,
     reset_launch_counts,
 )
+from tpu_dist_nn_torch.kernels.conv2d import conv_plan
 from tpu_dist_nn_torch.models.fcnn import params_from_spec
+from tpu_dist_nn_torch.models.network import init_conv_mlp
 from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
 
 ACTIVATIONS = ["linear", "relu", "sigmoid", "tanh", "gelu", "softmax"]
@@ -127,3 +133,50 @@ def test_kernels_raise_on_mixed_devices(cuda):
     params = params_from_spec(_model([12, 4], ["relu"]), device="cpu")
     with pytest.raises(InvalidArgumentError, match="is on"):
         fcnn_fused_forward(params, x)
+
+
+@pytest.mark.parametrize(
+    "B,H,W,cin,k,cout,kw",
+    [(1, 13, 11, 1, 3, 1, dict(padding="same", pool_window=(2, 2))),
+     (3, 17, 19, 3, 3, 33, dict(padding="same", pool_window=(2, 2))),
+     (2, 15, 9, 5, 4, 33, dict(padding="same", activation="softmax")),
+     (4, 21, 23, 5, 3, 8, dict(padding="valid", pool_window=(3, 3), pool_stride=(2, 2))),
+     (1, 31, 29, 3, 2, 1, dict(padding="same", stride=(2, 2), activation="gelu")),
+     (2, 62, 61, 3, 3, 16, dict(padding="same", activation="sigmoid", pool_window=(2, 2)))],
+    ids=["cin1-cout1-b1", "cout33", "k4-softmax", "pool3s2", "stride2-b1", "ragged-bands"],
+)
+def test_fused_conv2d_matches_plain_on_the_card(cuda, B, H, W, cin, k, cout, kw):
+    rng = np.random.default_rng(4)
+    imgs, w, b = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        rng.uniform(0, 1, (B, H, W, cin)), rng.normal(0, (2 / (k * k * cin)) ** 0.5,
+                                                      (k, k, cin, cout)),
+        rng.normal(0, 0.05, cout)))
+    kw = {"activation": "relu", **kw}
+    plan = conv_plan(imgs.shape, w.shape, kw.get("stride", (1, 1)), kw["padding"],
+                     kw.get("pool_window"), kw.get("pool_stride"))
+    if H == 62:
+        assert plan.out_shape[1] % plan.band != 0  # the last band is ragged
+    reset_launch_counts()
+    got = fused_conv2d(imgs, w, b, **kw)
+    torch.testing.assert_close(got, fused_conv2d_plain(imgs, w, b, **kw), atol=1e-5, rtol=2e-5)
+    assert fused_conv2d.launches == 1
+
+
+def test_conv_engine_on_the_card_matches_the_cpu_engine(cuda):
+    model = init_conv_mlp(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    for layer in model.layers:
+        if layer.kind != "maxpool2d":
+            layer.biases = rng.normal(0, 0.05, layer.biases.shape)
+    x = rng.uniform(0, 1, (700, model.input_dim))
+    reset_launch_counts()
+    gpu = Engine.up(model, [2, 2, 2])
+    got = gpu.run_inference(x, batch_size=256).outputs
+    want = Engine.up(model, device="cpu").run_inference(x).outputs
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    assert counts["fused_conv2d"] == 2 * (1 + 3)  # warm-up + 3 batches, 2 convs each
+    assert counts["fcnn_fused_forward"] == 1 + 3
+    with pytest.raises(InvalidArgumentError, match="is on"):
+        fused_conv2d(torch.zeros(1, 4, 4, 1, device=cuda), torch.zeros(3, 3, 1, 2),
+                     torch.zeros(2, device=cuda))

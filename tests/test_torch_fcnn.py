@@ -177,9 +177,17 @@ def test_schema_round_trips_with_the_jax_package(tmp_path):
 
 
 def test_schema_rejects_conv_layers_not_yet_ported():
+    # Conv and pool layers are ported now: a conv object with no weights
+    # is rejected as the JAX schema rejects it, and a whole one loads.
     obj = {"layers": [{"type": "conv2d", "in_shape": [4, 4, 1]}]}
-    with pytest.raises(InvalidArgumentError, match="not ported"):
+    with pytest.raises(KeyError, match="weights"):
+        jax_schema.ModelSpec.from_json_dict(obj)
+    with pytest.raises(KeyError, match="weights"):
         pt_schema.ModelSpec.from_json_dict(obj)
+    obj["layers"][0].update(weights=np.zeros((3, 3, 1, 2)).tolist(), bias=[0.0, 0.0])
+    model = pt_schema.ModelSpec.from_json_dict(obj)
+    assert model.layers[0].kind == "conv2d" and not model.is_dense
+    assert model.to_json_dict() == jax_schema.ModelSpec.from_json_dict(obj).to_json_dict()
 
 
 @pytest.mark.parametrize("drop", [False, True])

@@ -12,19 +12,24 @@ which replaces both reference drivers:
   inference with accuracy + latency reporting
   (run_grpc_inference.py:162-216).
 
-Dispatch: float32 serving runs the whole FCNN chain in one kernel
-(:func:`~tpu_dist_nn_torch.kernels.fused_dense.fcnn_fused_forward`);
+Dispatch: float32 serving of a dense model runs the whole FCNN chain in
+one kernel (:func:`~tpu_dist_nn_torch.kernels.fused_dense.fcnn_fused_forward`);
 ``quantize="int8"`` runs the int8 chain kernel
 (:func:`~tpu_dist_nn_torch.kernels.quantized.fcnn_quantized_forward`).
-For an engine on the CPU both run their plain PyTorch versions. The JAX
-package serves float32 through XLA's fused program; eager PyTorch has no
-such fusion, and the chain kernel does the same work in one launch with
-no inter-layer activation written to device memory.
+A model with conv / pool layers is built into a layer plan at
+construction (:func:`~tpu_dist_nn_torch.models.network.build_network`)
+and served by :func:`~tpu_dist_nn_torch.models.network.network_forward`:
+each conv with its pool in one conv kernel, each run of dense layers in
+one chain kernel. For an engine on the CPU every kernel runs its plain
+PyTorch version. The JAX package serves float32 through XLA's fused
+program; eager PyTorch has no such fusion, and the kernels do the same
+work with no intermediate activation written to device memory.
 
 Placement: a distribution that names more stages (times data shards)
 than there are visible GPUs collapses to the single-program executor,
-as the JAX Engine collapses to one chip. The cross-GPU pipeline is not
-ported yet, so a multi-card placement also serves on one card; both are
+as the JAX Engine collapses to one chip. The cross-GPU pipeline (and,
+for conv models, the heterogeneous per-stage pipeline) is not ported
+yet, so a multi-card placement also serves on one card; both are
 logged.
 """
 
@@ -42,6 +47,7 @@ from tpu_dist_nn_torch.data.feed import batch_iterator
 from tpu_dist_nn_torch.kernels.fused_dense import fcnn_fused_forward
 from tpu_dist_nn_torch.kernels.quantized import fcnn_quantized_forward, quantize_fcnn
 from tpu_dist_nn_torch.models.fcnn import params_from_spec
+from tpu_dist_nn_torch.models.network import build_network, network_forward
 from tpu_dist_nn_torch.train.metrics import classification_metrics
 from tpu_dist_nn_torch.utils.device import resolve_device
 from tpu_dist_nn_torch.utils.errors import (
@@ -89,6 +95,12 @@ class Engine:
             raise InvalidArgumentError(
                 f"unknown quantize mode {quantize!r}; supported: 'int8'"
             )
+        if quantize is not None and not model.is_dense:
+            raise InvalidArgumentError(
+                "quantize='int8' serves dense models only (conv/pool "
+                "layers have no int8 path); it composes with pipeline, "
+                "data-parallel, AND interleaved placements"
+            )
         if dtype != torch.float32:
             raise InvalidArgumentError(
                 f"engine dtype {dtype} is not ported yet; the port serves float32"
@@ -99,7 +111,11 @@ class Engine:
         self.distribution = list(distribution)
         self.dtype = dtype
         self.device = device
-        self._params = params_from_spec(model, dtype, device)
+        self._plan = None  # mixed-layer (conv/pool) networks only
+        if model.is_dense:
+            self._params = params_from_spec(model, dtype, device)
+        else:
+            self._plan, self._params = build_network(model, dtype, device)
         self._q = quantize_fcnn(self._params) if quantize else None
         self._warm_buckets: set[int] = set()
         self.setup_seconds: float | None = None
@@ -118,8 +134,10 @@ class Engine:
         which is not ported. ``device`` defaults to the
         card (raises :class:`UnavailableError` without one); pass
         ``"cpu"`` for the plain PyTorch path. ``quantize="int8"`` serves
-        through the int8 chain kernel. ``warm_rows > 0`` runs the whole
-        pow2 row-bucket ladder up to that many rows at bring-up.
+        through the int8 chain kernel (dense models only). A conv model
+        serves through the conv and chain kernels. ``warm_rows > 0``
+        runs the whole pow2 row-bucket ladder up to that many rows at
+        bring-up.
         """
         t0 = time.monotonic()
         dev = resolve_device(device)
@@ -178,7 +196,7 @@ class Engine:
         """Validate, stage and LAUNCH a batch without waiting for it.
 
         On the card the rows are cast once into pinned host memory,
-        copied to the device, run through the chain kernel and copied
+        copied to the device, run through the kernels and copied
         back into pinned memory, all queued on the current CUDA stream;
         :meth:`fetch` is the host sync. Validation errors raise here.
         """
@@ -214,6 +232,8 @@ class Engine:
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._q is not None:
             return fcnn_quantized_forward(self._q, x)
+        if self._plan is not None:
+            return network_forward(self._plan, self._params, x)
         return fcnn_fused_forward(self._params, x)
 
     def warm_buckets(self, max_rows: int) -> list[int]:

@@ -3,8 +3,9 @@
 Verbs ported from ``tdn`` (:mod:`tpu_dist_nn.cli`), with the same
 printed lines:
 
-* ``infer`` — local-engine inference over an examples file: whole set,
-  ``--batch-size`` chunks, or one ``input_index``; ``--quantize int8``;
+* ``infer`` — local-engine inference of a dense or conv model JSON over
+  an examples file: whole set, ``--batch-size`` chunks, or one
+  ``input_index``; ``--quantize int8`` (dense models);
   ``--distribution`` (validated, then served on one card).
 * ``oracle`` — the float64 numpy baseline (scripts/manual_nn.py:88-99).
 * ``doctor`` — a readiness report: the forward against the oracle, and

@@ -1,8 +1,8 @@
 """The public JSON model / examples schema, and pipeline partitioning.
 
 A copy of :mod:`tpu_dist_nn.core.schema` for the port, on the pure-
-``json`` path: the JAX package's native C++ codec and its conv/pool
-layer specs are not carried over (ROADMAP lists both).
+``json`` path: dense, conv2d and maxpool2d layers. The JAX package's
+native C++ codec is not carried over (ROADMAP lists it).
 
 This module is the framework's contract with the outside world and is
 shared verbatim with the reference system:
@@ -38,7 +38,6 @@ from typing import Any, Sequence
 
 import numpy as np
 
-from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
 
 # Parity constants with the reference orchestrator (run_grpc_fcnn.py:18-22):
 # stage naming and the port formula survive as stable stage identifiers,
@@ -66,6 +65,7 @@ class LayerSpec:
     biases: np.ndarray
     activation: str = "linear"
     type_tag: str = "hidden"
+    kind: str = "dense"
 
     @property
     def in_dim(self) -> int:
@@ -145,6 +145,11 @@ class ModelSpec:
     def layer_sizes(self) -> list[int]:
         return [self.input_dim] + [l.out_dim for l in self.layers]
 
+    @property
+    def is_dense(self) -> bool:
+        """True when every layer is dense (the FCNN serving paths apply)."""
+        return all(l.kind == "dense" for l in self.layers)
+
     def validate_chain(self) -> None:
         """Check inter-layer dim consistency (the reference checks this
         per-forward at grpc_node.py:83-84; we fail fast at load)."""
@@ -184,22 +189,186 @@ def save_model(model: ModelSpec, path: str | Path) -> None:
         json.dump(model.to_json_dict(), f)
 
 
-def _layer_from_json(obj: dict) -> LayerSpec:
-    """Parse one layer object. Conv and pool layers (the JAX package's
-    ``Conv2DSpec`` / ``MaxPool2DSpec``) are not ported yet."""
-    kind = obj.get("type", "hidden")
-    if kind in ("conv2d", "maxpool2d"):
-        raise InvalidArgumentError(
-            f"{kind} layers are not ported to tpu_dist_nn_torch yet; "
-            "this package serves dense models"
+@dataclasses.dataclass
+class Conv2DSpec:
+    """A 2-D convolution layer — the CIFAR extension (BASELINE configs[3]).
+
+    The reference has no conv type (its node computes only dense chains,
+    grpc_node.py:75-97); the JSON schema is extended with
+    ``{"type": "conv2d", "in_shape": [H,W,C], "kernel_size": [kh,kw],
+    "stride": [sh,sw], "padding": "same"|"valid", "weights": nested
+    (kh,kw,cin,cout), "bias": [cout], "activation": ...}``. Activations
+    stay flat vectors at layer boundaries (the reference's Matrix wire
+    shape); the layer reshapes to NHWC internally.
+    """
+
+    in_shape: tuple[int, int, int]  # (H, W, C)
+    weights: np.ndarray  # (kh, kw, cin, cout)
+    biases: np.ndarray  # (cout,)
+    stride: tuple[int, int] = (1, 1)
+    padding: str = "same"
+    activation: str = "relu"
+    type_tag: str = "conv2d"
+    kind: str = "conv2d"
+
+    @property
+    def out_shape(self) -> tuple[int, int, int]:
+        h, w, _ = self.in_shape
+        kh, kw, _, cout = self.weights.shape
+        sh, sw = self.stride
+        if self.padding.lower() == "same":
+            oh, ow = -(-h // sh), -(-w // sw)
+        else:
+            oh, ow = (h - kh) // sh + 1, (w - kw) // sw + 1
+        return (oh, ow, cout)
+
+    @property
+    def in_dim(self) -> int:
+        h, w, c = self.in_shape
+        return h * w * c
+
+    @property
+    def out_dim(self) -> int:
+        oh, ow, oc = self.out_shape
+        return oh * ow * oc
+
+    def validate(self) -> None:
+        if self.weights.ndim != 4:
+            raise ValueError(f"conv2d weights must be 4-D, got {self.weights.shape}")
+        if self.weights.shape[2] != self.in_shape[2]:
+            raise ValueError(
+                f"conv2d kernel expects {self.weights.shape[2]} input channels "
+                f"but in_shape has {self.in_shape[2]}"
+            )
+        if self.biases.shape != (self.weights.shape[3],):
+            raise ValueError(
+                f"conv2d bias shape {self.biases.shape} does not match "
+                f"{self.weights.shape[3]} filters"
+            )
+        if self.padding.lower() not in ("same", "valid"):
+            raise ValueError(f"conv2d padding must be same|valid, got {self.padding!r}")
+        oh, ow, _ = self.out_shape
+        if oh <= 0 or ow <= 0:
+            raise ValueError(
+                f"conv2d kernel {self.weights.shape[:2]} with stride "
+                f"{self.stride} does not fit input {self.in_shape} "
+                f"(output would be {oh}x{ow})"
+            )
+
+    @classmethod
+    def from_json(cls, obj: dict) -> "Conv2DSpec":
+        spec = cls(
+            in_shape=tuple(obj["in_shape"]),
+            weights=np.asarray(obj["weights"], dtype=np.float64),
+            biases=np.asarray(obj["bias"], dtype=np.float64),
+            stride=tuple(obj.get("stride", (1, 1))),
+            padding=obj.get("padding", "same"),
+            activation=obj.get("activation", "relu"),
         )
+        spec.validate()
+        return spec
+
+    def to_json(self) -> dict:
+        return {
+            "type": "conv2d",
+            "in_shape": list(self.in_shape),
+            "kernel_size": [int(self.weights.shape[0]), int(self.weights.shape[1])],
+            "filters": int(self.weights.shape[3]),
+            "stride": list(self.stride),
+            "padding": self.padding,
+            "activation": self.activation,
+            "weights": self.weights.tolist(),
+            "bias": self.biases.tolist(),
+        }
+
+
+@dataclasses.dataclass
+class MaxPool2DSpec:
+    """Max pooling over NHWC windows (flat-vector boundaries like conv)."""
+
+    in_shape: tuple[int, int, int]
+    window: tuple[int, int] = (2, 2)
+    stride: tuple[int, int] | None = None  # defaults to window
+    type_tag: str = "maxpool2d"
+    kind: str = "maxpool2d"
+    activation: str = "linear"
+
+    @property
+    def eff_stride(self) -> tuple[int, int]:
+        return tuple(self.stride) if self.stride else tuple(self.window)
+
+    @property
+    def out_shape(self) -> tuple[int, int, int]:
+        h, w, c = self.in_shape
+        sh, sw = self.eff_stride
+        kh, kw = self.window
+        return ((h - kh) // sh + 1, (w - kw) // sw + 1, c)
+
+    @property
+    def in_dim(self) -> int:
+        h, w, c = self.in_shape
+        return h * w * c
+
+    @property
+    def out_dim(self) -> int:
+        oh, ow, oc = self.out_shape
+        return oh * ow * oc
+
+    def validate(self) -> None:
+        if any(k <= 0 for k in self.window):
+            raise ValueError(f"maxpool2d window must be positive, got {self.window}")
+        if any(s <= 0 for s in self.eff_stride):
+            raise ValueError(
+                f"maxpool2d stride must be positive, got {self.eff_stride}"
+            )
+        if any(d <= 0 for d in self.in_shape):
+            raise ValueError(
+                f"maxpool2d in_shape must be positive, got {self.in_shape}"
+            )
+        oh, ow, _ = self.out_shape
+        if oh <= 0 or ow <= 0:
+            raise ValueError(
+                f"maxpool2d window {self.window} does not fit input "
+                f"{self.in_shape} (output shape {self.out_shape})"
+            )
+
+    @classmethod
+    def from_json(cls, obj: dict) -> "MaxPool2DSpec":
+        spec = cls(
+            in_shape=tuple(obj["in_shape"]),
+            window=tuple(obj.get("window", (2, 2))),
+            stride=tuple(obj["stride"]) if "stride" in obj else None,
+        )
+        spec.validate()
+        return spec
+
+    def to_json(self) -> dict:
+        out = {
+            "type": "maxpool2d",
+            "in_shape": list(self.in_shape),
+            "window": list(self.window),
+        }
+        if self.stride:
+            out["stride"] = list(self.stride)
+        return out
+
+
+def _layer_from_json(obj: dict):
+    """Dispatch a layer JSON object to its spec class by ``type``."""
+    kind = obj.get("type", "hidden")
+    if kind == "conv2d":
+        return Conv2DSpec.from_json(obj)
+    if kind == "maxpool2d":
+        return MaxPool2DSpec.from_json(obj)
     # "hidden" / "output" / anything neuron-shaped: the reference's dense
     # format (grpc_node.py:44-55).
     return LayerSpec.from_neurons(obj)
 
 
-def _layer_to_json(layer: LayerSpec) -> dict:
-    return layer.to_neurons()
+def _layer_to_json(layer) -> dict:
+    if isinstance(layer, LayerSpec):
+        return layer.to_neurons()
+    return layer.to_json()
 
 
 # ---------------------------------------------------------------------------

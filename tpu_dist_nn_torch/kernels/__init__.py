@@ -5,6 +5,7 @@ Sources live in ``csrc/`` and are built at first use
 builds nothing.
 """
 
+from tpu_dist_nn_torch.kernels.conv2d import fused_conv2d, fused_conv2d_plain
 from tpu_dist_nn_torch.kernels.fused_dense import (
     fcnn_fused_forward,
     fcnn_fused_forward_plain,
@@ -18,7 +19,7 @@ from tpu_dist_nn_torch.kernels.quantized import (
 )
 
 #: Every kernel wrapper; each carries a ``launches`` count.
-KERNEL_WRAPPERS = (fused_dense, fcnn_fused_forward, fcnn_quantized_forward)
+KERNEL_WRAPPERS = (fused_dense, fcnn_fused_forward, fcnn_quantized_forward, fused_conv2d)
 
 
 def reset_launch_counts() -> None:
@@ -33,6 +34,8 @@ __all__ = [
     "fcnn_fused_forward_plain",
     "fcnn_quantized_forward",
     "forward_quantized",
+    "fused_conv2d",
+    "fused_conv2d_plain",
     "fused_dense",
     "fused_dense_plain",
     "quantize_fcnn",

@@ -52,6 +52,7 @@ LIBRARIES = {
         "tdn_int8_chain",
         (_P, _P, _I, _PP, _PP, _PP, _PI, _PI, _I, _I, _I, _I, _I, _P),
     ),
+    "conv2d": ("tdn_conv2d", (_P, _P, _P, _P, _PI, _I, _P)),
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,4 @@
-// Shared device helpers for the dense-layer kernels.
+// Shared device helpers for the port's kernels (dense chains and conv).
 //
 // Numerics: these sources are built without --use_fast_math. Activations
 // use expf / tanhf (not __expf), divisions are IEEE, and the int8 chain
