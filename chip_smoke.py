@@ -32,11 +32,26 @@ package. Phases, each fatal on failure (exit 1, no result line):
      per batch), held against the float64 oracle on 128 rows; and the
      CLI's ``infer`` on a 256-row examples file.
 
+   * the LM training path: the 86,039,040-parameter byte-level
+     Transformer (d 768, 12 heads, 12 layers, d_ff 3072, T 1024,
+     batch 16, bf16 over float32 masters, remat; Adam at 3e-4, cosine
+     after 5 warm-up steps) trained for 30 steps on the vendored
+     corpus through ``train_lm``, then ``evaluate_lm`` on 8 held-out
+     batches. The flash kernels' launches must be exactly
+     steps x 12 x 2 (remat) + 12 per eval batch for the forward and
+     steps x 12 for each backward kernel; every loss finite and the
+     last below the first. Before it, the same width at depth 2
+     (float32, batch 4) trains 3 steps with the flash kernels and with
+     the materialised ``dot_product_attention``: first loss within rtol
+     1e-5, all three within 1e-4, first-step gradients within 5e-4.
+     After it, the CLI's ``lm`` verb runs a few steps.
+
    Every kernel of a path must have launched in that path's run.
 4. Time each kernel, its plain version and the nearest PyTorch library
    call with CUDA events at the main paths' shapes, beside the least
    time the card could take (its bound); the conv engine's samples/s
-   and batch latency.
+   and batch latency; flash attention and the materialised attention
+   at the TPU kernel sweep's shape (B 4, H 8, T 4096).
 
 The second-to-last line is one JSON object with a record per kernel;
 the last is ``{"ok": true, "device": {...}}``.
@@ -63,14 +78,24 @@ CIFAR_ROWS = 10000  # the size of CIFAR-10's test split
 CONV_TOL = (1e-5, 2e-5)  # atol, rtol: tests/test_conv_kernel.py's
 DENSE_PATH_KERNELS = ("fused_dense", "fcnn_fused_forward", "fcnn_quantized_forward")
 CONV_PATH_KERNELS = ("fused_conv2d", "fcnn_fused_forward")
+# The LM main path: the 85M recipe of artifacts/tpu_scale_r04/RECORD.json
+# ("run_85m"), cut to 30 steps with 5 warm-up steps.
+LM = dict(d_model=768, heads=12, layers=12, seq_len=1024, batch=16, steps=30, warmup=5,
+          lr=3e-4, eval_batches=8, params=86_039_040)
+FLASH_TOL = (2e-5, 2e-5)  # atol, rtol: tests/test_flash_attention.py's forward
+FLASH_GRAD_TOL = (2e-4, 2e-4)  # and gradients
+# A bf16 output is its float32 value rounded to nearest even: at most
+# 2**-8 of it away. bf16 kernels are held against the plain version run
+# in float32 on the same bf16 inputs with that much more rtol.
+BF16_RTOL = 2.0**-8
 
 # Published dense peaks (NVIDIA data sheets): device memory bytes/s,
-# FP32 FLOP/s on CUDA cores, INT8 tensor-core OP/s. Matched on the name
-# torch reports; the SXM part is the default.
+# FP32 FLOP/s on CUDA cores, INT8 tensor-core OP/s, BF16 tensor-core
+# FLOP/s. Matched on the name torch reports; the SXM part is the default.
 PEAKS = {
-    "PCIe": (2.0e12, 51e12, 1513e12),
-    "NVL": (3.9e12, 60e12, 1671e12),
-    "SXM": (3.35e12, 67e12, 1979e12),
+    "PCIe": (2.0e12, 51e12, 1513e12, 756e12),
+    "NVL": (3.9e12, 60e12, 1671e12, 835e12),
+    "SXM": (3.35e12, 67e12, 1979e12, 989e12),
 }
 
 
@@ -89,6 +114,11 @@ def peaks_for(name: str) -> tuple[str, tuple[float, float, float]]:
 def bound_ms(nbytes: float, ops: float, ops_rate: float, mem_rate: float):
     t_mem, t_ops = nbytes / mem_rate, ops / ops_rate
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
+
+
+def causal_pairs(T: int) -> int:
+    """(query, key) pairs a causal head attends: T(T+1)/2."""
+    return T * (T + 1) // 2
 
 
 def in_image_taps(size: int, k: int) -> int:
@@ -120,6 +150,12 @@ def main() -> None:
         fcnn_fused_forward,
         fcnn_fused_forward_plain,
         fcnn_quantized_forward,
+        flash_bwd_dkv,
+        flash_bwd_dkv_plain,
+        flash_bwd_dq,
+        flash_bwd_dq_plain,
+        flash_fwd,
+        flash_fwd_plain,
         forward_quantized,
         fused_conv2d,
         fused_conv2d_plain,
@@ -128,7 +164,19 @@ def main() -> None:
         quantize_fcnn,
         reset_launch_counts,
     )
+    from tpu_dist_nn_torch.data.text import encode, lm_batches, lm_sequences, load_corpus
+    from tpu_dist_nn_torch.kernels.flash_attention import flash_attention
     from tpu_dist_nn_torch.models.fcnn import params_from_spec
+    from tpu_dist_nn_torch.models.transformer import (
+        TransformerConfig,
+        dot_product_attention,
+        init_transformer,
+        lm_loss,
+        num_params,
+        param_leaves,
+        tree_map,
+    )
+    from tpu_dist_nn_torch.train.lm_trainer import LMTrainConfig, evaluate_lm, train_lm
     from tpu_dist_nn_torch.models.network import build_network, init_conv_mlp, network_forward
     from tpu_dist_nn_torch.testing.oracle import oracle_forward_batch
     from tpu_dist_nn_torch.utils.profiling import LatencyStats, cuda_time_ms
@@ -148,9 +196,10 @@ def main() -> None:
         fail(f"nvidia-smi: {e}")
     print("card (nvidia-smi name, power.limit):")
     print(smi[0])
-    part, (mem_rate, f32_rate, i8_rate) = peaks_for(name)
+    part, (mem_rate, f32_rate, i8_rate, bf16_rate) = peaks_for(name)
     print(f"peaks used for bounds (H100 {part} data sheet): {mem_rate / 1e12:g} TB/s, "
-          f"{f32_rate / 1e12:g} TFLOP/s FP32, {i8_rate / 1e12:g} TOP/s INT8")
+          f"{f32_rate / 1e12:g} TFLOP/s FP32, {i8_rate / 1e12:g} TOP/s INT8, "
+          f"{bf16_rate / 1e12:g} TFLOP/s BF16")
 
     # ---------------------------------------------------------- 1. build
     t0 = time.monotonic()
@@ -295,6 +344,53 @@ def main() -> None:
     conv_check(f"conv 4x4 16x16x16->32 SAME tanh x{CIFAR_BATCH}", img2, w4, cb2,
                padding="same", activation="tanh")
     err["fused_conv2d"] = max(conv_errs)
+
+    # Flash attention: fwd (o and lse), dq and dk/dv against the plain
+    # versions, q, k and v read as the three strided views of one fused
+    # projection as the transformer passes them, lse and delta from the
+    # plain forward. bf16 kernels against the plain version in float32 on
+    # the same bf16 inputs (BF16_RTOL more rtol); lse is float32 always.
+    def flash_inputs(B, T, H, Dh, dtype, seed):
+        r = np.random.default_rng(seed)
+        qkv = on_card(r.standard_normal((B, T, 3 * H, Dh)).astype(np.float32)).to(dtype)
+        do = on_card(r.standard_normal((B, T, H, Dh)).astype(np.float32)).to(dtype)
+        return (*qkv.split(H, dim=2), do)
+
+    def flash_check(label, B, T, H, Dh, causal, dtype, seed=0):
+        q, k, v, do = flash_inputs(B, T, H, Dh, dtype, seed)
+        extra = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+        (fa, fr), (ga, gr) = FLASH_TOL, FLASH_GRAD_TOL
+        qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+        scale = 1.0 / math.sqrt(Dh)
+        tag = f"{label} B{B} T{T} H{H} Dh{Dh} {'causal' if causal else 'bidirectional'} " \
+              f"{str(dtype).split('.')[-1]}"
+        o, lse = flash_fwd(q, k, v, causal=causal)
+        o_ref, lse_ref = flash_fwd_plain(qf, kf, vf, scale=scale, causal=causal)
+        e_fwd = compare(f"flash_fwd o {tag}", o.float(), o_ref, fa, fr + extra)
+        compare(f"flash_fwd lse {tag}", lse, lse_ref, fa, fr)
+        delta = (dof * o_ref).sum(-1).transpose(1, 2).contiguous()
+        e_dq = compare(f"flash_bwd_dq {tag}",
+                       flash_bwd_dq(q, k, v, do, lse_ref, delta, causal=causal).float(),
+                       flash_bwd_dq_plain(qf, kf, vf, dof, lse_ref, delta, scale=scale,
+                                          causal=causal), ga, gr + extra)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal=causal)
+        dk_ref, dv_ref = flash_bwd_dkv_plain(qf, kf, vf, dof, lse_ref, delta, scale=scale,
+                                             causal=causal)
+        e_dkv = max(compare(f"flash_bwd_dkv dk {tag}", dk.float(), dk_ref, ga, gr + extra),
+                    compare(f"flash_bwd_dkv dv {tag}", dv.float(), dv_ref, ga, gr + extra))
+        del o_ref, dk_ref, dv_ref
+        torch.cuda.empty_cache()
+        return e_fwd, e_dq, e_dkv
+
+    B_LM, H_LM, T_LM, DH_LM = LM["batch"], LM["heads"], LM["seq_len"], LM["d_model"] // LM["heads"]
+    flash_check("main shape", B_LM, T_LM, H_LM, DH_LM, True, torch.float32)
+    err["flash_fwd"], err["flash_bwd_dq"], err["flash_bwd_dkv"] = flash_check(
+        "main shape", B_LM, T_LM, H_LM, DH_LM, True, torch.bfloat16)
+    for i, (T, Dh, causal, dtype) in enumerate([
+            (1000, 64, False, torch.bfloat16), (40, 64, True, torch.float32),
+            (1000, 32, True, torch.bfloat16), (40, 32, False, torch.float32),
+            (1000, 128, True, torch.float32), (40, 128, False, torch.bfloat16)]):
+        flash_check("ragged", 2, T, 4, Dh, causal, dtype, seed=1 + i)
     if failures:
         fail(f"kernel checks failed: {failures}")
 
@@ -415,6 +511,130 @@ def main() -> None:
           f"max_abs {c_err:.3e} | tol atol 1e-05 | {'ok' if c_err <= 1e-5 else 'FAIL'}")
     if c_err > 1e-5:
         fail("conv engine outputs disagree with the float64 oracle")
+
+    # The LM training path. The corpus is read, tokenised and split as
+    # the CLI does it (95/5), before the counts are zeroed.
+    text, source = load_corpus()
+    rows = lm_sequences(encode(text), LM["seq_len"])
+    split = max(1, int(len(rows) * 0.95))
+    train_rows, eval_rows = rows[:split], rows[split:]
+    print(f"corpus {source}: {len(text)} bytes, {len(train_rows)} train and {len(eval_rows)} "
+          f"held-out rows of {LM['seq_len'] + 1} tokens")
+
+    def lm_config(layers, dtype, remat):
+        return TransformerConfig(vocab_size=256, d_model=LM["d_model"], n_heads=LM["heads"],
+                                 n_layers=layers, d_ff=4 * LM["d_model"],
+                                 max_seq_len=LM["seq_len"], compute_dtype=dtype, remat=remat)
+
+    # Training parity at full width, depth 2, float32, batch 4: the flash
+    # kernels against the materialised dot_product_attention, both passed
+    # explicitly, from the same weights and batches.
+    cfg2 = lm_config(2, "float32", False)
+    params2 = init_transformer(torch.Generator().manual_seed(1), cfg2, device=dev)
+    stream = lm_batches(train_rows, 4, seed=1, epochs=None)
+    batches2 = [next(stream) for _ in range(3)]
+    tokens2 = torch.from_numpy(batches2[0]).to(dev)
+    grads = {}
+    for label, attn in (("flash", flash_attention), ("dot_product", dot_product_attention)):
+        p = tree_map(lambda a: a.clone().requires_grad_(True), params2)
+        loss = lm_loss(p, tokens2, cfg2, attn)
+        grads[label] = (float(loss.detach()), torch.autograd.grad(loss, param_leaves(p)))
+    print(f"parity first-step loss: flash {grads['flash'][0]!r} dot_product "
+          f"{grads['dot_product'][0]!r}")
+    g_err = max(float((a - b).abs().max())
+                for a, b in zip(grads["flash"][1], grads["dot_product"][1]))
+    g_ok = all(torch.allclose(a, b, atol=5e-4, rtol=5e-4)
+               for a, b in zip(grads["flash"][1], grads["dot_product"][1]))
+    print(f"check parity first-step gradients ({len(grads['flash'][1])} leaves): max_abs "
+          f"{g_err:.3e} | tol atol 5e-4 rtol 5e-4 | {'ok' if g_ok else 'FAIL'}")
+    del grads
+    train_cfg2 = LMTrainConfig(learning_rate=LM["lr"], steps=3, batch_size=4,
+                               seq_len=LM["seq_len"], log_every=1)
+    hist = {label: train_lm(params2, cfg2, batches2, train_cfg2, attn_fn=attn)[1]
+            for label, attn in (("flash", flash_attention),
+                                ("dot_product", dot_product_attention))}
+    l_flash = np.array([h["loss"] for h in hist["flash"]])
+    l_ref = np.array([h["loss"] for h in hist["dot_product"]])
+    rel = np.abs(l_flash - l_ref) / np.abs(l_ref)
+    p_ok = len(l_flash) == 3 and rel[0] <= 1e-5 and rel.max() <= 1e-4
+    print(f"check parity 3 float32 steps (768/12 heads, depth 2, T 1024, batch 4): flash "
+          f"{l_flash.tolist()} vs dot_product {l_ref.tolist()}, rel {rel.tolist()} | tol "
+          f"first 1e-5, all 1e-4 | {'ok' if p_ok else 'FAIL'}")
+    if not (g_ok and p_ok):
+        fail("training with the flash kernels disagrees with dot_product_attention")
+    del params2
+    torch.cuda.empty_cache()
+
+    # The main path: the 85M recipe through train_lm and evaluate_lm.
+    cfg = lm_config(LM["layers"], "bfloat16", True)
+    lm_params = init_transformer(torch.Generator().manual_seed(0), cfg, device=dev)
+    n_params = num_params(lm_params)
+    train_cfg = LMTrainConfig(learning_rate=LM["lr"], steps=LM["steps"],
+                              batch_size=LM["batch"], seq_len=LM["seq_len"], log_every=1,
+                              warmup_steps=LM["warmup"], lr_schedule="cosine")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    lm_params, history = train_lm(lm_params, cfg,
+                                  lm_batches(train_rows, LM["batch"], seed=0, epochs=None),
+                                  train_cfg)
+    lm_eval = evaluate_lm(lm_params, cfg, eval_rows, batch_size=LM["batch"],
+                          max_batches=LM["eval_batches"])
+    lm_launches = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    print(f"LM parameters: {n_params:,} (record: {LM['params']:,})")
+    for h in history:
+        print(f"  LM step {h['step']}: loss {h['loss']!r} at {h['seconds']:.4f} s")
+    losses = [h["loss"] for h in history]
+    lm_steady = (history[-1]["seconds"] - history[4]["seconds"]) / (len(history) - 5)
+    tokens_per_step = LM["batch"] * LM["seq_len"]
+    print(f"LM steady (steps 6-{len(history)}): {lm_steady:.4f} s/step, "
+          f"{tokens_per_step / lm_steady:.1f} tokens/s; steps 1-5 (warm-up) took "
+          f"{history[4]['seconds']:.3f} s")
+    print(f"LM held-out ({lm_eval['eval_rows_used']} rows): loss "
+          f"{lm_eval['loss_nats_per_token']!r} nats/token, perplexity "
+          f"{lm_eval['perplexity']!r}, {float(lm_eval['bits_per_byte'])!r} bits/byte")
+    print(f"LM peak CUDA memory: {peak_gb:.3f} GB")
+    want_launches = {
+        "flash_fwd": LM["steps"] * LM["layers"] * 2 + LM["layers"] * LM["eval_batches"],
+        "flash_bwd_dq": LM["steps"] * LM["layers"],
+        "flash_bwd_dkv": LM["steps"] * LM["layers"],
+    }
+    print(f"LM main path launches: {json.dumps(lm_launches)}; expected {json.dumps(want_launches)}")
+    if n_params != LM["params"]:
+        fail(f"the LM has {n_params} parameters, not {LM['params']}")
+    if len(losses) != LM["steps"] or not all(math.isfinite(x) for x in losses):
+        fail(f"LM losses: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"the LM's last loss {losses[-1]} is not below its first {losses[0]}")
+    if not math.isfinite(lm_eval["loss_nats_per_token"]):
+        fail(f"LM held-out loss {lm_eval['loss_nats_per_token']}")
+    if any(lm_launches[k] != v for k, v in want_launches.items()):
+        fail("the LM main path did not launch the flash kernels the expected number of times")
+    del lm_params
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=out_dir) as tmp:
+        metrics = Path(tmp) / "lm_metrics.jsonl"
+        cli_lm = subprocess.run(
+            [sys.executable, "-m", "tpu_dist_nn_torch.cli", "lm", "--d-model", "768",
+             "--heads", "12", "--layers", "2", "--seq-len", "1024", "--steps", "4",
+             "--batch-size", "4", "--bf16", "--remat", "--lr", "3e-4", "--lr-schedule",
+             "cosine", "--warmup-steps", "1", "--eval-batches", "2", "--log-every", "1",
+             "--metrics-out", str(metrics)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT)},
+        )
+        n_metrics = len(metrics.read_text().splitlines()) if metrics.is_file() else 0
+    print(f"cli lm (rc {cli_lm.returncode}): {cli_lm.stdout.strip()}")
+    if cli_lm.returncode != 0:
+        fail(f"cli lm exited {cli_lm.returncode}: {cli_lm.stderr[-2000:]}")
+    report = json.loads(cli_lm.stdout.strip().splitlines()[-1])
+    keys = {"train_seconds", "final_train_loss", "eval_split", "loss_nats_per_token",
+            "perplexity", "bits_per_byte", "eval_rows_used"}
+    if set(report) != keys or report["eval_split"] != "held-out" or n_metrics != 6:
+        fail(f"cli lm report keys {sorted(report)} or {n_metrics} metrics lines (want 6)")
 
     # ----------------------------------------------- 4. card's numbers
     # The main-path run above is each engine's first pass over the data
@@ -600,6 +820,118 @@ def main() -> None:
     print(f"time fused_conv2d, both stages of one batch of {CIFAR_BATCH}: kernel "
           f"{conv_sum['ms']:.4f} ms, plain {conv_sum['plain_ms']:.4f} ms, library "
           f"{conv_sum['library_ms']:.4f} ms, bound {conv_sum['bound_ms']:.4f} ms")
+
+    # Flash attention at the LM's shape, bf16, on 3 rotating input sets
+    # (each a 75.5 MB fused qkv and a 25.2 MB dO: 302 MB > the 50 MB L2).
+    # lse and delta come from the kernel's forward. The library yardstick
+    # is F.scaled_dot_product_attention(is_causal=True) on the same
+    # (transposed) views: its forward, and one backward call that
+    # computes dq, dk and dv together (timed once; both backward rows
+    # show it).
+    sets = []
+    for i in range(3):
+        fq, fk, fv, fdo = flash_inputs(B_LM, T_LM, H_LM, DH_LM, torch.bfloat16, seed=10 + i)
+        fo, flse = flash_fwd(fq, fk, fv, causal=True)
+        fdelta = (fdo.float() * fo.float()).sum(-1).transpose(1, 2).contiguous()
+        lib_in = [t.transpose(1, 2).detach().requires_grad_(True) for t in (fq, fk, fv)]
+        lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True)
+        sets.append(dict(q=fq, k=fk, v=fv, do=fdo, lse=flse, delta=fdelta, lib_in=lib_in,
+                         lib_out=lib_out, lib_do=fdo.transpose(1, 2)))
+    lib_err = float((sets[0]["lib_out"].detach().transpose(1, 2).float()
+                     - flash_fwd(sets[0]["q"], sets[0]["k"], sets[0]["v"],
+                                 causal=True)[0].float()).abs().max())
+    scale_lm = 1.0 / math.sqrt(DH_LM)
+
+    def rotating(fn):
+        state = {"i": 0}
+
+        def call():
+            state["i"] = (state["i"] + 1) % len(sets)
+            return fn(sets[state["i"]])
+        return call
+
+    def sdpa_backward(st):
+        return torch.autograd.grad(st["lib_out"], st["lib_in"], st["lib_do"],
+                                   retain_graph=True)
+
+    sdpa_bwd_ms = cuda_time_ms(rotating(sdpa_backward))  # one timing for both rows
+
+    pairs = B_LM * H_LM * causal_pairs(T_LM)
+    act_bytes = 2.0 * B_LM * T_LM * H_LM * DH_LM  # one bf16 (B, T, H, Dh) tensor
+    row_bytes = 4.0 * B_LM * H_LM * T_LM  # one float32 (B, H, T) tensor
+    flash_specs = [
+        ("flash_fwd", "tpu_dist_nn/kernels/flash_attention.py:52",
+         lambda st: flash_fwd(st["q"], st["k"], st["v"], causal=True),
+         lambda st: flash_fwd_plain(st["q"], st["k"], st["v"], scale=scale_lm, causal=True),
+         lambda st: F.scaled_dot_product_attention(*st["lib_in"], is_causal=True),
+         4 * act_bytes + row_bytes, 4.0 * pairs * DH_LM),
+        ("flash_bwd_dq", "tpu_dist_nn/kernels/flash_attention.py:126",
+         lambda st: flash_bwd_dq(st["q"], st["k"], st["v"], st["do"], st["lse"], st["delta"],
+                                 causal=True),
+         lambda st: flash_bwd_dq_plain(st["q"], st["k"], st["v"], st["do"], st["lse"],
+                                       st["delta"], scale=scale_lm, causal=True),
+         None, 5 * act_bytes + 2 * row_bytes, 6.0 * pairs * DH_LM),
+        ("flash_bwd_dkv", "tpu_dist_nn/kernels/flash_attention.py:157",
+         lambda st: flash_bwd_dkv(st["q"], st["k"], st["v"], st["do"], st["lse"], st["delta"],
+                                  causal=True),
+         lambda st: flash_bwd_dkv_plain(st["q"], st["k"], st["v"], st["do"], st["lse"],
+                                        st["delta"], scale=scale_lm, causal=True),
+         None, 6 * act_bytes + 2 * row_bytes, 8.0 * pairs * DH_LM),
+    ]
+    for kname, replaces, kern, plain, library, nbytes, ops in flash_specs:
+        ms = cuda_time_ms(rotating(kern))
+        plain_ms = cuda_time_ms(rotating(plain), iters=10, warmup=2)
+        library_ms = sdpa_bwd_ms if library is None else cuda_time_ms(rotating(library))
+        b_ms, b_by = bound_ms(nbytes, ops, bf16_rate, mem_rate)
+        records.append({
+            "name": kname, "route": "cuda",
+            "source": "tpu_dist_nn_torch/kernels/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": lm_launches[kname],
+            "max_abs_err": err[kname], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms,
+        })
+        lib_what = ("SDPA forward" if kname == "flash_fwd"
+                    else "one SDPA backward call, which computes dq, dk and dv together")
+        print(f"time {kname} @ B{B_LM} H{H_LM} T{T_LM} Dh{DH_LM} causal bf16: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms ({lib_what}), "
+              f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} GFLOP "
+              f"at the BF16 peak) -> {b_ms / ms * 100:.2f}% of bound, {ms / library_ms:.1f}x "
+              "the library")
+    print(f"SDPA forward vs flash_fwd at the LM shape: max_abs {lib_err:.3e}")
+    del sets
+    torch.cuda.empty_cache()
+
+    # The TPU kernel sweep's shape (artifacts/tpu_r04/kernel_sweep.json):
+    # B 4, H 8, Dh 64, T 4096, causal, bf16; flash attention against the
+    # materialised dot_product_attention, forward and forward + backward.
+    def sweep_set(seed):
+        q, k, v, do = flash_inputs(4, 4096, 8, 64, torch.bfloat16, seed)
+        return [t.contiguous().requires_grad_(True) for t in (q, k, v)] + [do]
+
+    sweep = [sweep_set(20 + i) for i in range(2)]  # 2 x 67 MB > the 50 MB L2
+    for label, attn in (("flash_attention", flash_attention),
+                        ("dot_product_attention", dot_product_attention)):
+        def fwd(st, attn=attn):
+            with torch.no_grad():
+                return attn(*st[:3], causal=True)
+
+        def fwd_bwd(st, attn=attn):
+            return torch.autograd.grad(attn(*st[:3], causal=True), st[:3], st[3])
+
+        state = {"i": 0}
+
+        def cyc(fn):
+            def call():
+                state["i"] = (state["i"] + 1) % len(sweep)
+                return fn(sweep[state["i"]])
+            return call
+
+        f_ms = cuda_time_ms(cyc(fwd), iters=10, warmup=2)
+        fb_ms = cuda_time_ms(cyc(fwd_bwd), iters=10, warmup=2)
+        print(f"time {label} @ B4 H8 T4096 Dh64 causal bf16 (the TPU sweep's shape): forward "
+              f"{f_ms:.4f} ms, forward + backward {fb_ms:.4f} ms")
+    del sweep
+    torch.cuda.empty_cache()
 
     torch.cuda.synchronize()
     print(json.dumps({"kernels": records}))

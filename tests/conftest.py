@@ -300,8 +300,12 @@ QUICK_TESTS = {
                           "test_port_runs_with_jax_and_the_jax_package_blocked"],
     "test_torch_fcnn": ["test_forward_matches_jax_and_oracle",
                         "test_activation_matches_jax"],
+    "test_torch_flash": ["test_plain_kernels_match_the_jax_kernels",
+                         "test_grads_through_the_function_match_jax_flash"],
     "test_torch_kernels": ["test_fused_dense_matches_jax_kernel",
                            "test_forward_quantized_matches_jax_pallas_chain"],
+    "test_torch_lm": ["test_forward_and_loss_gradients_match_jax",
+                      "test_train_lm_matches_jax_train_lm"],
     # ISSUE 10: the codec fast lane's correctness anchor (byte-exact
     # scalar/vectorized equivalence + fuzz agreement), the decode-into-
     # staging path through a real batcher, the codec A/B perf smoke,

@@ -10,7 +10,9 @@ GPU machine without them::
 are odd on purpose: ragged tiles, widths that are not multiples of 4,
 more than one 128-column pass, tiles of fewer than 8 rows, and convs
 with 1, 3 or 5 input channels, 1 or 33 filters, ragged row bands and a
-batch of one.
+batch of one; attention at T of 1, 17, 130 and 1000 (ragged 64-row
+blocks), head dims 8 to 128, keys past a ``seq_len``, and q, k, v read
+as strided views of one fused projection.
 ``chip_smoke.py`` covers the main path's shapes.
 """
 
@@ -28,6 +30,12 @@ from tpu_dist_nn_torch.kernels import (
     fcnn_fused_forward_plain,
     fcnn_quantized_forward,
     forward_quantized,
+    flash_bwd_dkv,
+    flash_bwd_dkv_plain,
+    flash_bwd_dq,
+    flash_bwd_dq_plain,
+    flash_fwd,
+    flash_fwd_plain,
     fused_dense,
     fused_dense_plain,
     quantize_fcnn,
@@ -36,6 +44,8 @@ from tpu_dist_nn_torch.kernels import (
 from tpu_dist_nn_torch.kernels.conv2d import conv_plan
 from tpu_dist_nn_torch.models.fcnn import params_from_spec
 from tpu_dist_nn_torch.models.network import init_conv_mlp
+from tpu_dist_nn_torch.models.transformer import TransformerConfig, init_transformer, tree_map
+from tpu_dist_nn_torch.train.lm_trainer import LMTrainConfig, train_lm
 from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
 
 ACTIVATIONS = ["linear", "relu", "sigmoid", "tanh", "gelu", "softmax"]
@@ -180,3 +190,70 @@ def test_conv_engine_on_the_card_matches_the_cpu_engine(cuda):
     with pytest.raises(InvalidArgumentError, match="is on"):
         fused_conv2d(torch.zeros(1, 4, 4, 1, device=cuda), torch.zeros(3, 3, 1, 2),
                      torch.zeros(2, device=cuda))
+
+
+# bf16 outputs round to nearest even: at most 2**-8 of the value away
+# from the float32 plain version run on the same bf16 inputs, on top of
+# the float32 tolerance (the JAX package's: 2e-5 forward, 2e-4 grads).
+BF16_RTOL = 2.0**-8
+
+
+def _flash_tols(dtype):
+    extra = BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    return dict(atol=2e-5, rtol=2e-5 + extra), dict(atol=2e-4, rtol=2e-4 + extra)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidirectional"])
+@pytest.mark.parametrize(
+    "T,Dh,seq_len",
+    [(1, 8, None), (17, 16, None), (130, 64, 100), (1000, 32, None), (17, 64, None),
+     (1000, 128, 999)],
+    ids=["T1-Dh8", "T17-Dh16", "T130-Dh64-seq100", "T1000-Dh32", "T17-Dh64", "T1000-Dh128"],
+)
+def test_flash_kernels_match_plain_on_the_card(cuda, T, Dh, seq_len, causal, dtype):
+    B, H = 2, 3
+    rng = np.random.default_rng(T + Dh)
+    qkv = torch.from_numpy(rng.standard_normal((B, T, 3 * H, Dh)).astype(np.float32))
+    qkv = qkv.to(cuda, dtype)
+    q, k, v = qkv.split(H, dim=2)  # strided views, as the transformer passes them
+    do = torch.from_numpy(rng.standard_normal((B, T, H, Dh)).astype(np.float32)).to(cuda, dtype)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    scale = 1.0 / np.sqrt(Dh)
+    kw = dict(causal=causal, seq_len=seq_len)
+    fwd_tol, grad_tol = _flash_tols(dtype)
+    reset_launch_counts()
+    o, lse = flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = flash_fwd_plain(qf, kf, vf, scale=scale, **kw)
+    assert o.dtype == dtype and o.is_contiguous()
+    torch.testing.assert_close(o.float(), o_ref, **fwd_tol)
+    torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=2e-5)
+    delta = (dof * o_ref).sum(-1).transpose(1, 2).contiguous()
+    dq = flash_bwd_dq(q, k, v, do, lse_ref, delta, **kw)
+    torch.testing.assert_close(
+        dq.float(), flash_bwd_dq_plain(qf, kf, vf, dof, lse_ref, delta, scale=scale, **kw),
+        **grad_tol)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse_ref, delta, **kw)
+    dk_ref, dv_ref = flash_bwd_dkv_plain(qf, kf, vf, dof, lse_ref, delta, scale=scale, **kw)
+    torch.testing.assert_close(dk.float(), dk_ref, **grad_tol)
+    torch.testing.assert_close(dv.float(), dv_ref, **grad_tol)
+    assert (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches) == (1, 1, 1)
+
+
+def test_train_lm_step_on_the_card_matches_the_cpu(cuda):
+    cfg = TransformerConfig(vocab_size=64, d_model=64, n_heads=2, n_layers=2, d_ff=128,
+                            max_seq_len=80, remat=True)
+    params = init_transformer(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = np.random.default_rng(0).integers(0, 64, (3, 81))
+    train_cfg = LMTrainConfig(learning_rate=1e-3, steps=1, batch_size=3, seq_len=80)
+    reset_launch_counts()
+    got_params, got = train_lm(tree_map(lambda a: a.to(cuda), params), cfg, [batch],
+                               train_cfg)
+    want_params, want = train_lm(params, cfg, [batch], train_cfg)
+    assert [h["step"] for h in got] == [1]
+    np.testing.assert_allclose(got[0]["loss"], want[0]["loss"], rtol=1e-5)
+    # remat: the forward runs again in the backward
+    assert (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches) == (4, 2, 2)
+    torch.testing.assert_close(got_params["tok_embed"].cpu(), want_params["tok_embed"],
+                               atol=1e-5, rtol=0)
+

@@ -221,6 +221,26 @@ for q in (None, "int8"):
         np.random.default_rng(0).uniform(size=(20, 12)), batch_size=8).outputs
     assert out.shape == (20, 3)
 assert main(["doctor", "--device", "cpu"]) == 0
+# The LM training slice: flash attention's plain path with its backward,
+# two train_lm steps, evaluate_lm and the CLI's lm verb.
+from tpu_dist_nn_torch.data.text import lm_sequences, encode, synthetic_wikitext
+from tpu_dist_nn_torch.kernels.flash_attention import flash_attention
+from tpu_dist_nn_torch.models.transformer import TransformerConfig, init_transformer
+from tpu_dist_nn_torch.train.lm_trainer import LMTrainConfig, evaluate_lm, train_lm
+q = torch.rand(2, 9, 2, 4, requires_grad=True)
+flash_attention(q, q, q, causal=True).sum().backward()
+assert q.grad.shape == q.shape
+cfg = TransformerConfig(vocab_size=256, d_model=16, n_heads=2, n_layers=2, d_ff=32,
+                        max_seq_len=16, remat=True)
+rows = lm_sequences(encode(synthetic_wikitext(4000)), 16)
+lm, hist = train_lm(init_transformer(torch.Generator().manual_seed(0), cfg, device="cpu"),
+                    cfg, [rows[:2], rows[2:4]], LMTrainConfig(steps=2, log_every=1))
+assert len(hist) == 2 and evaluate_lm(lm, cfg, rows[:8], batch_size=4)["eval_rows_used"] == 8
+corpus = sys.argv[1] + ".txt"
+open(corpus, "w").write(synthetic_wikitext(20000))
+assert main(["lm", "--device", "cpu", "--corpus", corpus, "--d-model", "16", "--heads", "2",
+             "--layers", "1", "--seq-len", "16", "--steps", "2", "--batch-size", "2",
+             "--eval-batches", "1"]) == 0
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist_nn")]
 assert not bad, bad
 print("imported", len(mods), "modules without jax")

@@ -3,8 +3,8 @@
 The layout mirrors the JAX package module for module. Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``; with no visible
 GPU they raise instead of carrying on on the CPU. The kernels
-(``kernels/``: the dense chains and the fused conv) are CUDA C++
-written for ``sm_90a`` and built
+(``kernels/``: the dense chains, the fused conv and flash attention)
+are CUDA C++ written for ``sm_90a`` and built
 from ``kernels/csrc`` at first use; each keeps a plain PyTorch version
 beside it that runs for CPU tensors and is the reference the kernel is
 held against on the card.

@@ -10,6 +10,11 @@ printed lines:
 * ``oracle`` — the float64 numpy baseline (scripts/manual_nn.py:88-99).
 * ``doctor`` — a readiness report: the forward against the oracle, and
   a ``fused_dense`` kernel probe against its plain version.
+* ``lm`` — train and evaluate the byte-level Transformer LM on one
+  device (the flash-attention kernels on the card), with ``tdn lm``'s
+  corpus tiers, 95/5 split, per-step log lines and final JSON report.
+  Its generation, serving, checkpoint and parallel flags wait for their
+  slices.
 
 Everything runs on the card unless ``--device cpu`` is given.
 """
@@ -137,6 +142,80 @@ def cmd_doctor(args) -> int:
     return 0 if report["oracle_parity"] and report["fused_dense"] == "ok" else 1
 
 
+def _write_metrics_jsonl(path, records) -> None:
+    """One JSON object per line, after a ``{"run": "begin"}`` marker,
+    appended (``tdn``'s metrics channel)."""
+    with open(path, "a") as f:
+        f.write(json.dumps({"run": "begin"}) + "\n")
+        for r in records:
+            f.write(json.dumps(r) + "\n")
+    log.info("wrote %d metric records to %s", len(records), path)
+
+
+def cmd_lm(args) -> int:
+    """Train + evaluate the byte-level Transformer LM (``tdn lm``'s
+    single-device path)."""
+    import torch
+
+    from tpu_dist_nn_torch.data.text import encode, lm_batches, lm_sequences, load_corpus
+    from tpu_dist_nn_torch.models.transformer import (
+        TransformerConfig,
+        init_transformer,
+        num_params,
+    )
+    from tpu_dist_nn_torch.train.lm_trainer import LMTrainConfig, evaluate_lm, train_lm
+    from tpu_dist_nn_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    cfg = TransformerConfig(
+        vocab_size=256, d_model=args.d_model, n_heads=args.heads, n_layers=args.layers,
+        d_ff=4 * args.d_model, max_seq_len=args.seq_len,
+        compute_dtype="bfloat16" if args.bf16 else "float32", remat=args.remat)
+    text, source = load_corpus(args.corpus)
+    rows = lm_sequences(encode(text), args.seq_len)
+    split = max(1, int(len(rows) * 0.95))
+    train_rows, eval_rows = rows[:split], rows[split:]
+    params = init_transformer(torch.Generator().manual_seed(args.seed), cfg, device=device)
+    log.info("tiny-transformer: %d params, corpus=%s, %d train rows, %d eval rows, device %s",
+             num_params(params), source, len(train_rows), len(eval_rows), device)
+    train_cfg = LMTrainConfig(
+        learning_rate=args.lr, steps=args.steps, batch_size=args.batch_size,
+        seq_len=args.seq_len, clip_norm=args.clip_norm, warmup_steps=args.warmup_steps,
+        lr_schedule=args.lr_schedule, weight_decay=args.weight_decay,
+        grad_accum=args.grad_accum, log_every=args.log_every)
+    batches = lm_batches(train_rows, args.batch_size, seed=args.seed, epochs=None)
+    t0 = time.monotonic()
+    params, history = train_lm(params, cfg, batches, train_cfg)
+    train_seconds = time.monotonic() - t0
+    for h in history:
+        log.info("step %d: loss %.4f (%.2fs)", h["step"], h["loss"], h["seconds"])
+    held_out = len(eval_rows) >= args.batch_size
+    if not held_out:
+        log.warning(
+            "eval split has %d rows < batch size %d; reporting metrics over the FULL "
+            "dataset (includes training rows)", len(eval_rows), args.batch_size)
+    cap = args.eval_batches
+    eval_rows_used = eval_rows if held_out else rows
+    avail_batches = len(eval_rows_used) // args.batch_size
+    if 0 < cap < avail_batches:
+        log.warning(
+            "--eval-batches %d truncates the eval set (%d of %d batches evaluated); "
+            "loss/perplexity cover a subset — compare eval_rows_used across runs",
+            cap, cap, avail_batches)
+    eval_metrics = evaluate_lm(params, cfg, eval_rows_used, batch_size=args.batch_size,
+                               max_batches=cap if cap > 0 else None)
+    report = {
+        "train_seconds": round(train_seconds, 2),
+        "final_train_loss": history[-1]["loss"] if history else None,
+        "eval_split": "held-out" if held_out else "full-dataset",
+        **{k: round(v, 4) for k, v in eval_metrics.items()},
+    }
+    if args.metrics_out:
+        _write_metrics_jsonl(args.metrics_out, history + [{"final_report": report}])
+    print(json.dumps(report))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m tpu_dist_nn_torch.cli",
@@ -165,6 +244,39 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu' for the plain PyTorch path")
     p.set_defaults(fn=cmd_doctor)
+
+    p = sub.add_parser("lm", help="train + eval the byte-level Transformer LM")
+    p.add_argument("--corpus", help="path to a text corpus (WikiText-2); falls back "
+                   "to the vendored real corpus, then a synthetic one")
+    p.add_argument("--d-model", type=int, default=128)
+    p.add_argument("--heads", type=int, default=4)
+    p.add_argument("--layers", type=int, default=4)
+    p.add_argument("--seq-len", type=int, default=128)
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--clip-norm", type=float, default=None,
+                   help="global-norm gradient clipping")
+    p.add_argument("--warmup-steps", type=int, default=0)
+    p.add_argument("--lr-schedule", choices=["constant", "cosine"], default="constant")
+    p.add_argument("--weight-decay", type=float, default=0.0,
+                   help="decoupled (AdamW) weight decay")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="average gradients over N micro-steps per optimizer update")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute (f32 master params + CE)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each block's activations in the backward")
+    p.add_argument("--eval-batches", type=int, default=0,
+                   help="cap the held-out eval at N batches (0 = the full split)")
+    p.add_argument("--log-every", type=int, default=50,
+                   help="record the loss every N steps (each record waits for the device)")
+    p.add_argument("--metrics-out",
+                   help="append per-step records + the final report as JSONL here")
+    p.add_argument("--device", default=None,
+                   help="'cuda' (default) or 'cpu' for the plain PyTorch path")
+    p.set_defaults(fn=cmd_lm)
     return parser
 
 

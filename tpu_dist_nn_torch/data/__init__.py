@@ -1,1 +1,1 @@
-"""Host-side batch feeding."""
+"""Host-side batch feeding and the LM text pipeline."""

@@ -1,7 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
-library with a plain C interface, loaded with :mod:`ctypes`. Tensors
+library with a plain C interface, loaded with :mod:`ctypes`; a library
+exports one launch function per kernel (the flash-attention library
+three). Tensors
 cross as ``data_ptr()`` integers and PyTorch's current stream as its
 ``cuda_stream`` handle. No source includes PyTorch's headers, so a
 cold build takes seconds rather than the minutes a
@@ -13,7 +15,8 @@ per source, all started together. Libraries land in ``kernels/build/``
 flags, so an unchanged checkout reuses them and a changed source
 rebuilds. Flags: ``sm_90a`` (Hopper), ``-O3``, and no
 ``--use_fast_math`` — the int8 chain's quantisation divides and rounds
-and must match its plain version bit for bit.
+and must match its plain version bit for bit, and attention's softmax
+uses ``expf`` / ``logf`` as its plain version does.
 """
 
 from __future__ import annotations
@@ -41,18 +44,23 @@ _I = ctypes.c_int
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _PI = ctypes.POINTER(ctypes.c_int)
 
-# library name -> (exported launch function, its ctypes argtypes)
+_F = ctypes.c_float
+
+# library name -> {exported launch function: its ctypes argtypes}
 LIBRARIES = {
-    "fused_dense": ("tdn_fused_dense", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
-    "fcnn_chain": (
-        "tdn_fcnn_chain",
-        (_P, _I, ctypes.c_float, _P, _I, _PP, _PP, _PI, _PI, _I, _I, _I, _I, _P),
-    ),
-    "int8_chain": (
-        "tdn_int8_chain",
-        (_P, _P, _I, _PP, _PP, _PP, _PI, _PI, _I, _I, _I, _I, _I, _P),
-    ),
-    "conv2d": ("tdn_conv2d", (_P, _P, _P, _P, _PI, _I, _P)),
+    "fused_dense": {"tdn_fused_dense": (_P, _P, _P, _P, _I, _I, _I, _I, _P)},
+    "fcnn_chain": {
+        "tdn_fcnn_chain": (_P, _I, _F, _P, _I, _PP, _PP, _PI, _PI, _I, _I, _I, _I, _P),
+    },
+    "int8_chain": {
+        "tdn_int8_chain": (_P, _P, _I, _PP, _PP, _PP, _PI, _PI, _I, _I, _I, _I, _I, _P),
+    },
+    "conv2d": {"tdn_conv2d": (_P, _P, _P, _P, _PI, _I, _P)},
+    "flash_attention": {
+        "tdn_flash_fwd": (_P, _P, _P, _P, _P, _PI, _F, _I, _P),
+        "tdn_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _PI, _F, _I, _P),
+        "tdn_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _PI, _F, _I, _P),
+    },
 }
 
 _lock = threading.Lock()
@@ -119,25 +127,28 @@ def build_all() -> float:
     return time.monotonic() - t0
 
 
-def launcher(name: str):
-    """The C launch function of library ``name``, building and loading
-    every library on first use."""
+def launcher(name: str, fn: str | None = None):
+    """The C launch function ``fn`` of library ``name`` (by default its
+    only one), building and loading every library on first use."""
     global build_seconds, _error_string
     with _lock:
         if not _launchers:
             seconds = build_all()
-            for lib_name, (fn_name, argtypes) in LIBRARIES.items():
+            for lib_name, functions in LIBRARIES.items():
                 lib = ctypes.CDLL(str(library_path(lib_name)))
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                _launchers[lib_name] = fn
+                for fn_name, argtypes in functions.items():
+                    c_fn = getattr(lib, fn_name)
+                    c_fn.argtypes = argtypes
+                    c_fn.restype = ctypes.c_int
+                    _launchers[lib_name, fn_name] = c_fn
                 if _error_string is None:
                     _error_string = lib.tdn_error_string
                     _error_string.argtypes = (ctypes.c_int,)
                     _error_string.restype = ctypes.c_char_p
             build_seconds = seconds
-        return _launchers[name]
+        if fn is None:
+            (fn,) = LIBRARIES[name]
+        return _launchers[name, fn]
 
 
 def check(code: int, what: str) -> None:

@@ -1,1 +1,1 @@
-"""Classification metrics."""
+"""Training: classification metrics, the optimizer, the LM trainer."""
