@@ -37,21 +37,26 @@ package. Phases, each fatal on failure (exit 1, no result line):
      batch 16, bf16 over float32 masters, remat; Adam at 3e-4, cosine
      after 5 warm-up steps) trained for 30 steps on the vendored
      corpus through ``train_lm``, then ``evaluate_lm`` on 8 held-out
-     batches. The flash kernels' launches must be exactly
-     steps x 12 x 2 (remat) + 12 per eval batch for the forward and
-     steps x 12 for each backward kernel; every loss finite and the
-     last below the first. Before it, the same width at depth 2
-     (float32, batch 4) trains 3 steps with the flash kernels and with
-     the materialised ``dot_product_attention``: first loss within rtol
-     1e-5, all three within 1e-4, first-step gradients within 5e-4.
+     batches. bf16 attention routes to the sm90 tensor-core kernels:
+     ``flash_fwd_sm90`` must launch exactly steps x 12 x 2 (remat) + 12
+     per eval batch times, ``flash_bwd_sm90`` steps x 12, the FFMA
+     flash kernels never; every loss finite and the last below the
+     first. Before it, the same width at depth 2 (batch 4) trains 3
+     steps with the flash kernels and with the materialised
+     ``dot_product_attention``: in float32 (the FFMA route, its own
+     path for the launch counts) first loss within rtol 1e-5, all three
+     within 1e-4, first-step gradients within 5e-4; in bf16 (the sm90
+     route) first loss within rtol 1e-3, all three within 1e-2.
      After it, the CLI's ``lm`` verb runs a few steps.
 
    Every kernel of a path must have launched in that path's run.
 4. Time each kernel, its plain version and the nearest PyTorch library
    call with CUDA events at the main paths' shapes, beside the least
    time the card could take (its bound); the conv engine's samples/s
-   and batch latency; flash attention and the materialised attention
-   at the TPU kernel sweep's shape (B 4, H 8, T 4096).
+   and batch latency; the sm90 flash kernels beside the FFMA kernels
+   they replace on bf16 (each at least 2x faster, or the run fails);
+   flash attention and the materialised attention at the TPU kernel
+   sweep's shape (B 4, H 8, T 4096).
 
 The second-to-last line is one JSON object with a record per kernel;
 the last is ``{"ok": true, "device": {...}}``.
@@ -86,8 +91,20 @@ FLASH_TOL = (2e-5, 2e-5)  # atol, rtol: tests/test_flash_attention.py's forward
 FLASH_GRAD_TOL = (2e-4, 2e-4)  # and gradients
 # A bf16 output is its float32 value rounded to nearest even: at most
 # 2**-8 of it away. bf16 kernels are held against the plain version run
-# in float32 on the same bf16 inputs with that much more rtol.
+# in float32 on the same bf16 inputs with that much more rtol. The sm90
+# kernels also round P (forward, dV) and dS (dK, dQ) to bf16 for the
+# tensor cores: each rounded term moves by at most 2**-8 of its size, so
+# their tolerance adds, element by element, 2**-8 of the same product
+# over absolute values (kernels.flash_attention.bf16_rounding_bounds).
 BF16_RTOL = 2.0**-8
+# bf16 training parity, sm90 flash vs dot_product_attention (relative
+# loss difference): the two round at different places (the reference
+# rounds its scores and each product's output, the kernels P and O), so
+# per-token logits differ by about one bf16 rounding (2**-8 = 3.9e-3);
+# the loss, a mean over 4,096 tokens, moves by well under one rounding
+# at the first step, and Adam's sign-like first updates can carry the
+# difference to a few roundings by the third.
+BF16_PARITY_RTOL = (1e-3, 1e-2)  # first step, all three
 
 # Published dense peaks (NVIDIA data sheets): device memory bytes/s,
 # FP32 FLOP/s on CUDA cores, INT8 tensor-core OP/s, BF16 tensor-core
@@ -150,12 +167,17 @@ def main() -> None:
         fcnn_fused_forward,
         fcnn_fused_forward_plain,
         fcnn_quantized_forward,
+        flash_bwd,
         flash_bwd_dkv,
         flash_bwd_dkv_plain,
         flash_bwd_dq,
         flash_bwd_dq_plain,
+        flash_bwd_plain,
+        flash_bwd_sm90,
         flash_fwd,
+        flash_fwd_ffma,
         flash_fwd_plain,
+        flash_fwd_sm90,
         forward_quantized,
         fused_conv2d,
         fused_conv2d_plain,
@@ -165,7 +187,7 @@ def main() -> None:
         reset_launch_counts,
     )
     from tpu_dist_nn_torch.data.text import encode, lm_batches, lm_sequences, load_corpus
-    from tpu_dist_nn_torch.kernels.flash_attention import flash_attention
+    from tpu_dist_nn_torch.kernels.flash_attention import bf16_rounding_bounds, flash_attention
     from tpu_dist_nn_torch.models.fcnn import params_from_spec
     from tpu_dist_nn_torch.models.transformer import (
         TransformerConfig,
@@ -345,52 +367,99 @@ def main() -> None:
                padding="same", activation="tanh")
     err["fused_conv2d"] = max(conv_errs)
 
-    # Flash attention: fwd (o and lse), dq and dk/dv against the plain
-    # versions, q, k and v read as the three strided views of one fused
-    # projection as the transformer passes them, lse and delta from the
-    # plain forward. bf16 kernels against the plain version in float32 on
-    # the same bf16 inputs (BF16_RTOL more rtol); lse is float32 always.
+    # Flash attention, both routes, against the plain versions, q, k and
+    # v read as the three strided views of one fused projection as the
+    # transformer passes them, lse and delta from the plain forward:
+    # "ffma" calls tdn_flash_fwd, tdn_flash_bwd_dq and tdn_flash_bwd_dkv
+    # by name (float32, or bf16 for the timed comparison); "sm90" goes
+    # through the routed flash_fwd / flash_bwd with bf16, which must
+    # reach tdn_flash_fwd_sm90 and tdn_flash_bwd_sm90. bf16 kernels
+    # against the plain version in float32 on the same bf16 inputs
+    # (BF16_RTOL more rtol; the sm90 kernels also bf16_rounding_bounds);
+    # lse is float32 always.
     def flash_inputs(B, T, H, Dh, dtype, seed):
         r = np.random.default_rng(seed)
         qkv = on_card(r.standard_normal((B, T, 3 * H, Dh)).astype(np.float32)).to(dtype)
         do = on_card(r.standard_normal((B, T, H, Dh)).astype(np.float32)).to(dtype)
         return (*qkv.split(H, dim=2), do)
 
-    def flash_check(label, B, T, H, Dh, causal, dtype, seed=0):
+    def compare_bound(label, got, want, bound, atol, rtol):
+        torch.cuda.synchronize()
+        diff = (got.float() - want).abs()
+        excess = float((diff - (atol + rtol * want.abs() + bound)).max())
+        ok = got.shape == want.shape and bool(torch.isfinite(got).all()) and excess <= 0.0
+        print(f"check {label}: shape {tuple(got.shape)} max_abs {float(diff.max()):.3e} "
+              f"largest share of bound {float((diff / (atol + rtol * want.abs() + bound)).max()):.3f}"
+              f" | tol atol {atol:g} rtol {rtol:g} + bf16 rounding bound | "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+        return float(diff.max())
+
+    def flash_check(label, B, T, H, Dh, causal, dtype, route, seed=0):
         q, k, v, do = flash_inputs(B, T, H, Dh, dtype, seed)
         extra = BF16_RTOL if dtype == torch.bfloat16 else 0.0
         (fa, fr), (ga, gr) = FLASH_TOL, FLASH_GRAD_TOL
         qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
         scale = 1.0 / math.sqrt(Dh)
-        tag = f"{label} B{B} T{T} H{H} Dh{Dh} {'causal' if causal else 'bidirectional'} " \
-              f"{str(dtype).split('.')[-1]}"
-        o, lse = flash_fwd(q, k, v, causal=causal)
+        tag = f"{label} {route} B{B} T{T} H{H} Dh{Dh} " \
+              f"{'causal' if causal else 'bidirectional'} {str(dtype).split('.')[-1]}"
         o_ref, lse_ref = flash_fwd_plain(qf, kf, vf, scale=scale, causal=causal)
-        e_fwd = compare(f"flash_fwd o {tag}", o.float(), o_ref, fa, fr + extra)
-        compare(f"flash_fwd lse {tag}", lse, lse_ref, fa, fr)
         delta = (dof * o_ref).sum(-1).transpose(1, 2).contiguous()
-        e_dq = compare(f"flash_bwd_dq {tag}",
-                       flash_bwd_dq(q, k, v, do, lse_ref, delta, causal=causal).float(),
-                       flash_bwd_dq_plain(qf, kf, vf, dof, lse_ref, delta, scale=scale,
-                                          causal=causal), ga, gr + extra)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal=causal)
-        dk_ref, dv_ref = flash_bwd_dkv_plain(qf, kf, vf, dof, lse_ref, delta, scale=scale,
-                                             causal=causal)
-        e_dkv = max(compare(f"flash_bwd_dkv dk {tag}", dk.float(), dk_ref, ga, gr + extra),
-                    compare(f"flash_bwd_dkv dv {tag}", dv.float(), dv_ref, ga, gr + extra))
-        del o_ref, dk_ref, dv_ref
+        before = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+        if route == "ffma":
+            o, lse = flash_fwd_ffma(q, k, v, causal=causal)
+            e_fwd = compare(f"flash_fwd_ffma o {tag}", o.float(), o_ref, fa, fr + extra)
+            compare(f"flash_fwd_ffma lse {tag}", lse, lse_ref, fa, fr)
+            e_dq = compare(f"flash_bwd_dq {tag}",
+                           flash_bwd_dq(q, k, v, do, lse_ref, delta, causal=causal).float(),
+                           flash_bwd_dq_plain(qf, kf, vf, dof, lse_ref, delta, scale=scale,
+                                              causal=causal), ga, gr + extra)
+            dk, dv = flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal=causal)
+            dk_ref, dv_ref = flash_bwd_dkv_plain(qf, kf, vf, dof, lse_ref, delta, scale=scale,
+                                                 causal=causal)
+            e_bwd = max(compare(f"flash_bwd_dkv dk {tag}", dk.float(), dk_ref, ga, gr + extra),
+                        compare(f"flash_bwd_dkv dv {tag}", dv.float(), dv_ref, ga, gr + extra))
+            want = {"flash_fwd_ffma": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+            errs = (e_fwd, e_dq, e_bwd)
+        else:
+            b_o, b_dq, b_dk, b_dv = bf16_rounding_bounds(qf, kf, vf, dof, lse_ref, delta,
+                                                         scale=scale, causal=causal)
+            o, lse = flash_fwd(q, k, v, causal=causal)
+            e_fwd = compare_bound(f"flash_fwd_sm90 o {tag}", o, o_ref, b_o, fa, fr + extra)
+            compare(f"flash_fwd_sm90 lse {tag}", lse, lse_ref, fa, fr)
+            grads = flash_bwd(q, k, v, do, lse_ref, delta, causal=causal)
+            refs = flash_bwd_plain(qf, kf, vf, dof, lse_ref, delta, scale=scale, causal=causal)
+            rounded = flash_bwd_plain(qf, kf, vf, dof, lse_ref, delta, scale=scale,
+                                      causal=causal, round_bf16=True)
+            e_bwd = 0.0
+            for name, g, ref, rref, bound in zip(("dq", "dk", "dv"), grads, refs, rounded,
+                                                 (b_dq, b_dk, b_dv)):
+                e_bwd = max(e_bwd, compare_bound(f"flash_bwd_sm90 {name} {tag}", g, ref.float(),
+                                                 bound, ga, gr + extra))
+                print(f"  vs the plain backward with P and dS rounded to bf16: max_abs "
+                      f"{float((g.float() - rref.float()).abs().max()):.3e}")
+                del ref, rref, bound
+            want = {"flash_fwd_sm90": 1, "flash_bwd_sm90": 1}
+            errs = (e_fwd, e_bwd)
+        ran = {fn.__name__: fn.launches - before[fn.__name__] for fn in KERNEL_WRAPPERS}
+        if {k: n for k, n in ran.items() if n} != want:
+            print(f"check {tag} route: launches {ran}, expected {want} | FAIL")
+            failures.append(f"route {tag}")
+        del o_ref
         torch.cuda.empty_cache()
-        return e_fwd, e_dq, e_dkv
+        return errs
 
     B_LM, H_LM, T_LM, DH_LM = LM["batch"], LM["heads"], LM["seq_len"], LM["d_model"] // LM["heads"]
-    flash_check("main shape", B_LM, T_LM, H_LM, DH_LM, True, torch.float32)
-    err["flash_fwd"], err["flash_bwd_dq"], err["flash_bwd_dkv"] = flash_check(
-        "main shape", B_LM, T_LM, H_LM, DH_LM, True, torch.bfloat16)
-    for i, (T, Dh, causal, dtype) in enumerate([
-            (1000, 64, False, torch.bfloat16), (40, 64, True, torch.float32),
-            (1000, 32, True, torch.bfloat16), (40, 32, False, torch.float32),
-            (1000, 128, True, torch.float32), (40, 128, False, torch.bfloat16)]):
-        flash_check("ragged", 2, T, 4, Dh, causal, dtype, seed=1 + i)
+    err_f32 = flash_check("main shape", B_LM, T_LM, H_LM, DH_LM, True, torch.float32, "ffma")
+    flash_check("main shape", B_LM, T_LM, H_LM, DH_LM, True, torch.bfloat16, "ffma")
+    err["flash_fwd_sm90"], err["flash_bwd_sm90"] = flash_check(
+        "main shape", B_LM, T_LM, H_LM, DH_LM, True, torch.bfloat16, "sm90")
+    for i, (T, Dh, causal) in enumerate([(1000, 64, False), (40, 64, True), (1000, 32, True),
+                                         (40, 32, False), (1000, 128, True), (40, 128, False),
+                                         (129, 64, True)]):
+        flash_check("ragged", 2, T, 4, Dh, causal, torch.float32, "ffma", seed=1 + i)
+        flash_check("ragged", 2, T, 4, Dh, causal, torch.bfloat16, "sm90", seed=1 + i)
     if failures:
         fail(f"kernel checks failed: {failures}")
 
@@ -550,19 +619,52 @@ def main() -> None:
     del grads
     train_cfg2 = LMTrainConfig(learning_rate=LM["lr"], steps=3, batch_size=4,
                                seq_len=LM["seq_len"], log_every=1)
-    hist = {label: train_lm(params2, cfg2, batches2, train_cfg2, attn_fn=attn)[1]
-            for label, attn in (("flash", flash_attention),
-                                ("dot_product", dot_product_attention))}
-    l_flash = np.array([h["loss"] for h in hist["flash"]])
-    l_ref = np.array([h["loss"] for h in hist["dot_product"]])
+
+    def parity_steps(cfg_p, params_p):
+        """3 steps with the flash kernels (their launches counted alone:
+        the route's own path) and 3 with dot_product_attention."""
+        reset_launch_counts()
+        hist_flash = train_lm(params_p, cfg_p, batches2, train_cfg2, attn_fn=flash_attention)[1]
+        counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+        hist_ref = train_lm(params_p, cfg_p, batches2, train_cfg2,
+                            attn_fn=dot_product_attention)[1]
+        return (np.array([h["loss"] for h in hist_flash]),
+                np.array([h["loss"] for h in hist_ref]), counts)
+
+    l_flash, l_ref, f32_launches = parity_steps(cfg2, params2)
     rel = np.abs(l_flash - l_ref) / np.abs(l_ref)
     p_ok = len(l_flash) == 3 and rel[0] <= 1e-5 and rel.max() <= 1e-4
     print(f"check parity 3 float32 steps (768/12 heads, depth 2, T 1024, batch 4): flash "
           f"{l_flash.tolist()} vs dot_product {l_ref.tolist()}, rel {rel.tolist()} | tol "
           f"first 1e-5, all 1e-4 | {'ok' if p_ok else 'FAIL'}")
-    if not (g_ok and p_ok):
-        fail("training with the flash kernels disagrees with dot_product_attention")
+    # The float32 LM path: 2 layers x 3 steps, no remat, on the FFMA kernels.
+    want_f32 = {"flash_fwd_ffma": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6}
+    print(f"float32 LM path launches: {json.dumps(f32_launches)}; expected {json.dumps(want_f32)}"
+          " and no sm90 launch")
+    f32_route_ok = (all(f32_launches[k] == n for k, n in want_f32.items())
+                    and f32_launches["flash_fwd_sm90"] == f32_launches["flash_bwd_sm90"] == 0)
+    if not (g_ok and p_ok and f32_route_ok):
+        fail("float32 training with the flash kernels disagrees with dot_product_attention "
+             "or did not take the FFMA kernels")
     del params2
+
+    # The same in bf16 (the LM path's dtype), on the sm90 kernels.
+    cfg2b = lm_config(2, "bfloat16", False)
+    params2b = init_transformer(torch.Generator().manual_seed(1), cfg2b, device=dev)
+    l_flash, l_ref, bf16_launches = parity_steps(cfg2b, params2b)
+    rel = np.abs(l_flash - l_ref) / np.abs(l_ref)
+    first_tol, all_tol = BF16_PARITY_RTOL
+    pb_ok = (len(l_flash) == 3 and np.isfinite(l_flash).all() and rel[0] <= first_tol
+             and rel.max() <= all_tol and bf16_launches["flash_fwd_sm90"] == 6
+             and bf16_launches["flash_bwd_sm90"] == 6
+             and bf16_launches["flash_fwd_ffma"] == bf16_launches["flash_bwd_dq"] == 0)
+    print(f"check parity 3 bf16 steps (768/12 heads, depth 2, T 1024, batch 4): sm90 flash "
+          f"{l_flash.tolist()} vs dot_product {l_ref.tolist()}, rel {rel.tolist()} | tol "
+          f"first {first_tol:g}, all {all_tol:g}; launches {json.dumps(bf16_launches)} | "
+          f"{'ok' if pb_ok else 'FAIL'}")
+    if not pb_ok:
+        fail("bf16 training with the sm90 flash kernels disagrees with dot_product_attention")
+    del params2b
     torch.cuda.empty_cache()
 
     # The main path: the 85M recipe through train_lm and evaluate_lm.
@@ -597,9 +699,9 @@ def main() -> None:
           f"{lm_eval['perplexity']!r}, {float(lm_eval['bits_per_byte'])!r} bits/byte")
     print(f"LM peak CUDA memory: {peak_gb:.3f} GB")
     want_launches = {
-        "flash_fwd": LM["steps"] * LM["layers"] * 2 + LM["layers"] * LM["eval_batches"],
-        "flash_bwd_dq": LM["steps"] * LM["layers"],
-        "flash_bwd_dkv": LM["steps"] * LM["layers"],
+        "flash_fwd_sm90": LM["steps"] * LM["layers"] * 2 + LM["layers"] * LM["eval_batches"],
+        "flash_bwd_sm90": LM["steps"] * LM["layers"],
+        "flash_fwd_ffma": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
     }
     print(f"LM main path launches: {json.dumps(lm_launches)}; expected {json.dumps(want_launches)}")
     if n_params != LM["params"]:
@@ -821,28 +923,42 @@ def main() -> None:
           f"{conv_sum['ms']:.4f} ms, plain {conv_sum['plain_ms']:.4f} ms, library "
           f"{conv_sum['library_ms']:.4f} ms, bound {conv_sum['bound_ms']:.4f} ms")
 
-    # Flash attention at the LM's shape, bf16, on 3 rotating input sets
-    # (each a 75.5 MB fused qkv and a 25.2 MB dO: 302 MB > the 50 MB L2).
-    # lse and delta come from the kernel's forward. The library yardstick
-    # is F.scaled_dot_product_attention(is_causal=True) on the same
-    # (transposed) views: its forward, and one backward call that
-    # computes dq, dk and dv together (timed once; both backward rows
-    # show it).
-    sets = []
-    for i in range(3):
-        fq, fk, fv, fdo = flash_inputs(B_LM, T_LM, H_LM, DH_LM, torch.bfloat16, seed=10 + i)
-        fo, flse = flash_fwd(fq, fk, fv, causal=True)
-        fdelta = (fdo.float() * fo.float()).sum(-1).transpose(1, 2).contiguous()
-        lib_in = [t.transpose(1, 2).detach().requires_grad_(True) for t in (fq, fk, fv)]
-        lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True)
-        sets.append(dict(q=fq, k=fk, v=fv, do=fdo, lse=flse, delta=fdelta, lib_in=lib_in,
-                         lib_out=lib_out, lib_do=fdo.transpose(1, 2)))
-    lib_err = float((sets[0]["lib_out"].detach().transpose(1, 2).float()
-                     - flash_fwd(sets[0]["q"], sets[0]["k"], sets[0]["v"],
-                                 causal=True)[0].float()).abs().max())
+    # Flash attention at the LM's shape on rotating input sets larger than
+    # the 50 MB L2 (bf16: 3 sets of a 75.5 MB fused qkv and a 25.2 MB dO;
+    # float32: 2 sets of twice that). Each route's kernels are timed in
+    # their own dtype for the kernels line: bf16 for the sm90 pair (the LM
+    # path), float32 for the FFMA trio (the float32 path); the FFMA trio
+    # is also timed in bf16, beside the sm90 pair in this run, which must
+    # be at least 2x faster. lse and delta come from the routed forward.
+    # The sm90 backward's time is its wrapper's: zeroing the float32 dq
+    # workspace, the kernel, the cast of dq to bf16 (timed alone too).
+    # The library yardstick is F.scaled_dot_product_attention(
+    # is_causal=True) on the same (transposed) views: its forward, and one
+    # backward call that computes dq, dk and dv together, timed 7 times
+    # (its time moved 0.338-0.501 ms between calls before): the median is
+    # the yardstick, the spread is printed.
     scale_lm = 1.0 / math.sqrt(DH_LM)
+    pairs = B_LM * H_LM * causal_pairs(T_LM)
+    src_ffma = "tpu_dist_nn_torch/kernels/csrc/flash_attention.cu"
+    src_sm90 = "tpu_dist_nn_torch/kernels/csrc/flash_attention_sm90.cu"
+    fwd_at, dq_at, dkv_at = ("tpu_dist_nn/kernels/flash_attention.py:52",
+                             "tpu_dist_nn/kernels/flash_attention.py:126",
+                             "tpu_dist_nn/kernels/flash_attention.py:157")
+    shape_tag = f"B{B_LM} H{H_LM} T{T_LM} Dh{DH_LM} causal"
 
-    def rotating(fn):
+    def flash_sets(dtype, n, seed0):
+        sets = []
+        for i in range(n):
+            fq, fk, fv, fdo = flash_inputs(B_LM, T_LM, H_LM, DH_LM, dtype, seed=seed0 + i)
+            fo, flse = flash_fwd(fq, fk, fv, causal=True)
+            fdelta = (fdo.float() * fo.float()).sum(-1).transpose(1, 2).contiguous()
+            lib_in = [t.transpose(1, 2).detach().requires_grad_(True) for t in (fq, fk, fv)]
+            lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True)
+            sets.append(dict(q=fq, k=fk, v=fv, do=fdo, lse=flse, delta=fdelta, o=fo,
+                             lib_in=lib_in, lib_out=lib_out, lib_do=fdo.transpose(1, 2)))
+        return sets
+
+    def rotating(sets, fn):
         state = {"i": 0}
 
         def call():
@@ -850,54 +966,107 @@ def main() -> None:
             return fn(sets[state["i"]])
         return call
 
-    def sdpa_backward(st):
-        return torch.autograd.grad(st["lib_out"], st["lib_in"], st["lib_do"],
-                                   retain_graph=True)
+    def sdpa_times(sets, label):
+        fwd_ms = cuda_time_ms(rotating(sets, lambda st: F.scaled_dot_product_attention(
+            *st["lib_in"], is_causal=True)))
+        runs = sorted(cuda_time_ms(rotating(sets, lambda st: torch.autograd.grad(
+            st["lib_out"], st["lib_in"], st["lib_do"], retain_graph=True)), iters=20)
+            for _ in range(7))
+        bwd_ms = float(np.median(runs))
+        print(f"time SDPA @ {shape_tag} {label}: forward {fwd_ms:.4f} ms; backward (dq, dk, "
+              f"dv in one call), 7 timings of 20 calls: median {bwd_ms:.4f} ms, min "
+              f"{runs[0]:.4f}, max {runs[-1]:.4f} ({json.dumps([round(t, 4) for t in runs])})")
+        return fwd_ms, bwd_ms
 
-    sdpa_bwd_ms = cuda_time_ms(rotating(sdpa_backward))  # one timing for both rows
+    def bwd_args(st):
+        return st["q"], st["k"], st["v"], st["do"], st["lse"], st["delta"]
 
-    pairs = B_LM * H_LM * causal_pairs(T_LM)
-    act_bytes = 2.0 * B_LM * T_LM * H_LM * DH_LM  # one bf16 (B, T, H, Dh) tensor
-    row_bytes = 4.0 * B_LM * H_LM * T_LM  # one float32 (B, H, T) tensor
-    flash_specs = [
-        ("flash_fwd", "tpu_dist_nn/kernels/flash_attention.py:52",
-         lambda st: flash_fwd(st["q"], st["k"], st["v"], causal=True),
-         lambda st: flash_fwd_plain(st["q"], st["k"], st["v"], scale=scale_lm, causal=True),
-         lambda st: F.scaled_dot_product_attention(*st["lib_in"], is_causal=True),
-         4 * act_bytes + row_bytes, 4.0 * pairs * DH_LM),
-        ("flash_bwd_dq", "tpu_dist_nn/kernels/flash_attention.py:126",
-         lambda st: flash_bwd_dq(st["q"], st["k"], st["v"], st["do"], st["lse"], st["delta"],
-                                 causal=True),
-         lambda st: flash_bwd_dq_plain(st["q"], st["k"], st["v"], st["do"], st["lse"],
-                                       st["delta"], scale=scale_lm, causal=True),
-         None, 5 * act_bytes + 2 * row_bytes, 6.0 * pairs * DH_LM),
-        ("flash_bwd_dkv", "tpu_dist_nn/kernels/flash_attention.py:157",
-         lambda st: flash_bwd_dkv(st["q"], st["k"], st["v"], st["do"], st["lse"], st["delta"],
-                                  causal=True),
-         lambda st: flash_bwd_dkv_plain(st["q"], st["k"], st["v"], st["do"], st["lse"],
-                                        st["delta"], scale=scale_lm, causal=True),
-         None, 6 * act_bytes + 2 * row_bytes, 8.0 * pairs * DH_LM),
-    ]
-    for kname, replaces, kern, plain, library, nbytes, ops in flash_specs:
-        ms = cuda_time_ms(rotating(kern))
-        plain_ms = cuda_time_ms(rotating(plain), iters=10, warmup=2)
-        library_ms = sdpa_bwd_ms if library is None else cuda_time_ms(rotating(library))
-        b_ms, b_by = bound_ms(nbytes, ops, bf16_rate, mem_rate)
-        records.append({
-            "name": kname, "route": "cuda",
-            "source": "tpu_dist_nn_torch/kernels/csrc/flash_attention.cu",
-            "replaces": replaces, "launches": lm_launches[kname],
-            "max_abs_err": err[kname], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms,
-        })
-        lib_what = ("SDPA forward" if kname == "flash_fwd"
+    # name -> (source, replaces, kernel, plain, bytes / element size, FLOP per
+    # causal pair and head dim); bytes count each input read once and each
+    # output written once: (B, T, H, Dh) tensors and float32 (B, H, T) rows.
+    act_elems = B_LM * T_LM * H_LM * DH_LM
+    row_bytes = 4.0 * B_LM * H_LM * T_LM
+    flash_kernels = {
+        "flash_fwd_ffma": (src_ffma, fwd_at,
+                           lambda st: flash_fwd_ffma(st["q"], st["k"], st["v"], causal=True),
+                           "fwd", 4, 1, 4.0),
+        "flash_bwd_dq": (src_ffma, dq_at, lambda st: flash_bwd_dq(*bwd_args(st), causal=True),
+                         "dq", 5, 2, 6.0),
+        "flash_bwd_dkv": (src_ffma, dkv_at,
+                          lambda st: flash_bwd_dkv(*bwd_args(st), causal=True), "dkv", 6, 2,
+                          8.0),
+        "flash_fwd_sm90": (src_sm90, fwd_at,
+                           lambda st: flash_fwd_sm90(st["q"], st["k"], st["v"], causal=True),
+                           "fwd", 4, 1, 4.0),
+        # One function for both TPU backward kernels: q, k, v, dO, lse and
+        # delta in, dq, dk and dv out; 5 products (S, dP, dV, dK, dQ).
+        "flash_bwd_sm90": (src_sm90, f"{dq_at} and {dkv_at}",
+                           lambda st: flash_bwd_sm90(*bwd_args(st), causal=True), "bwd", 7, 2,
+                           10.0),
+    }
+    plains = {
+        "fwd": lambda st: flash_fwd_plain(st["q"], st["k"], st["v"], scale=scale_lm,
+                                          causal=True),
+        "dq": lambda st: flash_bwd_dq_plain(*bwd_args(st), scale=scale_lm, causal=True),
+        "dkv": lambda st: flash_bwd_dkv_plain(*bwd_args(st), scale=scale_lm, causal=True),
+        "bwd": lambda st: flash_bwd_plain(*bwd_args(st), scale=scale_lm, causal=True),
+    }
+
+    def time_flash(kname, sets, dtype, sdpa, launches, record):
+        source, replaces, kern, plain_key, n_act, n_rows, flop = flash_kernels[kname]
+        elem = 2 if dtype == torch.bfloat16 else 4
+        nbytes = n_act * elem * act_elems + n_rows * row_bytes
+        ops = flop * pairs * DH_LM
+        rate = bf16_rate if dtype == torch.bfloat16 else f32_rate
+        ms = cuda_time_ms(rotating(sets, kern))
+        plain_ms = cuda_time_ms(rotating(sets, plains[plain_key]), iters=10, warmup=2)
+        library_ms = sdpa[0] if plain_key == "fwd" else sdpa[1]
+        b_ms, b_by = bound_ms(nbytes, ops, rate, mem_rate)
+        if record:
+            records.append({
+                "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[kname], "max_abs_err": err[kname], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": library_ms,
+            })
+        lib_what = ("SDPA forward" if plain_key == "fwd"
                     else "one SDPA backward call, which computes dq, dk and dv together")
-        print(f"time {kname} @ B{B_LM} H{H_LM} T{T_LM} Dh{DH_LM} causal bf16: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms ({lib_what}), "
-              f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} GFLOP "
-              f"at the BF16 peak) -> {b_ms / ms * 100:.2f}% of bound, {ms / library_ms:.1f}x "
-              "the library")
-    print(f"SDPA forward vs flash_fwd at the LM shape: max_abs {lib_err:.3e}")
+        dname = str(dtype).split(".")[-1]
+        print(f"time {kname} @ {shape_tag} {dname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+              f" library {library_ms:.4f} ms ({lib_what}), bound {b_ms:.4f} ms ({b_by}: "
+              f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} GFLOP at the {dname} peak) -> "
+              f"{b_ms / ms * 100:.2f}% of bound, {ops / ms / 1e9:.1f} TFLOP/s, "
+              f"{ms / library_ms:.2f}x the library")
+        return ms
+
+    sets = flash_sets(torch.bfloat16, 3, 10)
+    lib_err = float((sets[0]["lib_out"].detach().transpose(1, 2).float()
+                     - sets[0]["o"].float()).abs().max())
+    sdpa_bf16 = sdpa_times(sets, "bfloat16")
+    flash_ms = {k: time_flash(k, sets, torch.bfloat16, sdpa_bf16, lm_launches,
+                              record=k.endswith("sm90")) for k in flash_kernels}
+    workspace_ms = cuda_time_ms(lambda: torch.zeros(
+        (B_LM, T_LM, H_LM, DH_LM), dtype=torch.float32, device=dev).to(torch.bfloat16))
+    print(f"time flash_bwd_sm90's workspace alone (zero a float32 (B, T, H, Dh) and cast it "
+          f"to bf16): {workspace_ms:.4f} ms of its {flash_ms['flash_bwd_sm90']:.4f} ms")
+    fwd_x = flash_ms["flash_fwd_ffma"] / flash_ms["flash_fwd_sm90"]
+    bwd_x = (flash_ms["flash_bwd_dq"] + flash_ms["flash_bwd_dkv"]) / flash_ms["flash_bwd_sm90"]
+    speed_ok = fwd_x >= 2.0 and bwd_x >= 2.0
+    print(f"check sm90 vs FFMA at the LM shape, bf16, this run: forward {fwd_x:.2f}x faster, "
+          f"backward {bwd_x:.2f}x faster than dq + dk/dv | need 2x | "
+          f"{'ok' if speed_ok else 'FAIL'}")
+    if not speed_ok:
+        fail("the sm90 flash kernels are not 2x faster than the FFMA kernels they replace")
+    print(f"SDPA forward vs flash_fwd_sm90 at the LM shape: max_abs {lib_err:.3e}")
+    del sets
+    torch.cuda.empty_cache()
+    # The FFMA kernels on their own route, float32 (TF32 off; SDPA in
+    # float32 as the yardstick), for the kernels line.
+    sets = flash_sets(torch.float32, 2, 30)
+    sdpa_f32 = sdpa_times(sets, "float32")
+    err["flash_fwd_ffma"], err["flash_bwd_dq"], err["flash_bwd_dkv"] = err_f32
+    for k in ("flash_fwd_ffma", "flash_bwd_dq", "flash_bwd_dkv"):
+        time_flash(k, sets, torch.float32, sdpa_f32, f32_launches, record=True)
     del sets
     torch.cuda.empty_cache()
 

@@ -302,6 +302,10 @@ QUICK_TESTS = {
                         "test_activation_matches_jax"],
     "test_torch_flash": ["test_plain_kernels_match_the_jax_kernels",
                          "test_grads_through_the_function_match_jax_flash"],
+    "test_torch_flash_sm90": [
+        "test_flash_bwd_plain_matches_jax_vjp_and_the_two_plain_versions",
+        "test_emulated_sm90_schedule_matches_the_plain_versions[129-causal-seq_len<T]",
+        "test_route_raises_for_bf16_on_the_card_that_sm90_does_not_take"],
     "test_torch_kernels": ["test_fused_dense_matches_jax_kernel",
                            "test_forward_quantized_matches_jax_pallas_chain"],
     "test_torch_lm": ["test_forward_and_loss_gradients_match_jax",

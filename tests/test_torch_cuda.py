@@ -12,7 +12,10 @@ more than one 128-column pass, tiles of fewer than 8 rows, and convs
 with 1, 3 or 5 input channels, 1 or 33 filters, ragged row bands and a
 batch of one; attention at T of 1, 17, 130 and 1000 (ragged 64-row
 blocks), head dims 8 to 128, keys past a ``seq_len``, and q, k, v read
-as strided views of one fused projection.
+as strided views of one fused projection, on both routes: float32 and
+bfloat16 through the FFMA kernels called by name, bfloat16 through the
+routed entries onto the sm90 tensor-core kernels (head dims 32, 64 and
+128, ragged 128-row tiles).
 ``chip_smoke.py`` covers the main path's shapes.
 """
 
@@ -30,18 +33,24 @@ from tpu_dist_nn_torch.kernels import (
     fcnn_fused_forward_plain,
     fcnn_quantized_forward,
     forward_quantized,
+    flash_bwd,
     flash_bwd_dkv,
     flash_bwd_dkv_plain,
     flash_bwd_dq,
     flash_bwd_dq_plain,
+    flash_bwd_plain,
+    flash_bwd_sm90,
     flash_fwd,
+    flash_fwd_ffma,
     flash_fwd_plain,
+    flash_fwd_sm90,
     fused_dense,
     fused_dense_plain,
     quantize_fcnn,
     reset_launch_counts,
 )
 from tpu_dist_nn_torch.kernels.conv2d import conv_plan
+from tpu_dist_nn_torch.kernels.flash_attention import bf16_rounding_bounds
 from tpu_dist_nn_torch.models.fcnn import params_from_spec
 from tpu_dist_nn_torch.models.network import init_conv_mlp
 from tpu_dist_nn_torch.models.transformer import TransformerConfig, init_transformer, tree_map
@@ -223,7 +232,7 @@ def test_flash_kernels_match_plain_on_the_card(cuda, T, Dh, seq_len, causal, dty
     kw = dict(causal=causal, seq_len=seq_len)
     fwd_tol, grad_tol = _flash_tols(dtype)
     reset_launch_counts()
-    o, lse = flash_fwd(q, k, v, **kw)
+    o, lse = flash_fwd_ffma(q, k, v, **kw)
     o_ref, lse_ref = flash_fwd_plain(qf, kf, vf, scale=scale, **kw)
     assert o.dtype == dtype and o.is_contiguous()
     torch.testing.assert_close(o.float(), o_ref, **fwd_tol)
@@ -237,7 +246,75 @@ def test_flash_kernels_match_plain_on_the_card(cuda, T, Dh, seq_len, causal, dty
     dk_ref, dv_ref = flash_bwd_dkv_plain(qf, kf, vf, dof, lse_ref, delta, scale=scale, **kw)
     torch.testing.assert_close(dk.float(), dk_ref, **grad_tol)
     torch.testing.assert_close(dv.float(), dv_ref, **grad_tol)
-    assert (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches) == (1, 1, 1)
+    assert (flash_fwd_ffma.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches) == (1, 1, 1)
+
+
+def _assert_within(got, want, bound, atol, rtol):
+    """|got - want| <= atol + rtol |want| + bound, element by element."""
+    err = (got.float() - want).abs() - (atol + rtol * want.abs() + bound)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert float(err.max()) <= 0.0, f"over the stated tolerance by {float(err.max()):.3e}"
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidirectional"])
+@pytest.mark.parametrize(
+    "T,Dh,seq_len",
+    [(1, 64, None), (17, 32, None), (130, 64, 100), (129, 128, None), (1000, 32, None),
+     (1000, 64, 999), (1000, 128, None)],
+    ids=["T1-Dh64", "T17-Dh32", "T130-Dh64-seq100", "T129-Dh128", "T1000-Dh32",
+         "T1000-Dh64-seq999", "T1000-Dh128"],
+)
+def test_sm90_flash_kernels_match_plain_on_the_card(cuda, T, Dh, seq_len, causal):
+    # bf16 through the routed entries: the sm90 forward and the fused
+    # backward, never the FFMA kernels. Tolerance: the float32 one plus
+    # 2**-8 for the output's rounding, plus the bound on the kernels'
+    # bf16 rounding of P and dS (bf16_rounding_bounds).
+    B, H = 2, 3
+    rng = np.random.default_rng(T + Dh + 1)
+    qkv = torch.from_numpy(rng.standard_normal((B, T, 3 * H, Dh)).astype(np.float32))
+    q, k, v = qkv.to(cuda, torch.bfloat16).split(H, dim=2)
+    do = torch.from_numpy(rng.standard_normal((B, T, H, Dh)).astype(np.float32))
+    do = do.to(cuda, torch.bfloat16)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    scale = 1.0 / np.sqrt(Dh)
+    kw = dict(causal=causal, seq_len=seq_len)
+    reset_launch_counts()
+    o, lse = flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = flash_fwd_plain(qf, kf, vf, scale=scale, **kw)
+    delta = (dof * o_ref).sum(-1).transpose(1, 2).contiguous()
+    b_o, b_dq, b_dk, b_dv = bf16_rounding_bounds(qf, kf, vf, dof, lse_ref, delta, scale=scale,
+                                                 **kw)
+    assert o.dtype == torch.bfloat16 and o.is_contiguous()
+    _assert_within(o, o_ref, b_o, 2e-5, 2e-5 + BF16_RTOL)
+    torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=2e-5)
+    dq, dk, dv = flash_bwd(q, k, v, do, lse_ref, delta, **kw)
+    refs = flash_bwd_plain(qf, kf, vf, dof, lse_ref, delta, scale=scale, **kw)
+    for got, want, bound in zip((dq, dk, dv), refs, (b_dq, b_dk, b_dv)):
+        assert got.dtype == torch.bfloat16 and got.is_contiguous()
+        _assert_within(got, want, bound, 2e-4, 2e-4 + BF16_RTOL)
+    launches = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    assert launches["flash_fwd_sm90"] == 1 and launches["flash_bwd_sm90"] == 1
+    assert launches["flash_fwd_ffma"] == launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0
+
+
+def test_sm90_route_raises_on_what_it_does_not_take(cuda):
+    # bf16 with a head dim outside (32, 64, 128), or a view whose token
+    # stride is not a multiple of 16 bytes, raises and launches nothing;
+    # float32 at the same head dim takes the FFMA kernels.
+    q = torch.zeros(1, 8, 2, 48, device=cuda, dtype=torch.bfloat16)
+    reset_launch_counts()
+    with pytest.raises(InvalidArgumentError, match="head dims"):
+        flash_fwd(q, q, q, causal=True)
+    with pytest.raises(InvalidArgumentError, match="head dims"):
+        flash_fwd_sm90(q, q, q, causal=True)
+    wide = torch.zeros(1, 8, 2 * 64 + 4, device=cuda, dtype=torch.bfloat16)
+    odd = wide[:, :, : 2 * 64].unflatten(-1, (2, 64))  # token stride 264 bytes
+    with pytest.raises(InvalidArgumentError, match="multiples of 16"):
+        flash_fwd(odd, odd, odd, causal=True)
+    o, _ = flash_fwd(q.float(), q.float(), q.float(), causal=True)
+    assert o.dtype == torch.float32
+    assert [fn.launches for fn in KERNEL_WRAPPERS if fn is not flash_fwd_ffma] == [0] * 8
+    assert flash_fwd_ffma.launches == 1
 
 
 def test_train_lm_step_on_the_card_matches_the_cpu(cuda):
@@ -252,8 +329,9 @@ def test_train_lm_step_on_the_card_matches_the_cpu(cuda):
     want_params, want = train_lm(params, cfg, [batch], train_cfg)
     assert [h["step"] for h in got] == [1]
     np.testing.assert_allclose(got[0]["loss"], want[0]["loss"], rtol=1e-5)
-    # remat: the forward runs again in the backward
-    assert (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches) == (4, 2, 2)
+    # remat: the forward runs again in the backward; float32 takes the FFMA route
+    assert (flash_fwd_ffma.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches) == (4, 2, 2)
+    assert flash_fwd_sm90.launches == flash_bwd_sm90.launches == 0
     torch.testing.assert_close(got_params["tok_embed"].cpu(), want_params["tok_embed"],
                                atol=1e-5, rtol=0)
 

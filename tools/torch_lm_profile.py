@@ -10,8 +10,9 @@ Builds the 85M recipe of ``chip_smoke.py``'s LM path (d 768, 12 heads,
 Adam at 3e-4) on random weights and corpus batches, runs ``--warmup``
 steps through ``make_lm_train_step``, then ``--steps`` more under
 ``torch.profiler`` (CPU and CUDA activities). Prints each kernel's device
-time per step, the sums by group (the three flash kernels, matrix
-products, everything else), the steps' wall time and the share of it in
+time per step, the sums by group (each flash kernel: the bf16 path's
+sm90 forward and fused backward, or the FFMA kernels; matrix products;
+everything else), the steps' wall time and the share of it in
 which the device ran no kernel. Exits 1 when the profiler recorded no
 device time. Imports nothing of JAX.
 """
@@ -26,8 +27,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
+FLASH_KERNELS = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd", "flash_bwd_dq",
+                 "flash_bwd_dkv")
+
+
 def group_of(name: str) -> str:
-    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    """A kernel's group: each flash kernel by its own name (the bf16
+    sm90 pair, or the float32 FFMA trio), then the matrix products, then
+    everything else."""
+    for key in FLASH_KERNELS:
         if f"{key}_kernel" in name:
             return key
     low = name.lower()

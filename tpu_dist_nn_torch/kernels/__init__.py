@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain version:
-the dense chains, the fused conv, and flash attention (forward, dq and
-dk/dv).
+the dense chains, the fused conv, and flash attention (bf16 on Hopper
+tensor cores: the forward and one fused backward; float32 on FFMA: the
+forward, dq and dk/dv).
 
 Sources live in ``csrc/`` and are built at first use
 (:mod:`tpu_dist_nn_torch.kernels._build`); importing this package
@@ -10,12 +11,17 @@ builds nothing.
 from tpu_dist_nn_torch.kernels.conv2d import fused_conv2d, fused_conv2d_plain
 from tpu_dist_nn_torch.kernels.flash_attention import (
     flash_attention,
+    flash_bwd,
     flash_bwd_dkv,
     flash_bwd_dkv_plain,
     flash_bwd_dq,
     flash_bwd_dq_plain,
+    flash_bwd_plain,
+    flash_bwd_sm90,
     flash_fwd,
+    flash_fwd_ffma,
     flash_fwd_plain,
+    flash_fwd_sm90,
 )
 from tpu_dist_nn_torch.kernels.fused_dense import (
     fcnn_fused_forward,
@@ -29,9 +35,11 @@ from tpu_dist_nn_torch.kernels.quantized import (
     quantize_fcnn,
 )
 
-#: Every kernel wrapper; each carries a ``launches`` count.
+#: Every kernel wrapper; each carries a ``launches`` count. (``flash_fwd``
+#: and ``flash_bwd`` route to the flash wrappers and launch nothing
+#: themselves.)
 KERNEL_WRAPPERS = (fused_dense, fcnn_fused_forward, fcnn_quantized_forward, fused_conv2d,
-                   flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+                   flash_fwd_ffma, flash_bwd_dq, flash_bwd_dkv, flash_fwd_sm90, flash_bwd_sm90)
 
 
 def reset_launch_counts() -> None:
@@ -46,12 +54,17 @@ __all__ = [
     "fcnn_fused_forward_plain",
     "fcnn_quantized_forward",
     "flash_attention",
+    "flash_bwd",
     "flash_bwd_dkv",
     "flash_bwd_dkv_plain",
     "flash_bwd_dq",
     "flash_bwd_dq_plain",
+    "flash_bwd_plain",
+    "flash_bwd_sm90",
     "flash_fwd",
+    "flash_fwd_ffma",
     "flash_fwd_plain",
+    "flash_fwd_sm90",
     "forward_quantized",
     "fused_conv2d",
     "fused_conv2d_plain",

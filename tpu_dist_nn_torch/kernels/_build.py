@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with :mod:`ctypes`; a library
-exports one launch function per kernel (the flash-attention library
-three). Tensors
+exports one launch function per kernel (the FFMA flash-attention library
+three, the sm90 one two). Tensors
 cross as ``data_ptr()`` integers and PyTorch's current stream as its
 ``cuda_stream`` handle. No source includes PyTorch's headers, so a
 cold build takes seconds rather than the minutes a
@@ -16,7 +16,10 @@ flags, so an unchanged checkout reuses them and a changed source
 rebuilds. Flags: ``sm_90a`` (Hopper), ``-O3``, and no
 ``--use_fast_math`` — the int8 chain's quantisation divides and rounds
 and must match its plain version bit for bit, and attention's softmax
-uses ``expf`` / ``logf`` as its plain version does.
+uses ``expf`` / ``logf`` as its plain version does. The sm90
+flash-attention library builds its TMA tensor maps on the host with
+``cuTensorMapEncodeTiled``, which it looks up through the CUDA runtime
+at first use, so no library links ``-lcuda``.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 _PI = ctypes.POINTER(ctypes.c_int)
 
 _F = ctypes.c_float
+_PL = ctypes.POINTER(ctypes.c_longlong)
 
 # library name -> {exported launch function: its ctypes argtypes}
 LIBRARIES = {
@@ -60,6 +64,10 @@ LIBRARIES = {
         "tdn_flash_fwd": (_P, _P, _P, _P, _P, _PI, _F, _I, _P),
         "tdn_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _PI, _F, _I, _P),
         "tdn_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _PI, _F, _I, _P),
+    },
+    "flash_attention_sm90": {
+        "tdn_flash_fwd_sm90": (_P, _P, _P, _P, _P, _PL, _F, _P),
+        "tdn_flash_bwd_sm90": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _PL, _F, _P),
     },
 }
 

@@ -1,34 +1,48 @@
-"""Flash attention: the forward and both backward kernels, one autograd
+"""Flash attention: the forward and backward kernels, one autograd
 Function.
 
-Port of :mod:`tpu_dist_nn.kernels.flash_attention`. Three wrappers
-launch the three kernels of ``csrc/flash_attention.cu``:
+Port of :mod:`tpu_dist_nn.kernels.flash_attention`. Two routes, chosen
+by dtype (:func:`flash_route`), never as a fallback:
 
-* :func:`flash_fwd` -> ``(o, lse)`` (replaces the Pallas ``_fwd_kernel``);
-* :func:`flash_bwd_dq` -> ``dq`` (``_bwd_dq_kernel``);
-* :func:`flash_bwd_dkv` -> ``(dk, dv)`` (``_bwd_dkv_kernel``).
+* bfloat16 on the card (the LM trainer's path) -> the Hopper
+  tensor-core kernels of ``csrc/flash_attention_sm90.cu``:
+  :func:`flash_fwd_sm90` -> ``(o, lse)`` (replaces the Pallas
+  ``_fwd_kernel``) and :func:`flash_bwd_sm90` -> ``(dq, dk, dv)`` in one
+  kernel (``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``);
+* float32 on the card -> the FFMA kernels of ``csrc/flash_attention.cu``
+  (tensor cores would need TF32): :func:`flash_fwd_ffma`,
+  :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`, which also take
+  bfloat16 when called by name;
+* CPU tensors -> the plain versions.
 
-Each has a plain PyTorch version beside it (``*_plain``) that
+:func:`flash_fwd` and :func:`flash_bwd` route; a bfloat16 call on the
+card that the sm90 kernels do not take (a head dim outside
+``SM90_HEAD_DIMS``, a stride or address TMA refuses) raises
+:class:`InvalidArgumentError`. Each kernel wrapper counts its launches
+in ``launches``.
+
+Each kernel has a plain PyTorch version beside it (``*_plain``) that
 materialises the scores in float32 and uses the kernels' own formulas:
-``p = exp(s - lse)`` masked to 0, ``ds = p * (dp - delta)``. For CPU
-tensors a wrapper runs its plain version; for CUDA tensors it launches
-its kernel or raises. ``launches`` on each wrapper counts launches.
+``p = exp(s - lse)`` masked to 0, ``ds = p * (dp - delta)``;
+:func:`flash_bwd_plain` can round ``p`` and ``ds`` to bfloat16 where
+the sm90 kernel does, a tight reference for it.
 
-Tensors are ``(B, T, H, Dh)``, float32 or bfloat16, read with their
-strides (the last dimension must be contiguous), so the three views of a
-fused ``qkv`` projection go in without a copy. Outputs are contiguous
-``(B, T, H, Dh)`` in the input type; ``lse`` and ``delta`` are
-``(B, H, T)`` float32. The TPU kernels pad T to a common multiple of
-their block sizes and mask keys past ``seq_len``; here the kernels
-bound-check ragged blocks instead, so ``seq_len`` (default T) only says
-how many keys are real, as it does for the padded JAX arrays. The JAX
-``block_q`` / ``block_k`` are TPU tiling knobs and are not carried
-over: the CUDA tiles are 64 rows on both sides.
+Tensors are ``(B, T, H, Dh)``, read with their strides (the last
+dimension must be contiguous), so the three views of a fused ``qkv``
+projection go in without a copy. Outputs are contiguous ``(B, T, H,
+Dh)`` in the input type; ``lse`` and ``delta`` are ``(B, H, T)``
+float32. The TPU kernels pad T to a common multiple of their block
+sizes and mask keys past ``seq_len``; here the kernels bound-check (FFMA)
+or let TMA zero-fill (sm90) ragged blocks instead, so ``seq_len``
+(default T) only says how many keys are real, as it does for the padded
+JAX arrays. The JAX ``block_q`` / ``block_k`` are TPU tiling knobs and
+are not carried over: the FFMA tiles are 64 rows on both sides, the sm90
+tiles are ``SM90_TILES``.
 
 :class:`FlashAttention` (the JAX package's ``_flash_call`` custom VJP)
 and :func:`flash_attention` (the ``(..., T, H, Dh)`` drop-in for
 ``dot_product_attention``) sit on top. :func:`default_attn_fn` takes the
-kernel for CUDA tensors at every sequence length — the JAX package's
+kernels for CUDA tensors at every sequence length — the JAX package's
 ``FLASH_MIN_SEQ`` was measured on a TPU, and the port's threshold will
 come from the card's own timings — and ``dot_product_attention`` on the
 CPU, as the JAX package does off the TPU.
@@ -36,7 +50,9 @@ CPU, as the JAX package does off the TPU.
 
 from __future__ import annotations
 
+import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -50,6 +66,21 @@ MAX_HEAD_DIM = 128
 #: tile stays 0 instead of NaN.
 NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+class Sm90Tiles(NamedTuple):
+    block: int  #: forward: query rows and keys of a tile; backward: keys of a CTA
+    wg_rows: int  #: rows of one consumer warpgroup (wgmma's M); the backward's q tile
+
+
+#: The sm90 kernels' tiles. Every launch passes them, and the kernels
+#: refuse any other values.
+SM90_TILES = Sm90Tiles(block=128, wg_rows=64)
+#: Head dims the sm90 kernels take: a row is one 64- or 128-byte TMA box,
+#: or two.
+SM90_HEAD_DIMS = (32, 64, 128)
+#: TMA's rule for every global stride and base address, in bytes.
+TMA_ALIGN = 16
 
 
 def _key_mask(T: int, seq_len: int, causal: bool, device) -> torch.Tensor:
@@ -122,6 +153,68 @@ def _scale(q) -> float:
     return 1.0 / math.sqrt(q.shape[-1])
 
 
+def flash_route(device_type: str, dtype: torch.dtype, head_dim: int, byte_strides=(),
+                addresses=()) -> str:
+    """Which kernels a call takes: ``"plain"`` for CPU tensors,
+    ``"ffma"`` for float32 on the card, ``"sm90"`` for bfloat16 on the
+    card. ``byte_strides`` are the strides in bytes, and ``addresses``
+    the data pointers, of the tensors the sm90 kernels read through TMA.
+    A bfloat16 call on the card that those kernels do not take raises
+    :class:`InvalidArgumentError`: a head dim outside
+    ``SM90_HEAD_DIMS``, or a stride or address that is not a multiple
+    of ``TMA_ALIGN`` bytes."""
+    if device_type == "cpu":
+        return "plain"
+    if dtype == torch.float32:
+        return "ffma"
+    if dtype != torch.bfloat16:
+        raise InvalidArgumentError(
+            f"flash attention takes {[str(d) for d in _DTYPES]}, got {dtype}")
+    if head_dim not in SM90_HEAD_DIMS:
+        raise InvalidArgumentError(
+            f"bfloat16 flash attention on the card takes head dims {SM90_HEAD_DIMS}, got "
+            f"{head_dim}")
+    bad = [s for s in byte_strides if s % TMA_ALIGN]
+    if bad:
+        raise InvalidArgumentError(
+            f"bfloat16 flash attention on the card reads through TMA: strides of {bad} bytes "
+            f"are not multiples of {TMA_ALIGN}")
+    if any(a % TMA_ALIGN for a in addresses):
+        raise InvalidArgumentError(
+            "bfloat16 flash attention on the card reads through TMA: a base address is not "
+            f"{TMA_ALIGN}-byte aligned")
+    return "sm90"
+
+
+def _tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """``(batch, token, head)`` element strides of a ``(B, T, H, Dh)``
+    view; a dimension of size 1 is never stepped, so it gets the packed
+    stride."""
+    B, T, H, Dh = t.shape
+    packed = (T * H * Dh, H * Dh, Dh)
+    return tuple(p if n == 1 else s for n, s, p in zip((B, T, H), t.stride()[:3], packed))
+
+
+def _route(*tensors) -> str:
+    q = tensors[0]
+    strides = [2 * s for t in tensors for s in _tma_strides(t)]
+    return flash_route(q.device.type, q.dtype, q.shape[-1], strides,
+                       [t.data_ptr() for t in tensors])
+
+
+def _sm90_params(q, seq_len: int, causal: bool, *tensors) -> ctypes.Array:
+    """The sm90 launch's int64 parameters: B, H, T, Dh, seq_len, causal,
+    ``SM90_TILES``, then the element strides of each tensor read through
+    TMA (q, k, v and, for the backward, dO)."""
+    B, T, H, Dh = q.shape
+    if B * H * -(-T // SM90_TILES.block) >= 2**31:
+        raise InvalidArgumentError("flash attention: more CTAs than one grid dimension holds")
+    values = [B, H, T, Dh, seq_len, int(causal), *SM90_TILES]
+    for t in tensors:
+        values += _tma_strides(t)
+    return (ctypes.c_longlong * len(values))(*values)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -146,7 +239,19 @@ def flash_fwd_plain(q, k, v, *, scale, causal, seq_len=None):
 def flash_fwd(q, k, v, *, causal: bool, seq_len=None):
     """Attention forward in one kernel: ``q, k, v (B, T, H, Dh)`` ->
     ``(o, lse)``, ``o = softmax(q k^T / sqrt(Dh)) v`` over the keys below
-    ``seq_len`` (and, when ``causal``, not after the query)."""
+    ``seq_len`` (and, when ``causal``, not after the query). Routes by
+    :func:`flash_route`."""
+    T, seq_len = _check({"q": q, "k": k, "v": v}, causal=causal, seq_len=seq_len)
+    route = _route(q, k, v)
+    if route == "plain":
+        return flash_fwd_plain(q, k, v, scale=_scale(q), causal=causal, seq_len=seq_len)
+    launch = flash_fwd_sm90 if route == "sm90" else flash_fwd_ffma
+    return launch(q, k, v, causal=causal, seq_len=seq_len)
+
+
+def flash_fwd_ffma(q, k, v, *, causal: bool, seq_len=None):
+    """:func:`flash_fwd` on the FFMA kernel ``tdn_flash_fwd``, float32 or
+    bfloat16."""
     T, seq_len = _check({"q": q, "k": k, "v": v}, causal=causal, seq_len=seq_len)
     scale = _scale(q)
     if q.device.type == "cpu":
@@ -159,12 +264,36 @@ def flash_fwd(q, k, v, *, causal: bool, seq_len=None):
         code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                       _dims(q, k, v, seq_len, causal), scale, int(q.dtype == torch.bfloat16),
                       _stream(q.device))
-    _build.check(code, "flash_fwd launch")
-    flash_fwd.launches += 1
+    _build.check(code, "flash_fwd_ffma launch")
+    flash_fwd_ffma.launches += 1
     return o, lse
 
 
-flash_fwd.launches = 0
+flash_fwd_ffma.launches = 0
+
+
+def flash_fwd_sm90(q, k, v, *, causal: bool, seq_len=None):
+    """:func:`flash_fwd` on the tensor-core kernel ``tdn_flash_fwd_sm90``:
+    bfloat16 only, head dims ``SM90_HEAD_DIMS``."""
+    T, seq_len = _check({"q": q, "k": k, "v": v}, causal=causal, seq_len=seq_len)
+    scale = _scale(q)
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, scale=scale, causal=causal, seq_len=seq_len)
+    if _route(q, k, v) != "sm90":
+        raise InvalidArgumentError(f"flash_fwd_sm90 takes bfloat16, got {q.dtype}")
+    B, _, H, Dh = q.shape
+    o = torch.empty((B, T, H, Dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    launch = _build.launcher("flash_attention_sm90", "tdn_flash_fwd_sm90")
+    with torch.cuda.device(q.device):
+        code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                      _sm90_params(q, seq_len, causal, q, k, v), scale, _stream(q.device))
+    _build.check(code, "flash_fwd_sm90 launch")
+    flash_fwd_sm90.launches += 1
+    return o, lse
+
+
+flash_fwd_sm90.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -185,22 +314,65 @@ def _dscores(p, do, v, delta):
     return p * (dp - delta[..., None])
 
 
-def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, scale, causal, seq_len=None):
+def _to_bf16(t, on: bool):
+    """``t`` rounded to bfloat16 (and back to float32) when ``on``."""
+    return t.to(torch.bfloat16).float() if on else t
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, scale, causal, seq_len=None,
+                       round_bf16=False):
     """The plain version of :func:`flash_bwd_dq`, in float32:
-    ``dq = (ds k) * scale`` in q's type."""
+    ``dq = (ds k) * scale`` in q's type; ``round_bf16`` rounds ``ds`` to
+    bfloat16 before the product, as the sm90 kernel does."""
     p = _probs(q, k, lse, scale=scale, causal=causal, seq_len=seq_len)
-    ds = _dscores(p, do, v, delta)
+    ds = _to_bf16(_dscores(p, do, v, delta), round_bf16)
     return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale).to(q.dtype)
 
 
-def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale, causal, seq_len=None):
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale, causal, seq_len=None,
+                        round_bf16=False):
     """The plain version of :func:`flash_bwd_dkv`, in float32:
-    ``dk = (ds^T q) * scale`` and ``dv = p^T dO`` in q's type."""
+    ``dk = (ds^T q) * scale`` and ``dv = p^T dO`` in q's type;
+    ``round_bf16`` rounds ``p`` and ``ds`` to bfloat16 before the
+    products, as the sm90 kernel does."""
     p = _probs(q, k, lse, scale=scale, causal=causal, seq_len=seq_len)
-    ds = _dscores(p, do, v, delta)
+    ds = _to_bf16(_dscores(p, do, v, delta), round_bf16)
+    p = _to_bf16(p, round_bf16)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     return dk.to(q.dtype), dv.to(q.dtype)
+
+
+def flash_bwd_plain(q, k, v, do, lse, delta, *, scale, causal, seq_len=None,
+                    round_bf16=False):
+    """The plain version of :func:`flash_bwd` and :func:`flash_bwd_sm90`:
+    ``(dq, dk, dv)`` from :func:`flash_bwd_dq_plain` and
+    :func:`flash_bwd_dkv_plain`, ``round_bf16`` passed to both."""
+    kw = dict(scale=scale, causal=causal, seq_len=seq_len, round_bf16=round_bf16)
+    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+#: Relative error of one round to nearest bfloat16.
+BF16_ROUNDING = 2.0**-8
+
+
+def bf16_rounding_bounds(q, k, v, do, lse, delta, *, scale, causal, seq_len=None):
+    """How far the sm90 kernels' bfloat16 rounding of P (forward and
+    dV) and dS (dK, dQ) can move each output: every rounded term moves
+    by at most ``BF16_ROUNDING`` of its size, so an output moves by at
+    most that share of the same product taken over absolute values.
+    Returns float32 ``(o, dq, dk, dv)`` bounds, ``(B, T, H, Dh)``; a
+    kernel's stated tolerance adds them to the float32 one."""
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    o_abs = flash_fwd_plain(q, k, v.abs(), scale=scale, causal=causal, seq_len=seq_len)[0]
+    p = _probs(q, k, lse, scale=scale, causal=causal, seq_len=seq_len)
+    ds = _dscores(p, do, v, delta).abs()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.abs()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.abs()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.abs())
+    return tuple(BF16_ROUNDING * t for t in (o_abs, dq, dk, dv))
 
 
 def _check_bwd(q, k, v, do, lse, delta, causal, seq_len):
@@ -261,15 +433,60 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, seq_len=None):
 flash_bwd_dkv.launches = 0
 
 
+def flash_bwd_sm90(q, k, v, do, lse, delta, *, causal: bool, seq_len=None):
+    """``(dq, dk, dv)`` of attention in one tensor-core kernel,
+    ``tdn_flash_bwd_sm90``: bfloat16 only, head dims ``SM90_HEAD_DIMS``;
+    arguments as :func:`flash_bwd_dq`. dq is summed in a zeroed float32
+    workspace (atomics: its order changes from run to run) and cast to
+    q's type."""
+    T, seq_len = _check_bwd(q, k, v, do, lse, delta, causal, seq_len)
+    scale = _scale(q)
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, do, lse, delta, scale=scale, causal=causal,
+                               seq_len=seq_len)
+    if _route(q, k, v, do) != "sm90":
+        raise InvalidArgumentError(f"flash_bwd_sm90 takes bfloat16, got {q.dtype}")
+    dq_accum = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    launch = _build.launcher("flash_attention_sm90", "tdn_flash_bwd_sm90")
+    with torch.cuda.device(q.device):
+        code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                      lse.data_ptr(), delta.data_ptr(), dq_accum.data_ptr(), dk.data_ptr(),
+                      dv.data_ptr(), _sm90_params(q, seq_len, causal, q, k, v, do), scale,
+                      _stream(q.device))
+    _build.check(code, "flash_bwd_sm90 launch")
+    flash_bwd_sm90.launches += 1
+    return dq_accum.to(q.dtype), dk, dv
+
+
+flash_bwd_sm90.launches = 0
+
+
+def flash_bwd(q, k, v, do, lse, delta, *, causal: bool, seq_len=None):
+    """``(dq, dk, dv)`` of attention, routed by :func:`flash_route`: the
+    fused sm90 kernel for bfloat16 on the card, the FFMA dq and dk/dv
+    kernels for float32, the plain version for CPU tensors."""
+    T, seq_len = _check_bwd(q, k, v, do, lse, delta, causal, seq_len)
+    kw = dict(causal=causal, seq_len=seq_len)
+    route = _route(q, k, v, do)
+    if route == "plain":
+        return flash_bwd_plain(q, k, v, do, lse, delta, scale=_scale(q), **kw)
+    if route == "sm90":
+        return flash_bwd_sm90(q, k, v, do, lse, delta, **kw)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+
+
 def _flash_bwd(q, k, v, o, lse, g, *, causal, seq_len=None):
     """The VJP: ``delta`` from the float32 cotangent (a torch op, as the
     JAX package leaves it to XLA), the kernels fed the cotangent in q's
-    type."""
+    type, contiguous and 16-byte aligned (TMA's rule)."""
     delta = (g.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
     do = g.to(q.dtype).contiguous()
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, seq_len=seq_len)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal, seq_len=seq_len)
-    return dq, dk, dv
+    if do.data_ptr() % TMA_ALIGN:
+        do = do.clone()
+    return flash_bwd(q, k, v, do, lse, delta, causal=causal, seq_len=seq_len)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -314,8 +531,8 @@ def flash_attention(q, k, v, *, causal: bool):
 
 
 def select_attention(q, k, v, *, causal: bool):
-    """The kernel for CUDA tensors, ``dot_product_attention`` for CPU
-    tensors."""
+    """The kernels for CUDA tensors (routed by dtype), ``dot_product_attention``
+    for CPU tensors."""
     if q.device.type == "cuda":
         return flash_attention(q, k, v, causal=causal)
     from tpu_dist_nn_torch.models.transformer import dot_product_attention
