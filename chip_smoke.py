@@ -14,7 +14,11 @@ package. Phases, each fatal on failure (exit 1, no result line):
    ptxas' register and shared-memory report.
 2. Hold each kernel against its plain PyTorch version on the card, at
    the main path's shapes and a few more, with the stated tolerances
-   (TF32 off for every float32 comparison).
+   (TF32 off for every float32 comparison). The f32 dense kernels also
+   at the conv network's 2048-64-10 tail (split-K across a cluster, at
+   1024, 1023 and 37 rows, uint8 input, a ragged K of 2000), with a
+   softmax normalised in the epilogue and in a second pass, and each
+   called twice on one input: bit-equal.
 3. Drive each main path with every kernel's launch count set to 0
    just before it and read just after:
 
@@ -51,7 +55,9 @@ package. Phases, each fatal on failure (exit 1, no result line):
 
    Every kernel of a path must have launched in that path's run.
 4. Time each kernel, its plain version and the nearest PyTorch library
-   call with CUDA events at the main paths' shapes, beside the least
+   call with CUDA events at the main paths' shapes (the chain also at
+   the conv tail's; the f32 dense kernels as a CUDA graph of 50 calls,
+   since their device time is below a Python call's), beside the least
    time the card could take (its bound); the conv engine's samples/s
    and batch latency; the sm90 flash kernels beside the FFMA kernels
    they replace on bf16 (each at least 2x faster, or the run fails);
@@ -188,6 +194,14 @@ def main() -> None:
     )
     from tpu_dist_nn_torch.data.text import encode, lm_batches, lm_sequences, load_corpus
     from tpu_dist_nn_torch.kernels.flash_attention import bf16_rounding_bounds, flash_attention
+    from tpu_dist_nn_torch.kernels.fused_dense import (
+        _buffer_widths,
+        _chain_smem,
+        activation_ids,
+        chain_plan,
+        dense_plan,
+        max_clusters,
+    )
     from tpu_dist_nn_torch.models.fcnn import params_from_spec
     from tpu_dist_nn_torch.models.transformer import (
         TransformerConfig,
@@ -201,7 +215,7 @@ def main() -> None:
     from tpu_dist_nn_torch.train.lm_trainer import LMTrainConfig, evaluate_lm, train_lm
     from tpu_dist_nn_torch.models.network import build_network, init_conv_mlp, network_forward
     from tpu_dist_nn_torch.testing.oracle import oracle_forward_batch
-    from tpu_dist_nn_torch.utils.profiling import LatencyStats, cuda_time_ms
+    from tpu_dist_nn_torch.utils.profiling import LatencyStats, cuda_graph_time_ms, cuda_time_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -302,6 +316,82 @@ def main() -> None:
             fcnn_fused_forward(params, xu8, input_scale=1.0 / 255.0),
             fcnn_fused_forward_plain(params, xu8, input_scale=1.0 / 255.0), 2e-5, 1e-4)
 
+    # The f32 tile's schedules: the planners' choices at the main shapes;
+    # split-K across a cluster (the conv network's 2048-64-10 dense tail
+    # at batch 1024, its ragged 1023, 37 rows, a ragged K of 2000, uint8
+    # input); softmax normalised in the epilogue (N fits one tile) and in
+    # a second pass over stored rows (N = 300); every kernel twice on the
+    # same input, bit for bit (split-K adds the ranks' partials in rank
+    # order, no atomics).
+    def repeat_check(label, fn):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        ok = bool(torch.equal(a, b))
+        print(f"check {label}: two calls bit-equal | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{label} repeat")
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    conv_model = init_conv_mlp(torch.Generator().manual_seed(0))
+    bias_rng = np.random.default_rng(3)
+    for layer in conv_model.layers:
+        if layer.kind != "maxpool2d":
+            layer.biases = bias_rng.normal(0.0, 0.05, layer.biases.shape)
+    plan_c, params_c = build_network(conv_model, device=dev)
+    tail_at = [i for i, lp in enumerate(plan_c) if lp.kind == "dense"]
+    tail = [{"w": params_c[i]["w"], "b": params_c[i]["b"],
+             "act": activation_ids([plan_c[i].activation])[0]} for i in tail_at]
+    tail_dims = [int(tail[0]["w"].shape[0])] + [int(p["w"].shape[1]) for p in tail]
+    tail_acts = [plan_c[i].activation for i in tail_at]
+    tail_tag = "-".join(map(str, tail_dims)) + " " + ",".join(tail_acts)
+    print(f"plan fused_dense 8192x784->128 on {sms} SMs: (tm, tn) {dense_plan(BATCH, 128, sms)}")
+    ld0_, ld1_ = _buffer_widths(tail_dims, activation_ids(tail_acts))
+    for tm_, split_ in ((64, 8), (72, 8), (64, 4), (64, 2)):
+        n_clusters = max_clusters(torch.cuda.current_device(), tm_, split_,
+                                  _chain_smem(tm_, ld0_, ld1_), sms)
+        print(f"clusters of {split_} CTAs of {tm_} rows ({tail_tag}) the card runs at once: "
+              f"{n_clusters}")
+    for label, dims_, acts_, rows in (("784-128-64-10", MNIST, ACTS, BATCH),
+                                      (tail_tag, tail_dims, tail_acts, CIFAR_BATCH),
+                                      (tail_tag, tail_dims, tail_acts, 37)):
+        print(f"plan fcnn_fused_forward {label} x{rows} on {sms} SMs: "
+              f"{chain_plan(dims_, activation_ids(acts_), rows, sms, torch.cuda.current_device())}")
+    rng_tail = np.random.default_rng(5)
+    x_tail = on_card(rng_tail.uniform(0.0, 1.0, (CIFAR_BATCH, tail_dims[0])).astype(np.float32))
+    for rows in (CIFAR_BATCH, CIFAR_BATCH - 1, 37):
+        e = compare(f"fcnn_fused_forward conv tail {tail_tag} f32 x{rows} (split-K)",
+                    fcnn_fused_forward(tail, x_tail[:rows]),
+                    fcnn_fused_forward_plain(tail, x_tail[:rows]), 2e-5, 1e-4)
+        if rows == CIFAR_BATCH:
+            err["fcnn_fused_chain_conv_tail"] = e
+    xu8_tail = (x_tail * 255).to(torch.uint8)
+    compare(f"fcnn_fused_forward conv tail {tail_tag} uint8 x{CIFAR_BATCH} input_scale=1/255 "
+            "(split-K)", fcnn_fused_forward(tail, xu8_tail, input_scale=1.0 / 255.0),
+            fcnn_fused_forward_plain(tail, xu8_tail, input_scale=1.0 / 255.0), 2e-5, 1e-4)
+    ragged_k = params_from_spec(he_model([2000, 64, 10], ["relu", "softmax"], seed=4), device=dev)
+    x_2000 = x_tail[:, :2000].contiguous()
+    for rows in (CIFAR_BATCH, 37):
+        compare(f"fcnn_fused_forward 2000-64-10 f32 x{rows} (split-K, ragged K)",
+                fcnn_fused_forward(ragged_k, x_2000[:rows]),
+                fcnn_fused_forward_plain(ragged_k, x_2000[:rows]), 2e-5, 1e-4)
+    wide_head = params_from_spec(he_model([784, 128, 300], ["relu", "softmax"], seed=5),
+                                 device=dev)
+    compare("fcnn_fused_forward 784-128-300 softmax x8191 (softmax past one pass)",
+            fcnn_fused_forward(wide_head, x[:8191]), fcnn_fused_forward_plain(wide_head, x[:8191]),
+            2e-5, 1e-4)
+    h128 = x[:, :128].contiguous()
+    w300, b300 = wide_head[1]["w"], wide_head[1]["b"]
+    compare("fused_dense 8192x128->300 softmax (second pass)",
+            fused_dense(h128, w300, b300, activation="softmax"),
+            fused_dense_plain(h128, w300, b300, "softmax"), 1e-5, 1e-5)
+    repeat_check("fused_dense 8192x784->128 relu",
+                 lambda: fused_dense(x, w1, b1, activation="relu"))
+    repeat_check("fcnn_fused_forward 784-128-64-10 x8192", lambda: fcnn_fused_forward(params, x))
+    repeat_check(f"fcnn_fused_forward conv tail {tail_tag} x{CIFAR_BATCH} (split-K)",
+                 lambda: fcnn_fused_forward(tail, x_tail))
+    repeat_check(f"fcnn_fused_forward conv tail {tail_tag} x37 (split-K)",
+                 lambda: fcnn_fused_forward(tail, x_tail[:37]))
+
     # int8 chain: the kernel repeats the plain chain's arithmetic, so relu
     # interiors with a softmax head agree to a few ulps of the softmax
     # (rtol 1e-6, atol 1e-7). A gelu/tanh interior may differ from
@@ -329,11 +419,6 @@ def main() -> None:
     # batch 1024 and a ragged 1023, every activation, and the variants
     # the network does not use (VALID, stride 2, overlapping pool, an
     # even kernel). Direct f32 FFMA vs the plain tap-sum (cuBLAS f32).
-    conv_model = init_conv_mlp(torch.Generator().manual_seed(0))
-    bias_rng = np.random.default_rng(3)
-    for layer in conv_model.layers:
-        if layer.kind != "maxpool2d":
-            layer.biases = bias_rng.normal(0.0, 0.05, layer.biases.shape)
     c1, c2 = conv_model.layers[0], conv_model.layers[2]
     cw1, cb1, cw2, cb2 = (on_card(a.astype(np.float32)) for a in (
         c1.weights, c1.biases, c2.weights, c2.biases))
@@ -763,7 +848,6 @@ def main() -> None:
     # memory (host clock), the copy to the card, the forward on the card
     # (dense: one chain launch; conv: conv1+pool, conv2+pool and the
     # 2048-64-10 chain), the copy back.
-    plan_c, params_c = build_network(conv_model, device=dev)
     for label, host_rows, forward in (
             ("dense f32", data[:BATCH], lambda h: fcnn_fused_forward(params, h)),
             ("conv", data_c[:CIFAR_BATCH], lambda h: network_forward(plan_c, params_c, h))):
@@ -775,17 +859,21 @@ def main() -> None:
         h2d_ms = cuda_time_ms(lambda: staged.to(dev, non_blocking=True), iters=20)
         batch = staged.to(dev)
         fwd_ms = cuda_time_ms(lambda: forward(batch), iters=20)
+        fwd_dev_ms = cuda_graph_time_ms(lambda: forward(batch), iters=20)
         out_dev = forward(batch)
         back = torch.empty(out_dev.shape, dtype=torch.float32, pin_memory=True)
         d2h_ms = cuda_time_ms(lambda: back.copy_(out_dev, non_blocking=True), iters=20)
         print(f"engine {label} batch stages @ {len(host_rows)} rows: host cast to pinned "
               f"{cast_ms:.3f} ms, host-to-device {h2d_ms:.3f} ms "
-              f"({host_rows.nbytes / h2d_ms / 1e6:.1f} GB/s), forward {fwd_ms:.4f} ms, "
+              f"({host_rows.nbytes / h2d_ms / 1e6:.1f} GB/s), forward {fwd_ms:.4f} ms "
+              f"(device time, CUDA graph: {fwd_dev_ms:.4f} ms), "
               f"device-to-host {d2h_ms:.4f} ms")
     tail_in = network_forward(plan_c[:4], params_c[:4], batch)
     tail_ms = cuda_time_ms(lambda: network_forward(plan_c[4:], params_c[4:], tail_in), iters=20)
+    tail_dev_ms = cuda_graph_time_ms(lambda: network_forward(plan_c[4:], params_c[4:], tail_in),
+                                     iters=20)
     print(f"engine conv batch stages @ {CIFAR_BATCH} rows: of the forward, the 2048-64-10 "
-          f"dense chain {tail_ms:.4f} ms")
+          f"dense chain {tail_ms:.4f} ms (device time, CUDA graph: {tail_dev_ms:.4f} ms)")
 
     # Four distinct inputs (4 x 25.7 MB > the 50 MB L2), cycled, so each
     # launch reads x from device memory as a freshly copied batch would.
@@ -852,11 +940,22 @@ def main() -> None:
          int_mm_chain if int_mm_ok else None,
          4.0 * M * d0 + w_i8 + 4.0 * M * d3, flops_chain, i8_rate),
     ]
+    # The f32 dense kernels now take less device time than a Python call
+    # and its launch take on the host, so a host loop of calls would time
+    # the host: they, their plain versions and their library calls are
+    # timed as 50 calls captured in one CUDA graph (device time), with
+    # the host loop's time printed beside. The int8 chain keeps the host
+    # loop it was timed with before.
     records = []
     for kname, source, replaces, kern, plain, library, nbytes, ops, rate in specs:
-        ms = cuda_time_ms(cycled(kern))
-        plain_ms = cuda_time_ms(cycled(plain))
-        library_ms = cuda_time_ms(cycled(library)) if library is not None else None
+        timer = cuda_time_ms if kname == "int8_chain" else cuda_graph_time_ms
+        ms = timer(cycled(kern))
+        plain_ms = timer(cycled(plain))
+        library_ms = timer(cycled(library)) if library is not None else None
+        if timer is cuda_graph_time_ms:
+            print(f"time {kname} @ batch {M}, host loop of calls: kernel "
+                  f"{cuda_time_ms(cycled(kern)):.4f} ms, library "
+                  f"{cuda_time_ms(cycled(library)):.4f} ms")
         b_ms, b_by = bound_ms(nbytes, ops, rate, mem_rate)
         records.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
@@ -869,7 +968,43 @@ def main() -> None:
         print(f"time {kname} @ batch {M}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, bound {b_ms:.4f} ms "
               f"({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G ops) -> "
-              f"{b_ms / ms * 100:.1f}% of bound")
+              f"{b_ms / ms * 100:.1f}% of bound"
+              f"{'' if library_ms is None else f', {ms / library_ms:.2f}x the library'}")
+
+    # The chain at the conv network's dense tail (2048-64-10, batch 1024,
+    # split-K), on 7 rotating inputs (7 x 8.4 MB > the 50 MB L2); the
+    # library yardstick is the addmm chain at that shape.
+    tail_ins = [x_tail] + [on_card(rng_tail.uniform(0.0, 1.0, tuple(x_tail.shape))
+                                   .astype(np.float32)) for _ in range(6)]
+
+    def addmm_tail(h):
+        for p, act in zip(tail, tail_acts):
+            h = apply_activation(torch.addmm(p["b"], h, p["w"]), act)
+        return h
+
+    Mt = CIFAR_BATCH
+    ms = cuda_graph_time_ms(cycled(lambda h: fcnn_fused_forward(tail, h), tail_ins))
+    plain_ms = cuda_graph_time_ms(cycled(lambda h: fcnn_fused_forward_plain(tail, h), tail_ins))
+    library_ms = cuda_graph_time_ms(cycled(addmm_tail, tail_ins))
+    print(f"time fcnn_fused_chain_conv_tail @ batch {Mt}, host loop of calls: kernel "
+          f"{cuda_time_ms(cycled(lambda h: fcnn_fused_forward(tail, h), tail_ins)):.4f} ms, "
+          f"library {cuda_time_ms(cycled(addmm_tail, tail_ins)):.4f} ms")
+    nbytes = 4.0 * (Mt * tail_dims[0] + sum(p["w"].numel() + p["b"].numel() for p in tail)
+                    + Mt * tail_dims[-1])
+    ops = 2.0 * Mt * sum(a * b for a, b in zip(tail_dims[:-1], tail_dims[1:]))
+    b_ms, b_by = bound_ms(nbytes, ops, f32_rate, mem_rate)
+    records.append({
+        "name": "fcnn_fused_chain_conv_tail", "route": "cuda",
+        "source": "tpu_dist_nn_torch/kernels/csrc/fcnn_chain.cu",
+        "replaces": "tpu_dist_nn/kernels/fused_dense.py:118",
+        "launches": conv_launches["fcnn_fused_forward"],
+        "max_abs_err": err["fcnn_fused_chain_conv_tail"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+    })
+    print(f"time fcnn_fused_chain_conv_tail {tail_tag} @ batch {Mt}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (addmm chain), bound {b_ms:.4f} ms "
+          f"({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G ops) -> "
+          f"{b_ms / ms * 100:.1f}% of bound, {ms / library_ms:.2f}x the library")
 
     # fused_conv2d at the conv path's two stages, batch 1024, on rotating
     # inputs (5 x 12.6 MB and 4 x 16.8 MB, more than the 50 MB L2). One

@@ -8,7 +8,7 @@ GPU machine without them::
 
 (``--noconftest``: ``tests/conftest.py`` configures JAX.) Shapes here
 are odd on purpose: ragged tiles, widths that are not multiples of 4,
-more than one 128-column pass, tiles of fewer than 8 rows, and convs
+more than one 128-column pass, split-K clusters, and convs
 with 1, 3 or 5 input channels, 1 or 33 filters, ragged row bands and a
 batch of one; attention at T of 1, 17, 130 and 1000 (ragged 64-row
 blocks), head dims 8 to 128, keys past a ``seq_len``, and q, k, v read
@@ -110,6 +110,48 @@ def test_fused_chain_matches_plain_on_the_card(cuda, sizes, acts):
     torch.testing.assert_close(
         fcnn_fused_forward(params, xu8, input_scale=1 / 255),
         fcnn_fused_forward_plain(params, xu8, input_scale=1 / 255), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("M,K,N", [(1000, 300, 128), (8191, 784, 128), (77, 33, 300)],
+                         ids=["full-tile", "flagship-ragged-M", "softmax-past-the-tile"])
+def test_fused_dense_tiles_match_plain_on_the_card(cuda, M, K, N):
+    # A full 128-column tile (softmax in registers), and N = 300 wider
+    # than one tile (softmax as a second pass over the stored rows).
+    rng = np.random.default_rng(M)
+    x, w, b = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        rng.normal(size=(M, K)), rng.normal(size=(K, N)) * 0.1, rng.normal(size=N)))
+    for act in ACTIVATIONS:
+        torch.testing.assert_close(fused_dense(x, w, b, activation=act),
+                                   fused_dense_plain(x, w, b, act), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "sizes,acts,M",
+    [([2048, 64, 10], ["relu", "softmax"], 37),       # split 8, one row tile
+     ([2048, 64, 10], ["relu", "softmax"], 1024),     # the conv tail: 16 tiles x 8
+     ([300, 200, 150], ["tanh", "softmax"], 70)],     # split 8, ragged K, wide softmax
+    ids=["split-37", "conv-tail", "split-wide-softmax"],
+)
+def test_fused_chain_split_k_matches_plain_and_repeats_bit_for_bit(cuda, sizes, acts, M):
+    params = params_from_spec(_model(sizes, acts), device=cuda)
+    x = _rows(M, sizes[0], cuda)
+    got = fcnn_fused_forward(params, x)
+    torch.testing.assert_close(got, fcnn_fused_forward_plain(params, x), atol=2e-5, rtol=1e-4)
+    assert torch.equal(got, fcnn_fused_forward(params, x))  # fixed-order reduction
+    # A row's bits do not depend on its batch: 5 rows alone (another
+    # plan) give the rows of the whole batch.
+    assert torch.equal(fcnn_fused_forward(params, x[:5].contiguous()), got[:5])
+    xu8 = (x * 255).to(torch.uint8)
+    torch.testing.assert_close(
+        fcnn_fused_forward(params, xu8, input_scale=1 / 255),
+        fcnn_fused_forward_plain(params, xu8, input_scale=1 / 255), atol=2e-5, rtol=1e-4)
+
+
+def test_fused_chain_takes_a_60000_wide_input_on_the_card(cuda):
+    params = params_from_spec(_model([60000, 16, 4], ["relu", "softmax"]), device=cuda)
+    x = _rows(5, 60000, cuda)
+    torch.testing.assert_close(fcnn_fused_forward(params, x),
+                               fcnn_fused_forward_plain(params, x), atol=2e-5, rtol=1e-4)
 
 
 @pytest.mark.parametrize(

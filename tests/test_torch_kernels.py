@@ -5,7 +5,10 @@ run in Pallas interpret mode, as the JAX package's own tests run them
 (``tests/test_kernels.py``, ``tests/test_quantized.py``), at those
 tests' tolerances. The kernels themselves run only on the card:
 ``tests/test_torch_cuda.py`` and ``python3 chip_smoke.py`` hold them
-against their plain versions there.
+against their plain versions there. The f32 chain kernel's schedule
+(its planner's row tile and split-K, each cluster rank's K slices, the
+rank-order reduction and the column passes) is written out in torch
+here and held against both.
 """
 
 import jax
@@ -19,9 +22,11 @@ from tpu_dist_nn.kernels import fcnn_fused_forward as jax_fcnn_fused_forward
 from tpu_dist_nn.kernels import fused_dense as jax_fused_dense
 from tpu_dist_nn.kernels import quantized as jax_q
 from tpu_dist_nn.models.fcnn import init_fcnn as jax_init_fcnn
+from tpu_dist_nn_torch.core.activations import apply_activation_by_id
 from tpu_dist_nn_torch.kernels import (
     KERNEL_WRAPPERS,
     fcnn_fused_forward,
+    fcnn_fused_forward_plain,
     fcnn_quantized_forward,
     forward_quantized,
     fused_dense,
@@ -29,9 +34,15 @@ from tpu_dist_nn_torch.kernels import (
     reset_launch_counts,
 )
 from tpu_dist_nn_torch.kernels.fused_dense import (
+    H100_SMS,
     SMEM_LIMIT_BYTES,
+    activation_ids,
     boundary_widths,
+    chain_plan,
     chain_tile_rows,
+    column_passes,
+    dense_plan,
+    k_ranges,
 )
 from tpu_dist_nn_torch.models.fcnn import forward, params_from_jax
 from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
@@ -126,19 +137,188 @@ def test_fused_chain_uint8_input_scale_matches_jax_kernel():
 
 
 def test_chain_tile_rows_from_the_widest_boundaries():
-    # The flagship: A holds 784 and 64 wide rows, B 128 and 10.
+    # The int8 chain: A holds 784 and 64 wide rows, B 128 and 10.
     assert boundary_widths([784, 128, 64, 10]) == (784, 128)
-    assert chain_tile_rows(4 * (784 + 128), 32 * 128 * 4, "f32") == 32
     assert chain_tile_rows(4 * (784 + 128) + 784 + 4, 16 * 128 * 4, "int8") == 32
     assert chain_tile_rows(4 * (1024 + 1024) + 1024 + 4, 16 * 128 * 4, "int8") == 16
     assert chain_tile_rows(SMEM_LIMIT_BYTES - 1, 1, "one row") == 1
+    # The f32 chain streams the input: only the interior widths (128,
+    # 64) stay resident, so the flagship takes 64-row tiles, one CTA
+    # each (the old kernel staged the 784-wide input and took 32).
+    plan = chain_plan([784, 128, 64, 10], activation_ids(["relu", "relu", "softmax"]), 8192)
+    assert (plan.tm, plan.split, plan.ld0, plan.ld1) == (64, 1, 132, 68)
+    assert plan.smem_bytes <= SMEM_LIMIT_BYTES
 
 
 def test_fused_chain_past_shared_memory_raises_naming_the_limit():
-    wide = 60000  # one 60000-float row alone is 240 KB > 227 KB
-    params = [{"w": torch.zeros(wide, 4), "b": torch.zeros(4), "act": 0}]
+    wide = 60000  # 8 interior rows of 60000 floats are 1.9 MB > 227 KB
+    params = [{"w": torch.zeros(4, wide), "b": torch.zeros(wide), "act": 0},
+              {"w": torch.zeros(wide, 4), "b": torch.zeros(4), "act": 0}]
     with pytest.raises(InvalidArgumentError, match=str(SMEM_LIMIT_BYTES)):
-        fcnn_fused_forward(params, torch.zeros(2, wide))
+        fcnn_fused_forward(params, torch.zeros(2, 4))
+
+
+def test_fused_chain_takes_a_60000_wide_input():
+    # The input streams through the K-slice ring, so its width is not
+    # limited by shared memory (the old kernel staged it and raised).
+    rng = np.random.default_rng(7)
+    wide = 60000
+    params = [{"w": torch.from_numpy((rng.normal(size=(wide, 4)) * 0.01).astype(np.float32)),
+               "b": torch.from_numpy(rng.normal(size=4).astype(np.float32)), "act": 1}]
+    x = torch.from_numpy(rng.uniform(0, 1, (3, wide)).astype(np.float32))
+    got = fcnn_fused_forward(params, x)
+    torch.testing.assert_close(got, fcnn_fused_forward_plain(params, x), atol=2e-5, rtol=1e-4)
+    torch.testing.assert_close(got, _emulate_chain(params, x, None)[0], atol=2e-5, rtol=1e-4)
+
+
+# ------------------------------------ the f32 chain kernel's schedule, emulated
+
+BK = 64  # csrc/f32_tile.cuh kBK
+
+
+def _softmax_rows(z):
+    # The kernel's row softmax: exp(z - max) / sum, whether it runs in
+    # registers (one pass) or over the resident row (wider rows).
+    e = torch.exp(z - z.max(dim=1, keepdim=True).values)
+    return e / e.sum(dim=1, keepdim=True)
+
+
+def _act(z, act):
+    return _softmax_rows(z) if act == 3 else apply_activation_by_id(z, act)
+
+
+def _pass_sums(a, w, kb, ke, c0, width):
+    """One column pass over K slices [kb, ke): the register tile's sums,
+    slice after slice."""
+    cols = slice(c0, min(c0 + width, w.shape[1]))
+    acc = torch.zeros((a.shape[0], cols.stop - cols.start), dtype=torch.float32)
+    for k0 in range(kb, ke, BK):
+        k1 = min(k0 + BK, ke)
+        acc = acc + a[:, k0:k1] @ w[k0:k1, cols]
+    return cols, acc
+
+
+def _emulate_chain(params, x, activations, input_scale=None, sm_count=H100_SMS):
+    """``csrc/fcnn_chain.cu``'s loop in torch: the planner's row tile and
+    split, layer 0's K ranges (one a cluster rank, or all on one CTA),
+    their sums added in range order, then bias, activation and the later
+    layers' column passes on the leader."""
+    acts = (activation_ids(activations) if activations is not None
+            else tuple(int(p["act"]) for p in params))
+    dims = [int(x.shape[1])] + [int(p["w"].shape[1]) for p in params]
+    M = int(x.shape[0])
+    plan = chain_plan(dims, acts, M, sm_count)
+    h_all = x.to(torch.float32)
+    if input_scale is not None:
+        h_all = h_all * input_scale
+    out = torch.empty((M, dims[-1]), dtype=torch.float32)
+    for row0 in range(0, M, plan.tm):
+        rows = min(plan.tm, M - row0)
+        a = torch.zeros((plan.tm, dims[0]), dtype=torch.float32)
+        a[:rows] = h_all[row0:row0 + rows]  # rows past M copy as zeros
+        partials = []
+        for kb, ke in k_ranges(dims[0]):
+            part = torch.zeros((plan.tm, dims[1]), dtype=torch.float32)
+            for c0, width in column_passes(dims[1]):
+                cols, acc = _pass_sums(a, params[0]["w"], kb, ke, c0, width)
+                part[:, cols] = acc
+            partials.append(part)
+        z = partials[0]
+        for part in partials[1:]:  # range order, no atomics
+            z = z + part
+        h = _act(z + params[0]["b"], acts[0])
+        for p, act in zip(params[1:], acts[1:]):
+            z = torch.empty((plan.tm, p["w"].shape[1]), dtype=torch.float32)
+            for c0, width in column_passes(p["w"].shape[1], first_layer=False):
+                cols, acc = _pass_sums(h, p["w"], 0, h.shape[1], c0, width)
+                z[:, cols] = acc + p["b"][cols]
+            h = _act(z, act)
+        out[row0:row0 + rows] = h[:rows]
+    return out, plan
+
+
+@pytest.mark.parametrize(
+    "sizes,acts,rows,sm_count,split,u8",
+    [
+        # split 8: K 2100 (33 slices, 8 ranges, ragged), 70 rows (a
+        # ragged second tile), a 150-wide softmax head: past one 64-column
+        # pass of a later layer.
+        ((2100, 40, 24, 150), ["relu", "tanh", "softmax"], 70, H100_SMS, 8, False),
+        # split 2: K 1100 (18 slices, 2 ranges), softmax head of 10 in the epilogue.
+        ((1100, 33, 10), ["gelu", "softmax"], 37, H100_SMS, 2, False),
+        # split 1, one range: 2 SMs, filled by 2 row tiles; ragged N.
+        ((24, 32, 16, 4), ["relu", "relu", "softmax"], 100, 2, 1, False),
+        # split 1 over 2 ranges (K 1100): the lone CTA adds them in order.
+        ((1100, 32, 4), ["relu", "softmax"], 100, 2, 1, False),
+        # uint8 pixels scaled on read; split 2 (K 1100: 18 slices, 2 ranges).
+        ((1100, 20, 5), ["sigmoid", "softmax"], 45, H100_SMS, 2, True),
+        # split 8 on a one-layer chain: the leader's reduction is the output.
+        ((2100, 130), ["softmax"], 9, H100_SMS, 8, False),
+    ],
+    ids=["split8-wide-softmax", "split2-softmax-epilogue", "split1", "split1-two-ranges",
+         "uint8-split2", "split8-one-layer"],
+)
+def test_chain_schedule_emulated_matches_plain_and_jax(sizes, acts, rows, sm_count, split, u8):
+    jparams = _jax_params(sizes, acts, seed=len(sizes) + rows)
+    rng = np.random.default_rng(rows)
+    if u8:
+        x = rng.integers(0, 256, (rows, sizes[0])).astype(np.uint8)
+        scale = 1.0 / 255.0
+    else:
+        x = rng.normal(size=(rows, sizes[0])).astype(np.float32)
+        scale = None
+    params = params_from_jax(jparams, device="cpu")
+    got, plan = _emulate_chain(params, torch.from_numpy(x), acts, scale, sm_count)
+    assert plan.split == split
+    assert plan.split in (1, len(k_ranges(sizes[0])))
+    want = fcnn_fused_forward_plain(params, torch.from_numpy(x), activations=acts,
+                                    input_scale=scale)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=1e-4)
+    jax_out = np.asarray(jax_fcnn_fused_forward(jparams, jnp.asarray(x), block_b=16,
+                                                activations=acts, input_scale=scale))
+    np.testing.assert_allclose(got.numpy(), jax_out, atol=2e-5, rtol=1e-4)
+
+
+def test_k_ranges_cover_k_once_in_whole_slices():
+    for K, n in ((1, 1), (31, 1), (784, 1), (960, 1), (961, 2), (1984, 2), (1985, 8),
+                 (2048, 8), (60000, 8)):
+        ranges = k_ranges(K)
+        assert len(ranges) == n
+        assert ranges[0][0] == 0 and ranges[-1][1] == K
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert all(kb % BK == 0 or kb == ke == K for kb, ke in ranges)
+    assert [w for _, w in column_passes(10)] == [16]
+    assert [w for _, w in column_passes(64)] == [64]
+    assert column_passes(130) == [(0, 128), (128, 16)]
+    assert column_passes(130, first_layer=False) == [(0, 64), (64, 64), (128, 16)]
+
+
+@pytest.mark.parametrize(
+    "dims,acts,M",
+    [([784, 128, 64, 10], ["relu", "relu", "softmax"], 8192),   # the flagship
+     ([2048, 64, 10], ["relu", "softmax"], 1024)],              # the conv tail
+    ids=["flagship", "conv-tail"],
+)
+def test_chain_plan_fills_the_sms(dims, acts, M):
+    plan = chain_plan(dims, activation_ids(acts), M, H100_SMS)
+    ctas = -(-M // plan.tm) * plan.split
+    assert 120 <= ctas <= H100_SMS
+    assert plan.split in (1, 2, 4, 8)
+    assert plan.smem_bytes <= SMEM_LIMIT_BYTES
+
+
+def test_chain_plan_split_never_exceeds_eight():
+    for M in (1, 7, 100, 1000, 8192):
+        for K in (32, 1000, 100000):
+            plan = chain_plan([K, 16, 4], (1, 0), M, H100_SMS)
+            assert plan.split <= 8
+            assert plan.split in (1, len(k_ranges(K)))  # one CTA a K range
+
+
+def test_dense_plan_one_wave_at_the_flagship():
+    tm, tn = dense_plan(8192, 128, H100_SMS)
+    assert (tm, 16 * tn) == (64, 128)  # 128 CTAs of 64 x 128
+    assert dense_plan(8192, 10, H100_SMS)[1] == 1  # a 16-column tile for 10 columns
 
 
 def test_fused_chain_rejects_bad_inputs():

@@ -52,9 +52,10 @@ _PL = ctypes.POINTER(ctypes.c_longlong)
 
 # library name -> {exported launch function: its ctypes argtypes}
 LIBRARIES = {
-    "fused_dense": {"tdn_fused_dense": (_P, _P, _P, _P, _I, _I, _I, _I, _P)},
+    "fused_dense": {"tdn_fused_dense": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)},
     "fcnn_chain": {
-        "tdn_fcnn_chain": (_P, _I, _F, _P, _I, _PP, _PP, _PI, _PI, _I, _I, _I, _I, _P),
+        "tdn_fcnn_chain": (_P, _I, _F, _P, _I, _PP, _PP, _PI, _PI, _I, _I, _I, _I, _I, _P),
+        "tdn_fcnn_chain_max_clusters": (_I, _I, _I, _PI),
     },
     "int8_chain": {
         "tdn_int8_chain": (_P, _P, _I, _PP, _PP, _PP, _PI, _PI, _I, _I, _I, _I, _I, _P),
@@ -98,9 +99,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where library ``name`` is built: keyed by its source, the shared
-    header and the flags."""
+    headers and the flags."""
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -8,6 +8,14 @@ Port of :mod:`tpu_dist_nn.kernels.fused_dense`:
   inter-layer activations kept in shared memory
   (``csrc/fcnn_chain.cu``, replacing the Pallas ``_chain_kernel``).
 
+Both run on one FP32 tile (``csrc/f32_tile.cuh``): 256 threads in two K
+groups, an R x TN register tile each (8 x 8 at the flagship), K streamed
+in 64-deep slices through a 3-slot ``cp.async`` ring. The planners here
+choose each launch's shape from the widths, the batch and the card
+(:func:`dense_plan`, :func:`chain_plan`); they are plain functions, so
+the CPU tests check their choices and emulate the kernels' loops with
+them.
+
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else. For CPU tensors it runs its plain PyTorch version
 (``*_plain``); for CUDA tensors it launches its kernel or raises — there
@@ -15,16 +23,17 @@ is no fallback from the card to the plain version. ``launches`` on each
 wrapper counts kernel launches.
 
 The TPU package gates the chain kernel on an 8 MB VMEM weight budget
-and falls back to the jnp chain above it. Here weights stream from L2,
-so there is no weight budget: the limit is that one tile of rows of the
-two widest activation buffers fits a block's shared memory
-(:func:`chain_tile_rows`), and a chain past it raises.
+and falls back to the jnp chain above it. Here weights stream from L2
+and the input streams through the ring, so neither is limited: the
+limit is that 8 rows of the interior activations fit a block's shared
+memory beside the ring (:func:`chain_plan`), and a chain past it raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+import functools
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -34,11 +43,22 @@ from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
 
 #: Dynamic shared memory one Hopper block may opt into (227 KB).
 SMEM_LIMIT_BYTES = 232448
-#: Rows per CTA the chain kernels take, largest first (csrc: tm <= 64).
+#: Rows per CTA the int8 chain kernel takes, largest first (csrc: tm <= 64).
 _TILE_ROWS = (64, 32, 16, 8, 4, 2, 1)
-#: The chain kernels' caps and fixed shared-memory slices (csrc constants).
+#: The chain kernels' cap on layers (csrc kMaxLayers).
 MAX_LAYERS = 32
-_F32_WSLICE_BYTES = 32 * 128 * 4  # fcnn_chain.cu: kBK x kCW floats
+#: SMs of an H100 SXM: the planners' count for tensors off the card.
+H100_SMS = 132
+# The FP32 tile's constants (csrc/f32_tile.cuh): rows per CTA (8 row
+# groups times R) for fused_dense and for the chain, K per slice, ring
+# slots, floats per A row in a slot, widest column pass.
+_F32_TILE_ROWS = (64, 32, 16, 8)
+_CHAIN_TILE_ROWS = (64, 72, 8)
+_BK = 64
+_STAGES = 3
+_A_STRIDE = _BK + 4
+_MAX_PASS = 128
+_SOFTMAX = ACTIVATION_IDS["softmax"]
 
 
 def activation_ids(activations: Sequence[str]) -> tuple[int, ...]:
@@ -89,6 +109,187 @@ def _ints(values) -> ctypes.Array:
 
 
 # ---------------------------------------------------------------------------
+# Planners
+# ---------------------------------------------------------------------------
+
+def _device_index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.type != "cuda":
+        return H100_SMS
+    return _cuda_sm_count(_device_index(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _cuda_sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _fills(ctas: int, sm_count: int) -> bool:
+    """At least 90% of the SMs get a CTA (128 of 132: the flagship's one
+    wave of 64-row tiles)."""
+    return 10 * ctas >= 9 * sm_count
+
+
+def pass_tn(remaining: int, max_tn: int = 8) -> int:
+    """Columns a thread takes in a pass that starts with ``remaining``
+    columns left: the pass is 16 x TN wide, TN the smallest of 1, 2, 4, 8
+    that covers them, at most ``max_tn`` (csrc ``pass_tn``)."""
+    tn = 8 if remaining > 64 else 4 if remaining > 32 else 2 if remaining > 16 else 1
+    return min(max_tn, tn)
+
+
+def column_passes(dout: int, first_layer: bool = True) -> list[tuple[int, int]]:
+    """A chain layer's column passes, ``(first column, width)``: up to
+    128 columns wide in the first layer, 64 in the later ones (csrc
+    ``max_pass_tn``)."""
+    passes, c0 = [], 0
+    while c0 < dout:
+        width = 16 * pass_tn(dout - c0, 8 if first_layer else 4)
+        passes.append((c0, width))
+        c0 += width
+    return passes
+
+
+@functools.lru_cache(maxsize=1024)
+def dense_plan(M: int, N: int, sm_count: int = H100_SMS) -> tuple[int, int]:
+    """``fused_dense``'s tile, ``(tm, tn)``: ``tm`` rows by ``16 tn``
+    columns a CTA; ``tn`` from N's width, ``tm`` the tallest whose grid
+    fills the SMs (else the shortest, for the most CTAs)."""
+    tn = pass_tn(N)
+    col_tiles = -(-N // (16 * tn))
+    for tm in _F32_TILE_ROWS:
+        if _fills(-(-M // tm) * col_tiles, sm_count):
+            return tm, tn
+    return _F32_TILE_ROWS[-1], tn
+
+
+class ChainPlan(NamedTuple):
+    """One ``fcnn_chain`` launch: ``tm`` rows a row tile, ``split`` CTAs
+    (one cluster) a row tile, the resident buffers' row widths ``ld0``
+    (dims[1], dims[3], ...) and ``ld1`` (dims[2], ...), and the block's
+    dynamic shared memory."""
+
+    tm: int
+    split: int
+    ld0: int
+    ld1: int
+    smem_bytes: int
+
+
+def k_ranges(K: int) -> list[tuple[int, int]]:
+    """Layer 0's K ranges, ``[kb, ke)`` each, of whole 64-deep slices: 8
+    from 32 slices, 2 from 16, else one (csrc ``k_ranges``). A lone CTA
+    adds the ranges' sums in this order, and a split-K cluster gives each
+    rank one range, so a row's result does not depend on the plan its
+    batch took."""
+    slices = -(-K // _BK)
+    n = 8 if slices >= 32 else 2 if slices >= 16 else 1
+    per = -(-slices // n)
+    return [(min(K, r * per * _BK), min(K, (r + 1) * per * _BK)) for r in range(n)]
+
+
+def _row_stride(width: int) -> int:
+    """A resident buffer's row stride: a multiple of 4 floats (rows are
+    read 16 bytes at a time), not of 32 (a warp reads two adjacent rows
+    at once: 32 floats apart they would share banks); 0 for no buffer."""
+    ld = -(-width // 4) * 4
+    return ld + 4 if ld and ld % 32 == 0 else ld
+
+
+def _buffer_widths(dims: Sequence[int], acts: Sequence[int]) -> tuple[int, int]:
+    """Row strides of the two resident buffers (:func:`_row_stride`):
+    every interior boundary; the last one when its softmax is wider
+    than one pass (128 columns in the first layer, 64 after); dims[1]
+    when layer 0's K has more than one range (:func:`k_ranges`): the
+    ranges' sums gather there."""
+    L = len(dims) - 1
+    ranged = len(k_ranges(dims[0])) > 1
+    one_pass = _MAX_PASS if L == 1 else _MAX_PASS // 2  # the last layer's widest pass
+    widths = [0, 0]
+    for bnd in range(1, L + 1):
+        if (bnd < L or (acts[-1] == _SOFTMAX and dims[L] > one_pass)
+                or (bnd == 1 and ranged)):
+            widths[(bnd - 1) % 2] = max(widths[(bnd - 1) % 2], dims[bnd])
+    return tuple(_row_stride(w) for w in widths)
+
+
+def chain_plan(dims: Sequence[int], acts: Sequence[int], M: int, sm_count: int = H100_SMS,
+               device_index: int | None = None,
+               what: str = "fcnn_fused_forward") -> ChainPlan:
+    """The f32 chain's launch. Among the row tiles (64, 72, 8 rows) whose
+    ring and resident buffers fit a block's shared memory and the splits
+    (1, or one CTA a K range of :func:`k_ranges`) whose clusters the card
+    runs all at once (:func:`max_clusters`), the first that fills the
+    SMs, trying 64-row tiles before 72 and no split before one; if none
+    fills, the one with the most CTAs. The 72-row tile is for a batch of
+    1024: 16 clusters of 8 would not run at once, 15 do. Raises
+    :class:`InvalidArgumentError` naming the limit when not even 8 rows
+    of the interior widths fit. Cached: a serving loop asks for the same
+    plan every batch."""
+    return _chain_plan(tuple(dims), tuple(acts), M, sm_count, device_index, what)
+
+
+def _chain_smem(tm: int, ld0: int, ld1: int) -> int:
+    """Bytes of the chain kernel's ring and resident buffers."""
+    return 4 * (_STAGES * (tm * _A_STRIDE + _BK * _MAX_PASS) + tm * (ld0 + ld1))
+
+
+#: Clusters of the chain kernel an H100 SXM runs at once, by split, one
+#: CTA an SM (cudaOccupancyMaxActiveClusters on the card): clusters of 4
+#: and of 8 fill only 120 of the 132 SMs.
+_H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
+
+
+@functools.lru_cache(maxsize=1024)
+def max_clusters(device_index: int | None, tm: int, split: int, smem: int,
+                 sm_count: int = H100_SMS) -> int:
+    """How many clusters of ``split`` chain CTAs run at once: asked of
+    the card for a CUDA device, else the H100 figures scaled to
+    ``sm_count``."""
+    if device_index is None:
+        return _H100_CLUSTERS[split] * sm_count // H100_SMS
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        code = _build.launcher("fcnn_chain", "tdn_fcnn_chain_max_clusters")(
+            tm, split, smem, ctypes.byref(n))
+    _build.check(code, "fcnn_chain max clusters")
+    return n.value
+
+
+@functools.lru_cache(maxsize=1024)
+def _chain_plan(dims, acts, M, sm_count, device_index, what) -> ChainPlan:
+    ranges = len(k_ranges(dims[0]))
+    ld0, ld1 = _buffer_widths(dims, acts)
+    best = None
+    for tm in _CHAIN_TILE_ROWS:
+        tiles = -(-M // tm)
+        smem = _chain_smem(tm, ld0, ld1)
+        if smem > SMEM_LIMIT_BYTES:
+            continue
+        for split in dict.fromkeys((1, ranges)):
+            plan = ChainPlan(tm, split, ld0, ld1, smem)
+            if split > 1 and tiles > max_clusters(device_index, tm, split, smem, sm_count):
+                continue
+            if _fills(tiles * split, sm_count):
+                return plan
+            if best is None or tiles * split > -(-M // best.tm) * best.split:
+                best = plan
+    if best is not None:
+        return best
+    tm = _CHAIN_TILE_ROWS[-1]
+    need = _chain_smem(tm, ld0, ld1)
+    raise InvalidArgumentError(
+        f"{what}: {tm} rows of the interior activations ({ld0} + {ld1} floats wide) "
+        f"and the K-slice ring need {need} bytes of shared memory, over the "
+        f"{SMEM_LIMIT_BYTES}-byte limit of a Hopper block; the chain kernel cannot "
+        "run these widths"
+    )
+
+
+# ---------------------------------------------------------------------------
 # Single fused layer
 # ---------------------------------------------------------------------------
 
@@ -116,10 +317,11 @@ def fused_dense(x, w, b, *, activation: str = "linear") -> torch.Tensor:
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     if M == 0 or N == 0:
         return out
+    tm, tn = dense_plan(M, N, _sm_count(dev))
     launch = _build.launcher("fused_dense")
     with torch.cuda.device(dev):
         code = launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                      M, K, N, act, _stream(dev))
+                      M, K, N, act, tm, tn, _stream(dev))
     _build.check(code, "fused_dense launch")
     fused_dense.launches += 1
     return out
@@ -133,13 +335,15 @@ fused_dense.launches = 0
 # ---------------------------------------------------------------------------
 
 def boundary_widths(dims: Sequence[int]) -> tuple[int, int]:
-    """Widest even and odd layer boundary: the two ping-pong buffers'
-    row widths (buffer A holds dims[0], dims[2], ...; B dims[1], ...)."""
+    """Widest even and odd layer boundary: the int8 chain's two
+    ping-pong buffers' row widths (buffer A holds dims[0], dims[2], ...;
+    B dims[1], ...)."""
     return max(dims[0::2]), max(dims[1::2])
 
 
 def chain_tile_rows(row_bytes: int, fixed_bytes: int, what: str) -> int:
-    """Largest rows-per-CTA whose buffers fit a block's shared memory;
+    """The int8 chain's rows per CTA: the largest whose buffers fit a
+    block's shared memory;
     raises :class:`InvalidArgumentError` naming the limit when not even
     one row fits."""
     for tm in _TILE_ROWS:
@@ -179,7 +383,7 @@ def fcnn_fused_forward_plain(params, x, *, activations=None,
 
 def fcnn_fused_forward(params, x, *, activations: Sequence[str] | None = None,
                        input_scale: float | None = None) -> torch.Tensor:
-    """The whole FCNN chain in one kernel per tile of rows.
+    """The whole FCNN chain in one kernel launch (:func:`chain_plan`).
 
     ``params``: the :mod:`tpu_dist_nn_torch.models.fcnn` list (float32
     ``w``/``b`` on x's device). ``x``: ``(M, in_dim)`` float32, or uint8
@@ -200,22 +404,23 @@ def fcnn_fused_forward(params, x, *, activations: Sequence[str] | None = None,
         _check_tensor(p["w"], f"layer {i} w", (torch.float32,), dev)
         _check_tensor(p["b"], f"layer {i} b", (torch.float32,), dev)
     dims = _chain_dims(params, x)
-    ld_a, ld_b = boundary_widths(dims)
-    tm = chain_tile_rows(4 * (ld_a + ld_b), _F32_WSLICE_BYTES, "fcnn_fused_forward")
+    M = int(x.shape[0])
+    plan = chain_plan(dims, acts, M, _sm_count(dev),
+                      None if dev.type == "cpu" else _device_index(dev))
     if dev.type == "cpu":
         return fcnn_fused_forward_plain(params, x, activations=activations,
                                         input_scale=input_scale)
-    M = int(x.shape[0])
     out = torch.empty((M, dims[-1]), dtype=torch.float32, device=dev)
     if M == 0:
         return out
-    launch = _build.launcher("fcnn_chain")
+    launch = _build.launcher("fcnn_chain", "tdn_fcnn_chain")
     scale = 1.0 if input_scale is None else float(input_scale)
     with torch.cuda.device(dev):
         code = launch(
             x.data_ptr(), int(x.dtype == torch.uint8), scale, out.data_ptr(), M,
             _ptrs([p["w"] for p in params]), _ptrs([p["b"] for p in params]),
-            _ints(dims), _ints(acts), len(params), tm, ld_a, ld_b, _stream(dev),
+            _ints(dims), _ints(acts), len(params), plan.tm, plan.split, plan.ld0, plan.ld1,
+            _stream(dev),
         )
     _build.check(code, "fcnn_fused_forward launch")
     fcnn_fused_forward.launches += 1

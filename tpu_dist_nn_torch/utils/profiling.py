@@ -3,7 +3,8 @@
 Port of :mod:`tpu_dist_nn.utils.profiling`. :class:`LatencyStats` is a
 copy (the source of the "p50 batch latency" figures);
 :func:`cuda_time_ms` times device work with CUDA events, the card's
-counterpart of the JAX package's device traces.
+counterpart of the JAX package's device traces; :func:`cuda_graph_time_ms`
+does the same with the host's launch cost taken out.
 """
 
 from __future__ import annotations
@@ -118,3 +119,35 @@ def cuda_time_ms(fn, *, iters: int = 50, warmup: int = 5) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def cuda_graph_time_ms(fn, *, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device milliseconds per call of ``fn()`` with the host out of
+    the way: ``warmup`` untimed calls on a side stream, then ``iters``
+    calls captured in one CUDA graph, replayed once untimed and once
+    between two CUDA events. Where a call's Python and launch cost
+    exceeds its device time, :func:`cuda_time_ms` measures the host;
+    this measures the kernels. Outputs of the captured calls stay
+    allocated until the graph is freed. Raises without a visible GPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("cuda_graph_time_ms needs a CUDA device")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    stop.synchronize()
+    ms = start.elapsed_time(stop) / iters
+    del graph
+    return ms
