@@ -18,7 +18,13 @@ package. Phases, each fatal on failure (exit 1, no result line):
    at the conv network's 2048-64-10 tail (split-K across a cluster, at
    1024, 1023 and 37 rows, uint8 input, a ragged K of 2000), with a
    softmax normalised in the epilogue and in a second pass, and each
-   called twice on one input: bit-equal.
+   called twice on one input: bit-equal. The int8 tensor-core chain at
+   8192, 8191 and 37 rows, 1024-1024-1024-10, a 60000-wide input and
+   (cut in two) a 60000-wide interior, bit-equal on a repeat; the conv
+   implicit GEMM at batch 1023, an odd 31x29 image with overlapping 3x3
+   stride-2 windows, stride 2 VALID, softmax over the channels, and the
+   two shapes a band planner refused ((1, 64, 64, 256) x 3x3x256x256 and
+   (1, 3, 32, 1024) x 3x3x1024x1).
 3. Drive each main path with every kernel's launch count set to 0
    just before it and read just after:
 
@@ -53,13 +59,22 @@ package. Phases, each fatal on failure (exit 1, no result line):
      route) first loss within rtol 1e-3, all three within 1e-2.
      After it, the CLI's ``lm`` verb runs a few steps.
 
+   * dense runs past one chain launch, each engine's counts zeroed
+     before its run: a 34-layer 16-wide FCNN in float32 (float64
+     oracle, 1e-5) and int8 (the plain chain), 784-4000-10 and
+     64-8192-10 in float32 (oracle), 60000-16-10 and 64-60000-10 in
+     int8 (plain chain); each prints its cut and its chain launches a
+     batch.
+
    Every kernel of a path must have launched in that path's run.
 4. Time each kernel, its plain version and the nearest PyTorch library
    call with CUDA events at the main paths' shapes (the chain also at
    the conv tail's; the f32 dense kernels as a CUDA graph of 50 calls,
    since their device time is below a Python call's), beside the least
    time the card could take (its bound); the conv engine's samples/s
-   and batch latency; the sm90 flash kernels beside the FFMA kernels
+   and batch latency (the int8 chain and each conv stage by a host
+   loop of 50 calls, or by a CUDA graph of 50 calls where the loop
+   takes over 10% longer, both printed); the sm90 flash kernels beside the FFMA kernels
    they replace on bf16 (each at least 2x faster, or the run fails);
    flash attention and the materialised attention at the TPU kernel
    sweep's shape (B 4, H 8, T 4096).
@@ -194,12 +209,15 @@ def main() -> None:
     )
     from tpu_dist_nn_torch.data.text import encode, lm_batches, lm_sequences, load_corpus
     from tpu_dist_nn_torch.kernels.flash_attention import bf16_rounding_bounds, flash_attention
+    from tpu_dist_nn_torch.kernels.conv2d import conv_plan
     from tpu_dist_nn_torch.kernels.fused_dense import (
         _buffer_widths,
         _chain_smem,
         activation_ids,
         chain_plan,
+        chain_segments,
         dense_plan,
+        int8_plan,
         max_clusters,
     )
     from tpu_dist_nn_torch.models.fcnn import params_from_spec
@@ -213,7 +231,12 @@ def main() -> None:
         tree_map,
     )
     from tpu_dist_nn_torch.train.lm_trainer import LMTrainConfig, evaluate_lm, train_lm
-    from tpu_dist_nn_torch.models.network import build_network, init_conv_mlp, network_forward
+    from tpu_dist_nn_torch.models.network import (
+        build_network,
+        dense_forward,
+        init_conv_mlp,
+        network_forward,
+    )
     from tpu_dist_nn_torch.testing.oracle import oracle_forward_batch
     from tpu_dist_nn_torch.utils.profiling import LatencyStats, cuda_graph_time_ms, cuda_time_ms
 
@@ -259,7 +282,8 @@ def main() -> None:
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
         max_abs = float(diff.max()) if diff.numel() else 0.0
-        max_rel = float((diff / want.float().abs().clamp_min(atol)).max()) if diff.numel() else 0.0
+        max_rel = (float((diff / want.float().abs().clamp_min(max(atol, 1e-30))).max())
+                   if diff.numel() else 0.0)
         ok = (got.shape == want.shape and bool(torch.isfinite(got).all())
               and bool(torch.allclose(got, want, atol=atol, rtol=rtol)))
         exact = int((got != want).sum())
@@ -401,7 +425,10 @@ def main() -> None:
     wide = he_model([1024, 1024, 1024, 10], ACTS, seed=2)
     q_wide = quantize_fcnn(params_from_spec(wide, device=dev))
     x_wide = on_card(rng.uniform(0.0, 1.0, (BATCH, 1024)).astype(np.float32))
-    for rows in (BATCH, BATCH - 1):
+    for dims_, rows in ((MNIST, BATCH), (MNIST, 37), ([1024, 1024, 1024, 10], BATCH)):
+        print(f"plan fcnn_quantized_forward {'-'.join(map(str, dims_))} x{rows} on {sms} SMs: "
+              f"{int8_plan(dims_, rows, sms)}")
+    for rows in (BATCH, BATCH - 1, 37):
         e = compare(f"fcnn_quantized_forward 784-128-64-10 x{rows}",
                     fcnn_quantized_forward(q, x[:rows]), forward_quantized(q, x[:rows]),
                     1e-7, 1e-6)
@@ -410,10 +437,31 @@ def main() -> None:
         compare(f"fcnn_quantized_forward 1024-1024-1024-10 x{rows}",
                 fcnn_quantized_forward(q_wide, x_wide[:rows]),
                 forward_quantized(q_wide, x_wide[:rows]), 1e-7, 1e-6)
+    # relu and linear interiors and a linear head: bit for bit.
+    q_lin = quantize_fcnn(params_from_spec(he_model(MNIST, ["relu", "linear", "linear"], seed=6),
+                                           device=dev))
+    for rows in (BATCH, BATCH - 1, 37):
+        got_, want_ = fcnn_quantized_forward(q_lin, x[:rows]), forward_quantized(q_lin, x[:rows])
+        compare(f"fcnn_quantized_forward 784-128-64-10 relu,linear,linear x{rows} (bit-equal)",
+                got_, want_, 0.0, 0.0)
     q_gelu = quantize_fcnn(params_from_spec(
         he_model(MNIST, ["gelu", "tanh", "softmax"], seed=3), device=dev))
     compare("fcnn_quantized_forward 784-128-64-10 gelu,tanh,softmax x8192",
             fcnn_quantized_forward(q_gelu, x), forward_quantized(q_gelu, x), 1e-2, 0.0)
+    repeat_check("fcnn_quantized_forward 784-128-64-10 x8192", lambda: fcnn_quantized_forward(q, x))
+    repeat_check("fcnn_quantized_forward 784-128-64-10 x37",
+                 lambda: fcnn_quantized_forward(q, x[:37]))
+    # A 60000-wide input (its codes made 1024 columns at a time) and a
+    # 60000-wide interior (cut in two launches by chain_segments).
+    for dims_ in ([60000, 16, 10], [64, 60000, 10]):
+        q_60k = quantize_fcnn(params_from_spec(he_model(dims_, ["relu", "softmax"], seed=7),
+                                               device=dev))
+        x_60k = on_card(rng.uniform(0.0, 1.0, (256, dims_[0])).astype(np.float32))
+        cut = chain_segments(dims_, activation_ids(["relu", "softmax"]), "int8")
+        compare(f"fcnn_quantized_forward {'-'.join(map(str, dims_))} x256 ({len(cut)} launch"
+                f"{'es' if len(cut) > 1 else ''})", dense_forward(q_60k, x_60k, quantized=True),
+                forward_quantized(q_60k, x_60k), 1e-7, 1e-6)
+        del q_60k, x_60k
 
     # fused_conv2d: the CIFAR conv+MLP network's two conv+pool stages at
     # batch 1024 and a ragged 1023, every activation, and the variants
@@ -451,6 +499,32 @@ def main() -> None:
     conv_check(f"conv 4x4 16x16x16->32 SAME tanh x{CIFAR_BATCH}", img2, w4, cb2,
                padding="same", activation="tanh")
     err["fused_conv2d"] = max(conv_errs)
+    for label, shape_, w_shape_, kw_ in (
+            ("conv1+pool", (CIFAR_BATCH, 32, 32, 3), (3, 3, 3, 16), pool2),
+            ("conv2+pool", (CIFAR_BATCH, 16, 16, 16), (3, 3, 16, 32), pool2)):
+        print(f"plan fused_conv2d {label} x{shape_[0]}: {conv_plan(shape_, w_shape_, **kw_)}")
+    # Ragged and odd shapes of the implicit GEMM's tiles: an odd 31x29
+    # image with overlapping 3x3 stride-2 windows, stride 2 VALID, and the
+    # two layers a band planner refused (K streams 16 and 64 input
+    # channels a slice), He-scaled weights on uniform pixels.
+    img_odd = on_card(rng.uniform(0.0, 1.0, (CIFAR_BATCH - 1, 31, 29, 3)).astype(np.float32))
+    conv_check(f"conv1 31x29x3->16 SAME relu + 3x3/2 pool x{CIFAR_BATCH - 1}", img_odd, cw1, cb1,
+               padding="same", activation="relu", pool_window=(3, 3), pool_stride=(2, 2))
+    conv_check(f"conv2 16x16x16->32 stride 2 VALID relu x{CIFAR_BATCH - 1}",
+               img2[:CIFAR_BATCH - 1], cw2, cb2, stride=(2, 2), padding="valid",
+               activation="relu")
+    for shape_, w_shape_ in (((1, 64, 64, 256), (3, 3, 256, 256)),
+                             ((1, 3, 32, 1024), (3, 3, 1024, 1))):
+        fan_in = w_shape_[0] * w_shape_[1] * w_shape_[2]
+        img_f4 = on_card(rng.uniform(0.0, 1.0, shape_).astype(np.float32))
+        w_f4 = on_card(rng.normal(0.0, math.sqrt(2.0 / fan_in), w_shape_).astype(np.float32))
+        b_f4 = on_card(rng.normal(0.0, 0.05, w_shape_[3]).astype(np.float32))
+        plan_f4 = conv_plan(shape_, w_shape_, padding="same")
+        conv_check(f"conv {shape_} x {w_shape_} SAME relu ({plan_f4.slices} K slices of "
+                   f"{plan_f4.ck} channels, grid {plan_f4.grid})", img_f4, w_f4, b_f4,
+                   padding="same", activation="relu")
+    repeat_check(f"fused_conv2d conv2+pool x{CIFAR_BATCH}",
+                 lambda: fused_conv2d(img2, cw2, cb2, activation="relu", **pool2))
 
     # Flash attention, both routes, against the plain versions, q, k and
     # v read as the three strided views of one fused projection as the
@@ -611,6 +685,46 @@ def main() -> None:
         fail(f"main-path checks failed: {failures}")
     agree = float((resq.outputs.argmax(-1) == res32.outputs.argmax(-1)).mean())
     print(f"int8 vs f32 argmax agreement: {agree:.4f}")
+
+    # Dense runs past one chain launch: deeper than 32 layers or wider
+    # than a chain's shared memory holds. chain_segments cuts each; every
+    # engine's counts are zeroed before its run (4 batches) and read after.
+    for label, dims_, quant, n_seg in (("34-layer 16-wide f32", [16] * 35, None, 2),
+                                       ("34-layer 16-wide int8", [16] * 35, "int8", 2),
+                                       ("784-4000-10 f32", [784, 4000, 10], None, 2),
+                                       ("64-8192-10 f32", [64, 8192, 10], None, 2),
+                                       ("60000-16-10 int8", [60000, 16, 10], "int8", 1),
+                                       ("64-60000-10 int8", [64, 60000, 10], "int8", 2)):
+        acts_ = ["relu"] * (len(dims_) - 2) + ["softmax"]
+        model_ = he_model(dims_, acts_, seed=len(dims_) + dims_[1])
+        rows_ = 256 if dims_[0] > 10000 else 2048
+        data_ = rng.uniform(0.0, 1.0, (rows_, dims_[0])).astype(np.float32)
+        eng_ = Engine.up(model_, quantize=quant)
+        reset_launch_counts()
+        res_ = eng_.run_inference(data_, batch_size=rows_ // 4)
+        counts_ = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+        cut = chain_segments(dims_, activation_ids(acts_), quant or "float32")
+        chain_key = "fcnn_quantized_forward" if quant else "fcnn_fused_forward"
+        print(f"engine past one chain, {label}: cut {[tuple(sg) for sg in cut]}; launches over 4 "
+              f"batches {json.dumps({k: n for k, n in counts_.items() if n})}: "
+              f"{counts_[chain_key] / 4:g} chain launches a batch")
+        if (len(cut) != n_seg or counts_[chain_key] != 4 * sum(not sg.dense for sg in cut)
+                or counts_["fused_dense"] != 4 * sum(sg.dense for sg in cut)):
+            fail(f"the {label} engine did not launch one kernel per segment per batch")
+        if quant:
+            q_ = quantize_fcnn(params_from_spec(model_, device=dev))
+            compare(f"engine {label} vs plain forward_quantized ({rows_} rows)",
+                    torch.from_numpy(res_.outputs), forward_quantized(q_, on_card(data_)).cpu(),
+                    1e-7, 1e-6)
+        else:
+            o_err = float(np.abs(res_.outputs - oracle_forward_batch(model_, data_)).max())
+            print(f"check engine {label} vs float64 oracle ({rows_} rows): max_abs {o_err:.3e} | "
+                  f"tol atol 1e-05 | {'ok' if o_err <= 1e-5 else 'FAIL'}")
+            if o_err > 1e-5:
+                failures.append(f"engine {label}")
+        del eng_, res_, data_
+    if failures:
+        fail(f"engines past one chain failed: {failures}")
 
     # The conv path: the CIFAR-10 conv+MLP network, each conv with its
     # pool in one fused_conv2d launch and the dense tail in one chain
@@ -888,6 +1002,16 @@ def main() -> None:
             return fn(inputs[state["i"]])
         return call
 
+    def loop_or_graph(fn):
+        """The device time of a call: a host loop of 50 calls, or, where
+        that loop takes over 10% longer than 50 calls captured in one CUDA
+        graph (the host then sets its pace), the graph's. Returns the
+        timer chosen and both times."""
+        loop, graph = cuda_time_ms(fn), cuda_graph_time_ms(fn)
+        if loop > 1.1 * graph:
+            return cuda_graph_time_ms, loop, graph
+        return cuda_time_ms, loop, graph
+
     def addmm_chain(h):
         for p, act in zip(params, ACTS):
             h = apply_activation(torch.addmm(p["b"], h, p["w"]), act)
@@ -940,22 +1064,27 @@ def main() -> None:
          int_mm_chain if int_mm_ok else None,
          4.0 * M * d0 + w_i8 + 4.0 * M * d3, flops_chain, i8_rate),
     ]
-    # The f32 dense kernels now take less device time than a Python call
-    # and its launch take on the host, so a host loop of calls would time
-    # the host: they, their plain versions and their library calls are
-    # timed as 50 calls captured in one CUDA graph (device time), with
-    # the host loop's time printed beside. The int8 chain keeps the host
-    # loop it was timed with before.
+    # The f32 dense kernels take less device time than a Python call and
+    # its launch take on the host, so a host loop of calls would time the
+    # host: they, their plain versions and their library calls are timed
+    # as 50 calls captured in one CUDA graph (device time), with the host
+    # loop's time printed beside. The int8 chain takes the timer
+    # loop_or_graph picks for its kernel, for all three.
     records = []
     for kname, source, replaces, kern, plain, library, nbytes, ops, rate in specs:
-        timer = cuda_time_ms if kname == "int8_chain" else cuda_graph_time_ms
+        timer = cuda_graph_time_ms
+        if kname == "int8_chain":
+            timer, loop_ms, graph_ms = loop_or_graph(cycled(kern))
+            print(f"time {kname} @ batch {M}: host loop {loop_ms:.4f} ms, CUDA graph "
+                  f"{graph_ms:.4f} ms a call -> timed by "
+                  f"{'the graph' if timer is cuda_graph_time_ms else 'the host loop'}")
         ms = timer(cycled(kern))
         plain_ms = timer(cycled(plain))
         library_ms = timer(cycled(library)) if library is not None else None
         if timer is cuda_graph_time_ms:
             print(f"time {kname} @ batch {M}, host loop of calls: kernel "
                   f"{cuda_time_ms(cycled(kern)):.4f} ms, library "
-                  f"{cuda_time_ms(cycled(library)):.4f} ms")
+                  f"{'n/a' if library is None else f'{cuda_time_ms(cycled(library)):.4f} ms'}")
         b_ms, b_by = bound_ms(nbytes, ops, rate, mem_rate)
         records.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
@@ -1031,9 +1160,13 @@ def main() -> None:
             return fused_conv2d_plain(h, wt, bias, activation="relu", **pool2)
 
         lib_err = float((library(img).permute(0, 2, 3, 1) - plain(img)).abs().max())
-        ms = cuda_time_ms(cycled(kern, ins))
-        plain_ms = cuda_time_ms(cycled(plain, ins))
-        library_ms = cuda_time_ms(cycled(library, ins))
+        timer, loop_ms, graph_ms = loop_or_graph(cycled(kern, ins))
+        print(f"time fused_conv2d {label} @ batch {img.shape[0]}: host loop {loop_ms:.4f} ms, "
+              f"CUDA graph {graph_ms:.4f} ms a call -> timed by "
+              f"{'the graph' if timer is cuda_graph_time_ms else 'the host loop'}")
+        ms = timer(cycled(kern, ins))
+        plain_ms = timer(cycled(plain, ins))
+        library_ms = timer(cycled(library, ins))
         B, H, W, cin = img.shape
         kh, kw, _, cout = wt.shape
         ops = 2.0 * B * cout * cin * in_image_taps(H, kh) * in_image_taps(W, kw)

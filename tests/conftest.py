@@ -308,6 +308,8 @@ QUICK_TESTS = {
         "test_route_raises_for_bf16_on_the_card_that_sm90_does_not_take"],
     "test_torch_kernels": ["test_fused_dense_matches_jax_kernel",
                            "test_forward_quantized_matches_jax_pallas_chain"],
+    "test_torch_segments": ["test_chain_segments_cut_at_every_unfit_boundary",
+                            "test_engine_serves_past_one_chain_like_the_jax_engine[34-layers-int8]"],
     "test_torch_lm": ["test_forward_and_loss_gradients_match_jax",
                       "test_train_lm_matches_jax_train_lm"],
     # ISSUE 10: the codec fast lane's correctness anchor (byte-exact

@@ -9,7 +9,10 @@ tests: rtol 2e-5 / atol 1e-5 for the kernel (``test_conv_kernel.py``),
 rtol 2e-4 / atol 1e-5 for the network against the float64 oracle, and
 rtol 5e-4 / atol 1e-5 for the engine (``test_conv.py``). Images stay
 small because interpret-mode Pallas is slow. The conv kernel itself runs
-only on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+only on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``); its
+schedule (the planner's tiles, the patch each K slice gathers with its
+zero fill, each thread's pixels and channel group, the conv tile and the
+pool over it) is written out in numpy here and held against both.
 """
 
 import json
@@ -34,6 +37,7 @@ from tpu_dist_nn.kernels.conv2d import fused_conv2d as jax_fused_conv2d
 from tpu_dist_nn.testing import oracle as jax_oracle
 from tpu_dist_nn_torch.api.engine import Engine
 from tpu_dist_nn_torch.cli import main as port_main
+from tpu_dist_nn_torch.core.activations import SOFTMAX_ID, apply_activation_by_id
 from tpu_dist_nn_torch.core import schema as pt_schema
 from tpu_dist_nn_torch.kernels import (
     KERNEL_WRAPPERS,
@@ -41,7 +45,7 @@ from tpu_dist_nn_torch.kernels import (
     fused_conv2d_plain,
     reset_launch_counts,
 )
-from tpu_dist_nn_torch.kernels.conv2d import SMEM_LIMIT_BYTES, conv_plan, same_pad
+from tpu_dist_nn_torch.kernels.conv2d import SMEM_LIMIT_BYTES, conv_args, conv_plan, same_pad
 from tpu_dist_nn_torch.models import network
 from tpu_dist_nn_torch.testing import oracle
 from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
@@ -222,26 +226,41 @@ def test_conv_wrapper_validates_like_the_jax_kernel():
 def test_conv_plan_bands_and_shared_memory_limit():
     stage1 = conv_plan((1024, 32, 32, 3), (3, 3, 3, 16), (1, 1), "same", (2, 2))
     stage2 = conv_plan((1024, 16, 16, 16), (3, 3, 16, 32), (1, 1), "same", (2, 2))
-    assert stage1.out_shape == (1024, 16, 16, 16) and stage1.band == 8
-    assert stage2.out_shape == (1024, 8, 8, 32) and stage2.band == 4
-    assert stage2.cc == 32  # the 18.4 KB of weights stage in one chunk
-    assert max(stage1.smem_bytes, stage2.smem_bytes) <= 48 * 1024
+    # Stage 1: a CTA computes one image (1024 conv pixels x 16 channels);
+    # stage 2: two images (512 x 32). Both pool relu 2x2 in registers;
+    # each layer's input channels fit one K slice.
+    assert stage1.out_shape == (1024, 16, 16, 16) and stage2.out_shape == (1024, 8, 8, 32)
+    assert (stage1.cg, stage1.imgs, stage1.tile, stage1.conv_tile) == (1, 1, (16, 16), (32, 32))
+    assert (stage2.cg, stage2.imgs, stage2.tile, stage2.conv_tile) == (2, 2, (8, 8), (16, 16))
+    assert stage1.grid == (1024, 1, 1, 1) and stage2.grid == (512, 1, 1, 1)
+    assert stage1.pool_regs and stage2.pool_regs
+    assert (stage1.slices, stage2.slices, stage2.ck) == (1, 1, 16)
+    # Three CTAs an SM by shared memory.
+    assert max(stage1.smem_bytes, stage2.smem_bytes) <= 228 * 1024 // 3
     assert stage1.pad == (1, 1) and stage1.pool == (2, 2, 2, 2)
     strided = conv_plan((2, 9, 9, 3), (4, 4, 3, 5), (2, 2), "same")
     assert strided.pad == (same_pad(9, 4, 2)[0],) * 2 and strided.conv_hw == (5, 5)
     wide = conv_plan((4, 112, 112, 64), (3, 3, 64, 64), (1, 1), "same")
-    assert wide.band >= 1 and wide.smem_bytes <= SMEM_LIMIT_BYTES
-    with pytest.raises(InvalidArgumentError, match="232448-byte limit"):
-        conv_plan((1, 64, 64, 256), (3, 3, 256, 256), (1, 1), "same")
+    assert wide.tile == (4, 112) and wide.grid == (4, 28, 1, 2) and wide.slices == 8
+    assert wide.smem_bytes <= SMEM_LIMIT_BYTES
+    # The shape the band planner refused (one band row over 227 KB): K
+    # now streams 8 input channels a slice (two slots in 113 KB: two CTAs
+    # an SM), 32 output channels a CTA.
+    big = conv_plan((1, 64, 64, 256), (3, 3, 256, 256), (1, 1), "same")
+    assert (big.ck, big.slices, big.grid) == (8, 32, (1, 8, 1, 8))
+    assert big.smem_bytes <= SMEM_LIMIT_BYTES
+    with pytest.raises(InvalidArgumentError, match="softmax over 200 channels"):
+        conv_plan((1, 8, 8, 3), (3, 3, 3, 200), (1, 1), "same", activation="softmax")
 
 
 def test_cpu_path_has_no_shared_memory_limit():
-    # One staged row of 34 x 1025 floats, three rows deep, is over a
-    # block's shared memory: the card refuses the layer, the plain
-    # version on the CPU computes it.
+    # One staged row of 34 x 1025 floats, three rows deep, was over a
+    # block's shared memory for the band planner: the implicit GEMM
+    # streams the 1024 input channels in 32 slices of 32, so the card
+    # plans the layer, and the plain version on the CPU computes it.
     imgs_shape, w_shape = (1, 3, 32, 1024), (3, 3, 1024, 1)
-    with pytest.raises(InvalidArgumentError, match="232448-byte limit"):
-        conv_plan(imgs_shape, w_shape, (1, 1), "same")
+    plan = conv_plan(imgs_shape, w_shape, (1, 1), "same")
+    assert (plan.ck, plan.slices, plan.smem_bytes <= SMEM_LIMIT_BYTES) == (32, 32, True)
     rng = np.random.default_rng(9)
     imgs, w = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
                for shape in (imgs_shape, w_shape))
@@ -249,6 +268,216 @@ def test_cpu_path_has_no_shared_memory_limit():
     got = fused_conv2d(imgs, w, b, padding="same", activation="relu")
     want = fused_conv2d_plain(imgs, w, b, padding="same", activation="relu")
     assert got.shape == (1, 3, 32, 1) and torch.equal(got, want)
+    # The card's schedule, emulated: 9216-term sums of unit-normal
+    # products (outputs up to ~200) in another float32 order, so it and
+    # the plain version are each held against float64 at 2e-6 of the
+    # largest output.
+    emulated = _emulate_conv(imgs.numpy(), w.numpy(), b.numpy(), padding="same",
+                             activation="relu")
+    ref = torch.relu(torch.nn.functional.conv2d(
+        imgs.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1), padding=1)
+    ).permute(0, 2, 3, 1).numpy()
+    tol = 2e-6 * np.abs(ref).max()
+    np.testing.assert_allclose(emulated, ref, rtol=0, atol=tol)
+    np.testing.assert_allclose(want.numpy(), ref, rtol=0, atol=tol)
+
+
+# ---------------------------------------- the conv kernel's schedule, emulated
+
+def _conv_arg_names():
+    """csrc/conv2d.cu's ConvArgs field names, in order."""
+    src = (ROOT / "tpu_dist_nn_torch/kernels/csrc/conv2d.cu").read_text()
+    body = src[src.index("struct ConvArgs {"):].split("};")[0]
+    names = []
+    for line in body.splitlines()[1:]:
+        decl = line.split("//")[0].strip()
+        if decl.startswith("int "):
+            names += [n.strip() for n in decl[4:].rstrip(";").split(",")]
+    return names
+
+
+def _pixel_slot(a, pwi, lane, p):
+    """csrc ``pixel_slot``: the tile pixel a thread's p-th pixel is."""
+    if a["pool_regs"] and a["ccw"] == 16:
+        return pwi * 128 + (2 * (2 * (p >> 1) + (lane >> 4)) + (p & 1)) * 16 + (lane & 15)
+    return pwi * 128 + lane + 32 * p
+
+
+def _emulate_conv(imgs, w, b, *, stride=(1, 1), padding="valid", activation="linear",
+                  pool_window=None, pool_stride=None, gather_shift=0):
+    """``csrc/conv2d.cu``'s loop in numpy, from the ``ConvArgs`` the
+    wrapper passes: each CTA's tile, its K slices' patch (gathered with
+    zero fill at the kernel's offsets; ``gather_shift`` moves the input
+    rows a patch reads) and weights, each thread's 4 pixels (offsets
+    into the patch) times its channel group's 16 weights per tap and
+    input channel; then either the register pool (window partners by
+    pixel slot: the thread's next pixel or lane ^ 16 for the row, lane
+    ^ 1 for the column; max, then bias and relu) or bias into the conv
+    tile, softmax over a pixel's channels, and the pool over it."""
+    plan = conv_plan(imgs.shape, w.shape, stride, padding, pool_window, pool_stride, activation)
+    a = dict(zip(_conv_arg_names(), conv_args(plan, imgs.shape, w.shape, stride, activation)))
+    act = a["act"]
+    nct, mt = 16 * a["cg"], 1024 // a["cg"]
+    out = np.full(plan.out_shape, np.nan, np.float32)
+    per_img = a["cr"] * a["ccw"]
+    w_rows = w.reshape(a["kh"] * a["kw"], a["cin"], a["cout"])
+    blocks = -(-a["B"] // a["imgs"]) * a["tiles_y"] * a["tiles_x"] * a["ctiles"]
+    for bid in range(blocks):
+        ct, rest = bid % a["ctiles"], bid // a["ctiles"]
+        tx, rest = rest % a["tiles_x"], rest // a["tiles_x"]
+        ty, b0 = rest % a["tiles_y"], rest // a["tiles_y"] * a["imgs"]
+        c0, py0, px0 = ct * nct, ty * a["tpr"], tx * a["tpc"]
+        iy0 = py0 * a["psh"] * a["sh"] - a["pad_t"] + gather_shift
+        ix0 = px0 * a["psw"] * a["sw"] - a["pad_l"]
+        # Thread (warp pwi * cg + cgi, lane) takes pixels pwi * 128 + lane + 32p.
+        m = np.arange(mt)
+        mm = np.where(m < a["imgs"] * per_img, m, 0)
+        img, rem = mm // per_img, mm % per_img
+        poff = img * a["pimg"] + rem // a["ccw"] * a["sh"] * a["prs"] + rem % a["ccw"] * a["sw"] * a["cs"]
+        acc = np.zeros((mt, nct), np.float32)
+        for s in range(-(-a["cin"] // a["ck"])):
+            k0 = s * a["ck"]
+            slot = np.zeros(a["stage_floats"], np.float32)
+            gi, gr, gc, gk = np.meshgrid(np.arange(a["imgs"]), np.arange(a["prow"]),
+                                         np.arange(a["pcol"]), np.arange(a["ck"]), indexing="ij")
+            bb, iy, ix, kk = b0 + gi, iy0 + gr, ix0 + gc, k0 + gk
+            ok = (bb < a["B"]) & (iy >= 0) & (iy < a["H"]) & (ix >= 0) & (ix < a["W"]) & (kk < a["cin"])
+            vals = imgs[np.where(ok, bb, 0), np.where(ok, iy, 0), np.where(ok, ix, 0),
+                        np.where(ok, kk, 0)]
+            slot[gi * a["pimg"] + gr * a["prs"] + gc * a["cs"] + gk] = np.where(ok, vals, 0.0)
+            ws = np.zeros((a["kh"] * a["kw"], a["ck"], nct), np.float32)
+            kc = min(a["ck"], a["cin"] - k0)
+            nc = min(nct, a["cout"] - c0)
+            ws[:, :kc, :nc] = w_rows[:, k0:k0 + kc, c0:c0 + nc]
+            for i in range(a["kh"]):
+                for j in range(a["kw"]):
+                    for ci in range(a["ck"]):
+                        av = slot[poff + i * a["prs"] + j * a["cs"] + ci]
+                        acc += np.outer(av, ws[i * a["kw"] + j, ci])
+        bias = np.zeros(nct, np.float32)
+        bias[:min(nct, a["cout"] - c0)] = b[c0:c0 + nct]
+        npr, npc = min(a["tpr"], a["ph"] - py0), min(a["tpc"], a["pw"] - px0)
+        nc = min(nct, a["cout"] - c0)
+        if a["pool_regs"]:
+            # Each thread: the max of its pixels p and p + 1 (a window's two
+            # rows), then of lane ^ 1's (its two columns); bias and relu
+            # after; the lane at the window's top-left stores.
+            for pwi in range(mt // 128):
+                for p in (0, 2):
+                    v = {}
+                    for lane in range(32):
+                        v[lane] = np.maximum(acc[_pixel_slot(a, pwi, lane, p)],
+                                             acc[_pixel_slot(a, pwi, lane, p + 1)])
+                    for lane in range(32):
+                        y = np.maximum(v[lane], v[lane ^ 1]) + bias
+                        if act == activation_id("relu"):
+                            y = np.maximum(y, 0.0)
+                        im, rem = divmod(_pixel_slot(a, pwi, lane, p), per_img)
+                        cy, cx = divmod(rem, a["ccw"])
+                        if (cx % 2 or im >= a["imgs"] or b0 + im >= a["B"] or cy // 2 >= npr
+                                or cx // 2 >= npc):
+                            continue
+                        out[b0 + im, py0 + cy // 2, px0 + cx // 2, c0:c0 + nc] = y[:nc]
+            continue
+        tile = torch.from_numpy(acc + bias)
+        if act == SOFTMAX_ID:
+            tile[:, :a["cout"]] = torch.softmax(tile[:, :a["cout"]], dim=1)
+        else:
+            tile = apply_activation_by_id(tile, act)
+        tile = tile.numpy()
+        for im in range(min(a["imgs"], a["B"] - b0)):
+            for pr in range(npr):
+                for pc in range(npc):
+                    best = np.full(nc, -np.inf, np.float32)
+                    for i in range(a["pwh"]):
+                        for j in range(a["pww"]):
+                            mpix = (im * a["cr"] + pr * a["psh"] + i) * a["ccw"] + pc * a["psw"] + j
+                            best = np.maximum(best, tile[mpix, :nc])
+                    out[b0 + im, py0 + pr, px0 + pc, c0:c0 + nc] = best
+    return out
+
+
+_SCHEDULE_CASES = {
+    # the CIFAR stages' register pools: 32 and 16 columns wide, 1 and 2 images a tile
+    "register-pool-wide": ((2, 32, 32, 3), 3, 16, dict(padding="same", activation="relu",
+                                                        pool_window=(2, 2))),
+    "register-pool-narrow": ((3, 16, 16, 16), 3, 32, dict(padding="same", activation="linear",
+                                                           pool_window=(2, 2))),
+    # two images in one CTA's tile (144 conv pixels each)
+    "images-per-tile": ((2, 12, 12, 3), 3, 16, dict(padding="same", activation="relu",
+                                                     pool_window=(2, 2))),
+    # 3 row tiles of 7, 7 and 6 pooled rows; 20 channels: 2 groups of 16
+    "ragged-row-tiles": ((1, 40, 36, 3), 3, 20, dict(padding="same", activation="relu",
+                                                      pool_window=(2, 2))),
+    # overlapping 3x3/2 windows: two row tiles share conv rows
+    "overlapping-pool": ((1, 70, 30, 2), 3, 8, dict(padding="valid", activation="sigmoid",
+                                                     pool_window=(3, 3), pool_stride=(2, 2))),
+    "stride2-same": ((2, 19, 17, 3), 4, 5, dict(padding="same", activation="gelu",
+                                                 stride=(2, 2))),
+    "stride2-valid": ((2, 19, 17, 3), 3, 6, dict(padding="valid", activation="tanh",
+                                                  stride=(2, 2), pool_window=(2, 2))),
+    # softmax over 40 channels: one CTA holds them all (4 groups)
+    "softmax": ((2, 20, 16, 3), 3, 40, dict(padding="same", activation="softmax")),
+    # 70 input channels in 2 K slices; 40 output channels in 2 channel tiles
+    "k-slices-channel-tiles": ((1, 10, 9, 70), 3, 40, dict(padding="same", activation="linear")),
+}
+
+
+@pytest.mark.parametrize("case", list(_SCHEDULE_CASES))
+def test_conv_schedule_emulated_matches_plain_and_jax(case):
+    shape, k, cout, kw = _SCHEDULE_CASES[case]
+    rng = np.random.default_rng(len(case))
+    imgs = rng.uniform(0, 1, shape).astype(np.float32)
+    w = rng.normal(0, (2 / (k * k * shape[3])) ** 0.5, (k, k, shape[3], cout)).astype(np.float32)
+    b = rng.normal(0, 0.05, cout).astype(np.float32)
+    plan = conv_plan(shape, (k, k, shape[3], cout), kw.get("stride", (1, 1)), kw["padding"],
+                     kw.get("pool_window"), kw.get("pool_stride"), kw["activation"])
+    assert plan.pool_regs == case.startswith("register-pool")
+    got = _emulate_conv(imgs, w, b, **kw)
+    want = fused_conv2d_plain(torch.from_numpy(imgs), torch.from_numpy(w), torch.from_numpy(b),
+                              **kw).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5)
+    jax_out = np.asarray(jax_fused_conv2d(jnp.asarray(imgs), jnp.asarray(w), jnp.asarray(b), **kw))
+    np.testing.assert_allclose(got, jax_out, rtol=2e-5, atol=1e-5)
+    # A patch gathered one input row off is caught.
+    shifted = _emulate_conv(imgs, w, b, gather_shift=1, **kw)
+    assert not np.allclose(shifted, want, rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("stage", ["conv1", "conv2", "conv2-tanh"])
+def test_conv_patch_reads_fall_in_distinct_banks(stage):
+    # At each of a thread's pixels, a warp's 32 lanes read 32 patch floats
+    # (one input channel of one tap); the planner's strides put them in 32
+    # banks, so a read is one shared-memory wavefront.
+    shape, w_shape, act = {"conv1": ((1024, 32, 32, 3), (3, 3, 3, 16), "relu"),
+                           "conv2": ((1024, 16, 16, 16), (3, 3, 16, 32), "relu"),
+                           "conv2-tanh": ((1024, 16, 16, 16), (3, 3, 16, 32), "tanh")}[stage]
+    plan = conv_plan(shape, w_shape, (1, 1), "same", (2, 2), None, act)
+    a = dict(zip(_conv_arg_names(), conv_args(plan, shape, w_shape, (1, 1), act)))
+    assert a["pool_regs"] == (act == "relu")
+    per_img = a["cr"] * a["ccw"]
+    slots = set()
+    for pwi in range(1024 // a["cg"] // 128):
+        for p in range(4):
+            banks = set()
+            for lane in range(32):
+                m = _pixel_slot(a, pwi, lane, p)
+                slots.add(m)
+                im, rem = divmod(m, per_img)
+                cy, cx = divmod(rem, a["ccw"])
+                banks.add((im * a["pimg"] + cy * a["prs"] + cx * a["cs"]) % 32)
+            assert len(banks) == 32
+    assert slots == set(range(1024 // a["cg"]))  # every pixel of the tile, once
+
+
+def test_conv_args_match_the_kernel_struct():
+    names = _conv_arg_names()
+    plan = conv_plan((3, 17, 19, 3), (3, 3, 3, 33), (1, 1), "same", (2, 2))
+    args = conv_args(plan, (3, 17, 19, 3), (3, 3, 3, 33), (1, 1), "relu")
+    assert len(names) == len(args) == 38
+    a = dict(zip(names, args))
+    assert (a["cg"], a["ctiles"], a["cs"] % 2, a["ldt"] % 2) == (2, 2, 1, 1)
+    assert a["patch_floats"] % 4 == 0 and a["stage_floats"] % 4 == 0
 
 
 # -------------------------------------------------------------- network

@@ -216,7 +216,7 @@ def test_fused_conv2d_matches_plain_on_the_card(cuda, B, H, W, cin, k, cout, kw)
     plan = conv_plan(imgs.shape, w.shape, kw.get("stride", (1, 1)), kw["padding"],
                      kw.get("pool_window"), kw.get("pool_stride"))
     if H == 62:
-        assert plan.out_shape[1] % plan.band != 0  # the last band is ragged
+        assert plan.out_shape[1] % plan.tile[0] != 0  # the last row tile is ragged
     reset_launch_counts()
     got = fused_conv2d(imgs, w, b, **kw)
     torch.testing.assert_close(got, fused_conv2d_plain(imgs, w, b, **kw), atol=1e-5, rtol=2e-5)
@@ -241,6 +241,77 @@ def test_conv_engine_on_the_card_matches_the_cpu_engine(cuda):
     with pytest.raises(InvalidArgumentError, match="is on"):
         fused_conv2d(torch.zeros(1, 4, 4, 1, device=cuda), torch.zeros(3, 3, 1, 2),
                      torch.zeros(2, device=cuda))
+
+
+@pytest.mark.parametrize(
+    "shape,w_shape,kw",
+    [((1, 64, 64, 256), (3, 3, 256, 256), dict(padding="same")),
+     ((1, 3, 32, 1024), (3, 3, 1024, 1), dict(padding="same")),
+     ((1023, 32, 32, 3), (3, 3, 3, 16), dict(padding="same", pool_window=(2, 2))),
+     ((3, 31, 29, 3), (3, 3, 3, 16), dict(padding="same", pool_window=(3, 3), pool_stride=(2, 2))),
+     ((5, 16, 16, 16), (3, 3, 16, 32), dict(padding="valid", stride=(2, 2))),
+     ((7, 16, 16, 16), (3, 3, 16, 32), dict(padding="same", activation="softmax",
+                                            pool_window=(2, 2)))],
+    ids=["wide-cin256-cout256", "cin1024-cout1", "batch1023", "odd-overlapping-pool",
+         "stride2-valid", "softmax-32"],
+)
+def test_fused_conv2d_implicit_gemm_matches_plain_on_the_card(cuda, shape, w_shape, kw):
+    # The first two the band planner refused (one band row over 227 KB).
+    rng = np.random.default_rng(6)
+    k = w_shape[0] * w_shape[1] * w_shape[2]
+    imgs, w, b = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        rng.uniform(0, 1, shape), rng.normal(0, (2 / k) ** 0.5, w_shape),
+        rng.normal(0, 0.05, w_shape[3])))
+    kw = {"activation": "relu", **kw}
+    reset_launch_counts()
+    got = fused_conv2d(imgs, w, b, **kw)
+    torch.testing.assert_close(got, fused_conv2d_plain(imgs, w, b, **kw), atol=1e-5, rtol=2e-5)
+    assert fused_conv2d.launches == 1
+    assert torch.equal(got, fused_conv2d(imgs, w, b, **kw))
+
+
+@pytest.mark.parametrize(
+    "sizes,acts,M",
+    [([784, 128, 64, 10], ["relu", "relu", "softmax"], 8191),   # 32-row tiles, ragged
+     ([784, 128, 64, 10], ["relu", "relu", "softmax"], 37),     # 16-row tiles
+     ([784, 128, 64, 10], ["relu", "linear", "linear"], 20000),  # 64-row tiles, persistent
+     ([2500, 40, 3], ["relu", "linear"], 70),                   # input in 1024-column chunks
+     ([60000, 16, 10], ["relu", "softmax"], 9),                 # a 60000-wide input
+     ([64, 300, 1000], ["linear", "softmax"], 33)],             # softmax over device memory
+    ids=["8191", "37", "20000-tm64", "chunks", "60000-input", "wide-softmax"],
+)
+def test_int8_tensor_core_chain_bit_equal_on_the_card(cuda, sizes, acts, M):
+    q = quantize_fcnn(params_from_spec(_model(sizes, acts), device=cuda))
+    x = _rows(M, sizes[0], cuda)
+    got, want = fcnn_quantized_forward(q, x), forward_quantized(q, x)
+    torch.testing.assert_close(got, want, atol=1e-7, rtol=1e-6)
+    if acts[-1] != "softmax":
+        assert torch.equal(got, want)
+    assert torch.equal(got, fcnn_quantized_forward(q, x))
+
+
+@pytest.mark.parametrize(
+    "sizes,quantize,chain_launches",
+    [([16] * 35, None, 2), ([16] * 35, "int8", 2),
+     ([784, 4000, 10], None, 2), ([64, 8192, 10], None, 2),
+     ([60000, 16, 10], "int8", 1), ([64, 60000, 10], "int8", 2)],
+    ids=["34-layers-f32", "34-layers-int8", "784-4000-10", "64-8192-10", "60000-16-10-int8",
+         "64-60000-10-int8"],
+)
+def test_engine_serves_past_one_chain_on_the_card(cuda, sizes, quantize, chain_launches):
+    model = _model(sizes, ["relu"] * (len(sizes) - 2) + ["softmax"])
+    x = np.random.default_rng(7).uniform(0, 1, (40, sizes[0]))
+    gpu = Engine.up(model, quantize=quantize)
+    reset_launch_counts()
+    got = gpu.run_inference(x, batch_size=20).outputs
+    want = Engine.up(model, device="cpu", quantize=quantize).run_inference(x).outputs
+    if quantize:
+        np.testing.assert_allclose(got, want, atol=1e-7, rtol=1e-6)
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    chain = "fcnn_quantized_forward" if quantize else "fcnn_fused_forward"
+    assert counts[chain] == 2 * chain_launches  # 2 batches
 
 
 # bf16 outputs round to nearest even: at most 2**-8 of the value away

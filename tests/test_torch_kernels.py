@@ -8,7 +8,9 @@ tests' tolerances. The kernels themselves run only on the card:
 against their plain versions there. The f32 chain kernel's schedule
 (its planner's row tile and split-K, each cluster rank's K slices, the
 rank-order reduction and the column passes) is written out in torch
-here and held against both.
+here and held against both, and so is the int8 chain's tensor-core
+schedule (its packed weights, each lane's MMA fragments, the codes'
+chunks past the resident width) in integer arithmetic.
 """
 
 import jax
@@ -37,13 +39,13 @@ from tpu_dist_nn_torch.kernels.fused_dense import (
     H100_SMS,
     SMEM_LIMIT_BYTES,
     activation_ids,
-    boundary_widths,
     chain_plan,
-    chain_tile_rows,
     column_passes,
     dense_plan,
+    int8_plan,
     k_ranges,
 )
+from tpu_dist_nn_torch.kernels.quantized import pack_wq, unpack_wq
 from tpu_dist_nn_torch.models.fcnn import forward, params_from_jax
 from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
 
@@ -137,11 +139,19 @@ def test_fused_chain_uint8_input_scale_matches_jax_kernel():
 
 
 def test_chain_tile_rows_from_the_widest_boundaries():
-    # The int8 chain: A holds 784 and 64 wide rows, B 128 and 10.
-    assert boundary_widths([784, 128, 64, 10]) == (784, 128)
-    assert chain_tile_rows(4 * (784 + 128) + 784 + 4, 16 * 128 * 4, "int8") == 32
-    assert chain_tile_rows(4 * (1024 + 1024) + 1024 + 4, 16 * 128 * 4, "int8") == 16
-    assert chain_tile_rows(SMEM_LIMIT_BYTES - 1, 1, "one row") == 1
+    # The int8 chain keeps the widest interior row resident (f32 and its
+    # codes) and the input's codes up to 1024 columns: 32-row tiles at
+    # the flagship (256 tiles: two CTAs an SM), 16 rows when a 2000-wide
+    # interior leaves room for no more; a 60000-wide input is quantised
+    # in 1024-column chunks.
+    plan = int8_plan([784, 128, 64, 10], 8192)
+    assert (plan.tm, plan.ldh, plan.kc) == (32, 132, 832) and plan.ldq % 128 == 16
+    assert int8_plan([1024, 1024, 1024, 10], 8192).tm == 32
+    wide = int8_plan([3000, 2000, 10], 8192)
+    assert (wide.tm, wide.kc) == (16, 2048) and wide.smem_bytes <= SMEM_LIMIT_BYTES
+    assert int8_plan([60000, 16, 10], 5)[:4] == (16, 16, 1040, 1024)
+    with pytest.raises(InvalidArgumentError, match=str(SMEM_LIMIT_BYTES)):
+        int8_plan([64, 60000, 10], 5)
     # The f32 chain streams the input: only the interior widths (128,
     # 64) stay resident, so the flagship takes 64-row tiles, one CTA
     # each (the old kernel staged the 784-wide input and took 32).
@@ -152,10 +162,20 @@ def test_chain_tile_rows_from_the_widest_boundaries():
 
 def test_fused_chain_past_shared_memory_raises_naming_the_limit():
     wide = 60000  # 8 interior rows of 60000 floats are 1.9 MB > 227 KB
-    params = [{"w": torch.zeros(4, wide), "b": torch.zeros(wide), "act": 0},
-              {"w": torch.zeros(wide, 4), "b": torch.zeros(4), "act": 0}]
     with pytest.raises(InvalidArgumentError, match=str(SMEM_LIMIT_BYTES)):
-        fcnn_fused_forward(params, torch.zeros(2, 4))
+        chain_plan([4, wide, 4], (0, 0), 2)
+    # The wrapper plans only for a tensor off the CPU (on the card it
+    # launches or raises; a meta tensor shows the raise without one),
+    # and computes the plain version for CPU tensors.
+    params = [{"w": torch.zeros(4, wide, device="meta"), "b": torch.zeros(wide, device="meta"),
+               "act": 0},
+              {"w": torch.zeros(wide, 4, device="meta"), "b": torch.zeros(4, device="meta"),
+               "act": 0}]
+    with pytest.raises(InvalidArgumentError, match=str(SMEM_LIMIT_BYTES)):
+        fcnn_fused_forward(params, torch.zeros(2, 4, device="meta"))
+    cpu = [{k: torch.zeros_like(v, device="cpu") if k != "act" else v for k, v in p.items()}
+           for p in params]
+    assert fcnn_fused_forward(cpu, torch.zeros(2, 4)).shape == (2, 4)
 
 
 def test_fused_chain_takes_a_60000_wide_input():
@@ -407,3 +427,135 @@ def test_cpu_tensors_never_count_a_launch():
     fcnn_quantized_forward(quantize_fcnn(params), x)
     assert [fn.launches for fn in KERNEL_WRAPPERS] == [0] * len(KERNEL_WRAPPERS)
 
+
+
+# ------------------------------------- the int8 chain's tensor-core schedule
+
+def _mma_m16n8k32(a_regs, b_regs):
+    """One ``mma.sync.m16n8k32.row.col.s32.s8.s8.s32`` as the PTX ISA
+    defines its fragments: lane 4g + t holds A bytes (row g, 8 more for
+    registers 1 and 3; k 4t + q, 16 more for registers 2 and 3), B bytes
+    (k 4t + q, 16 more for register 1; column g) and returns C elements
+    (row g, 8 more for e >= 2; column 2t + e % 2). a_regs (32, 4, 4),
+    b_regs (32, 2, 4) int64 -> (32, 4) int64."""
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    A = np.zeros((16, 32), np.int64)
+    B = np.zeros((32, 8), np.int64)
+    for reg in range(4):
+        for q in range(4):
+            A[g + 8 * (reg & 1), 4 * t + q + 16 * (reg >> 1)] = a_regs[:, reg, q]
+    for reg in range(2):
+        for q in range(4):
+            B[4 * t + q + 16 * reg, g] = b_regs[:, reg, q]
+    D = A @ B
+    return np.stack([D[g + 8 * (e >> 1), 2 * t + (e & 1)] for e in range(4)], axis=1)
+
+
+def _quantize_rows_f32(h):
+    s = torch.clamp_min(h.abs().amax(dim=1, keepdim=True), 1e-8)
+    s = s / torch.full_like(s, 127.0)
+    return torch.clamp(torch.round(h / s), -127, 127).to(torch.int64), s
+
+
+def _emulate_int8_chain(qparams, x, sm_count=H100_SMS, lane_perturb=0):
+    """``csrc/int8_chain.cu``'s loop in integer arithmetic: the planner's
+    row tile, each layer's row scales and codes (layer 0 in ``kc``-wide
+    chunks past the resident width), per 64-deep slice and 128-column
+    pass each warp's A fragments read from the codes at the kernel's
+    offsets and its B fragments from ``wq_packed`` at ``8 * lane``
+    (``lane_perturb`` moves that by whole lanes), the MMA, and the
+    epilogue's rescale at each C element's row and column."""
+    dims = [int(x.shape[1])] + [int(p["wq"].shape[1]) for p in qparams]
+    M = int(x.shape[0])
+    plan = int8_plan(dims, M, sm_count)
+    tm, kc = plan.tm, plan.kc
+    wm_count = tm // 16
+    wn_count = 8 // wm_count
+    nt_warp = 16 // wn_count
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    out = torch.empty((M, dims[-1]), dtype=torch.float32)
+    for row0 in range(0, M, tm):
+        rows = min(tm, M - row0)
+        h = x[row0:row0 + rows].to(torch.float32)
+        for layer, p in enumerate(qparams):
+            din, dout = dims[layer], dims[layer + 1]
+            q, s = _quantize_rows_f32(h)
+            codes_all = np.zeros((tm, -(-din // 64) * 64), np.int64)
+            codes_all[:rows, :din] = q.numpy()
+            span = kc if layer == 0 and din > kc else din
+            packed = p["wq_packed"].numpy().astype(np.int64)
+            n8 = -(-dout // 8)
+            z = np.zeros((tm, n8 * 8), np.int64)
+            for j0 in range(0, n8, 16):
+                nt = min(16, n8 - j0)
+                for kb in range(0, din, span):
+                    ke = min(din, kb + span)
+                    codes = codes_all[:, kb:kb + -(-span // 64) * 64]  # the chunk's codes
+                    for k in range(kb, -(-ke // 64) * 64, 32):
+                        step = k // 32
+                        col = k - kb + 4 * t
+                        for w in range(8):
+                            m0, wn = 16 * (w % wm_count), w // wm_count
+                            a = np.zeros((32, 4, 4), np.int64)
+                            for r in range(4):
+                                for qq in range(4):
+                                    a[:, r, qq] = codes[m0 + g + 8 * (r & 1),
+                                                        col + 16 * (r >> 1) + qq]
+                            for i in range(nt_warp):
+                                jl = wn * nt_warp + i
+                                if jl >= nt:
+                                    continue
+                                base = (step * n8 + j0 + jl) * 256
+                                src = 8 * ((lane + lane_perturb) % 32)
+                                b = np.stack([packed[base + src[:, None] + 4 * r + np.arange(4)]
+                                              for r in range(2)], axis=1)
+                                c = _mma_m16n8k32(a, b)
+                                for e in range(4):
+                                    z[m0 + g + 8 * (e >> 1), 8 * (j0 + jl) + 2 * t + (e & 1)] += c[:, e]
+            zf = torch.from_numpy(z[:rows, :dout]).to(torch.float32)
+            y = zf * (s * p["scale"][None, :]) + p["b"]
+            h = _act(y, p["act"]) if p["act"] != 3 else torch.softmax(y, dim=-1)
+        out[row0:row0 + rows] = h
+    return out, plan
+
+
+@pytest.mark.parametrize(
+    "sizes,acts,rows",
+    [((784, 128, 64, 10), ["relu", "relu", "softmax"], 40),   # the flagship, 3 tiles
+     ((200, 300, 33, 5), ["relu", "linear", "linear"], 17),   # 3 column passes, ragged K and N
+     ((1100, 20, 5), ["relu", "linear"], 9)],                 # input read twice, 2 chunks
+    ids=["flagship", "passes", "two-pass-input"],
+)
+def test_int8_schedule_emulated_matches_plain_and_jax_bit_for_bit(sizes, acts, rows):
+    jparams = _jax_params(sizes, acts, seed=rows)
+    x = np.random.default_rng(rows).uniform(0, 1, (rows, sizes[0])).astype(np.float32)
+    q = quantize_fcnn(params_from_jax(jparams, device="cpu"))
+    for p in q:
+        assert torch.equal(unpack_wq(p["wq_packed"], *p["wq"].shape), p["wq"])
+    got, plan = _emulate_int8_chain(q, torch.from_numpy(x), sm_count=2)
+    want = forward_quantized(q, torch.from_numpy(x))
+    assert torch.equal(got, want)
+    jax_out = np.asarray(jax_q.fcnn_quantized_forward(
+        jax_q.quantize_fcnn(jparams), jnp.asarray(x), block_b=32, prefer_kernel=True))
+    np.testing.assert_allclose(got.numpy(), jax_out, rtol=1e-6, atol=1e-7)
+    # A lane reading its neighbour's 8 bytes of B is caught.
+    bad, _ = _emulate_int8_chain(q, torch.from_numpy(x), sm_count=2, lane_perturb=1)
+    assert not torch.equal(bad, want)
+
+
+def test_int8_schedule_chunks_a_wide_input():
+    # 2500 columns > kc = 1024: layer 0's codes are made and multiplied
+    # 1024 columns at a time, the row scale from the whole row.
+    rng = np.random.default_rng(11)
+    params = [{"w": torch.from_numpy((rng.normal(size=(2500, 12)) * 0.05).astype(np.float32)),
+               "b": torch.from_numpy(rng.normal(size=12).astype(np.float32)), "act": 1},
+              {"w": torch.from_numpy((rng.normal(size=(12, 3)) * 0.3).astype(np.float32)),
+               "b": torch.zeros(3), "act": 0}]
+    q = quantize_fcnn(params)
+    x = torch.from_numpy(rng.uniform(0, 1, (5, 2500)).astype(np.float32))
+    got, plan = _emulate_int8_chain(q, x)
+    assert plan.kc == 1024
+    assert torch.equal(got, forward_quantized(q, x))
+    assert torch.equal(fcnn_quantized_forward(q, x), got)

@@ -16,6 +16,9 @@ Dispatch: float32 serving of a dense model runs the whole FCNN chain in
 one kernel (:func:`~tpu_dist_nn_torch.kernels.fused_dense.fcnn_fused_forward`);
 ``quantize="int8"`` runs the int8 chain kernel
 (:func:`~tpu_dist_nn_torch.kernels.quantized.fcnn_quantized_forward`).
+A chain deeper than 32 layers, or with an interior too wide for the
+kernel's shared memory, runs as several launches
+(:func:`~tpu_dist_nn_torch.models.network.dense_forward`).
 A model with conv / pool layers is built into a layer plan at
 construction (:func:`~tpu_dist_nn_torch.models.network.build_network`)
 and served by :func:`~tpu_dist_nn_torch.models.network.network_forward`:
@@ -44,10 +47,9 @@ import torch
 
 from tpu_dist_nn_torch.core.schema import ModelSpec, load_model, partition_model, save_model
 from tpu_dist_nn_torch.data.feed import batch_iterator
-from tpu_dist_nn_torch.kernels.fused_dense import fcnn_fused_forward
-from tpu_dist_nn_torch.kernels.quantized import fcnn_quantized_forward, quantize_fcnn
+from tpu_dist_nn_torch.kernels.quantized import quantize_fcnn
 from tpu_dist_nn_torch.models.fcnn import params_from_spec
-from tpu_dist_nn_torch.models.network import build_network, network_forward
+from tpu_dist_nn_torch.models.network import build_network, dense_forward, network_forward
 from tpu_dist_nn_torch.train.metrics import classification_metrics
 from tpu_dist_nn_torch.utils.device import resolve_device
 from tpu_dist_nn_torch.utils.errors import (
@@ -231,10 +233,10 @@ class Engine:
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._q is not None:
-            return fcnn_quantized_forward(self._q, x)
+            return dense_forward(self._q, x, quantized=True)
         if self._plan is not None:
             return network_forward(self._plan, self._params, x)
-        return fcnn_fused_forward(self._params, x)
+        return dense_forward(self._params, x)
 
     def warm_buckets(self, max_rows: int) -> list[int]:
         """Run the pow2 row-bucket ladder (1, 2, 4, … up to the pow2

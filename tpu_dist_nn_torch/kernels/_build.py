@@ -58,9 +58,9 @@ LIBRARIES = {
         "tdn_fcnn_chain_max_clusters": (_I, _I, _I, _PI),
     },
     "int8_chain": {
-        "tdn_int8_chain": (_P, _P, _I, _PP, _PP, _PP, _PI, _PI, _I, _I, _I, _I, _I, _P),
+        "tdn_int8_chain": (_P, _P, _I, _PP, _PP, _PP, _PI, _PI, _I, _I, _I, _I, _I, _I, _P),
     },
-    "conv2d": {"tdn_conv2d": (_P, _P, _P, _P, _PI, _I, _P)},
+    "conv2d": {"tdn_conv2d": (_P, _P, _P, _P, _PI, _P)},
     "flash_attention": {
         "tdn_flash_fwd": (_P, _P, _P, _P, _P, _PI, _F, _I, _P),
         "tdn_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _PI, _F, _I, _P),

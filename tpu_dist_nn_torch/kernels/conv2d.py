@@ -12,10 +12,11 @@ like. The Pallas kernel falls back to XLA for strided convs and for
 stages whose lane-padded tile overflows VMEM (the 32x32x3 input stage);
 neither limit exists on Hopper, so the kernel here takes SAME and VALID
 padding, any stride, and a fused max-pool with any window and stride.
-``block_b``, a TPU tiling knob, is not carried over. The limit on the
-card is that one band of pooled rows fits a block's shared memory
-(:func:`conv_plan`, the one owner of the kernel's shared-memory
-layout); past it the wrapper raises.
+``block_b``, a TPU tiling knob, is not carried over. The kernel is an
+implicit GEMM whose K (taps x input channels) streams in slices, over
+tiles of conv pixels: no image width or channel count is refused.
+:func:`conv_plan` picks the tiling and owns the kernel's shared-memory
+layout.
 
 For CPU tensors the wrapper runs :func:`fused_conv2d_plain`; for CUDA
 tensors it launches the kernel or raises. ``fused_conv2d.launches``
@@ -25,6 +26,7 @@ counts kernel launches.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -34,11 +36,19 @@ from tpu_dist_nn_torch.kernels import _build
 from tpu_dist_nn_torch.kernels.fused_dense import SMEM_LIMIT_BYTES, _check_tensor, _ints, _stream
 from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
 
-#: Shared memory a band aims at: 4 blocks of 256 threads fit one SM.
-#: A band whose single row needs more takes up to the 227 KB limit.
-BAND_TARGET_BYTES = 48 * 1024
-#: Largest weight chunk staged at once (kh * kw * Cin * channels floats).
-WEIGHT_CHUNK_BYTES = 64 * 1024
+#: Conv pixels and output channels a thread computes (csrc kPix, kChan).
+PIX_PER_THREAD = 4
+CHANNELS_PER_GROUP = 16
+#: Pixels a CTA of 8 warps computes with one channel group; with CG
+#: groups each warp takes one group, so a CTA computes 1024 / CG pixels.
+_CTA_PIXELS = 8 * 32 * PIX_PER_THREAD
+#: Input channels a K slice takes at most.
+_MAX_CK = 64
+#: Shared memory of a CTA when two share an SM (228 KB, 1 KB each reserved).
+_TWO_CTAS_BYTES = 113 * 1024
+#: Activations a register-held 2x2 pool takes: max commutes with them
+#: (and with the bias) exactly.
+_REGISTER_POOL_ACTS = (activation_id("linear"), activation_id("relu"))
 
 
 def same_pad(size: int, k: int, s: int) -> tuple[int, int]:
@@ -50,33 +60,31 @@ def same_pad(size: int, k: int, s: int) -> tuple[int, int]:
 
 @dataclasses.dataclass(frozen=True)
 class ConvPlan:
-    """Output geometry and the kernel's tiling for one call."""
+    """Output geometry and the kernel's tiling for one call
+    (:func:`conv_args` lays it out as csrc/conv2d.cu's ``ConvArgs``)."""
 
     out_shape: tuple[int, int, int, int]  # (B, ph, pw, Cout): pooled output
     conv_hw: tuple[int, int]  # conv output (oh, ow) before the pool
     pad: tuple[int, int]  # leading (top, left) padding
     pool: tuple[int, int, int, int]  # (wh, ww, sh, sw); all 1 without a pool
-    cpt: int  # output channels per thread
-    cc: int  # output channels per staged weight chunk
-    band: int  # pooled rows per CTA
-    smem_floats: tuple[int, int, int]  # (weight chunk, input rows, conv tile)
+    cg: int  # channel groups of 16 a CTA computes
+    imgs: int  # images a tile covers
+    tile: tuple[int, int]  # pooled rows and columns a tile covers
+    conv_tile: tuple[int, int]  # conv rows and columns a tile computes
+    cin: int  # the layer's input channels
+    ck: int  # input channels per K slice
+    patch: tuple[int, int, int, int, int]  # pixel, row, image strides; rows, columns
+    patch_floats: int  # one slot's patch, rounded up to 4 floats
+    stage_floats: int  # one slot: patch, then weights
+    ldt: int  # conv-tile pixel stride (odd)
+    grid: tuple[int, int, int, int]  # image groups, row tiles, column tiles, channel tiles
+    pool_regs: bool  # a 2x2/2 pool of relu or linear values taken in registers
+    smem_bytes: int
 
     @property
-    def smem_bytes(self) -> int:
-        return 4 * sum(self.smem_floats)
+    def slices(self) -> int:
+        return -(-self.cin // self.ck)
 
-
-def _smem_floats(kh, kw, cin, cout, stride, pool, pw, band, cc) -> tuple[int, int, int]:
-    """Shared-memory floats of one CTA, in csrc/conv2d.cu's order: the
-    weight chunk ``(kh*kw*cin, cc)``, the band's input rows (halo
-    included) and its conv tile, both at odd pixel strides (C | 1).
-    The kernel takes the three as offsets and does not recompute them."""
-    pwh, pww, psh, psw = pool
-    cw = (pw - 1) * psw + pww
-    iw = (cw - 1) * stride[1] + kw
-    crm = (band - 1) * psh + pwh
-    irm = (crm - 1) * stride[0] + kh
-    return kh * kw * cin * cc, irm * iw * (cin | 1), crm * cw * (cout | 1)
 
 
 def _geometry(imgs_shape, w_shape, stride, padding, pool_window, pool_stride):
@@ -117,38 +125,125 @@ def _geometry(imgs_shape, w_shape, stride, padding, pool_window, pool_stride):
     return (B, ph, pw, cout), (oh, ow), pad, pool
 
 
+def _patch_layout(ck, imgs, cr, ccw, kh, kw, stride, rows_apart):
+    """(cs, prs, pimg, prow, pcol): the patch's pixel stride is odd (a
+    warp's 16 or 32 consecutive pixels of a row fall in distinct banks)
+    and ``rows_apart`` row strides are 16 more than a multiple of 32
+    floats (when a tile is 16 columns wide a warp's two half-warps read
+    rows that far apart, csrc ``pixel_slot``: opposite bank halves)."""
+    prow, pcol = (cr - 1) * stride[0] + kh, (ccw - 1) * stride[1] + kw
+    cs = ck | 1
+    step = 32 // rows_apart
+    prs = pcol * cs + (16 // rows_apart - pcol * cs) % step
+    return cs, prs, prow * prs, prow, pcol
+
+
+def _tile_shape(ph, pw, pool, mt):
+    """Pooled rows x columns of a tile whose conv pixels (whole windows)
+    fit ``mt``, cut evenly; None when not one window fits."""
+    pwh, pww, psh, psw = pool
+    tpc = min(pw, (mt - pww) // psw + 1) if pww <= mt else 0
+    while tpc >= 1:
+        ccw = (tpc - 1) * psw + pww
+        if pwh * ccw <= mt:
+            tpr = min(ph, (mt // ccw - pwh) // psh + 1)
+            tiles_y, tiles_x = -(-ph // tpr), -(-pw // tpc)
+            return -(-ph // tiles_y), -(-pw // tiles_x)
+        tpc -= 1
+    return None
+
+
 def conv_plan(imgs_shape, w_shape, stride=(1, 1), padding="valid",
-              pool_window=None, pool_stride=None) -> ConvPlan:
-    """Validate the shapes and pick the kernel's tiling; raises
-    :class:`InvalidArgumentError` on a bad shape or when not even one
-    pooled row of a band fits a block's shared memory."""
+              pool_window=None, pool_stride=None, activation="linear") -> ConvPlan:
+    """Validate the shapes and pick the kernel's tiling (see
+    csrc/conv2d.cu). A CTA computes ``1024 / cg`` conv pixels of 16 cg
+    channels (cg = 1 for up to 16 channels, else 2; softmax needs every
+    channel in one CTA, so there cg covers Cout); its tile covers whole
+    pool windows, several images when one image is smaller; K streams in
+    slices of up to 64 input channels (the widest whose two-slot ring
+    lets two CTAs share an SM, where one does), so no image width or
+    channel count is refused. A 2x2 stride-2 pool of relu or linear
+    values is taken in registers (``pool_regs``). Raises :class:`InvalidArgumentError` on a bad
+    shape, a softmax over more than 128 channels, or a pool window of
+    more conv pixels than a CTA computes. Cached: a serving loop asks for
+    the same plan every batch."""
+    return _conv_plan(tuple(int(d) for d in imgs_shape), tuple(int(d) for d in w_shape),
+                      tuple(int(s) for s in stride), padding,
+                      None if pool_window is None else tuple(int(k) for k in pool_window),
+                      None if pool_stride is None else tuple(int(k) for k in pool_stride),
+                      activation)
+
+
+@functools.lru_cache(maxsize=1024)
+def _conv_plan(imgs_shape, w_shape, stride, padding, pool_window, pool_stride,
+               activation) -> ConvPlan:
     out_shape, conv_hw, pad, pool = _geometry(
         imgs_shape, w_shape, stride, padding, pool_window, pool_stride)
-    kh, kw, cin, cout = (int(d) for d in w_shape)
-    ph, pw = out_shape[1:3]
-    cpt = next(c for c in (8, 4, 2, 1) if cout >= c)
-    cc = -(-cout // cpt) * cpt
-    per_channel = 4 * kh * kw * cin
-    if cc * per_channel > WEIGHT_CHUNK_BYTES:
-        cc = max(cpt, WEIGHT_CHUNK_BYTES // per_channel // cpt * cpt)
-
-    def smem(band, chunk):
-        return 4 * sum(_smem_floats(kh, kw, cin, cout, stride, pool, pw, band, chunk))
-
-    if smem(1, cc) > SMEM_LIMIT_BYTES:
-        cc = cpt
-    if smem(1, cc) > SMEM_LIMIT_BYTES:
+    B, ph, pw, cout = out_shape
+    kh, kw, cin, _ = (int(d) for d in w_shape)
+    act = activation_id(activation)
+    softmax = act == activation_id("softmax")
+    groups = -(-cout // CHANNELS_PER_GROUP)
+    if softmax and groups > 8:
         raise InvalidArgumentError(
-            f"fused_conv2d: one pooled row needs {smem(1, cc)} bytes of shared "
-            f"memory, over the {SMEM_LIMIT_BYTES}-byte limit of a Hopper block; "
-            "the conv kernel cannot run this layer"
-        )
-    budget = BAND_TARGET_BYTES if smem(1, cc) <= BAND_TARGET_BYTES else SMEM_LIMIT_BYTES
-    fit = max(b for b in range(1, ph + 1) if smem(b, cc) <= budget)
-    n_bands = -(-ph // fit)
-    band = -(-ph // n_bands)  # even bands: 16 rows at a fit of 9 run as 8 + 8
-    return ConvPlan(out_shape, conv_hw, pad, pool, cpt, cc, band,
-                    _smem_floats(kh, kw, cin, cout, stride, pool, pw, band, cc))
+            f"fused_conv2d: a softmax over {cout} channels; the conv kernel normalises "
+            f"at most {8 * CHANNELS_PER_GROUP} channels of a pixel in one CTA")
+    cg = (1 << (groups - 1).bit_length() if softmax
+          else min(groups, max(1, 32 // CHANNELS_PER_GROUP)))  # 32 channels a CTA
+    nct = CHANNELS_PER_GROUP * cg
+    mt = _CTA_PIXELS // cg
+    shape = _tile_shape(ph, pw, pool, mt)
+    if shape is None:
+        raise InvalidArgumentError(
+            f"fused_conv2d: a {pool[0]}x{pool[1]} pool window is more than the {mt} conv "
+            "pixels one CTA computes")
+    ldt = nct | 1
+    while True:
+        tpr, tpc = shape
+        cr, ccw = (tpr - 1) * pool[2] + pool[0], (tpc - 1) * pool[3] + pool[1]
+        whole = tpr == ph and tpc == pw
+        imgs = max(1, min(B, mt // (cr * ccw))) if whole else 1
+        # The main path's pool: relu (or linear) values pooled 2x2 in
+        # registers, with no conv tile in shared memory.
+        pool_regs = (pool == (2, 2, 2, 2) and act in _REGISTER_POOL_ACTS
+                     and ccw in (16, 32) and cr * ccw % (32 * PIX_PER_THREAD) == 0)
+        cks = ([cin] if cin <= _MAX_CK else []) + [c for c in (64, 32, 16, 8, 4, 2, 1)
+                                                    if c < min(cin, _MAX_CK + 1)]
+        for budget in (_TWO_CTAS_BYTES, SMEM_LIMIT_BYTES):
+            for ck in cks:
+                cs, prs, pimg, prow, pcol = _patch_layout(
+                    ck, imgs, cr, ccw, kh, kw, stride, 2 if pool_regs and ccw == 16 else 1)
+                patch_floats = -(-imgs * pimg // 4) * 4
+                stage = patch_floats + kh * kw * ck * nct
+                stages = 2 if ck < cin else 1
+                smem = 4 * max(stages * stage, 0 if pool_regs else mt * ldt)
+                if smem <= budget:
+                    grid = (-(-B // imgs), -(-ph // tpr), -(-pw // tpc), -(-cout // nct))
+                    return ConvPlan(out_shape, conv_hw, pad, pool, cg, imgs, (tpr, tpc),
+                                    (cr, ccw), cin, ck, (cs, prs, pimg, prow, pcol),
+                                    patch_floats, stage, ldt, grid, pool_regs, smem)
+        # Not even one input channel of this tile's patch fits: halve the
+        # tile (rows first).
+        if tpr > 1:
+            shape = (-(-tpr // 2), tpc)
+        elif tpc > 1:
+            shape = (1, -(-tpc // 2))
+        else:
+            raise InvalidArgumentError(
+                f"fused_conv2d: the patch of one pooled pixel ({kh}x{kw} kernel, stride "
+                f"{tuple(stride)}, pool {pool_window}) is over the {SMEM_LIMIT_BYTES}-byte "
+                "limit of a Hopper block")
+
+
+def conv_args(plan: ConvPlan, imgs_shape, w_shape, stride, activation) -> list[int]:
+    """csrc/conv2d.cu's ``ConvArgs``, in its order."""
+    B, H, W, cin = (int(d) for d in imgs_shape)
+    kh, kw, _, cout = (int(d) for d in w_shape)
+    _, ph, pw, _ = plan.out_shape
+    return [B, H, W, cin, kh, kw, cout, *(int(s) for s in stride), *plan.pad, *plan.pool,
+            ph, pw, activation_id(activation), plan.cg, plan.imgs, *plan.tile, *plan.conv_tile,
+            plan.ck, *plan.patch, plan.patch_floats, plan.stage_floats, plan.ldt,
+            *plan.grid[1:], int(plan.pool_regs), plan.smem_bytes]
 
 
 def maxpool_nhwc(x: torch.Tensor, window, stride=None) -> torch.Tensor:
@@ -212,21 +307,15 @@ def fused_conv2d(imgs, w, b, *, stride=(1, 1), padding: str = "valid",
         return fused_conv2d_plain(imgs, w, b, stride=stride, padding=padding,
                                   activation=activation, pool_window=pool_window,
                                   pool_stride=pool_stride)
-    plan = conv_plan(imgs.shape, w.shape, stride, padding, pool_window, pool_stride)
+    plan = conv_plan(imgs.shape, w.shape, stride, padding, pool_window, pool_stride, activation)
     out = torch.empty(plan.out_shape, dtype=torch.float32, device=dev)
-    B, H, W, cin = imgs.shape
-    if B == 0:
+    if imgs.shape[0] == 0:
         return out
-    kh, kw, _, cout = w.shape
-    _, ph, pw, _ = plan.out_shape
-    w_floats, in_floats, _ = plan.smem_floats
-    args = (B, H, W, cin, kh, kw, cout, *stride, *plan.pad, *plan.pool, ph, pw,
-            activation_id(activation), plan.band, plan.cc, w_floats, w_floats + in_floats,
-            plan.smem_bytes)
     launch = _build.launcher("conv2d")
     with torch.cuda.device(dev):
         code = launch(imgs.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                      _ints([int(a) for a in args]), plan.cpt, _stream(dev))
+                      _ints(conv_args(plan, imgs.shape, w.shape, stride, activation)),
+                      _stream(dev))
     _build.check(code, "fused_conv2d launch")
     fused_conv2d.launches += 1
     return out

@@ -25,8 +25,12 @@ wrapper counts kernel launches.
 The TPU package gates the chain kernel on an 8 MB VMEM weight budget
 and falls back to the jnp chain above it. Here weights stream from L2
 and the input streams through the ring, so neither is limited: the
-limit is that 8 rows of the interior activations fit a block's shared
-memory beside the ring (:func:`chain_plan`), and a chain past it raises.
+limit of one launch is that 8 rows of the interior activations fit a
+block's shared memory beside the ring (:func:`chain_plan`), and a chain
+past it raises, as one past :data:`MAX_LAYERS` layers does.
+:func:`chain_segments` cuts a dense run of any depth and width into
+launches that fit (the int8 chain's too); the engine and the conv
+network serve through it (``models/network.py::dense_forward``).
 """
 
 from __future__ import annotations
@@ -43,8 +47,6 @@ from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
 
 #: Dynamic shared memory one Hopper block may opt into (227 KB).
 SMEM_LIMIT_BYTES = 232448
-#: Rows per CTA the int8 chain kernel takes, largest first (csrc: tm <= 64).
-_TILE_ROWS = (64, 32, 16, 8, 4, 2, 1)
 #: The chain kernels' cap on layers (csrc kMaxLayers).
 MAX_LAYERS = 32
 #: SMs of an H100 SXM: the planners' count for tensors off the card.
@@ -289,6 +291,116 @@ def _chain_plan(dims, acts, M, sm_count, device_index, what) -> ChainPlan:
     )
 
 
+# The int8 chain's constants (csrc/int8_chain.cu): its cp.async ring of
+# 64-deep slices of up to 128 packed columns, the widest input it
+# quantises from registers, its row tiles (largest first).
+_I8_RING_BYTES = 4 * 2 * 16 * 256
+_I8_REG_COLS = 1024
+_I8_TILE_ROWS = (64, 32, 16)
+
+
+class Int8Plan(NamedTuple):
+    """One ``int8_chain`` launch: ``tm`` rows a tile, the resident f32
+    activations' row stride ``ldh`` (floats), the int8 codes' row stride
+    ``ldq`` (bytes, 16 more than a multiple of 128), ``kc`` the widest
+    input whose codes stay resident (a multiple of 64; a wider layer-0
+    input is quantised ``kc`` columns at a time), and the block's
+    dynamic shared memory."""
+
+    tm: int
+    ldh: int
+    ldq: int
+    kc: int
+    smem_bytes: int
+
+
+def _int8_layout(dims: Sequence[int], tm: int) -> Int8Plan:
+    interior = max(dims[1:-1], default=0)
+    kc = -(-max(interior, min(dims[0], _I8_REG_COLS)) // 64) * 64
+    ldq = kc + (16 - kc) % 128
+    ldh = _row_stride(interior)
+    return Int8Plan(tm, ldh, ldq, kc, _I8_RING_BYTES + tm * ldq + 4 * tm * (ldh + 1))
+
+
+def int8_plan(dims: Sequence[int], M: int, sm_count: int = H100_SMS) -> Int8Plan:
+    """The int8 chain's launch: among the row tiles whose layout fits a
+    block's shared memory, the tallest whose tiles give every SM two
+    CTAs (one streams its input while the other multiplies), else the
+    shortest. Raises :class:`InvalidArgumentError` naming the limit when
+    not even 16 rows of the interior widths fit."""
+    return _int8_plan(tuple(dims), M, sm_count)
+
+
+@functools.lru_cache(maxsize=1024)
+def _int8_plan(dims, M, sm_count) -> Int8Plan:
+    fitting = [_int8_layout(dims, tm) for tm in _I8_TILE_ROWS]
+    fitting = [p for p in fitting if p.smem_bytes <= SMEM_LIMIT_BYTES]
+    if not fitting:
+        need = _int8_layout(dims, _I8_TILE_ROWS[-1]).smem_bytes
+        raise InvalidArgumentError(
+            f"fcnn_quantized_forward: {_I8_TILE_ROWS[-1]} rows of the interior activations and codes "
+            f"({max(dims[1:-1])} wide) and the weight ring need {need} bytes of shared "
+            f"memory, over the {SMEM_LIMIT_BYTES}-byte limit of a Hopper block; the chain "
+            "kernel cannot run these widths")
+    for plan in fitting:
+        if _fills(-(-M // plan.tm), 2 * sm_count):
+            return plan
+    return fitting[-1]
+
+
+class Segment(NamedTuple):
+    """Layers ``[start, stop)`` of a dense run in one launch: of the
+    chain kernel, or (``dense``) of ``fused_dense`` for one layer the
+    f32 chain cannot hold (a softmax or a split-K sum wider than its
+    shared memory)."""
+
+    start: int
+    stop: int
+    dense: bool = False
+
+
+def _fits(dims: tuple, acts: tuple, dtype: str) -> bool:
+    if dtype == "int8":
+        return _int8_layout(dims, _I8_TILE_ROWS[-1]).smem_bytes <= SMEM_LIMIT_BYTES
+    ld0, ld1 = _buffer_widths(dims, acts)
+    return _chain_smem(_CHAIN_TILE_ROWS[-1], ld0, ld1) <= SMEM_LIMIT_BYTES
+
+
+def chain_segments(dims: Sequence[int], acts: Sequence[int],
+                   dtype: str = "float32") -> tuple[Segment, ...]:
+    """Cut a dense run (widths ``dims``, activation ids ``acts``) into
+    launches, ``dtype`` "float32" (:func:`fcnn_fused_forward`) or "int8"
+    (the int8 chain): pure shape arithmetic. A chain takes at most
+    :data:`MAX_LAYERS` layers and ends before the first interior
+    boundary whose resident rows would not fit the kernel's shared
+    memory at its smallest row tile; the next chain streams that wide
+    activation as its input, which both kernels take at any width. A
+    single f32 layer that does not fit even alone runs as ``fused_dense``
+    (which takes a softmax of any width in a second pass). Every layer
+    lands in exactly one segment, in order. Cached: a serving loop asks
+    for the same cut every batch."""
+    if dtype not in ("float32", "int8"):
+        raise InvalidArgumentError(f"chain_segments: dtype {dtype!r}; float32 or int8")
+    return _chain_segments(tuple(int(d) for d in dims), tuple(int(a) for a in acts), dtype)
+
+
+@functools.lru_cache(maxsize=1024)
+def _chain_segments(dims, acts, dtype) -> tuple[Segment, ...]:
+    segments, start, layers = [], 0, len(acts)
+    while start < layers:
+        if not _fits(dims[start:start + 2], acts[start:start + 1], dtype):
+            segments.append(Segment(start, start + 1, dense=True))
+            start += 1
+            continue
+        stop = start + 1
+        while (stop < layers and stop - start < MAX_LAYERS
+               and _fits(dims[start:stop + 2], acts[start:stop + 1], dtype)):
+            stop += 1
+        segments.append(Segment(start, stop))
+        start = stop
+    return tuple(segments)
+
+
 # ---------------------------------------------------------------------------
 # Single fused layer
 # ---------------------------------------------------------------------------
@@ -333,28 +445,6 @@ fused_dense.launches = 0
 # ---------------------------------------------------------------------------
 # Whole-chain kernel
 # ---------------------------------------------------------------------------
-
-def boundary_widths(dims: Sequence[int]) -> tuple[int, int]:
-    """Widest even and odd layer boundary: the int8 chain's two
-    ping-pong buffers' row widths (buffer A holds dims[0], dims[2], ...;
-    B dims[1], ...)."""
-    return max(dims[0::2]), max(dims[1::2])
-
-
-def chain_tile_rows(row_bytes: int, fixed_bytes: int, what: str) -> int:
-    """The int8 chain's rows per CTA: the largest whose buffers fit a
-    block's shared memory;
-    raises :class:`InvalidArgumentError` naming the limit when not even
-    one row fits."""
-    for tm in _TILE_ROWS:
-        if tm * row_bytes + fixed_bytes <= SMEM_LIMIT_BYTES:
-            return tm
-    raise InvalidArgumentError(
-        f"{what}: one row of activations needs {row_bytes + fixed_bytes} "
-        f"bytes of shared memory, over the {SMEM_LIMIT_BYTES}-byte limit of "
-        "a Hopper block; the chain kernel cannot run these widths"
-    )
-
 
 def _chain_dims(params, x) -> list[int]:
     dims = [int(x.shape[1])]
@@ -404,12 +494,12 @@ def fcnn_fused_forward(params, x, *, activations: Sequence[str] | None = None,
         _check_tensor(p["w"], f"layer {i} w", (torch.float32,), dev)
         _check_tensor(p["b"], f"layer {i} b", (torch.float32,), dev)
     dims = _chain_dims(params, x)
-    M = int(x.shape[0])
-    plan = chain_plan(dims, acts, M, _sm_count(dev),
-                      None if dev.type == "cpu" else _device_index(dev))
-    if dev.type == "cpu":
+    if dev.type == "cpu":  # the plain version has no shared-memory limit
         return fcnn_fused_forward_plain(params, x, activations=activations,
                                         input_scale=input_scale)
+    M = int(x.shape[0])
+    plan = chain_plan(dims, acts, M, _sm_count(dev),
+                      _device_index(dev) if dev.type == "cuda" else None)
     out = torch.empty((M, dims[-1]), dtype=torch.float32, device=dev)
     if M == 0:
         return out

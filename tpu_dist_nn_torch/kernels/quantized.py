@@ -12,7 +12,9 @@ Port of :mod:`tpu_dist_nn.kernels.quantized` (``quantize_fcnn``,
   f32 for bias and activation.
 * **One kernel for the whole chain** (``csrc/int8_chain.cu``, replacing
   the Pallas ``_chain_kernel``): activations re-quantize between layers
-  in shared memory and never reach HBM.
+  in shared memory and never reach HBM; the products run on the int8
+  tensor cores, on weights packed once into the MMA operands' order
+  (:func:`pack_wq`, the ``"wq_packed"`` entry of :func:`quantize_fcnn`).
 
 :func:`forward_quantized` is the plain version: the same arithmetic,
 operation for operation, in PyTorch. The int8 dot runs as a float64
@@ -41,29 +43,53 @@ from tpu_dist_nn_torch.kernels.fused_dense import (
     _ints,
     _layer_acts,
     _ptrs,
+    _sm_count,
     _stream,
-    boundary_widths,
-    chain_tile_rows,
+    int8_plan,
 )
 from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
 
-_INT8_WSLICE_BYTES = 16 * 128 * 4  # int8_chain.cu: kKQ x kCW packed int32
+
+def pack_wq(wq: torch.Tensor) -> torch.Tensor:
+    """``(K, N)`` int8 codes -> the int8 chain kernel's B operands, flat
+    int8 on the same device: K zero-padded to a multiple of 64, N to a
+    multiple of 8, then for each 32-deep k step ``S`` and 8-column tile
+    ``j`` the 256 bytes of one ``mma.m16n8k32`` B fragment: lane ``4g +
+    t`` holds column ``8j + g`` at k ``32S + 4t + q`` (its first 4
+    bytes, q = 0..3) and ``32S + 16 + 4t + q`` (the next 4)."""
+    K, N = wq.shape
+    kp, np_ = -(-K // 64) * 64, -(-N // 8) * 8
+    w = torch.zeros((kp, np_), dtype=torch.int8, device=wq.device)
+    w[:K, :N] = wq
+    # k = 32S + 16r + 4t + q, n = 8j + g  ->  (S, j, g, t, r, q)
+    w = w.reshape(kp // 32, 2, 4, 4, np_ // 8, 8).permute(0, 4, 5, 2, 1, 3)
+    return w.contiguous().reshape(-1)
+
+
+def unpack_wq(packed: torch.Tensor, K: int, N: int) -> torch.Tensor:
+    """The inverse of :func:`pack_wq`: ``(K, N)`` int8 codes."""
+    kp, np_ = -(-K // 64) * 64, -(-N // 8) * 8
+    w = packed.reshape(kp // 32, np_ // 8, 8, 4, 2, 4).permute(0, 4, 3, 5, 1, 2)
+    return w.reshape(kp, np_)[:K, :N].contiguous()
 
 
 def quantize_fcnn(params) -> list[dict]:
-    """f32 FCNN params -> per-layer ``{"wq" int8, "scale" f32 (Dout,),
-    "b" f32, "act"}`` with symmetric per-output-channel scales, on the
-    params' device."""
+    """f32 FCNN params -> per-layer ``{"wq" int8, "wq_packed" int8,
+    "scale" f32 (Dout,), "b" f32, "act"}`` with symmetric
+    per-output-channel scales, on the params' device. ``wq_packed`` is
+    ``wq`` in the int8 chain kernel's operand order (:func:`pack_wq`),
+    made once here; the plain version reads ``wq``."""
     out = []
     for p in params:
         dev = p["w"].device
         w = p["w"].detach().cpu().numpy().astype(np.float32)
         absmax = np.maximum(np.abs(w).max(axis=0), 1e-8)
         scale = (absmax / 127.0).astype(np.float32)
-        wq = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+        wq = torch.from_numpy(np.clip(np.round(w / scale), -127, 127).astype(np.int8)).to(dev)
         out.append(
             {
-                "wq": torch.from_numpy(wq).to(dev),
+                "wq": wq,
+                "wq_packed": pack_wq(wq),
                 "scale": torch.from_numpy(scale).to(dev),
                 "b": p["b"].detach().to(torch.float32).contiguous(),
                 "act": int(p["act"]),
@@ -103,11 +129,13 @@ def forward_quantized(qparams: Sequence[dict], x: torch.Tensor,
 
 def fcnn_quantized_forward(qparams, x, *, activations: Sequence[str] | None = None,
                            prefer_kernel: bool | None = None) -> torch.Tensor:
-    """The whole int8 chain in one kernel per tile of rows.
+    """The whole int8 chain in one kernel launch
+    (:func:`~tpu_dist_nn_torch.kernels.fused_dense.int8_plan`).
 
     ``qparams`` from :func:`quantize_fcnn` on x's device; ``x`` is
-    ``(M, in_dim)`` float32. Returns ``(M, out_dim)`` float32.
-    ``prefer_kernel=False`` runs :func:`forward_quantized` instead.
+    ``(M, in_dim)`` float32 of any width. Returns ``(M, out_dim)``
+    float32. ``prefer_kernel=False`` runs :func:`forward_quantized`
+    instead.
     """
     if prefer_kernel is False:
         return forward_quantized(qparams, x, activations)
@@ -133,14 +161,19 @@ def fcnn_quantized_forward(qparams, x, *, activations: Sequence[str] | None = No
                 f"scale{tuple(p['scale'].shape)}, b{tuple(p['b'].shape)}"
             )
         dims.append(int(wq.shape[1]))
-    ld_a, ld_b = boundary_widths(dims)
-    ld_q = (max(dims[:-1]) + 3) // 4 * 4
-    # Per row: two f32 activation rows, one int8 code row, one f32 scale.
-    tm = chain_tile_rows(4 * (ld_a + ld_b) + ld_q + 4, _INT8_WSLICE_BYTES,
-                         "fcnn_quantized_forward")
-    if dev.type == "cpu":
+    if dev.type == "cpu":  # the plain version has no shared-memory limit
         return forward_quantized(qparams, x, activations)
+    for i, p in enumerate(qparams):
+        want = -(-dims[i] // 64) * 64 * (-(-dims[i + 1] // 8) * 8)
+        if "wq_packed" not in p:
+            raise InvalidArgumentError(f"layer {i}: no wq_packed (make qparams with quantize_fcnn)")
+        _check_tensor(p["wq_packed"], f"layer {i} wq_packed", (torch.int8,), dev)
+        if p["wq_packed"].shape != (want,):
+            raise InvalidArgumentError(
+                f"layer {i}: wq_packed{tuple(p['wq_packed'].shape)} is not pack_wq of "
+                f"wq{tuple(p['wq'].shape)} ({want} codes)")
     M = int(x.shape[0])
+    plan = int8_plan(dims, M, _sm_count(dev))
     out = torch.empty((M, dims[-1]), dtype=torch.float32, device=dev)
     if M == 0:
         return out
@@ -148,9 +181,9 @@ def fcnn_quantized_forward(qparams, x, *, activations: Sequence[str] | None = No
     with torch.cuda.device(dev):
         code = launch(
             x.data_ptr(), out.data_ptr(), M,
-            _ptrs([p["wq"] for p in qparams]), _ptrs([p["scale"] for p in qparams]),
+            _ptrs([p["wq_packed"] for p in qparams]), _ptrs([p["scale"] for p in qparams]),
             _ptrs([p["b"] for p in qparams]), _ints(dims), _ints(acts), len(qparams),
-            tm, ld_a, ld_b, ld_q, _stream(dev),
+            plan.tm, plan.ldh, plan.ldq, plan.kc, plan.smem_bytes, _stream(dev),
         )
     _build.check(code, "fcnn_quantized_forward launch")
     fcnn_quantized_forward.launches += 1

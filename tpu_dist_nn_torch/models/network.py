@@ -15,9 +15,12 @@ kernel):
   :func:`~tpu_dist_nn_torch.kernels.conv2d.fused_conv2d` call;
 * a maxpool that follows no conv is plain torch (the JAX package's
   ``reduce_window``, outside Pallas);
-* each maximal run of dense layers is one
+* each maximal run of dense layers is :func:`dense_forward`: one
   :func:`~tpu_dist_nn_torch.kernels.fused_dense.fcnn_fused_forward`
-  launch, as the dense engine serves (JAX leaves these products to XLA).
+  launch per segment that
+  :func:`~tpu_dist_nn_torch.kernels.fused_dense.chain_segments` cuts
+  (one for the CIFAR tail), as the dense engine serves (JAX leaves
+  these products to XLA).
 
 On the card the CIFAR conv+MLP network is three launches a batch.
 Training through these functions (autodiff) is not ported.
@@ -31,10 +34,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from tpu_dist_nn_torch.core.activations import activation_id
+from tpu_dist_nn_torch.core.activations import ACTIVATION_NAMES, activation_id
 from tpu_dist_nn_torch.core.schema import Conv2DSpec, LayerSpec, MaxPool2DSpec, ModelSpec
 from tpu_dist_nn_torch.kernels.conv2d import fused_conv2d, maxpool_nhwc
-from tpu_dist_nn_torch.kernels.fused_dense import MAX_LAYERS, fcnn_fused_forward
+from tpu_dist_nn_torch.kernels.fused_dense import chain_segments, fcnn_fused_forward, fused_dense
+from tpu_dist_nn_torch.kernels.quantized import fcnn_quantized_forward
 from tpu_dist_nn_torch.utils.device import resolve_device
 
 
@@ -101,6 +105,30 @@ def _conv(p: LayerPlan, w: dict, x: torch.Tensor, pool: LayerPlan | None) -> tor
     return out.reshape(out.shape[0], -1)
 
 
+def dense_forward(params, x: torch.Tensor, *, quantized: bool = False) -> torch.Tensor:
+    """A dense run of any depth and width, as :func:`chain_segments`
+    cuts it: each segment one chain launch (``fcnn_fused_forward``, or
+    ``fcnn_quantized_forward`` with ``quantized`` and the params of
+    ``quantize_fcnn``) or one ``fused_dense`` launch. A cut int8 run
+    stays bit-equal to ``forward_quantized``: the chain re-quantises
+    every layer's f32 activation whether it sits in shared or in device
+    memory. A cut f32 run rounds as the uncut one does, in another
+    summation order."""
+    key = "wq" if quantized else "w"
+    dims = (int(x.shape[1]), *(int(p[key].shape[1]) for p in params))
+    acts = tuple(int(p["act"]) for p in params)
+    for seg in chain_segments(dims, acts, "int8" if quantized else "float32"):
+        part = params[seg.start:seg.stop]
+        if seg.dense:
+            p = part[0]
+            x = fused_dense(x, p["w"], p["b"], activation=ACTIVATION_NAMES[int(p["act"])])
+        elif quantized:
+            x = fcnn_quantized_forward(part, x)
+        else:
+            x = fcnn_fused_forward(part, x)
+    return x
+
+
 def network_forward(plan: Sequence[LayerPlan], params, x: torch.Tensor) -> torch.Tensor:
     """Forward ``x: (B, in_dim)`` float32 -> ``(B, out_dim)``."""
     i = 0
@@ -119,11 +147,11 @@ def network_forward(plan: Sequence[LayerPlan], params, x: torch.Tensor) -> torch
             i += 1
         else:
             j = i
-            while j < len(plan) and plan[j].kind == "dense" and j - i < MAX_LAYERS:
+            while j < len(plan) and plan[j].kind == "dense":
                 j += 1
             chain = [{"w": params[k]["w"], "b": params[k]["b"],
                       "act": activation_id(plan[k].activation)} for k in range(i, j)]
-            x = fcnn_fused_forward(chain, x.contiguous())
+            x = dense_forward(chain, x.contiguous())
             i = j
     return x
 
