@@ -49,15 +49,27 @@ package. Phases, each fatal on failure (exit 1, no result line):
      corpus through ``train_lm``, then ``evaluate_lm`` on 8 held-out
      batches. bf16 attention routes to the sm90 tensor-core kernels:
      ``flash_fwd_sm90`` must launch exactly steps x 12 x 2 (remat) + 12
-     per eval batch times, ``flash_bwd_sm90`` steps x 12, the FFMA
+     per eval batch times, ``flash_bwd_sm90`` steps x 12, the f32
      flash kernels never; every loss finite and the last below the
      first. Before it, the same width at depth 2 (batch 4) trains 3
      steps with the flash kernels and with the materialised
-     ``dot_product_attention``: in float32 (the FFMA route, its own
+     ``dot_product_attention``: in float32 (the f32 route, its own
      path for the launch counts) first loss within rtol 1e-5, all three
      within 1e-4, first-step gradients within 5e-4; in bf16 (the sm90
      route) first loss within rtol 1e-3, all three within 1e-2.
      After it, the CLI's ``lm`` verb runs a few steps.
+
+   * the float32 LM path, ``tdn lm``'s default recipe
+     (``artifacts/real_text_r04/RECORD.json``): d 128, 4 heads, 4
+     layers, T 128, batch 16, 400 steps, Adam at 1e-3 cosine after 20
+     warm-up steps, seed 0, float32, on the vendored
+     ``licenses_corpus.txt`` read by path, through ``train_lm`` and
+     ``evaluate_lm`` on the whole held-out split. Attention takes the
+     3xTF32 kernels only (``flash_fwd_f32`` steps x 4 + 4 per eval
+     batch launches, ``flash_bwd_f32`` steps x 4, sm90 never); every
+     loss finite, the last below the first, held-out loss within 0.10
+     nats of the record's 2.5303 (the port's weights come from a
+     ``torch.Generator``, its batches are the JAX package's).
 
    * dense runs past one chain launch, each engine's counts zeroed
      before its run: a 34-layer 16-wide FCNN in float32 (float64
@@ -74,10 +86,12 @@ package. Phases, each fatal on failure (exit 1, no result line):
    time the card could take (its bound); the conv engine's samples/s
    and batch latency (the int8 chain and each conv stage by a host
    loop of 50 calls, or by a CUDA graph of 50 calls where the loop
-   takes over 10% longer, both printed); the sm90 flash kernels beside the FFMA kernels
-   they replace on bf16 (each at least 2x faster, or the run fails);
-   flash attention and the materialised attention at the TPU kernel
-   sweep's shape (B 4, H 8, T 4096).
+   takes over 10% longer, both printed); the sm90 flash pair in bf16
+   and the f32 pair in float32 beside SDPA in the same dtype, at the
+   85M shape and (f32) at the recipe's (B 16, H 4, T 128, Dh 32), with
+   the FP32 FFMA and the 3xTF32 bounds printed for the f32 pair; flash
+   attention and the materialised attention at the TPU kernel sweep's
+   shape (B 4, H 8, T 4096).
 
 The second-to-last line is one JSON object with a record per kernel;
 the last is ``{"ok": true, "device": {...}}``.
@@ -108,6 +122,12 @@ CONV_PATH_KERNELS = ("fused_conv2d", "fcnn_fused_forward")
 # ("run_85m"), cut to 30 steps with 5 warm-up steps.
 LM = dict(d_model=768, heads=12, layers=12, seq_len=1024, batch=16, steps=30, warmup=5,
           lr=3e-4, eval_batches=8, params=86_039_040)
+# The float32 LM main path: tdn lm's default recipe of
+# artifacts/real_text_r04/RECORD.json, in full, and the record's held-out
+# results; the held-out loss must land within `band` nats of the record's.
+RECIPE = dict(d_model=128, heads=4, layers=4, seq_len=128, batch=16, steps=400, warmup=20,
+              lr=1e-3, seed=0, corpus="tpu_dist_nn/data/corpus/licenses_corpus.txt",
+              loss=2.5303, perplexity=12.5567, bits_per_byte=3.6504, band=0.10)
 FLASH_TOL = (2e-5, 2e-5)  # atol, rtol: tests/test_flash_attention.py's forward
 FLASH_GRAD_TOL = (2e-4, 2e-4)  # and gradients
 # A bf16 output is its float32 value rounded to nearest even: at most
@@ -128,12 +148,13 @@ BF16_RTOL = 2.0**-8
 BF16_PARITY_RTOL = (1e-3, 1e-2)  # first step, all three
 
 # Published dense peaks (NVIDIA data sheets): device memory bytes/s,
-# FP32 FLOP/s on CUDA cores, INT8 tensor-core OP/s, BF16 tensor-core
-# FLOP/s. Matched on the name torch reports; the SXM part is the default.
+# FP32 FLOP/s on CUDA cores, INT8 tensor-core OP/s, BF16 and TF32
+# tensor-core FLOP/s. Matched on the name torch reports; the SXM part is
+# the default.
 PEAKS = {
-    "PCIe": (2.0e12, 51e12, 1513e12, 756e12),
-    "NVL": (3.9e12, 60e12, 1671e12, 835e12),
-    "SXM": (3.35e12, 67e12, 1979e12, 989e12),
+    "PCIe": (2.0e12, 51e12, 1513e12, 756e12, 378e12),
+    "NVL": (3.9e12, 60e12, 1671e12, 835e12, 417.5e12),
+    "SXM": (3.35e12, 67e12, 1979e12, 989e12, 495e12),
 }
 
 
@@ -142,7 +163,7 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def peaks_for(name: str) -> tuple[str, tuple[float, float, float]]:
+def peaks_for(name: str) -> tuple[str, tuple[float, float, float, float, float]]:
     for key in ("PCIe", "NVL"):
         if key in name:
             return key, PEAKS[key]
@@ -189,14 +210,11 @@ def main() -> None:
         fcnn_fused_forward_plain,
         fcnn_quantized_forward,
         flash_bwd,
-        flash_bwd_dkv,
-        flash_bwd_dkv_plain,
-        flash_bwd_dq,
-        flash_bwd_dq_plain,
+        flash_bwd_f32,
         flash_bwd_plain,
         flash_bwd_sm90,
         flash_fwd,
-        flash_fwd_ffma,
+        flash_fwd_f32,
         flash_fwd_plain,
         flash_fwd_sm90,
         forward_quantized,
@@ -255,10 +273,10 @@ def main() -> None:
         fail(f"nvidia-smi: {e}")
     print("card (nvidia-smi name, power.limit):")
     print(smi[0])
-    part, (mem_rate, f32_rate, i8_rate, bf16_rate) = peaks_for(name)
+    part, (mem_rate, f32_rate, i8_rate, bf16_rate, tf32_rate) = peaks_for(name)
     print(f"peaks used for bounds (H100 {part} data sheet): {mem_rate / 1e12:g} TB/s, "
           f"{f32_rate / 1e12:g} TFLOP/s FP32, {i8_rate / 1e12:g} TOP/s INT8, "
-          f"{bf16_rate / 1e12:g} TFLOP/s BF16")
+          f"{bf16_rate / 1e12:g} TFLOP/s BF16, {tf32_rate / 1e12:g} TFLOP/s TF32")
 
     # ---------------------------------------------------------- 1. build
     t0 = time.monotonic()
@@ -529,13 +547,13 @@ def main() -> None:
     # Flash attention, both routes, against the plain versions, q, k and
     # v read as the three strided views of one fused projection as the
     # transformer passes them, lse and delta from the plain forward:
-    # "ffma" calls tdn_flash_fwd, tdn_flash_bwd_dq and tdn_flash_bwd_dkv
-    # by name (float32, or bf16 for the timed comparison); "sm90" goes
-    # through the routed flash_fwd / flash_bwd with bf16, which must
-    # reach tdn_flash_fwd_sm90 and tdn_flash_bwd_sm90. bf16 kernels
-    # against the plain version in float32 on the same bf16 inputs
-    # (BF16_RTOL more rtol; the sm90 kernels also bf16_rounding_bounds);
-    # lse is float32 always.
+    # "f32" calls tdn_flash_fwd_f32 and tdn_flash_bwd_f32 by name
+    # (float32; dq is summed with atomics, so it is compared within the
+    # tolerance, never bit for bit); "sm90" goes through the routed
+    # flash_fwd / flash_bwd with bf16, which must reach
+    # tdn_flash_fwd_sm90 and tdn_flash_bwd_sm90. bf16 kernels against the
+    # plain version in float32 on the same bf16 inputs (BF16_RTOL more
+    # rtol, and bf16_rounding_bounds); lse is float32 always.
     def flash_inputs(B, T, H, Dh, dtype, seed):
         r = np.random.default_rng(seed)
         qkv = on_card(r.standard_normal((B, T, 3 * H, Dh)).astype(np.float32)).to(dtype)
@@ -566,21 +584,17 @@ def main() -> None:
         o_ref, lse_ref = flash_fwd_plain(qf, kf, vf, scale=scale, causal=causal)
         delta = (dof * o_ref).sum(-1).transpose(1, 2).contiguous()
         before = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
-        if route == "ffma":
-            o, lse = flash_fwd_ffma(q, k, v, causal=causal)
-            e_fwd = compare(f"flash_fwd_ffma o {tag}", o.float(), o_ref, fa, fr + extra)
-            compare(f"flash_fwd_ffma lse {tag}", lse, lse_ref, fa, fr)
-            e_dq = compare(f"flash_bwd_dq {tag}",
-                           flash_bwd_dq(q, k, v, do, lse_ref, delta, causal=causal).float(),
-                           flash_bwd_dq_plain(qf, kf, vf, dof, lse_ref, delta, scale=scale,
-                                              causal=causal), ga, gr + extra)
-            dk, dv = flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal=causal)
-            dk_ref, dv_ref = flash_bwd_dkv_plain(qf, kf, vf, dof, lse_ref, delta, scale=scale,
-                                                 causal=causal)
-            e_bwd = max(compare(f"flash_bwd_dkv dk {tag}", dk.float(), dk_ref, ga, gr + extra),
-                        compare(f"flash_bwd_dkv dv {tag}", dv.float(), dv_ref, ga, gr + extra))
-            want = {"flash_fwd_ffma": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
-            errs = (e_fwd, e_dq, e_bwd)
+        if route == "f32":
+            o, lse = flash_fwd_f32(q, k, v, causal=causal)
+            e_fwd = compare(f"flash_fwd_f32 o {tag}", o, o_ref, fa, fr)
+            compare(f"flash_fwd_f32 lse {tag}", lse, lse_ref, fa, fr)
+            grads = flash_bwd_f32(q, k, v, do, lse_ref, delta, causal=causal)
+            refs = flash_bwd_plain(qf, kf, vf, dof, lse_ref, delta, scale=scale, causal=causal)
+            e_bwd = max(compare(f"flash_bwd_f32 {name} {tag}", g, ref, ga, gr)
+                        for name, g, ref in zip(("dq", "dk", "dv"), grads, refs))
+            del grads, refs
+            want = {"flash_fwd_f32": 1, "flash_bwd_f32": 1}
+            errs = (e_fwd, e_bwd)
         else:
             b_o, b_dq, b_dk, b_dv = bf16_rounding_bounds(qf, kf, vf, dof, lse_ref, delta,
                                                          scale=scale, causal=causal)
@@ -610,15 +624,18 @@ def main() -> None:
         return errs
 
     B_LM, H_LM, T_LM, DH_LM = LM["batch"], LM["heads"], LM["seq_len"], LM["d_model"] // LM["heads"]
-    err_f32 = flash_check("main shape", B_LM, T_LM, H_LM, DH_LM, True, torch.float32, "ffma")
-    flash_check("main shape", B_LM, T_LM, H_LM, DH_LM, True, torch.bfloat16, "ffma")
+    err["flash_fwd_f32"], err["flash_bwd_f32"] = flash_check(
+        "main shape", B_LM, T_LM, H_LM, DH_LM, True, torch.float32, "f32")
     err["flash_fwd_sm90"], err["flash_bwd_sm90"] = flash_check(
         "main shape", B_LM, T_LM, H_LM, DH_LM, True, torch.bfloat16, "sm90")
     for i, (T, Dh, causal) in enumerate([(1000, 64, False), (40, 64, True), (1000, 32, True),
                                          (40, 32, False), (1000, 128, True), (40, 128, False),
                                          (129, 64, True)]):
-        flash_check("ragged", 2, T, 4, Dh, causal, torch.float32, "ffma", seed=1 + i)
+        flash_check("ragged", 2, T, 4, Dh, causal, torch.float32, "f32", seed=1 + i)
         flash_check("ragged", 2, T, 4, Dh, causal, torch.bfloat16, "sm90", seed=1 + i)
+    DH_RC = RECIPE["d_model"] // RECIPE["heads"]
+    flash_check("recipe shape", RECIPE["batch"], RECIPE["seq_len"], RECIPE["heads"], DH_RC,
+                True, torch.float32, "f32")
     if failures:
         fail(f"kernel checks failed: {failures}")
 
@@ -836,15 +853,15 @@ def main() -> None:
     print(f"check parity 3 float32 steps (768/12 heads, depth 2, T 1024, batch 4): flash "
           f"{l_flash.tolist()} vs dot_product {l_ref.tolist()}, rel {rel.tolist()} | tol "
           f"first 1e-5, all 1e-4 | {'ok' if p_ok else 'FAIL'}")
-    # The float32 LM path: 2 layers x 3 steps, no remat, on the FFMA kernels.
-    want_f32 = {"flash_fwd_ffma": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6}
-    print(f"float32 LM path launches: {json.dumps(f32_launches)}; expected {json.dumps(want_f32)}"
+    # The float32 LM twin: 2 layers x 3 steps, no remat, on the f32 kernels.
+    want_f32 = {"flash_fwd_f32": 6, "flash_bwd_f32": 6}
+    print(f"float32 LM twin launches: {json.dumps(f32_launches)}; expected {json.dumps(want_f32)}"
           " and no sm90 launch")
     f32_route_ok = (all(f32_launches[k] == n for k, n in want_f32.items())
                     and f32_launches["flash_fwd_sm90"] == f32_launches["flash_bwd_sm90"] == 0)
     if not (g_ok and p_ok and f32_route_ok):
         fail("float32 training with the flash kernels disagrees with dot_product_attention "
-             "or did not take the FFMA kernels")
+             "or did not take the f32 kernels")
     del params2
 
     # The same in bf16 (the LM path's dtype), on the sm90 kernels.
@@ -856,7 +873,7 @@ def main() -> None:
     pb_ok = (len(l_flash) == 3 and np.isfinite(l_flash).all() and rel[0] <= first_tol
              and rel.max() <= all_tol and bf16_launches["flash_fwd_sm90"] == 6
              and bf16_launches["flash_bwd_sm90"] == 6
-             and bf16_launches["flash_fwd_ffma"] == bf16_launches["flash_bwd_dq"] == 0)
+             and bf16_launches["flash_fwd_f32"] == bf16_launches["flash_bwd_f32"] == 0)
     print(f"check parity 3 bf16 steps (768/12 heads, depth 2, T 1024, batch 4): sm90 flash "
           f"{l_flash.tolist()} vs dot_product {l_ref.tolist()}, rel {rel.tolist()} | tol "
           f"first {first_tol:g}, all {all_tol:g}; launches {json.dumps(bf16_launches)} | "
@@ -900,7 +917,7 @@ def main() -> None:
     want_launches = {
         "flash_fwd_sm90": LM["steps"] * LM["layers"] * 2 + LM["layers"] * LM["eval_batches"],
         "flash_bwd_sm90": LM["steps"] * LM["layers"],
-        "flash_fwd_ffma": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        "flash_fwd_f32": 0, "flash_bwd_f32": 0,
     }
     print(f"LM main path launches: {json.dumps(lm_launches)}; expected {json.dumps(want_launches)}")
     if n_params != LM["params"]:
@@ -936,6 +953,64 @@ def main() -> None:
             "perplexity", "bits_per_byte", "eval_rows_used"}
     if set(report) != keys or report["eval_split"] != "held-out" or n_metrics != 6:
         fail(f"cli lm report keys {sorted(report)} or {n_metrics} metrics lines (want 6)")
+
+    # The float32 LM main path: tdn lm's default recipe, as cmd_lm runs it
+    # (corpus split 95/5, weights from the seed, batches from the seed,
+    # the whole held-out split in full batches), each step stamped after
+    # its loss sync (log_every 1; cmd_lm's default logs every 50th, which
+    # changes no number).
+    text_rc, source_rc = load_corpus(ROOT / RECIPE["corpus"])
+    rows_rc = lm_sequences(encode(text_rc), RECIPE["seq_len"])
+    split_rc = max(1, int(len(rows_rc) * 0.95))
+    train_rc, eval_rc = rows_rc[:split_rc], rows_rc[split_rc:]
+    cfg_rc = TransformerConfig(vocab_size=256, d_model=RECIPE["d_model"],
+                               n_heads=RECIPE["heads"], n_layers=RECIPE["layers"],
+                               d_ff=4 * RECIPE["d_model"], max_seq_len=RECIPE["seq_len"])
+    params_rc = init_transformer(torch.Generator().manual_seed(RECIPE["seed"]), cfg_rc,
+                                 device=dev)
+    train_cfg_rc = LMTrainConfig(learning_rate=RECIPE["lr"], steps=RECIPE["steps"],
+                                 batch_size=RECIPE["batch"], seq_len=RECIPE["seq_len"],
+                                 warmup_steps=RECIPE["warmup"], lr_schedule="cosine",
+                                 log_every=1)
+    print(f"recipe corpus {source_rc}: {len(text_rc)} bytes, {len(train_rc)} train and "
+          f"{len(eval_rc)} held-out rows of {RECIPE['seq_len'] + 1} tokens; "
+          f"{num_params(params_rc):,} parameters, float32")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    params_rc, hist_rc = train_lm(
+        params_rc, cfg_rc, lm_batches(train_rc, RECIPE["batch"], seed=RECIPE["seed"], epochs=None),
+        train_cfg_rc)
+    eval_rc_m = evaluate_lm(params_rc, cfg_rc, eval_rc, batch_size=RECIPE["batch"])
+    rc_launches = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    losses_rc = [h["loss"] for h in hist_rc]
+    for h in hist_rc:
+        if h["step"] in (1, 2, 3) or h["step"] % 50 == 0:
+            print(f"  recipe step {h['step']}: loss {h['loss']!r} at {h['seconds']:.4f} s")
+    warm = RECIPE["warmup"]
+    rc_steady = (hist_rc[-1]["seconds"] - hist_rc[warm - 1]["seconds"]) / (len(hist_rc) - warm)
+    print(f"recipe steady (steps {warm + 1}-{len(hist_rc)}): {rc_steady:.6f} s/step, "
+          f"{RECIPE['batch'] * RECIPE['seq_len'] / rc_steady:.1f} tokens/s; steps 1-{warm} took "
+          f"{hist_rc[warm - 1]['seconds']:.3f} s")
+    rc_loss = eval_rc_m["loss_nats_per_token"]
+    print(f"recipe held-out ({eval_rc_m['eval_rows_used']} rows): loss {rc_loss!r} nats/token, "
+          f"perplexity {eval_rc_m['perplexity']!r}, {float(eval_rc_m['bits_per_byte'])!r} "
+          f"bits/byte; record {RECIPE['loss']} / {RECIPE['perplexity']} / "
+          f"{RECIPE['bits_per_byte']} (TPU twin perplexity 12.5648)")
+    rc_batches = eval_rc_m["eval_rows_used"] // RECIPE["batch"]
+    want_rc = {"flash_fwd_f32": RECIPE["steps"] * RECIPE["layers"] + rc_batches * RECIPE["layers"],
+               "flash_bwd_f32": RECIPE["steps"] * RECIPE["layers"],
+               "flash_fwd_sm90": 0, "flash_bwd_sm90": 0}
+    print(f"recipe path launches: {json.dumps(rc_launches)}; expected {json.dumps(want_rc)}")
+    if len(losses_rc) != RECIPE["steps"] or not all(math.isfinite(x) for x in losses_rc):
+        fail(f"recipe losses not finite or not {RECIPE['steps']} of them")
+    if not losses_rc[-1] < losses_rc[0]:
+        fail(f"the recipe's last loss {losses_rc[-1]} is not below its first {losses_rc[0]}")
+    if not (math.isfinite(rc_loss) and abs(rc_loss - RECIPE["loss"]) <= RECIPE["band"]):
+        fail(f"recipe held-out loss {rc_loss} is not within {RECIPE['band']} nats of "
+             f"{RECIPE['loss']}")
+    if any(rc_launches[k] != n for k, n in want_rc.items()):
+        fail("the float32 recipe did not go through the f32 flash kernels only")
+    del params_rc
 
     # ----------------------------------------------- 4. card's numbers
     # The main-path run above is each engine's first pass over the data
@@ -1191,39 +1266,48 @@ def main() -> None:
           f"{conv_sum['ms']:.4f} ms, plain {conv_sum['plain_ms']:.4f} ms, library "
           f"{conv_sum['library_ms']:.4f} ms, bound {conv_sum['bound_ms']:.4f} ms")
 
-    # Flash attention at the LM's shape on rotating input sets larger than
+    # Flash attention on rotating input sets: at the 85M shape larger than
     # the 50 MB L2 (bf16: 3 sets of a 75.5 MB fused qkv and a 25.2 MB dO;
-    # float32: 2 sets of twice that). Each route's kernels are timed in
-    # their own dtype for the kernels line: bf16 for the sm90 pair (the LM
-    # path), float32 for the FFMA trio (the float32 path); the FFMA trio
-    # is also timed in bf16, beside the sm90 pair in this run, which must
-    # be at least 2x faster. lse and delta come from the routed forward.
-    # The sm90 backward's time is its wrapper's: zeroing the float32 dq
-    # workspace, the kernel, the cast of dq to bf16 (timed alone too).
-    # The library yardstick is F.scaled_dot_product_attention(
-    # is_causal=True) on the same (transposed) views: its forward, and one
-    # backward call that computes dq, dk and dv together, timed 7 times
-    # (its time moved 0.338-0.501 ms between calls before): the median is
-    # the yardstick, the spread is printed.
-    scale_lm = 1.0 / math.sqrt(DH_LM)
-    pairs = B_LM * H_LM * causal_pairs(T_LM)
-    src_ffma = "tpu_dist_nn_torch/kernels/csrc/flash_attention.cu"
+    # float32: 2 sets of twice that); at the float32 recipe's shape (B 16,
+    # H 4, T 128, Dh 32: 1 MB a tensor) 4 sets, which stay in L2 as they
+    # do in the recipe's step. Each route's kernels are timed in their own
+    # dtype: bf16 for the sm90 pair (the 85M path), float32 for the f32
+    # pair (tdn lm's default path), whose bound is printed twice: 3xTF32
+    # (three TF32 products over the TF32 peak, the kernels line's) and
+    # FP32 FFMA. lse and delta come from the routed forward. The sm90
+    # backward's time is its wrapper's: zeroing the float32 dq workspace,
+    # the kernel, the cast of dq to bf16 (timed alone too); the f32
+    # backward's includes zeroing its float32 dq. The library yardstick is
+    # F.scaled_dot_product_attention(is_causal=True) on the same
+    # (transposed) views in the same dtype (TF32 off): its forward, and
+    # one backward call that computes dq, dk and dv together, timed 7
+    # times (its time moved 0.338-0.501 ms between calls before): the
+    # median is the yardstick, the spread is printed. At the recipe's
+    # shape a call's host time exceeds its device time, so the kernels
+    # are also timed as a CUDA graph of 50 calls.
+    src_f32 = "tpu_dist_nn_torch/kernels/csrc/flash_attention_f32.cu"
     src_sm90 = "tpu_dist_nn_torch/kernels/csrc/flash_attention_sm90.cu"
     fwd_at, dq_at, dkv_at = ("tpu_dist_nn/kernels/flash_attention.py:52",
                              "tpu_dist_nn/kernels/flash_attention.py:126",
                              "tpu_dist_nn/kernels/flash_attention.py:157")
-    shape_tag = f"B{B_LM} H{H_LM} T{T_LM} Dh{DH_LM} causal"
+    shape_lm = (B_LM, T_LM, H_LM, DH_LM)
+    shape_rc = (RECIPE["batch"], RECIPE["seq_len"], RECIPE["heads"], DH_RC)
 
-    def flash_sets(dtype, n, seed0):
+    def shape_tag(shape):
+        B, T, H, Dh = shape
+        return f"B{B} H{H} T{T} Dh{Dh} causal"
+
+    def flash_sets(shape, dtype, n, seed0):
         sets = []
         for i in range(n):
-            fq, fk, fv, fdo = flash_inputs(B_LM, T_LM, H_LM, DH_LM, dtype, seed=seed0 + i)
+            fq, fk, fv, fdo = flash_inputs(*shape, dtype, seed=seed0 + i)
             fo, flse = flash_fwd(fq, fk, fv, causal=True)
             fdelta = (fdo.float() * fo.float()).sum(-1).transpose(1, 2).contiguous()
             lib_in = [t.transpose(1, 2).detach().requires_grad_(True) for t in (fq, fk, fv)]
             lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True)
             sets.append(dict(q=fq, k=fk, v=fv, do=fdo, lse=flse, delta=fdelta, o=fo,
-                             lib_in=lib_in, lib_out=lib_out, lib_do=fdo.transpose(1, 2)))
+                             lib_in=lib_in, lib_out=lib_out, lib_do=fdo.transpose(1, 2),
+                             scale=1.0 / math.sqrt(shape[3])))
         return sets
 
     def rotating(sets, fn):
@@ -1234,107 +1318,117 @@ def main() -> None:
             return fn(sets[state["i"]])
         return call
 
-    def sdpa_times(sets, label):
+    def sdpa_times(sets, shape, label):
         fwd_ms = cuda_time_ms(rotating(sets, lambda st: F.scaled_dot_product_attention(
             *st["lib_in"], is_causal=True)))
         runs = sorted(cuda_time_ms(rotating(sets, lambda st: torch.autograd.grad(
             st["lib_out"], st["lib_in"], st["lib_do"], retain_graph=True)), iters=20)
             for _ in range(7))
         bwd_ms = float(np.median(runs))
-        print(f"time SDPA @ {shape_tag} {label}: forward {fwd_ms:.4f} ms; backward (dq, dk, "
-              f"dv in one call), 7 timings of 20 calls: median {bwd_ms:.4f} ms, min "
+        print(f"time SDPA @ {shape_tag(shape)} {label}: forward {fwd_ms:.4f} ms; backward (dq, "
+              f"dk, dv in one call), 7 timings of 20 calls: median {bwd_ms:.4f} ms, min "
               f"{runs[0]:.4f}, max {runs[-1]:.4f} ({json.dumps([round(t, 4) for t in runs])})")
         return fwd_ms, bwd_ms
 
     def bwd_args(st):
         return st["q"], st["k"], st["v"], st["do"], st["lse"], st["delta"]
 
-    # name -> (source, replaces, kernel, plain, bytes / element size, FLOP per
-    # causal pair and head dim); bytes count each input read once and each
-    # output written once: (B, T, H, Dh) tensors and float32 (B, H, T) rows.
-    act_elems = B_LM * T_LM * H_LM * DH_LM
-    row_bytes = 4.0 * B_LM * H_LM * T_LM
+    # name -> (source, replaces, kernel, plain, (B, T, H, Dh) tensors moved,
+    # float32 (B, H, T) rows moved, FLOP per causal pair and head dim);
+    # bytes count each input read once and each output written once. The
+    # backward is one function for both TPU backward kernels: q, k, v, dO,
+    # lse and delta in, dq, dk and dv out; 5 products (S, dP, dV, dK, dQ).
     flash_kernels = {
-        "flash_fwd_ffma": (src_ffma, fwd_at,
-                           lambda st: flash_fwd_ffma(st["q"], st["k"], st["v"], causal=True),
-                           "fwd", 4, 1, 4.0),
-        "flash_bwd_dq": (src_ffma, dq_at, lambda st: flash_bwd_dq(*bwd_args(st), causal=True),
-                         "dq", 5, 2, 6.0),
-        "flash_bwd_dkv": (src_ffma, dkv_at,
-                          lambda st: flash_bwd_dkv(*bwd_args(st), causal=True), "dkv", 6, 2,
-                          8.0),
+        "flash_fwd_f32": (src_f32, fwd_at,
+                          lambda st: flash_fwd_f32(st["q"], st["k"], st["v"], causal=True),
+                          "fwd", 4, 1, 4.0),
+        "flash_bwd_f32": (src_f32, f"{dq_at} and {dkv_at}",
+                          lambda st: flash_bwd_f32(*bwd_args(st), causal=True), "bwd", 7, 2,
+                          10.0),
         "flash_fwd_sm90": (src_sm90, fwd_at,
                            lambda st: flash_fwd_sm90(st["q"], st["k"], st["v"], causal=True),
                            "fwd", 4, 1, 4.0),
-        # One function for both TPU backward kernels: q, k, v, dO, lse and
-        # delta in, dq, dk and dv out; 5 products (S, dP, dV, dK, dQ).
         "flash_bwd_sm90": (src_sm90, f"{dq_at} and {dkv_at}",
                            lambda st: flash_bwd_sm90(*bwd_args(st), causal=True), "bwd", 7, 2,
                            10.0),
     }
     plains = {
-        "fwd": lambda st: flash_fwd_plain(st["q"], st["k"], st["v"], scale=scale_lm,
+        "fwd": lambda st: flash_fwd_plain(st["q"], st["k"], st["v"], scale=st["scale"],
                                           causal=True),
-        "dq": lambda st: flash_bwd_dq_plain(*bwd_args(st), scale=scale_lm, causal=True),
-        "dkv": lambda st: flash_bwd_dkv_plain(*bwd_args(st), scale=scale_lm, causal=True),
-        "bwd": lambda st: flash_bwd_plain(*bwd_args(st), scale=scale_lm, causal=True),
+        "bwd": lambda st: flash_bwd_plain(*bwd_args(st), scale=st["scale"], causal=True),
     }
 
-    def time_flash(kname, sets, dtype, sdpa, launches, record):
+    def time_flash(kname, sets, shape, dtype, sdpa, launches=None, err_key=None, graph=False):
         source, replaces, kern, plain_key, n_act, n_rows, flop = flash_kernels[kname]
+        B, T, H, Dh = shape
         elem = 2 if dtype == torch.bfloat16 else 4
-        nbytes = n_act * elem * act_elems + n_rows * row_bytes
-        ops = flop * pairs * DH_LM
-        rate = bf16_rate if dtype == torch.bfloat16 else f32_rate
+        nbytes = n_act * elem * B * T * H * Dh + n_rows * 4.0 * B * H * T
+        ops = flop * B * H * causal_pairs(T) * Dh
         ms = cuda_time_ms(rotating(sets, kern))
         plain_ms = cuda_time_ms(rotating(sets, plains[plain_key]), iters=10, warmup=2)
         library_ms = sdpa[0] if plain_key == "fwd" else sdpa[1]
-        b_ms, b_by = bound_ms(nbytes, ops, rate, mem_rate)
-        if record:
+        if dtype == torch.bfloat16:
+            b_ms, b_by = bound_ms(nbytes, ops, bf16_rate, mem_rate)
+            bound_what = "at the bf16 peak"
+        else:
+            b_ms, b_by = bound_ms(nbytes, 3.0 * ops, tf32_rate, mem_rate)
+            ffma_ms, ffma_by = bound_ms(nbytes, ops, f32_rate, mem_rate)
+            bound_what = (f"3xTF32: 3 x the FLOP at the TF32 peak; FP32 FFMA bound "
+                          f"{ffma_ms:.4f} ms ({ffma_by})")
+        if launches is not None:
             records.append({
                 "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[kname], "max_abs_err": err[kname], "ms": ms,
+                "launches": launches[kname], "max_abs_err": err[err_key], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": library_ms,
             })
         lib_what = ("SDPA forward" if plain_key == "fwd"
                     else "one SDPA backward call, which computes dq, dk and dv together")
-        dname = str(dtype).split(".")[-1]
-        print(f"time {kname} @ {shape_tag} {dname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-              f" library {library_ms:.4f} ms ({lib_what}), bound {b_ms:.4f} ms ({b_by}: "
-              f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.2f} GFLOP at the {dname} peak) -> "
-              f"{b_ms / ms * 100:.2f}% of bound, {ops / ms / 1e9:.1f} TFLOP/s, "
-              f"{ms / library_ms:.2f}x the library")
+        graph_what = (f", CUDA graph of 50 calls {cuda_graph_time_ms(rotating(sets, kern)):.4f} ms"
+                      if graph else "")
+        print(f"time {kname} @ {shape_tag(shape)} {str(dtype).split('.')[-1]}: kernel {ms:.4f} "
+              f"ms{graph_what}, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms "
+              f"({lib_what}), bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, "
+              f"{ops / 1e9:.3f} GFLOP; {bound_what}) -> {b_ms / ms * 100:.2f}% of bound, "
+              f"{ops / ms / 1e9:.1f} TFLOP/s, {ms / library_ms:.2f}x the library")
         return ms
 
-    sets = flash_sets(torch.bfloat16, 3, 10)
+    sets = flash_sets(shape_lm, torch.bfloat16, 3, 10)
     lib_err = float((sets[0]["lib_out"].detach().transpose(1, 2).float()
                      - sets[0]["o"].float()).abs().max())
-    sdpa_bf16 = sdpa_times(sets, "bfloat16")
-    flash_ms = {k: time_flash(k, sets, torch.bfloat16, sdpa_bf16, lm_launches,
-                              record=k.endswith("sm90")) for k in flash_kernels}
+    sdpa_bf16 = sdpa_times(sets, shape_lm, "bfloat16")
+    sm90_bwd_ms = 0.0
+    for k in ("flash_fwd_sm90", "flash_bwd_sm90"):
+        sm90_bwd_ms = time_flash(k, sets, shape_lm, torch.bfloat16, sdpa_bf16, lm_launches, k)
     workspace_ms = cuda_time_ms(lambda: torch.zeros(
         (B_LM, T_LM, H_LM, DH_LM), dtype=torch.float32, device=dev).to(torch.bfloat16))
     print(f"time flash_bwd_sm90's workspace alone (zero a float32 (B, T, H, Dh) and cast it "
-          f"to bf16): {workspace_ms:.4f} ms of its {flash_ms['flash_bwd_sm90']:.4f} ms")
-    fwd_x = flash_ms["flash_fwd_ffma"] / flash_ms["flash_fwd_sm90"]
-    bwd_x = (flash_ms["flash_bwd_dq"] + flash_ms["flash_bwd_dkv"]) / flash_ms["flash_bwd_sm90"]
-    speed_ok = fwd_x >= 2.0 and bwd_x >= 2.0
-    print(f"check sm90 vs FFMA at the LM shape, bf16, this run: forward {fwd_x:.2f}x faster, "
-          f"backward {bwd_x:.2f}x faster than dq + dk/dv | need 2x | "
-          f"{'ok' if speed_ok else 'FAIL'}")
-    if not speed_ok:
-        fail("the sm90 flash kernels are not 2x faster than the FFMA kernels they replace")
+          f"to bf16): {workspace_ms:.4f} ms of its {sm90_bwd_ms:.4f} ms")
     print(f"SDPA forward vs flash_fwd_sm90 at the LM shape: max_abs {lib_err:.3e}")
     del sets
     torch.cuda.empty_cache()
-    # The FFMA kernels on their own route, float32 (TF32 off; SDPA in
-    # float32 as the yardstick), for the kernels line.
-    sets = flash_sets(torch.float32, 2, 30)
-    sdpa_f32 = sdpa_times(sets, "float32")
-    err["flash_fwd_ffma"], err["flash_bwd_dq"], err["flash_bwd_dkv"] = err_f32
-    for k in ("flash_fwd_ffma", "flash_bwd_dq", "flash_bwd_dkv"):
-        time_flash(k, sets, torch.float32, sdpa_f32, f32_launches, record=True)
+    # The f32 pair on its own route, float32, at the 85M shape (the
+    # kernels line; launches from the float32 recipe's main path) and at
+    # the recipe's shape.
+    sets = flash_sets(shape_lm, torch.float32, 2, 30)
+    sdpa_f32 = sdpa_times(sets, shape_lm, "float32")
+    f32_ms = {k: time_flash(k, sets, shape_lm, torch.float32, sdpa_f32, rc_launches, k)
+              for k in ("flash_fwd_f32", "flash_bwd_f32")}
+    zero_ms = cuda_time_ms(lambda: torch.zeros((B_LM, T_LM, H_LM, DH_LM), dtype=torch.float32,
+                                               device=dev))
+    print(f"time flash_bwd_f32's dq zeroing alone: {zero_ms:.4f} ms of its "
+          f"{f32_ms['flash_bwd_f32']:.4f} ms")
+    for k, (lib_ms, name_) in (("flash_fwd_f32", (sdpa_f32[0], "forward")),
+                               ("flash_bwd_f32", (sdpa_f32[1], "backward"))):
+        print(f"check {k} below SDPA float32 {name_} at the 85M shape, this run: "
+              f"{f32_ms[k]:.4f} vs {lib_ms:.4f} ms | goal, not a gate | "
+              f"{'met' if f32_ms[k] < lib_ms else 'missed'}")
+    del sets
+    torch.cuda.empty_cache()
+    sets = flash_sets(shape_rc, torch.float32, 4, 40)
+    sdpa_rc = sdpa_times(sets, shape_rc, "float32")
+    for k in ("flash_fwd_f32", "flash_bwd_f32"):
+        time_flash(k, sets, shape_rc, torch.float32, sdpa_rc, graph=True)
     del sets
     torch.cuda.empty_cache()
 

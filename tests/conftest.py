@@ -302,6 +302,9 @@ QUICK_TESTS = {
                         "test_activation_matches_jax"],
     "test_torch_flash": ["test_plain_kernels_match_the_jax_kernels",
                          "test_grads_through_the_function_match_jax_flash"],
+    "test_torch_flash_f32": [
+        "test_p_moves_from_the_c_to_the_a_layout_without_leaving_its_lane",
+        "test_emulated_f32_schedule_matches_the_plain_versions[130-64-causal-seq_len<T]"],
     "test_torch_flash_sm90": [
         "test_flash_bwd_plain_matches_jax_vjp_and_the_two_plain_versions",
         "test_emulated_sm90_schedule_matches_the_plain_versions[129-causal-seq_len<T]",

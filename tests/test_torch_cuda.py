@@ -10,12 +10,13 @@ GPU machine without them::
 are odd on purpose: ragged tiles, widths that are not multiples of 4,
 more than one 128-column pass, split-K clusters, and convs
 with 1, 3 or 5 input channels, 1 or 33 filters, ragged row bands and a
-batch of one; attention at T of 1, 17, 130 and 1000 (ragged 64-row
+batch of one; attention at T of 1, 17, 77, 130 and 1000 (ragged 64-row
 blocks), head dims 8 to 128, keys past a ``seq_len``, and q, k, v read
-as strided views of one fused projection, on both routes: float32 and
-bfloat16 through the FFMA kernels called by name, bfloat16 through the
-routed entries onto the sm90 tensor-core kernels (head dims 32, 64 and
-128, ragged 128-row tiles).
+as strided views of one fused projection, on both routes: float32
+through the 3xTF32 kernels called by name, bfloat16 through the routed
+entries onto the sm90 tensor-core kernels (head dims 32, 64 and 128,
+ragged 128-row tiles); and the float32 LM, 3 steps with the kernels
+against the materialised attention on the card.
 ``chip_smoke.py`` covers the main path's shapes.
 """
 
@@ -34,14 +35,11 @@ from tpu_dist_nn_torch.kernels import (
     fcnn_quantized_forward,
     forward_quantized,
     flash_bwd,
-    flash_bwd_dkv,
-    flash_bwd_dkv_plain,
-    flash_bwd_dq,
-    flash_bwd_dq_plain,
+    flash_bwd_f32,
     flash_bwd_plain,
     flash_bwd_sm90,
     flash_fwd,
-    flash_fwd_ffma,
+    flash_fwd_f32,
     flash_fwd_plain,
     flash_fwd_sm90,
     fused_dense,
@@ -53,7 +51,13 @@ from tpu_dist_nn_torch.kernels.conv2d import conv_plan
 from tpu_dist_nn_torch.kernels.flash_attention import bf16_rounding_bounds
 from tpu_dist_nn_torch.models.fcnn import params_from_spec
 from tpu_dist_nn_torch.models.network import init_conv_mlp
-from tpu_dist_nn_torch.models.transformer import TransformerConfig, init_transformer, tree_map
+from tpu_dist_nn_torch.kernels.flash_attention import flash_attention
+from tpu_dist_nn_torch.models.transformer import (
+    TransformerConfig,
+    dot_product_attention,
+    init_transformer,
+    tree_map,
+)
 from tpu_dist_nn_torch.train.lm_trainer import LMTrainConfig, train_lm
 from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
 
@@ -320,46 +324,42 @@ def test_engine_serves_past_one_chain_on_the_card(cuda, sizes, quantize, chain_l
 BF16_RTOL = 2.0**-8
 
 
-def _flash_tols(dtype):
-    extra = BF16_RTOL if dtype == torch.bfloat16 else 0.0
-    return dict(atol=2e-5, rtol=2e-5 + extra), dict(atol=2e-4, rtol=2e-4 + extra)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidirectional"])
 @pytest.mark.parametrize(
     "T,Dh,seq_len",
     [(1, 8, None), (17, 16, None), (130, 64, 100), (1000, 32, None), (17, 64, None),
-     (1000, 128, 999)],
-    ids=["T1-Dh8", "T17-Dh16", "T130-Dh64-seq100", "T1000-Dh32", "T17-Dh64", "T1000-Dh128"],
+     (1000, 128, 999), (77, 33, 70)],
+    ids=["T1-Dh8", "T17-Dh16", "T130-Dh64-seq100", "T1000-Dh32", "T17-Dh64", "T1000-Dh128",
+         "T77-Dh33-seq70"],
 )
-def test_flash_kernels_match_plain_on_the_card(cuda, T, Dh, seq_len, causal, dtype):
+def test_flash_kernels_match_plain_on_the_card(cuda, T, Dh, seq_len, causal):
+    # float32 through the 3xTF32 kernels, called by name (Dh 33: rows
+    # not 16-byte aligned, so the 4-byte copies, and an odd dq row for
+    # the scalar atomics). Tolerances: the
+    # float32 ones of tests/test_flash_attention.py (2e-5 forward, 2e-4
+    # gradients); dq is summed with atomics, so it is not compared bit for
+    # bit with a second call.
     B, H = 2, 3
     rng = np.random.default_rng(T + Dh)
-    qkv = torch.from_numpy(rng.standard_normal((B, T, 3 * H, Dh)).astype(np.float32))
-    qkv = qkv.to(cuda, dtype)
+    qkv = torch.from_numpy(rng.standard_normal((B, T, 3 * H, Dh)).astype(np.float32)).to(cuda)
     q, k, v = qkv.split(H, dim=2)  # strided views, as the transformer passes them
-    do = torch.from_numpy(rng.standard_normal((B, T, H, Dh)).astype(np.float32)).to(cuda, dtype)
-    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    do = torch.from_numpy(rng.standard_normal((B, T, H, Dh)).astype(np.float32)).to(cuda)
     scale = 1.0 / np.sqrt(Dh)
     kw = dict(causal=causal, seq_len=seq_len)
-    fwd_tol, grad_tol = _flash_tols(dtype)
     reset_launch_counts()
-    o, lse = flash_fwd_ffma(q, k, v, **kw)
-    o_ref, lse_ref = flash_fwd_plain(qf, kf, vf, scale=scale, **kw)
-    assert o.dtype == dtype and o.is_contiguous()
-    torch.testing.assert_close(o.float(), o_ref, **fwd_tol)
+    o, lse = flash_fwd_f32(q, k, v, **kw)
+    o_ref, lse_ref = flash_fwd_plain(q, k, v, scale=scale, **kw)
+    assert o.dtype == torch.float32 and o.is_contiguous()
+    torch.testing.assert_close(o, o_ref, atol=2e-5, rtol=2e-5)
     torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=2e-5)
-    delta = (dof * o_ref).sum(-1).transpose(1, 2).contiguous()
-    dq = flash_bwd_dq(q, k, v, do, lse_ref, delta, **kw)
-    torch.testing.assert_close(
-        dq.float(), flash_bwd_dq_plain(qf, kf, vf, dof, lse_ref, delta, scale=scale, **kw),
-        **grad_tol)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse_ref, delta, **kw)
-    dk_ref, dv_ref = flash_bwd_dkv_plain(qf, kf, vf, dof, lse_ref, delta, scale=scale, **kw)
-    torch.testing.assert_close(dk.float(), dk_ref, **grad_tol)
-    torch.testing.assert_close(dv.float(), dv_ref, **grad_tol)
-    assert (flash_fwd_ffma.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches) == (1, 1, 1)
+    delta = (do * o_ref).sum(-1).transpose(1, 2).contiguous()
+    grads = flash_bwd_f32(q, k, v, do, lse_ref, delta, **kw)
+    refs = flash_bwd_plain(q, k, v, do, lse_ref, delta, scale=scale, **kw)
+    for got, want in zip(grads, refs):
+        assert got.dtype == torch.float32 and got.is_contiguous()
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+    assert (flash_fwd_f32.launches, flash_bwd_f32.launches) == (1, 1)
+    assert flash_fwd_sm90.launches == flash_bwd_sm90.launches == 0
 
 
 def _assert_within(got, want, bound, atol, rtol):
@@ -379,7 +379,7 @@ def _assert_within(got, want, bound, atol, rtol):
 )
 def test_sm90_flash_kernels_match_plain_on_the_card(cuda, T, Dh, seq_len, causal):
     # bf16 through the routed entries: the sm90 forward and the fused
-    # backward, never the FFMA kernels. Tolerance: the float32 one plus
+    # backward, never the f32 kernels. Tolerance: the float32 one plus
     # 2**-8 for the output's rounding, plus the bound on the kernels'
     # bf16 rounding of P and dS (bf16_rounding_bounds).
     B, H = 2, 3
@@ -407,13 +407,13 @@ def test_sm90_flash_kernels_match_plain_on_the_card(cuda, T, Dh, seq_len, causal
         _assert_within(got, want, bound, 2e-4, 2e-4 + BF16_RTOL)
     launches = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
     assert launches["flash_fwd_sm90"] == 1 and launches["flash_bwd_sm90"] == 1
-    assert launches["flash_fwd_ffma"] == launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0
+    assert launches["flash_fwd_f32"] == launches["flash_bwd_f32"] == 0
 
 
 def test_sm90_route_raises_on_what_it_does_not_take(cuda):
     # bf16 with a head dim outside (32, 64, 128), or a view whose token
     # stride is not a multiple of 16 bytes, raises and launches nothing;
-    # float32 at the same head dim takes the FFMA kernels.
+    # float32 at the same head dim takes the f32 kernels.
     q = torch.zeros(1, 8, 2, 48, device=cuda, dtype=torch.bfloat16)
     reset_launch_counts()
     with pytest.raises(InvalidArgumentError, match="head dims"):
@@ -426,8 +426,8 @@ def test_sm90_route_raises_on_what_it_does_not_take(cuda):
         flash_fwd(odd, odd, odd, causal=True)
     o, _ = flash_fwd(q.float(), q.float(), q.float(), causal=True)
     assert o.dtype == torch.float32
-    assert [fn.launches for fn in KERNEL_WRAPPERS if fn is not flash_fwd_ffma] == [0] * 8
-    assert flash_fwd_ffma.launches == 1
+    assert [fn.launches for fn in KERNEL_WRAPPERS if fn is not flash_fwd_f32] == [0] * 7
+    assert flash_fwd_f32.launches == 1
 
 
 def test_train_lm_step_on_the_card_matches_the_cpu(cuda):
@@ -442,9 +442,32 @@ def test_train_lm_step_on_the_card_matches_the_cpu(cuda):
     want_params, want = train_lm(params, cfg, [batch], train_cfg)
     assert [h["step"] for h in got] == [1]
     np.testing.assert_allclose(got[0]["loss"], want[0]["loss"], rtol=1e-5)
-    # remat: the forward runs again in the backward; float32 takes the FFMA route
-    assert (flash_fwd_ffma.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches) == (4, 2, 2)
+    # remat: the forward runs again in the backward; float32 takes the f32 route
+    assert (flash_fwd_f32.launches, flash_bwd_f32.launches) == (4, 2)
     assert flash_fwd_sm90.launches == flash_bwd_sm90.launches == 0
     torch.testing.assert_close(got_params["tok_embed"].cpu(), want_params["tok_embed"],
                                atol=1e-5, rtol=0)
 
+
+
+def test_float32_lm_trains_through_the_f32_kernels_like_the_materialised_attention(cuda):
+    # tdn lm's default recipe widths (d 128, 4 heads of 32, T 128) at depth
+    # 2 and batch 4: 3 float32 steps with the flash kernels and 3 with
+    # dot_product_attention, both on the card, from the same weights and
+    # batches. Losses within rtol 1e-5 (first) and 1e-4 (all three), as
+    # chip_smoke.py's float32 parity twin.
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=4, n_layers=2, d_ff=512,
+                            max_seq_len=128)
+    params = init_transformer(torch.Generator().manual_seed(0), cfg, device=cuda)
+    batches = [np.random.default_rng(i).integers(0, 256, (4, 129)) for i in range(3)]
+    train_cfg = LMTrainConfig(learning_rate=1e-3, steps=3, batch_size=4, seq_len=128,
+                              log_every=1)
+    reset_launch_counts()
+    got = train_lm(params, cfg, batches, train_cfg, attn_fn=flash_attention)[1]
+    assert (flash_fwd_f32.launches, flash_bwd_f32.launches) == (6, 6)
+    assert flash_fwd_sm90.launches == flash_bwd_sm90.launches == 0
+    want = train_lm(params, cfg, batches, train_cfg, attn_fn=dot_product_attention)[1]
+    got, want = (np.array([h["loss"] for h in hist]) for hist in (got, want))
+    assert len(got) == 3 and np.isfinite(got).all()
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got, want, rtol=1e-4)

@@ -290,7 +290,7 @@ def test_emulated_sm90_schedule_matches_the_plain_versions(T, causal, short):
 def test_route_is_by_dtype():
     assert flash_route("cpu", torch.bfloat16, 48) == "plain"
     assert flash_route("cpu", torch.float32, 64) == "plain"
-    assert flash_route("cuda", torch.float32, 48, [6], [8]) == "ffma"
+    assert flash_route("cuda", torch.float32, 48, [6], [8]) == "f32"
     for dh in SM90_HEAD_DIMS:
         assert flash_route("cuda", torch.bfloat16, dh, [2 * dh, 4608, 4608 * 1024],
                            [0x7F0000001000, 0x7F0000001600]) == "sm90"

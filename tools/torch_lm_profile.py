@@ -11,7 +11,7 @@ Adam at 3e-4) on random weights and corpus batches, runs ``--warmup``
 steps through ``make_lm_train_step``, then ``--steps`` more under
 ``torch.profiler`` (CPU and CUDA activities). Prints each kernel's device
 time per step, the sums by group (each flash kernel: the bf16 path's
-sm90 forward and fused backward, or the FFMA kernels; matrix products;
+sm90 forward and fused backward, or the float32 path's f32 pair; matrix products;
 everything else), the steps' wall time and the share of it in
 which the device ran no kernel. Exits 1 when the profiler recorded no
 device time. Imports nothing of JAX.
@@ -27,13 +27,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-FLASH_KERNELS = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd", "flash_bwd_dq",
-                 "flash_bwd_dkv")
+FLASH_KERNELS = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd_f32", "flash_bwd_f32")
 
 
 def group_of(name: str) -> str:
     """A kernel's group: each flash kernel by its own name (the bf16
-    sm90 pair, or the float32 FFMA trio), then the matrix products, then
+    sm90 pair, or the float32 f32 pair), then the matrix products, then
     everything else."""
     for key in FLASH_KERNELS:
         if f"{key}_kernel" in name:

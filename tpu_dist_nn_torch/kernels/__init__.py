@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain version:
-the dense chains, the fused conv, and flash attention (bf16 on Hopper
-tensor cores: the forward and one fused backward; float32 on FFMA: the
-forward, dq and dk/dv).
+the dense chains, the fused conv, and flash attention on Hopper tensor
+cores (bf16 through wgmma, float32 through 3xTF32 mma.sync: each a
+forward and one fused backward).
 
 Sources live in ``csrc/`` and are built at first use
 (:mod:`tpu_dist_nn_torch.kernels._build`); importing this package
@@ -12,14 +12,13 @@ from tpu_dist_nn_torch.kernels.conv2d import fused_conv2d, fused_conv2d_plain
 from tpu_dist_nn_torch.kernels.flash_attention import (
     flash_attention,
     flash_bwd,
-    flash_bwd_dkv,
     flash_bwd_dkv_plain,
-    flash_bwd_dq,
     flash_bwd_dq_plain,
+    flash_bwd_f32,
     flash_bwd_plain,
     flash_bwd_sm90,
     flash_fwd,
-    flash_fwd_ffma,
+    flash_fwd_f32,
     flash_fwd_plain,
     flash_fwd_sm90,
 )
@@ -39,7 +38,7 @@ from tpu_dist_nn_torch.kernels.quantized import (
 #: and ``flash_bwd`` route to the flash wrappers and launch nothing
 #: themselves.)
 KERNEL_WRAPPERS = (fused_dense, fcnn_fused_forward, fcnn_quantized_forward, fused_conv2d,
-                   flash_fwd_ffma, flash_bwd_dq, flash_bwd_dkv, flash_fwd_sm90, flash_bwd_sm90)
+                   flash_fwd_f32, flash_bwd_f32, flash_fwd_sm90, flash_bwd_sm90)
 
 
 def reset_launch_counts() -> None:
@@ -55,14 +54,13 @@ __all__ = [
     "fcnn_quantized_forward",
     "flash_attention",
     "flash_bwd",
-    "flash_bwd_dkv",
     "flash_bwd_dkv_plain",
-    "flash_bwd_dq",
     "flash_bwd_dq_plain",
+    "flash_bwd_f32",
     "flash_bwd_plain",
     "flash_bwd_sm90",
     "flash_fwd",
-    "flash_fwd_ffma",
+    "flash_fwd_f32",
     "flash_fwd_plain",
     "flash_fwd_sm90",
     "forward_quantized",

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with :mod:`ctypes`; a library
-exports one launch function per kernel (the FFMA flash-attention library
-three, the sm90 one two). Tensors
+exports one launch function per kernel (each flash-attention library
+two). Tensors
 cross as ``data_ptr()`` integers and PyTorch's current stream as its
 ``cuda_stream`` handle. No source includes PyTorch's headers, so a
 cold build takes seconds rather than the minutes a
@@ -61,10 +61,9 @@ LIBRARIES = {
         "tdn_int8_chain": (_P, _P, _I, _PP, _PP, _PP, _PI, _PI, _I, _I, _I, _I, _I, _I, _P),
     },
     "conv2d": {"tdn_conv2d": (_P, _P, _P, _P, _PI, _P)},
-    "flash_attention": {
-        "tdn_flash_fwd": (_P, _P, _P, _P, _P, _PI, _F, _I, _P),
-        "tdn_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _PI, _F, _I, _P),
-        "tdn_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _PI, _F, _I, _P),
+    "flash_attention_f32": {
+        "tdn_flash_fwd_f32": (_P, _P, _P, _P, _P, _PI, _F, _P),
+        "tdn_flash_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _PI, _F, _P),
     },
     "flash_attention_sm90": {
         "tdn_flash_fwd_sm90": (_P, _P, _P, _P, _P, _PL, _F, _P),

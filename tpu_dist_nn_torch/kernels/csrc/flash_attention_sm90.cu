@@ -6,8 +6,7 @@
 //   tdn_flash_fwd_sm90 <- _fwd_kernel (:52, pallas_call at :100)
 //   tdn_flash_bwd_sm90 <- _bwd_dq_kernel (:126, pallas_call at :201) and
 //                         _bwd_dkv_kernel (:157, pallas_call at :220), in one kernel
-// float32 inputs keep the FFMA kernels of flash_attention.cu: a tensor
-// core would need TF32, which breaks their float32 contract.
+// float32 inputs take the 3xTF32 kernels of flash_attention_f32.cu.
 //
 // Bound on an H100 SXM at the LM's shape (B 16, H 12, T 1024, Dh 64,
 // causal, bf16): the forward moves 101.5 MB and needs 25.8 GFLOP over
@@ -22,8 +21,8 @@
 // into a two-stage ring of 128B- (Dh 64, 128) or 64B-swizzled (Dh 32)
 // shared memory, so no thread spends instructions on loads; the (T, T)
 // scores never leave registers, and one backward kernel shares S and dP
-// between dV, dK and dQ (the FFMA pair recomputed both: 7 products a
-// tile, here 5).
+// between dV, dK and dQ (separate dq and dk/dv kernels recompute both: 7
+// products a tile, here 5).
 //
 // Forward: one CTA per (batch*head, 128 query rows): a producer warp
 // issues the TMA loads (Q once, then 128-key K and V tiles into the

@@ -4,15 +4,15 @@ Function.
 Port of :mod:`tpu_dist_nn.kernels.flash_attention`. Two routes, chosen
 by dtype (:func:`flash_route`), never as a fallback:
 
-* bfloat16 on the card (the LM trainer's path) -> the Hopper
-  tensor-core kernels of ``csrc/flash_attention_sm90.cu``:
-  :func:`flash_fwd_sm90` -> ``(o, lse)`` (replaces the Pallas
-  ``_fwd_kernel``) and :func:`flash_bwd_sm90` -> ``(dq, dk, dv)`` in one
-  kernel (``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``);
-* float32 on the card -> the FFMA kernels of ``csrc/flash_attention.cu``
-  (tensor cores would need TF32): :func:`flash_fwd_ffma`,
-  :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`, which also take
-  bfloat16 when called by name;
+* bfloat16 on the card (the 85M recipe's path) -> the Hopper wgmma
+  kernels of ``csrc/flash_attention_sm90.cu``: :func:`flash_fwd_sm90` ->
+  ``(o, lse)`` (replaces the Pallas ``_fwd_kernel``) and
+  :func:`flash_bwd_sm90` -> ``(dq, dk, dv)`` in one kernel
+  (``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``);
+* float32 on the card (``tdn lm``'s default) -> the TF32 tensor-core
+  kernels of ``csrc/flash_attention_f32.cu``, which keep float32
+  accuracy with 3xTF32 products: :func:`flash_fwd_f32` and
+  :func:`flash_bwd_f32` (dq, dk and dv in one kernel);
 * CPU tensors -> the plain versions.
 
 :func:`flash_fwd` and :func:`flash_bwd` route; a bfloat16 call on the
@@ -32,12 +32,13 @@ dimension must be contiguous), so the three views of a fused ``qkv``
 projection go in without a copy. Outputs are contiguous ``(B, T, H,
 Dh)`` in the input type; ``lse`` and ``delta`` are ``(B, H, T)``
 float32. The TPU kernels pad T to a common multiple of their block
-sizes and mask keys past ``seq_len``; here the kernels bound-check (FFMA)
-or let TMA zero-fill (sm90) ragged blocks instead, so ``seq_len``
-(default T) only says how many keys are real, as it does for the padded
-JAX arrays. The JAX ``block_q`` / ``block_k`` are TPU tiling knobs and
-are not carried over: the FFMA tiles are 64 rows on both sides, the sm90
-tiles are ``SM90_TILES``.
+sizes and mask keys past ``seq_len``; here the kernels zero-fill ragged
+tiles as they load them (cp.async in the f32 kernels, TMA in the sm90
+ones), so ``seq_len`` (default T) only says how many keys are real, as
+it does for the padded JAX arrays. The JAX ``block_q`` / ``block_k`` are
+TPU tiling knobs and are not carried over: the f32 tiles are
+``F32_TILES`` (by head width, :func:`f32_tiles`), the sm90 tiles
+``SM90_TILES``.
 
 :class:`FlashAttention` (the JAX package's ``_flash_call`` custom VJP)
 and :func:`flash_attention` (the ``(..., T, H, Dh)`` drop-in for
@@ -60,7 +61,8 @@ from tpu_dist_nn_torch.kernels import _build
 from tpu_dist_nn_torch.kernels.fused_dense import _ints, _stream
 from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
 
-#: The kernels stage a head's rows at a width of 64 or 128 floats.
+#: The f32 kernels stage a head's rows at a width of 32, 64 or 128
+#: floats, the sm90 kernels take head dims up to 128.
 MAX_HEAD_DIM = 128
 #: The TPU kernels' finite mask value: exp(m - m_new) of a fully masked
 #: tile stays 0 instead of NaN.
@@ -81,6 +83,26 @@ SM90_TILES = Sm90Tiles(block=128, wg_rows=64)
 SM90_HEAD_DIMS = (32, 64, 128)
 #: TMA's rule for every global stride and base address, in bytes.
 TMA_ALIGN = 16
+
+
+class F32Tiles(NamedTuple):
+    width: int  #: the head width the kernel is built for: Dh rounded up to 32, 64 or 128
+    fwd_rows: int  #: forward: query rows of a CTA (4 warps of 16 or 32 rows)
+    fwd_keys: int  #: forward: keys of a K/V tile
+    bwd_keys: int  #: backward: keys of a CTA (4 warps of 16)
+    bwd_rows: int  #: backward: query rows of a Q/dO tile
+
+
+#: The f32 kernels' tiles by head width. Every launch passes them, and
+#: the kernels refuse any other values.
+F32_TILES = {32: F32Tiles(32, 128, 32, 64, 64), 64: F32Tiles(64, 128, 32, 64, 32),
+             128: F32Tiles(128, 64, 32, 64, 16)}
+
+
+def f32_tiles(head_dim: int) -> F32Tiles:
+    """The tiles of the f32 kernel that takes ``head_dim`` (at most
+    ``MAX_HEAD_DIM``)."""
+    return F32_TILES[next(w for w in sorted(F32_TILES) if head_dim <= w)]
 
 
 def _key_mask(T: int, seq_len: int, causal: bool, device) -> torch.Tensor:
@@ -138,15 +160,22 @@ def _check_rows(t: torch.Tensor, name: str, shape, device) -> None:
             f"{name} must be a contiguous float32 {tuple(shape)} tensor on {device}")
 
 
-def _dims(q, k, v, seq_len: int, causal: bool):
+def _f32_params(q, k, v, seq_len: int, causal: bool, backward: bool) -> ctypes.Array:
+    """The f32 launch's int parameters: B, H, T, Dh, seq_len, causal,
+    the (batch, token, head) element strides of q, k and v, then the
+    kernel's width and its two tiles (forward: ``fwd_rows``,
+    ``fwd_keys``; backward: ``bwd_keys``, ``bwd_rows``) from
+    :func:`f32_tiles`."""
     B, T, H, Dh = q.shape
+    tiles = f32_tiles(Dh)
     strides = []
     for t in (q, k, v):
         sb, st, sh, _ = t.stride()
         strides += [sb, st, sh]
-    if max(strides) >= 2**31 or B * H * -(-T // 64) >= 2**31:
+    if max(strides) >= 2**31 or B * H * -(-T // min(tiles.fwd_rows, tiles.bwd_keys)) >= 2**31:
         raise InvalidArgumentError("flash attention: shape past the kernels' 32-bit indexing")
-    return _ints([B, H, T, Dh, seq_len, int(causal), *strides])
+    pair = (tiles.bwd_keys, tiles.bwd_rows) if backward else (tiles.fwd_rows, tiles.fwd_keys)
+    return _ints([B, H, T, Dh, seq_len, int(causal), *strides, tiles.width, *pair])
 
 
 def _scale(q) -> float:
@@ -156,7 +185,7 @@ def _scale(q) -> float:
 def flash_route(device_type: str, dtype: torch.dtype, head_dim: int, byte_strides=(),
                 addresses=()) -> str:
     """Which kernels a call takes: ``"plain"`` for CPU tensors,
-    ``"ffma"`` for float32 on the card, ``"sm90"`` for bfloat16 on the
+    ``"f32"`` for float32 on the card, ``"sm90"`` for bfloat16 on the
     card. ``byte_strides`` are the strides in bytes, and ``addresses``
     the data pointers, of the tensors the sm90 kernels read through TMA.
     A bfloat16 call on the card that those kernels do not take raises
@@ -166,7 +195,7 @@ def flash_route(device_type: str, dtype: torch.dtype, head_dim: int, byte_stride
     if device_type == "cpu":
         return "plain"
     if dtype == torch.float32:
-        return "ffma"
+        return "f32"
     if dtype != torch.bfloat16:
         raise InvalidArgumentError(
             f"flash attention takes {[str(d) for d in _DTYPES]}, got {dtype}")
@@ -245,31 +274,34 @@ def flash_fwd(q, k, v, *, causal: bool, seq_len=None):
     route = _route(q, k, v)
     if route == "plain":
         return flash_fwd_plain(q, k, v, scale=_scale(q), causal=causal, seq_len=seq_len)
-    launch = flash_fwd_sm90 if route == "sm90" else flash_fwd_ffma
+    launch = flash_fwd_sm90 if route == "sm90" else flash_fwd_f32
     return launch(q, k, v, causal=causal, seq_len=seq_len)
 
 
-def flash_fwd_ffma(q, k, v, *, causal: bool, seq_len=None):
-    """:func:`flash_fwd` on the FFMA kernel ``tdn_flash_fwd``, float32 or
-    bfloat16."""
+def flash_fwd_f32(q, k, v, *, causal: bool, seq_len=None):
+    """:func:`flash_fwd` on the TF32 tensor-core kernel
+    ``tdn_flash_fwd_f32`` (3xTF32 products): float32 only, any head dim
+    up to ``MAX_HEAD_DIM``."""
     T, seq_len = _check({"q": q, "k": k, "v": v}, causal=causal, seq_len=seq_len)
     scale = _scale(q)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, scale=scale, causal=causal, seq_len=seq_len)
+    if q.dtype != torch.float32:
+        raise InvalidArgumentError(f"flash_fwd_f32 takes float32, got {q.dtype}")
     B, _, H, Dh = q.shape
-    o = torch.empty((B, T, H, Dh), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, T, H, Dh), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    launch = _build.launcher("flash_attention", "tdn_flash_fwd")
+    launch = _build.launcher("flash_attention_f32", "tdn_flash_fwd_f32")
     with torch.cuda.device(q.device):
         code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                      _dims(q, k, v, seq_len, causal), scale, int(q.dtype == torch.bfloat16),
+                      _f32_params(q, k, v, seq_len, causal, backward=False), scale,
                       _stream(q.device))
-    _build.check(code, "flash_fwd_ffma launch")
-    flash_fwd_ffma.launches += 1
+    _build.check(code, "flash_fwd_f32 launch")
+    flash_fwd_f32.launches += 1
     return o, lse
 
 
-flash_fwd_ffma.launches = 0
+flash_fwd_f32.launches = 0
 
 
 def flash_fwd_sm90(q, k, v, *, causal: bool, seq_len=None):
@@ -321,7 +353,7 @@ def _to_bf16(t, on: bool):
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, scale, causal, seq_len=None,
                        round_bf16=False):
-    """The plain version of :func:`flash_bwd_dq`, in float32:
+    """dq of attention (the TPU ``_bwd_dq_kernel``), plain, in float32:
     ``dq = (ds k) * scale`` in q's type; ``round_bf16`` rounds ``ds`` to
     bfloat16 before the product, as the sm90 kernel does."""
     p = _probs(q, k, lse, scale=scale, causal=causal, seq_len=seq_len)
@@ -331,8 +363,8 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, scale, causal, seq_len=None,
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale, causal, seq_len=None,
                         round_bf16=False):
-    """The plain version of :func:`flash_bwd_dkv`, in float32:
-    ``dk = (ds^T q) * scale`` and ``dv = p^T dO`` in q's type;
+    """dk and dv of attention (the TPU ``_bwd_dkv_kernel``), plain, in
+    float32: ``dk = (ds^T q) * scale`` and ``dv = p^T dO`` in q's type;
     ``round_bf16`` rounds ``p`` and ``ds`` to bfloat16 before the
     products, as the sm90 kernel does."""
     p = _probs(q, k, lse, scale=scale, causal=causal, seq_len=seq_len)
@@ -345,7 +377,8 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale, causal, seq_len=None,
 
 def flash_bwd_plain(q, k, v, do, lse, delta, *, scale, causal, seq_len=None,
                     round_bf16=False):
-    """The plain version of :func:`flash_bwd` and :func:`flash_bwd_sm90`:
+    """The plain version of :func:`flash_bwd`, :func:`flash_bwd_f32` and
+    :func:`flash_bwd_sm90`:
     ``(dq, dk, dv)`` from :func:`flash_bwd_dq_plain` and
     :func:`flash_bwd_dkv_plain`, ``round_bf16`` passed to both."""
     kw = dict(scale=scale, causal=causal, seq_len=seq_len, round_bf16=round_bf16)
@@ -385,58 +418,41 @@ def _check_bwd(q, k, v, do, lse, delta, causal, seq_len):
     return T, seq_len
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, seq_len=None):
-    """``dq`` of attention in one kernel, recomputing ``p`` from the
-    forward's ``lse``; ``do`` is contiguous in q's type and ``delta =
-    rowsum(dO * O)`` float32 ``(B, H, T)``."""
+def flash_bwd_f32(q, k, v, do, lse, delta, *, causal: bool, seq_len=None):
+    """``(dq, dk, dv)`` of attention in one TF32 tensor-core kernel,
+    ``tdn_flash_bwd_f32`` (3xTF32 products), recomputing ``p`` from the
+    forward's ``lse``: float32 only; ``do`` is contiguous float32 and
+    ``delta = rowsum(dO * O)`` float32 ``(B, H, T)``. dq is summed into
+    a zeroed float32 output with atomics (its order changes from run to
+    run)."""
     T, seq_len = _check_bwd(q, k, v, do, lse, delta, causal, seq_len)
     scale = _scale(q)
     if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale=scale, causal=causal,
-                                  seq_len=seq_len)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    launch = _build.launcher("flash_attention", "tdn_flash_bwd_dq")
+        return flash_bwd_plain(q, k, v, do, lse, delta, scale=scale, causal=causal,
+                               seq_len=seq_len)
+    if q.dtype != torch.float32:
+        raise InvalidArgumentError(f"flash_bwd_f32 takes float32, got {q.dtype}")
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    launch = _build.launcher("flash_attention_f32", "tdn_flash_bwd_f32")
     with torch.cuda.device(q.device):
         code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                      lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                      _dims(q, k, v, seq_len, causal), scale, int(q.dtype == torch.bfloat16),
-                      _stream(q.device))
-    _build.check(code, "flash_bwd_dq launch")
-    flash_bwd_dq.launches += 1
-    return dq
+                      lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                      dv.data_ptr(), _f32_params(q, k, v, seq_len, causal, backward=True),
+                      scale, _stream(q.device))
+    _build.check(code, "flash_bwd_f32 launch")
+    flash_bwd_f32.launches += 1
+    return dq, dk, dv
 
 
-flash_bwd_dq.launches = 0
-
-
-def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, seq_len=None):
-    """``(dk, dv)`` of attention in one kernel; arguments as
-    :func:`flash_bwd_dq`."""
-    T, seq_len = _check_bwd(q, k, v, do, lse, delta, causal, seq_len)
-    scale = _scale(q)
-    if q.device.type == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale=scale, causal=causal,
-                                   seq_len=seq_len)
-    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    launch = _build.launcher("flash_attention", "tdn_flash_bwd_dkv")
-    with torch.cuda.device(q.device):
-        code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                      lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                      _dims(q, k, v, seq_len, causal), scale, int(q.dtype == torch.bfloat16),
-                      _stream(q.device))
-    _build.check(code, "flash_bwd_dkv launch")
-    flash_bwd_dkv.launches += 1
-    return dk, dv
-
-
-flash_bwd_dkv.launches = 0
+flash_bwd_f32.launches = 0
 
 
 def flash_bwd_sm90(q, k, v, do, lse, delta, *, causal: bool, seq_len=None):
     """``(dq, dk, dv)`` of attention in one tensor-core kernel,
     ``tdn_flash_bwd_sm90``: bfloat16 only, head dims ``SM90_HEAD_DIMS``;
-    arguments as :func:`flash_bwd_dq`. dq is summed in a zeroed float32
+    arguments as :func:`flash_bwd_f32`. dq is summed in a zeroed float32
     workspace (atomics: its order changes from run to run) and cast to
     q's type."""
     T, seq_len = _check_bwd(q, k, v, do, lse, delta, causal, seq_len)
@@ -465,17 +481,15 @@ flash_bwd_sm90.launches = 0
 
 def flash_bwd(q, k, v, do, lse, delta, *, causal: bool, seq_len=None):
     """``(dq, dk, dv)`` of attention, routed by :func:`flash_route`: the
-    fused sm90 kernel for bfloat16 on the card, the FFMA dq and dk/dv
-    kernels for float32, the plain version for CPU tensors."""
+    fused sm90 kernel for bfloat16 on the card, the fused f32 kernel for
+    float32, the plain version for CPU tensors."""
     T, seq_len = _check_bwd(q, k, v, do, lse, delta, causal, seq_len)
     kw = dict(causal=causal, seq_len=seq_len)
     route = _route(q, k, v, do)
     if route == "plain":
         return flash_bwd_plain(q, k, v, do, lse, delta, scale=_scale(q), **kw)
-    if route == "sm90":
-        return flash_bwd_sm90(q, k, v, do, lse, delta, **kw)
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
-    return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    launch = flash_bwd_sm90 if route == "sm90" else flash_bwd_f32
+    return launch(q, k, v, do, lse, delta, **kw)
 
 
 def _flash_bwd(q, k, v, o, lse, g, *, causal, seq_len=None):
