@@ -34,7 +34,30 @@ package. Phases, each fatal on failure (exit 1, no result line):
      float32 and once with ``quantize="int8"``; the CLI's ``infer`` on
      a 256-row examples file; and the CLI's ``doctor`` kernel probe.
      The float32 outputs must match the float64 oracle and the int8
-     outputs the plain int8 chain.
+     outputs the plain int8 chain; uint8 rows through the f32 engine
+     must be bit-equal to the same rows cast to float32.
+   * the Process path (the reference's ``LayerService.Process`` RPC):
+     the 60,000 rows encoded as float64 ``Matrix`` requests of 1, 7,
+     64, 512 and 4,096 rows in turn, sent from 10 threads through the
+     handler body (``make_process_handler``) and the coalescing
+     ``Batcher`` (depth 2) in front of ``Engine.up(path)``: replies
+     within 1e-5 of the float64 oracle and bit-equal to
+     ``Engine.infer`` on each request's rows alone, one chain launch per
+     batch and fewer batches than requests; again at depth 1 (bit-equal
+     to depth 2) with one wrong-width request refused INVALID_ARGUMENT
+     among them; the int8 engine (bit-equal to its rows alone, the
+     plain int8 chain within its tolerance); 1,024 CIFAR rows through
+     the conv engine (CONV_TOL of the plain versions). Where grpcio is
+     installed, the same over loopback gRPC (``serve_engine``,
+     ``GrpcClient``), the CLI's ``up --grpc-port 0`` in a subprocess
+     with ``infer --target`` (its accuracy line equal to the local
+     ``infer``'s), and ``python3 -m tpu_dist_nn_torch.bench
+     --serving``; without grpcio it prints ``grpc: not installed;
+     socket phase not run``. Then each stage's median time from the
+     trace spans (decode, queue_wait, stage, launch, fetch, encode),
+     the wall time of a request by size, the chain kernel's device time
+     for the same batches, and the headline bench line
+     (``python3 -m tpu_dist_nn_torch.bench``).
    * the conv path: the CIFAR-10 conv+MLP network (``init_conv_mlp``'s
      defaults, 32x32x3 -> conv16+pool -> conv32+pool -> 64 -> 10),
      ``Engine.up(path, [2, 2, 2])`` and ``run_inference`` over 10,000
@@ -99,6 +122,8 @@ the last is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -186,6 +211,364 @@ def in_image_taps(size: int, k: int) -> int:
     taps multiply zeros, so the bound does not count them."""
     pad = (k - 1) // 2
     return sum(min(o - pad + k, size) - max(o - pad, 0) for o in range(size))
+
+
+PROCESS_SIZES = (1, 7, 64, 512, 4096)  # rows of the Process requests, in turn
+PROCESS_THREADS = 10
+PROCESS_STAGES = ("decode", "queue_wait", "stage", "launch", "fetch", "encode")
+
+
+def process_requests(n_rows: int, sizes=PROCESS_SIZES) -> list[tuple[int, int]]:
+    """(start, stop) row ranges cutting ``n_rows`` into requests of the
+    sizes in turn."""
+    out, a, i = [], 0, 0
+    while a < n_rows:
+        b = min(n_rows, a + sizes[i % len(sizes)])
+        out.append((a, b))
+        a, i = b, i + 1
+    return out
+
+
+def drive_handler(handler, payloads, threads=PROCESS_THREADS):
+    """Send every payload through the Process handler body from
+    ``threads`` threads, each taking the next request in turn. Returns
+    the replies (bytes, or the RpcAbort raised) and each request's wall
+    seconds, in payload order."""
+    import threading
+
+    from tpu_dist_nn_torch.serving.server import RpcAbort
+
+    replies = [None] * len(payloads)
+    walls = [0.0] * len(payloads)
+    nxt = iter(range(len(payloads)))
+    lock = threading.Lock()
+
+    def worker():
+        while True:
+            with lock:
+                i = next(nxt, None)
+            if i is None:
+                return
+            t0 = time.perf_counter()
+            try:
+                replies[i] = handler(payloads[i])[0]
+            except RpcAbort as e:
+                replies[i] = e
+            walls[i] = time.perf_counter() - t0
+
+    pool = [threading.Thread(target=worker) for _ in range(threads)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join()
+    return replies, walls
+
+
+def stage_medians(spans) -> dict[str, tuple[float, int]]:
+    """Median milliseconds and count of each Process stage's spans."""
+    import numpy as np
+
+    by = {}
+    for sp in spans:
+        by.setdefault(sp.name, []).append(sp.dur * 1e3)
+    return {name: (float(np.median(by[name])), len(by[name]))
+            for name in ("rpc.Process", *PROCESS_STAGES) if name in by}
+
+
+def fetched_batches(spans) -> list[int]:
+    """Bucket rows of each launched batch: every member request of a
+    batch records one ``fetch`` span with the batch's start time."""
+    seen = {}
+    for sp in spans:
+        if sp.name == "fetch":
+            seen[sp.t0] = sp.attrs["batch_rows"]
+    return list(seen.values())
+
+
+def socket_phase(grpc, eng, model_path, data, reqs, tmp) -> None:
+    """The Process path over loopback gRPC: serve_engine and GrpcClient
+    on the first requests, the CLI's ``up --grpc-port`` with ``infer
+    --target`` against the local ``infer``, and the ``--serving`` bench."""
+    import signal
+    import threading
+
+    import numpy as np
+
+    from tpu_dist_nn_torch.cli import main as cli_main
+    from tpu_dist_nn_torch.core.schema import save_examples
+    from tpu_dist_nn_torch.serving.server import GrpcClient, serve_engine
+
+    print(f"grpc: {grpc.__version__}")
+    server, port = serve_engine(eng, 0, host="127.0.0.1")
+    sub = reqs[:10]
+    outs = [None] * len(sub)
+
+    def worker(k):
+        client = GrpcClient(f"127.0.0.1:{port}")
+        try:
+            for i in range(k, len(sub), 5):
+                a, b = sub[i]
+                outs[i] = client.process(data[a:b])
+        finally:
+            client.close()
+
+    pool = [threading.Thread(target=worker, args=(k,)) for k in range(5)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join()
+    client = GrpcClient(f"127.0.0.1:{port}", retry=None)
+    try:
+        client.process(np.zeros((5, MNIST[0] - 1)))
+        code, message = None, None
+    except grpc.RpcError as e:
+        code, message = e.code(), e.details()
+    finally:
+        client.close()
+    batches = server.batcher.batches_total
+    server.stop(0)
+    diff = sum(int((o != eng.infer(data[a:b]).astype(np.float64)).sum())
+               for (a, b), o in zip(sub, outs))
+    want_msg = f"expected input of shape (N, {MNIST[0]}), got (5, {MNIST[0] - 1})"
+    ok = diff == 0 and code == grpc.StatusCode.INVALID_ARGUMENT and message == want_msg
+    print(f"check Process over loopback gRPC: {len(sub)} requests from 5 clients in {batches} "
+          f"batches, not-bit-equal to Engine.infer alone {diff}; wrong width {code} "
+          f"{message!r} | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("Process over the socket disagrees with the engine or its status")
+
+    # The CLI: up --grpc-port in a subprocess, infer --target against it.
+    examples = tmp / "examples_256.json"
+    labels = eng.infer(data[:256]).argmax(-1)
+    save_examples(data[:256], labels, examples)
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    cli = [sys.executable, "-m", "tpu_dist_nn_torch.cli"]
+    up = subprocess.Popen(cli + ["up", "--config", str(model_path), "--grpc-port", "0",
+                                 "--serve-seconds", "300", "--drain-grace-seconds", "2"],
+                          cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                          text=True)
+    try:
+        lines = []
+        for line in up.stdout:
+            lines.append(line.strip())
+            if '"grpc_port"' in line:
+                break
+        if not lines or '"grpc_port"' not in lines[-1]:
+            fail(f"cli up printed no grpc_port: {lines} {up.stderr.read()[-2000:]}")
+        target = f"127.0.0.1:{json.loads(lines[-1])['grpc_port']}"
+        remote = subprocess.run(cli + ["infer", "--target", target, "--inputs", str(examples),
+                                       "--batch-size", "64"],
+                                cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    finally:
+        up.send_signal(signal.SIGTERM)
+        up_rc = up.wait(timeout=120)
+    local = io.StringIO()
+    with contextlib.redirect_stdout(local):
+        local_rc = cli_main(["infer", "--config", str(model_path), "--inputs", str(examples),
+                             "--batch-size", "64"])
+    for label, rc, text in (("cli up", up_rc, "\n".join(lines)),
+                            ("cli infer --target", remote.returncode, remote.stdout),
+                            ("cli infer (this process)", local_rc, local.getvalue())):
+        print(f"{label} (rc {rc}):")
+        for line in text.strip().splitlines():
+            print(f"  {line}")
+
+    def accuracy(out):
+        return [ln for ln in out.splitlines() if ln.startswith("Correct predictions")]
+
+    ok = (up_rc == 0 and remote.returncode == 0 and local_rc == 0
+          and accuracy(remote.stdout) and accuracy(remote.stdout) == accuracy(local.getvalue())
+          and '"ready": true' in lines[0])
+    print(f"check cli infer --target accuracy line equals the local infer's | "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"cli up / infer --target: {remote.stderr[-1500:]}")
+
+    bench = subprocess.run([sys.executable, "-m", "tpu_dist_nn_torch.bench", "--serving"],
+                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    print(f"bench --serving (rc {bench.returncode}): {bench.stdout.strip()}")
+    if bench.returncode != 0:
+        fail(f"bench --serving exited {bench.returncode}: {bench.stderr[-2000:]}")
+
+
+def process_phase(dev, model, conv_model, data, rng, params, q, out_dir, smi_line, compare,
+                  failures) -> None:
+    """The reference's Process RPC in front of the port's engines on the
+    card: in process through the handler body and the batcher (no
+    grpcio), then over the socket where grpcio is installed."""
+    import numpy as np
+    import torch
+
+    from tpu_dist_nn_torch.api.engine import Engine
+    from tpu_dist_nn_torch.core.schema import save_model
+    from tpu_dist_nn_torch.kernels import (
+        KERNEL_WRAPPERS,
+        fcnn_fused_forward,
+        forward_quantized,
+        reset_launch_counts,
+    )
+    from tpu_dist_nn_torch.obs.trace import TRACER
+    from tpu_dist_nn_torch.serving.server import Batcher, RpcAbort, make_process_handler
+    from tpu_dist_nn_torch.serving.wire import decode_matrix, encode_matrix
+    from tpu_dist_nn_torch.testing.oracle import oracle_forward_batch
+    from tpu_dist_nn_torch.utils.profiling import cuda_graph_time_ms
+
+    print(f"Process path on {smi_line} (nvidia-smi name, power.limit)")
+    t_phase = time.monotonic()
+    spans = {}
+
+    def serve(engine, spans_key, reqs, rows, depth=2, extra=None):
+        """Requests of ``rows`` through a fresh batcher of ``depth``
+        in front of ``engine``, counts zeroed just before and read just
+        after; returns the decoded replies, walls, launches and the
+        batcher."""
+        payloads = [encode_matrix(rows[a:b]) for a, b in reqs]
+        at = len(payloads) // 2
+        if extra is not None:
+            payloads.insert(at, extra)
+        batcher = Batcher(engine, pipeline_depth=depth)
+        handler = make_process_handler(engine, batcher)
+        TRACER.reset()
+        reset_launch_counts()
+        replies, walls = drive_handler(handler, payloads)
+        launches = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+        batcher.close()
+        spans[spans_key] = TRACER.snapshot()
+        bad = None
+        if extra is not None:
+            bad = replies.pop(at)
+            walls.pop(at)
+        aborted = [r for r in replies if isinstance(r, RpcAbort)]
+        if aborted:
+            fail(f"Process {spans_key}: {len(aborted)} requests aborted, first "
+                 f"{aborted[0].code}: {aborted[0].message}")
+        outs = [decode_matrix(r) for r in replies]
+        return outs, walls, launches, batcher, bad
+
+    def launch_check(label, launches, kernels, batcher, n_req):
+        want = {k: n * batcher.batches_total for k, n in kernels.items()}
+        got = {k: launches[k] for k in kernels}
+        ok = got == want and 0 < batcher.batches_total < n_req
+        print(f"check Process {label}: {n_req} requests in {batcher.batches_total} batches; "
+              f"launches {json.dumps(got)}, expected {json.dumps(want)} | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"Process {label}: launches do not match the batches, or nothing coalesced")
+
+    def alone_check(label, engine, reqs, rows, outs):
+        """Each request's reply against Engine.infer on its rows alone."""
+        diff = sum(int((o != engine.infer(rows[a:b]).astype(np.float64)).sum())
+                   for (a, b), o in zip(reqs, outs))
+        print(f"check Process {label} vs Engine.infer on each request's rows alone: "
+              f"not-bit-equal {diff} | {'ok' if diff == 0 else 'FAIL'}")
+        if diff:
+            fail(f"Process {label}: a coalesced reply differs from its request alone")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=out_dir) as tmp:
+        model_path = Path(tmp) / "mnist_fcnn.json"
+        save_model(model, model_path)
+        conv_path = Path(tmp) / "cifar_conv_mlp.json"
+        save_model(conv_model, conv_path)
+
+        # 1. In process: the handler body and the batcher, no socket.
+        reqs = process_requests(len(data))
+        eng = Engine.up(model_path, device=dev)
+        t0 = time.perf_counter()
+        outs, walls, launches, b32, _ = serve(eng, "f32", reqs, data)
+        f32_wall = time.perf_counter() - t0
+        print(f"Process f32 in process: {len(reqs)} requests ({len(data)} rows, sizes "
+              f"{PROCESS_SIZES} in turn) from {PROCESS_THREADS} threads, depth 2: "
+              f"{f32_wall:.4f} s wall, {len(data) / f32_wall:.1f} rows/s")
+        launch_check("f32 depth 2", launches, {"fcnn_fused_forward": 1}, b32, len(reqs))
+        got = np.concatenate(outs)
+        o_err = float(np.abs(got - oracle_forward_batch(model, data)).max())
+        print(f"check Process f32 replies vs float64 oracle ({len(data)} rows): max_abs "
+              f"{o_err:.3e} | tol atol 1e-05 | {'ok' if o_err <= 1e-5 else 'FAIL'}")
+        if o_err > 1e-5:
+            fail("Process f32 replies disagree with the float64 oracle")
+        alone_check("f32", eng, reqs, data, outs)
+
+        # Serial (depth 1), with one wrong-width request among the others.
+        bad_payload = encode_matrix(np.zeros((5, MNIST[0] - 1), np.float32))
+        outs1, _, launches1, b1, bad = serve(eng, "f32 depth 1", reqs, data, depth=1,
+                                             extra=bad_payload)
+        launch_check("f32 depth 1", launches1, {"fcnn_fused_forward": 1}, b1, len(reqs))
+        same = all(np.array_equal(a, b) for a, b in zip(outs, outs1))
+        print(f"check Process depth 1 replies bit-equal to depth 2: {'ok' if same else 'FAIL'}")
+        want_msg = f"expected input of shape (N, {MNIST[0]}), got (5, {MNIST[0] - 1})"
+        ok = isinstance(bad, RpcAbort) and bad.code == "INVALID_ARGUMENT" and bad.message == want_msg
+        print(f"check Process wrong width among {len(reqs)} served requests: "
+              f"{getattr(bad, 'code', bad)} {getattr(bad, 'message', '')!r} | "
+              f"{'ok' if ok else 'FAIL'}")
+        if not (same and ok):
+            fail("Process depth 1 differs from depth 2, or the wrong width was not refused alone")
+
+        # int8: bit-equal to the int8 kernel on each request alone and
+        # to the plain int8 chain on each request's rows (atol 0, rtol 0).
+        engq = Engine.up(model_path, quantize="int8", device=dev)
+        outsq, _, launchesq, bq, _ = serve(engq, "int8", reqs, data)
+        launch_check("int8", launchesq, {"fcnn_quantized_forward": 1}, bq, len(reqs))
+        alone_check("int8", engq, reqs, data, outsq)
+        data_dev = torch.from_numpy(data).to(dev)
+        plain = torch.cat([forward_quantized(q, data_dev[a:b]) for a, b in reqs]).cpu()
+        compare("Process int8 replies vs plain forward_quantized on each request's rows",
+                torch.from_numpy(np.concatenate(outsq)).float(), plain, 0.0, 0.0)
+        del data_dev
+
+        # The conv engine behind the handler: 1024 CIFAR rows.
+        data_c = rng.uniform(0.0, 1.0, (CIFAR_BATCH, conv_model.input_dim)).astype(np.float32)
+        reqs_c = process_requests(len(data_c), PROCESS_SIZES[:4])
+        engc = Engine.up(conv_path, device=dev)
+        outsc, _, launchesc, bc, _ = serve(engc, "conv", reqs_c, data_c)
+        launch_check("conv", launchesc, {"fused_conv2d": 2, "fcnn_fused_forward": 1}, bc,
+                     len(reqs_c))
+        plain_c = Engine.up(conv_path, device="cpu").infer(data_c)
+        compare("Process conv replies vs the plain versions (CPU engine)",
+                torch.from_numpy(np.concatenate(outsc)).float(), torch.from_numpy(plain_c),
+                *CONV_TOL)
+        if failures:
+            fail(f"Process checks failed: {failures}")
+
+        # 2. Over the socket, where grpcio is installed.
+        try:
+            import grpc
+        except ImportError:
+            grpc = None
+            print("grpc: not installed; socket phase not run")
+        if grpc is not None:
+            socket_phase(grpc, eng, model_path, data, reqs, Path(tmp))
+
+    # 3. Numbers.
+    for key, label in (("f32", "f32, depth 2"), ("f32 depth 1", "f32, depth 1"),
+                       ("int8", "int8, depth 2"), ("conv", "conv, depth 2")):
+        med = stage_medians(spans[key])
+        print(f"Process stage medians ({label}): " + ", ".join(
+            f"{name} {ms:.4f} ms (n={n})" for name, (ms, n) in med.items()))
+    by_size = {}
+    for (a, b), w in zip(reqs, walls):
+        by_size.setdefault(b - a, []).append(w * 1e3)
+    print("Process f32 request wall time by size (depth 2, 10 threads): " + ", ".join(
+        f"{n} rows median {np.median(v):.3f} ms (n={len(v)})" for n, v in sorted(by_size.items())))
+    buckets = fetched_batches(spans["f32"])
+    xb = torch.from_numpy(np.resize(data, (max(buckets), data.shape[1]))).to(dev)
+    kernel_ms = {n: cuda_graph_time_ms(lambda n=n: fcnn_fused_forward(params, xb[:n]), iters=20)
+                 for n in sorted(set(buckets))}
+    total = sum(kernel_ms[n] for n in buckets)
+    print(f"Process f32 kernel device time for the same {len(buckets)} batches (buckets "
+          f"{json.dumps(dict(sorted((n, buckets.count(n)) for n in set(buckets))))}): "
+          f"{total:.4f} ms (CUDA graph a bucket: "
+          f"{', '.join(f'{n} rows {ms:.4f} ms' for n, ms in kernel_ms.items())}) of "
+          f"{f32_wall * 1e3:.1f} ms wall")
+    del xb
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    bench = subprocess.run([sys.executable, "-m", "tpu_dist_nn_torch.bench"], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=600)
+    print(f"bench (rc {bench.returncode}): {bench.stdout.strip()}")
+    if bench.returncode != 0:
+        fail(f"bench exited {bench.returncode}: {bench.stderr[-2000:]}")
+    line = json.loads(bench.stdout.strip().splitlines()[-1])
+    if line["backend"] != "cuda" or line["agreement"]["max_abs"] > 1e-5:
+        fail(f"bench line: backend {line['backend']}, agreement {line['agreement']}")
+    print(f"Process phase took {time.monotonic() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -702,6 +1085,25 @@ def main() -> None:
         fail(f"main-path checks failed: {failures}")
     agree = float((resq.outputs.argmax(-1) == res32.outputs.argmax(-1)).mean())
     print(f"int8 vs f32 argmax agreement: {agree:.4f}")
+
+    # uint8 rows through the dense f32 engine reach the chain kernel as
+    # they are (scale 1): bit-equal to the same rows cast to float32.
+    rows_u8 = rng.integers(0, 256, (BATCH, MNIST[0])).astype(np.uint8)
+    for n_u8 in (BATCH, 37):
+        reset_launch_counts()
+        got_u8 = eng.infer(rows_u8[:n_u8])
+        u8_launches = fcnn_fused_forward.launches
+        want_u8 = eng.infer(rows_u8[:n_u8].astype(np.float32))
+        ok = u8_launches == 1 and np.array_equal(got_u8, want_u8)
+        print(f"check engine f32 uint8 rows x{n_u8} vs the rows cast to float32: not-bit-equal "
+              f"{int((got_u8 != want_u8).sum())}, chain launches {u8_launches} | "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("uint8 rows through the dense engine differ from the float32 rows")
+
+    # ------------------------------------------------ the Process path
+    process_phase(dev, model, conv_model, data, rng, params, q, out_dir, smi[0], compare,
+                  failures)
 
     # Dense runs past one chain launch: deeper than 32 layers or wider
     # than a chain's shared memory holds. chain_segments cuts each; every

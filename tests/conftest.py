@@ -315,6 +315,13 @@ QUICK_TESTS = {
                             "test_engine_serves_past_one_chain_like_the_jax_engine[34-layers-int8]"],
     "test_torch_lm": ["test_forward_and_loss_gradients_match_jax",
                       "test_train_lm_matches_jax_train_lm"],
+    "test_torch_wire": ["test_encode_matrix_is_byte_identical_to_jax",
+                        "test_decode_matches_jax_and_takes_the_same_lane"],
+    "test_torch_serving": ["test_each_client_gets_correct_replies_from_the_other_server",
+                           "test_both_servers_answer_the_same_status",
+                           "test_handler_and_batcher_run_with_jax_and_grpc_blocked"],
+    "test_torch_cli_serve": ["test_infer_target_prints_the_lines_tdn_prints"],
+    "test_torch_bench": ["test_headline_line_on_the_cpu"],
     # ISSUE 10: the codec fast lane's correctness anchor (byte-exact
     # scalar/vectorized equivalence + fuzz agreement), the decode-into-
     # staging path through a real batcher, the codec A/B perf smoke,

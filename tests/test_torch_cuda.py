@@ -16,7 +16,9 @@ as strided views of one fused projection, on both routes: float32
 through the 3xTF32 kernels called by name, bfloat16 through the routed
 entries onto the sm90 tensor-core kernels (head dims 32, 64 and 128,
 ragged 128-row tiles); and the float32 LM, 3 steps with the kernels
-against the materialised attention on the card.
+against the materialised attention on the card; the Process handler and batcher
+in front of the card's engines (coalesced replies bit-equal to each
+request alone), and uint8 rows through the dense engine.
 ``chip_smoke.py`` covers the main path's shapes.
 """
 
@@ -471,3 +473,55 @@ def test_float32_lm_trains_through_the_f32_kernels_like_the_materialised_attenti
     assert len(got) == 3 and np.isfinite(got).all()
     np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["f32", "int8"])
+def test_process_replies_are_bit_equal_to_each_request_alone_on_the_card(cuda, quantize):
+    # The Process handler body and the batcher (depth 2) in front of the
+    # card's engine: requests of 1-4096 rows coalesce into pow2 buckets
+    # with zero tails, yet every reply has the bits of Engine.infer on
+    # its rows alone (the chain's K ranges are fixed by K; int8 rows are
+    # quantised alone). One chain launch per batch.
+    import threading
+
+    from tpu_dist_nn_torch.serving import Batcher, decode_matrix, encode_matrix
+    from tpu_dist_nn_torch.serving import make_process_handler
+
+    model = _model([784, 128, 64, 10], ["relu", "relu", "softmax"])
+    eng = Engine.up(model, quantize=quantize)
+    batcher = Batcher(eng, pipeline_depth=2)
+    handle = make_process_handler(eng, batcher)
+    sizes = [1, 7, 64, 512, 4096, 3, 100] * 2
+    starts = np.cumsum([0] + sizes)
+    rows = np.random.default_rng(3).uniform(0, 1, (int(starts[-1]), 784)).astype(np.float32)
+    replies = [None] * len(sizes)
+
+    def worker(k):
+        for i in range(k, len(sizes), 5):
+            replies[i] = handle(encode_matrix(rows[starts[i]:starts[i + 1]]))[0]
+
+    reset_launch_counts()
+    pool = [threading.Thread(target=worker, args=(k,)) for k in range(5)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(60)
+    counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    batcher.close()
+    chain = "fcnn_quantized_forward" if quantize else "fcnn_fused_forward"
+    assert counts[chain] == batcher.batches_total < len(sizes)
+    for i, reply in enumerate(replies):
+        alone = eng.infer(rows[starts[i]:starts[i + 1]])
+        np.testing.assert_array_equal(decode_matrix(reply), alone.astype(np.float64))
+
+
+@pytest.mark.parametrize("sizes", [[784, 128, 64, 10], [784, 4000, 10], [16] * 35],
+                         ids=["mnist", "784-4000-10", "34-layers"])
+def test_engine_uint8_rows_match_float32_rows_on_the_card(cuda, sizes):
+    # uint8 rows reach the chain kernel as they are (scale 1); where the
+    # first segment is fused_dense they are cast on the card first.
+    model = _model(sizes, ["relu"] * (len(sizes) - 2) + ["softmax"])
+    eng = Engine.up(model)
+    x = np.random.default_rng(8).integers(0, 256, (1000, sizes[0])).astype(np.uint8)
+    for n in (1000, 37, 1):
+        np.testing.assert_array_equal(eng.infer(x[:n]), eng.infer(x[:n].astype(np.float32)))

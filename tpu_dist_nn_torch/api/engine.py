@@ -170,6 +170,12 @@ class Engine:
                  engine.placement())
         return engine
 
+    @property
+    def numpy_dtype(self) -> np.dtype:
+        """The engine dtype as numpy names it: the dtype a server
+        decodes request rows into."""
+        return torch.empty((), dtype=self.dtype).numpy().dtype
+
     def placement(self) -> dict:
         """Placement summary — the spawn-log analogue (run_grpc_fcnn.py:133-143)."""
         return {
@@ -197,8 +203,9 @@ class Engine:
     def infer_async(self, x) -> PendingInference:
         """Validate, stage and LAUNCH a batch without waiting for it.
 
-        On the card the rows are cast once into pinned host memory,
-        copied to the device, run through the kernels and copied
+        On the card the rows are cast once into pinned host memory
+        (uint8 rows of a dense float32 model stay uint8), copied to the
+        device, run through the kernels and copied
         back into pinned memory, all queued on the current CUDA stream;
         :meth:`fetch` is the host sync. Validation errors raise here.
         """
@@ -213,10 +220,15 @@ class Engine:
         elif x.size != in_dim:
             check_input_dim(in_dim, int(x.size), stage=0)
         host = torch.from_numpy(np.ascontiguousarray(x.reshape(-1, in_dim)))
+        # uint8 rows reach a dense float32 model's chain kernel as they
+        # are (the same float32 values at a quarter of the bytes); the
+        # int8 and conv paths take them cast.
+        dtype = (torch.uint8 if x.dtype == np.uint8 and self._q is None
+                 and self._plan is None else self.dtype)
         if self.device.type == "cpu":
-            out = self._forward(host.to(self.dtype))
+            out = self._forward(host.to(dtype))
             return PendingInference(out, None)
-        staged = torch.empty(host.shape, dtype=self.dtype, pin_memory=True)
+        staged = torch.empty(host.shape, dtype=dtype, pin_memory=True)
         staged.copy_(host)  # the one cast, straight to the engine dtype
         out = self._forward(staged.to(self.device, non_blocking=True))
         result = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)

@@ -3,10 +3,17 @@
 Verbs ported from ``tdn`` (:mod:`tpu_dist_nn.cli`), with the same
 printed lines:
 
+* ``up`` — bring an engine up and print ``{"ready": true, ...}``; with
+  ``--grpc-port`` serve the reference's ``Process`` RPC on it (printing
+  ``{"grpc_port": P}``) until ``--serve-seconds`` pass, SIGINT, or
+  SIGTERM (a graceful drain); with ``--serve`` stay up without a socket.
 * ``infer`` — local-engine inference of a dense or conv model JSON over
   an examples file: whole set, ``--batch-size`` chunks, or one
   ``input_index``; ``--quantize int8`` (dense models);
-  ``--distribution`` (validated, then served on one card).
+  ``--distribution`` (validated, then served on one card). With
+  ``--target host:port`` (or ``--port``) it is a pure gRPC client of a
+  running ``up --grpc-port`` server (the reference client's role; no
+  ``--config``).
 * ``oracle`` — the float64 numpy baseline (scripts/manual_nn.py:88-99).
 * ``doctor`` — a readiness report: the forward against the oracle, and
   a ``fused_dense`` kernel probe against its plain version.
@@ -16,7 +23,8 @@ printed lines:
   Its generation, serving, checkpoint and parallel flags wait for their
   slices.
 
-Everything runs on the card unless ``--device cpu`` is given.
+Every engine-side verb runs on the card unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -40,16 +48,191 @@ def _parse_distribution(text):
     return [int(t) for t in text.replace(",", " ").split()]
 
 
-def cmd_infer(args) -> int:
+def _engine_from_args(args):
     from tpu_dist_nn_torch.api.engine import Engine
-    from tpu_dist_nn_torch.core.schema import load_examples
 
-    engine = Engine.up(
+    return Engine.up(
         args.config,
         _parse_distribution(args.distribution),
         device=args.device,
         quantize=args.quantize,
     )
+
+
+def _parse_class_watermarks(text):
+    """``--class-watermarks 'critical=1.0,best_effort=0.5'`` -> the
+    validated full per-class fraction table (None = defaults)."""
+    if not text:
+        return None
+    from tpu_dist_nn_torch.serving.sched_core import validate_class_watermarks
+
+    table = {}
+    for part in text.replace(",", " ").split():
+        cls, sep, frac = part.partition("=")
+        if not sep:
+            raise ValueError(
+                f"--class-watermarks entries are class=fraction, got {part!r}"
+            )
+        try:
+            table[cls.strip()] = float(frac)
+        except ValueError:
+            raise ValueError(
+                f"--class-watermarks fraction for {cls.strip()!r} must be a "
+                f"number, got {frac!r}"
+            ) from None
+    return validate_class_watermarks(table)
+
+
+def _serve_loop(engine, max_seconds: float | None = None, teardown=None,
+                stop_event=None) -> None:
+    """Supervisor loop: stay up until SIGINT (or ``max_seconds``, or
+    ``stop_event``), then tear down — the reference orchestrator's main
+    loop (run_grpc_fcnn.py:326-344). ``teardown`` replaces the default
+    ``engine.down()``: the gRPC path drains the server BEFORE downing
+    the engine."""
+    t0 = time.monotonic()
+    try:
+        while max_seconds is None or time.monotonic() - t0 < max_seconds:
+            if stop_event is not None and stop_event.wait(0.2):
+                break
+            if stop_event is None:
+                time.sleep(0.2)
+    except KeyboardInterrupt:
+        log.info("interrupt received; tearing down")
+    finally:
+        if teardown is not None:
+            teardown()
+        else:
+            engine.down()
+        log.info("engine down; relaunch with `up` (stateless restart)")
+
+
+def cmd_up(args) -> int:
+    """Validate, place and warm an engine (the orchestrator's role);
+    optionally serve it."""
+    from tpu_dist_nn_torch.serving.resilience import GracefulDrain
+
+    watermarks = _parse_class_watermarks(args.class_watermarks)
+    engine = _engine_from_args(args)
+    print(json.dumps({"ready": True, "setup_seconds": engine.setup_seconds,
+                      "placement": engine.placement()}))
+    if args.inputs:
+        from tpu_dist_nn_torch.core.schema import load_examples
+
+        x, _ = load_examples(args.inputs)
+        result = engine.run_inference(x[:1])
+        print(json.dumps({"smoke_inference": result.outputs[0].tolist()}))
+    if args.probe_latency:
+        print(json.dumps({"step_latency": engine.step_latency()}))
+    if args.grpc_port is not None:
+        from tpu_dist_nn_torch.serving.server import serve_engine
+
+        drain = GracefulDrain(grace_seconds=args.drain_grace_seconds)
+        server, bound = serve_engine(
+            engine, args.grpc_port, warm_rows=args.serve_warm_rows,
+            max_pending_rows=args.max_pending_rows,
+            class_watermarks=watermarks,
+        )
+        # SIGTERM -> drain: stop accepting, finish in-flight RPCs within
+        # --drain-grace-seconds, then leave the loop.
+        drain.add_server(server)
+        drain.install_signal_handler()
+        print(json.dumps({"grpc_port": bound}), flush=True)
+
+        def teardown():
+            drain.begin()
+            drain.wait(args.drain_grace_seconds + 10.0)
+            engine.down()
+
+        _serve_loop(engine, max_seconds=args.serve_seconds,
+                    teardown=teardown, stop_event=drain.drained)
+        return 0
+    if args.serve:
+        _serve_loop(engine, max_seconds=args.serve_seconds)
+    return 0
+
+
+def _infer_over_grpc(args) -> int:
+    """Client-only inference against a running ``up --grpc-port``
+    server — the reference client's role (run_grpc_inference.py): no
+    model file, batches over one persistent channel, accuracy and time
+    reported as the local verb reports them."""
+    import math
+
+    from tpu_dist_nn_torch.core.schema import load_examples
+    from tpu_dist_nn_torch.serving.server import GrpcClient
+    from tpu_dist_nn_torch.train.metrics import classification_metrics
+
+    x, y = load_examples(args.inputs)
+    kwargs = {}
+    if args.retry_max_attempts is not None:
+        from tpu_dist_nn_torch.serving.resilience import RetryPolicy
+
+        kwargs["retry"] = RetryPolicy(max_attempts=args.retry_max_attempts)
+    if args.session_key:
+        kwargs["session_key"] = args.session_key
+    if args.slo_class:
+        kwargs["slo_class"] = args.slo_class
+    client = GrpcClient(args.target, timeout=args.timeout or 30.0, **kwargs)
+    try:
+        if args.input_index is not None:
+            t0 = time.monotonic()
+            out = client.process(np.asarray(x[args.input_index])[None, :])[0]
+            seconds = time.monotonic() - t0
+            print(f"Output: {out.tolist()}")
+            print(f"Inference time: {seconds:.4f} seconds")
+            if y[args.input_index] >= 0:
+                print(f"Label: {y[args.input_index]}  predicted: {int(out.argmax())}")
+            return 0
+        bs = args.batch_size or len(x)
+        outs = []
+        t0 = time.monotonic()
+        for i in range(math.ceil(len(x) / bs)):
+            tb = time.monotonic()
+            outs.append(client.process(x[i * bs:(i + 1) * bs]))
+            log.info("batch %d took %.4f seconds", i, time.monotonic() - tb)
+        seconds = time.monotonic() - t0
+        out = np.vstack(outs)
+        n = len(x)
+        if (y >= 0).all():
+            preds = out.argmax(-1)
+            metrics = classification_metrics(preds, y, out.shape[1])
+            correct = int((preds == y).sum())
+            print(f"Correct predictions: {correct}/{n} "
+                  f"(accuracy {metrics['accuracy']:.4f})")
+            print(f"Metrics: {json.dumps(metrics)}")
+        print(f"Total inference time: {seconds:.4f} seconds "
+              f"({n / seconds:.1f} samples/sec)")
+        return 0
+    finally:
+        client.close()
+
+
+def cmd_infer(args) -> int:
+    from tpu_dist_nn_torch.core.schema import load_examples
+
+    if not args.target and args.port is not None and not args.config:
+        # A bare --port with no local model: the server on localhost,
+        # the reference client's addressing (run_grpc_inference.py:27).
+        args.target = f"127.0.0.1:{args.port}"
+    if args.target:
+        ignored = [name for name, bad in (
+            ("--config", args.config is not None),
+            ("--quantize", args.quantize is not None),
+            ("--distribution", args.distribution is not None),
+            ("--device", args.device is not None),
+        ) if bad]
+        if ignored:
+            raise ValueError(
+                f"{', '.join(ignored)} configure a LOCAL engine and have no "
+                "effect in --target client mode; start the server with them "
+                "instead (up --grpc-port ...)"
+            )
+        return _infer_over_grpc(args)
+    if not args.config:
+        raise ValueError("infer requires --config (or --target for "
+                         "client-only mode against a running server)")
+    engine = _engine_from_args(args)
     x, y = load_examples(args.inputs)
     if args.input_index is not None:
         # Single-example path (run_grpc_inference.py:174-178).
@@ -223,16 +406,67 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("infer", help="run inference on a local engine")
+    def add_engine_args(p, config_required=True):
+        p.add_argument("--config", required=config_required, help="model JSON file")
+        p.add_argument("--distribution", help="layer distribution, e.g. 1,1,1")
+        p.add_argument("--quantize", choices=["int8"],
+                       help="serve through the int8 chain kernel")
+        p.add_argument("--device", default=None,
+                       help="'cuda' (default) or 'cpu' for the plain PyTorch path")
+
+    p = sub.add_parser("up", help="validate, place, warm (orchestrator); optionally serve")
+    add_engine_args(p)
+    p.add_argument("--inputs", help="example inputs JSON file: one smoke inference")
+    p.add_argument("--probe-latency", action="store_true",
+                   help="report p50/p90/p99 pipeline step latency")
+    p.add_argument("--serve", action="store_true",
+                   help="stay up until Ctrl-C, then tear down "
+                        "(the reference orchestrator's supervisor loop)")
+    p.add_argument("--grpc-port", type=int, default=None,
+                   help="serve the reference's LayerService Process RPC on this "
+                        "port (0 = ephemeral; printed as {\"grpc_port\": P}) "
+                        "and stay up until Ctrl-C")
+    p.add_argument("--serve-warm-rows", type=int, default=64,
+                   help="run the coalescing bucket ladder up to this many rows "
+                        "before opening the port (0 disables)")
+    p.add_argument("--serve-seconds", type=float, default=None,
+                   help="serve for N seconds then tear down (default: until "
+                        "interrupted)")
+    p.add_argument("--max-pending-rows", type=int, default=None,
+                   help="admission watermark: a request that would queue past "
+                        "this many pending rows is shed with RESOURCE_EXHAUSTED "
+                        "(default: unbounded)")
+    p.add_argument("--class-watermarks", default=None, metavar="SPEC",
+                   help="per-SLO-class shed fractions of --max-pending-rows, e.g. "
+                        "'critical=1.0,standard=1.0,best_effort=0.5' (the default)")
+    p.add_argument("--drain-grace-seconds", type=float, default=5.0,
+                   help="graceful-drain window on SIGTERM: new RPCs are refused "
+                        "and in-flight ones get this long to finish")
+    p.set_defaults(fn=cmd_up)
+
+    p = sub.add_parser("infer", help="run inference on a local engine, or as a gRPC client")
     p.add_argument("input_index", nargs="?", type=int, default=None)
-    p.add_argument("--config", required=True, help="model JSON file")
+    add_engine_args(p, config_required=False)
     p.add_argument("--inputs", required=True, help="example inputs JSON file")
-    p.add_argument("--distribution", help="layer distribution, e.g. 1,1,1")
-    p.add_argument("--quantize", choices=["int8"],
-                   help="serve through the int8 chain kernel")
     p.add_argument("--batch-size", type=int, default=None)
-    p.add_argument("--device", default=None,
-                   help="'cuda' (default) or 'cpu' for the plain PyTorch path")
+    p.add_argument("--target",
+                   help="host:port of a running `up --grpc-port` server: act as "
+                        "a pure gRPC client (no --config needed)")
+    p.add_argument("--port", type=int, default=None,
+                   help="with no --config: shorthand for --target 127.0.0.1:PORT")
+    p.add_argument("--timeout", type=float, default=None,
+                   help="per-RPC budget for --target (default 30 s), retries "
+                        "included")
+    p.add_argument("--retry-max-attempts", type=int, default=None,
+                   help="with --target: attempts per RPC (jittered backoff on "
+                        "UNAVAILABLE/DEADLINE_EXCEEDED within --timeout; 1 = no "
+                        "retries, default 3)")
+    p.add_argument("--session-key",
+                   help="with --target: send this x-tdn-session key on every RPC")
+    p.add_argument("--slo-class", default=None,
+                   choices=["critical", "standard", "best_effort"],
+                   help="with --target: send this x-tdn-class SLO class on "
+                        "every RPC (queue priority and shed watermark)")
     p.set_defaults(fn=cmd_infer)
 
     p = sub.add_parser("oracle", help="numpy float64 baseline (manual_nn)")
@@ -287,7 +521,7 @@ def main(argv=None) -> int:
     )
     try:
         return args.fn(args)
-    except (ValueError, FileNotFoundError, FrameworkError) as e:
+    except (ValueError, FileNotFoundError, ImportError, FrameworkError) as e:
         # Config/placement errors and a missing card are user errors,
         # not crashes.
         print(f"error: {e}", file=sys.stderr)

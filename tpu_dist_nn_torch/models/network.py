@@ -113,12 +113,16 @@ def dense_forward(params, x: torch.Tensor, *, quantized: bool = False) -> torch.
     stays bit-equal to ``forward_quantized``: the chain re-quantises
     every layer's f32 activation whether it sits in shared or in device
     memory. A cut f32 run rounds as the uncut one does, in another
-    summation order."""
+    summation order. uint8 ``x`` goes to an f32 chain as it is (the
+    kernel converts on load); a ``fused_dense`` or int8 segment takes
+    it cast to float32, the same values."""
     key = "wq" if quantized else "w"
     dims = (int(x.shape[1]), *(int(p[key].shape[1]) for p in params))
     acts = tuple(int(p["act"]) for p in params)
     for seg in chain_segments(dims, acts, "int8" if quantized else "float32"):
         part = params[seg.start:seg.stop]
+        if x.dtype == torch.uint8 and (seg.dense or quantized):
+            x = x.to(torch.float32)
         if seg.dense:
             p = part[0]
             x = fused_dense(x, p["w"], p["b"], activation=ACTIVATION_NAMES[int(p["act"])])
