@@ -322,6 +322,13 @@ QUICK_TESTS = {
                            "test_handler_and_batcher_run_with_jax_and_grpc_blocked"],
     "test_torch_cli_serve": ["test_infer_target_prints_the_lines_tdn_prints"],
     "test_torch_bench": ["test_headline_line_on_the_cpu"],
+    "test_torch_datasets": ["test_real_digits_match_jax[train]",
+                            "test_shuffled_batch_iterator_matches_jax[xy-drop]"],
+    "test_torch_checkpoint": ["test_train_resume_matches_uninterrupted",
+                              "test_async_manager_surfaces_worker_errors"],
+    "test_torch_train": ["test_train_fcnn_matches_jax[cosine-warmup]",
+                         "test_int8_gate_reroutes_by_its_measurement[int8-slower]",
+                         "test_train_runs_with_jax_and_the_jax_package_blocked"],
     # ISSUE 10: the codec fast lane's correctness anchor (byte-exact
     # scalar/vectorized equivalence + fuzz agreement), the decode-into-
     # staging path through a real batcher, the codec A/B perf smoke,

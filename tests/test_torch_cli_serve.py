@@ -49,7 +49,9 @@ def _up(model, *extra):
         [sys.executable, "-m", "tpu_dist_nn_torch.cli", "up", "--config", str(model),
          "--device", "cpu", *extra],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env={**os.environ, "OMP_NUM_THREADS": "1"})
+        # The int8 warm-up gate measures and warns only: an int8 server
+        # here serves the int8 chain, as the tests expect.
+        env={**os.environ, "OMP_NUM_THREADS": "1", "TDN_INT8_AUTO": "0"})
     lines = []
     for line in proc.stdout:
         lines.append(json.loads(line))

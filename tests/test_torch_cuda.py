@@ -18,7 +18,8 @@ entries onto the sm90 tensor-core kernels (head dims 32, 64 and 128,
 ragged 128-row tiles); and the float32 LM, 3 steps with the kernels
 against the materialised attention on the card; the Process handler and batcher
 in front of the card's engines (coalesced replies bit-equal to each
-request alone), and uint8 rows through the dense engine.
+request alone), and uint8 rows through the dense engine; training's
+eval through the chain kernel, and the int8 warm-up gate's launches.
 ``chip_smoke.py`` covers the main path's shapes.
 """
 
@@ -67,9 +68,12 @@ ACTIVATIONS = ["linear", "relu", "sigmoid", "tanh", "gelu", "softmax"]
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the card")
+    # The int8 warm-up gate measures and warns only: the int8 engine
+    # tests hold the int8 kernel itself (the gate has its own test).
+    monkeypatch.setenv("TDN_INT8_AUTO", "0")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -187,7 +191,9 @@ def test_engine_on_the_card_matches_the_cpu_engine(cuda, quantize, atol, rtol):
     np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
     counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
     chain = "fcnn_quantized_forward" if quantize else "fcnn_fused_forward"
-    assert counts[chain] == 1 + 4  # warm-up + 4 batches
+    # warm-up, the int8 gate's int8 arm at warm-up (one warm call and
+    # best of 3) on a quantized engine, 4 batches
+    assert counts[chain] == 1 + (4 if quantize else 0) + 4
     a, b = gpu.infer_async(x[:3]), gpu.infer_async(x[3:10])
     np.testing.assert_array_equal(gpu.fetch(b), got[3:10])
     np.testing.assert_array_equal(gpu.fetch(a), got[:3])
@@ -525,3 +531,42 @@ def test_engine_uint8_rows_match_float32_rows_on_the_card(cuda, sizes):
     x = np.random.default_rng(8).integers(0, 256, (1000, sizes[0])).astype(np.uint8)
     for n in (1000, 37, 1):
         np.testing.assert_array_equal(eng.infer(x[:n]), eng.infer(x[:n].astype(np.float32)))
+
+
+def test_trained_engine_evaluates_through_the_chain_kernel(cuda):
+    # Engine.train on the card: the steps are plain autograd (no kernel
+    # launch), each epoch's eval is one chain launch per 1024-row batch,
+    # and its metrics are those of the plain forward's argmax.
+    from tpu_dist_nn_torch.data.datasets import synthetic_mnist
+    from tpu_dist_nn_torch.models.fcnn import forward
+    from tpu_dist_nn_torch.train.metrics import classification_metrics
+    from tpu_dist_nn_torch.train.trainer import TrainConfig, evaluate_fcnn
+
+    data = synthetic_mnist(3000, num_classes=10, dim=784, seed=5)
+    train, held = data.split(0.5, seed=0)
+    eng = Engine.up(_model([784, 128, 64, 10], ["relu", "relu", "softmax"]))
+    reset_launch_counts()
+    hist = eng.train(train, TrainConfig(epochs=2, batch_size=64), eval_data=held)
+    counts = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    assert counts == {k: (4 if k == "fcnn_fused_forward" else 0) for k in counts}
+    assert hist[1]["loss"] < hist[0]["loss"]
+    reset_launch_counts()
+    got = evaluate_fcnn(eng._params, held)
+    assert fcnn_fused_forward.launches == 2
+    with torch.no_grad():
+        plain = forward(eng._params, torch.from_numpy(held.x).to(cuda)).argmax(-1).cpu().numpy()
+    assert got == classification_metrics(plain, held.y, 10) == hist[1]["eval"]
+
+
+def test_int8_gate_launches_follow_its_decision_on_the_card(cuda, monkeypatch):
+    # The gate on: its verdict at 1024 rows picks the chain that serves.
+    monkeypatch.setenv("TDN_INT8_AUTO", "1")
+    eng = Engine.up(_model([784, 128, 64, 10], ["relu", "relu", "softmax"]),
+                    quantize="int8", warm_rows=1024)
+    assert eng.int8_speedup_ratio > 0
+    assert eng.int8_auto_disabled == (eng.int8_speedup_ratio < 1.0)
+    reset_launch_counts()
+    eng.run_inference(_rows(3000, 784, cuda).cpu().numpy(), batch_size=1024)
+    kept = not eng.int8_auto_disabled
+    assert fcnn_quantized_forward.launches == (3 if kept else 0)
+    assert fcnn_fused_forward.launches == (0 if kept else 3)

@@ -34,12 +34,24 @@ as the JAX Engine collapses to one chip. The cross-GPU pipeline (and,
 for conv models, the heterogeneous per-stage pipeline) is not ported
 yet, so a multi-card placement also serves on one card; both are
 logged.
+
+The int8 warm-up gate: a quantized engine's first :meth:`Engine.warm_buckets`
+times one f32 and one int8 launch of the largest warm bucket
+(:meth:`Engine.measure_int8_speedup`) and, where int8 is slower,
+reroutes serving to the f32 chain (``int8_auto_disabled``).
+``TDN_INT8_AUTO=0`` keeps int8 (measure and warn only);
+``TDN_INT8_WARMUP_MEASURE=0`` skips the measurement.
+
+Training (:meth:`Engine.train`) trains a dense engine's params in place
+with :func:`~tpu_dist_nn_torch.train.trainer.train_fcnn` and serves
+the trained weights on every path afterwards.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 
 import numpy as np
@@ -50,6 +62,8 @@ from tpu_dist_nn_torch.data.feed import batch_iterator
 from tpu_dist_nn_torch.kernels.quantized import quantize_fcnn
 from tpu_dist_nn_torch.models.fcnn import params_from_spec
 from tpu_dist_nn_torch.models.network import build_network, dense_forward, network_forward
+from tpu_dist_nn_torch.obs.log import get_logger
+from tpu_dist_nn_torch.obs.registry import REGISTRY
 from tpu_dist_nn_torch.train.metrics import classification_metrics
 from tpu_dist_nn_torch.utils.device import resolve_device
 from tpu_dist_nn_torch.utils.errors import (
@@ -60,6 +74,22 @@ from tpu_dist_nn_torch.utils.errors import (
 from tpu_dist_nn_torch.utils.profiling import LatencyStats
 
 log = logging.getLogger("tpu_dist_nn_torch.engine")
+slog = get_logger("tpu_dist_nn_torch.engine")
+
+#: Pipeline schedule names the JAX package knows (``parallel/one_f_one_b.py``).
+SCHEDULES = ("gpipe", "1f1b", "interleaved", "zb", "zb-v", "zb-stash")
+
+# Measured at warm-up on quantized engines: f32 wall time / int8 wall
+# time for one launch of the largest warm bucket (> 1: int8 pays off).
+# NaN until a quantized engine has measured: an unlabeled gauge would
+# otherwise read 0, "int8 is catastrophically slow".
+_INT8_RATIO = REGISTRY.gauge(
+    "tdn_int8_speedup_ratio",
+    "f32 launch wall time / int8 launch wall time on the largest warm "
+    "bucket (quantized engines; < 1 = int8 is slower on this device; "
+    "NaN until a quantized engine has measured)",
+)
+_INT8_RATIO.set(float("nan"))
 
 
 @dataclasses.dataclass
@@ -121,6 +151,12 @@ class Engine:
         self._q = quantize_fcnn(self._params) if quantize else None
         self._warm_buckets: set[int] = set()
         self.setup_seconds: float | None = None
+        self._int8_measured = False
+        # Set by measure_int8_speedup: int8 measured slower than f32, so
+        # serving launches take the f32 chain.
+        self.int8_auto_disabled = False
+        self.int8_speedup_ratio: float | None = None
+        self.requested_virtual_stages = 1
 
     # ---------------------------------------------------------------- up
 
@@ -128,7 +164,7 @@ class Engine:
     def up(cls, model, distribution=None, *, data_parallel: int = 1,
            num_microbatches: int = 4, dtype=torch.float32, device=None,
            warmup: bool = True, quantize: str | None = None,
-           warm_rows: int = 0) -> "Engine":
+           warm_rows: int = 0, virtual_stages: int = 1) -> "Engine":
         """Validate, place, warm; returns a ready engine.
 
         ``model`` is a path or a ModelSpec. ``num_microbatches`` is kept
@@ -139,7 +175,10 @@ class Engine:
         through the int8 chain kernel (dense models only). A conv model
         serves through the conv and chain kernels. ``warm_rows > 0``
         runs the whole pow2 row-bucket ladder up to that many rows at
-        bring-up.
+        bring-up. ``virtual_stages > 1`` asks for the interleaved
+        placement: validated as the JAX Engine validates it, then
+        collapsed to the single-program executor like every placement
+        here (remembered for :meth:`train`'s schedule choice).
         """
         t0 = time.monotonic()
         dev = resolve_device(device)
@@ -152,6 +191,19 @@ class Engine:
         # Fail fast on an invalid plan (run_grpc_fcnn.py:182-183).
         partition_model(model, distribution)
         stages = len(distribution)
+        if virtual_stages < 1:
+            raise InvalidArgumentError(f"virtual_stages must be >= 1, got {virtual_stages}")
+        if virtual_stages > 1:
+            if not model.is_dense:
+                raise InvalidArgumentError(
+                    "virtual_stages applies to dense pipelined models "
+                    "(the heterogeneous executor pins one stage per device)"
+                )
+            if stages % virtual_stages:
+                raise InvalidArgumentError(
+                    f"distribution has {stages} entries (chunks), not "
+                    f"divisible by virtual_stages={virtual_stages}"
+                )
         if stages * data_parallel > 1:
             n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
             if stages * data_parallel > n_devices:
@@ -163,6 +215,7 @@ class Engine:
                 "the single-program executor", stages, data_parallel, why,
             )
         engine = cls(model, [len(model.layers)], dtype, dev, quantize=quantize)
+        engine.requested_virtual_stages = int(virtual_stages)
         if warmup or warm_rows > 0:
             engine.warm_buckets(max(warm_rows, 1 if warmup else 0))
         engine.setup_seconds = time.monotonic() - t0
@@ -223,7 +276,7 @@ class Engine:
         # uint8 rows reach a dense float32 model's chain kernel as they
         # are (the same float32 values at a quarter of the bytes); the
         # int8 and conv paths take them cast.
-        dtype = (torch.uint8 if x.dtype == np.uint8 and self._q is None
+        dtype = (torch.uint8 if x.dtype == np.uint8 and not self._serves_int8
                  and self._plan is None else self.dtype)
         if self.device.type == "cpu":
             out = self._forward(host.to(dtype))
@@ -243,8 +296,13 @@ class Engine:
             pending.done.synchronize()
         return pending.value.numpy()
 
+    @property
+    def _serves_int8(self) -> bool:
+        """A quantized engine that the warm-up gate left on int8."""
+        return self._q is not None and not self.int8_auto_disabled
+
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self._q is not None:
+        if self._serves_int8:
             return dense_forward(self._q, x, quantized=True)
         if self._plan is not None:
             return network_forward(self._plan, self._params, x)
@@ -254,7 +312,11 @@ class Engine:
         """Run the pow2 row-bucket ladder (1, 2, 4, … up to the pow2
         ceiling of ``max_rows``) once each. There is no compile to
         precede here; the first call builds the kernels and warms the
-        caching allocators. Idempotent; returns the buckets newly run."""
+        caching allocators. Idempotent; returns the buckets newly run.
+
+        A quantized engine's first warm ends with the int8 warm-up gate
+        (:meth:`measure_int8_speedup`) unless
+        ``TDN_INT8_WARMUP_MEASURE=0``."""
         warmed: list[int] = []
         if max_rows < 1:
             return warmed
@@ -267,7 +329,76 @@ class Engine:
                 self._warm_buckets.add(n)
                 warmed.append(n)
             n *= 2
+        if (warmed and self._q is not None and not self._int8_measured
+                and os.environ.get("TDN_INT8_WARMUP_MEASURE", "1") != "0"):
+            self.measure_int8_speedup()
         return warmed
+
+    def measure_int8_speedup(self, rows: int | None = None) -> float | None:
+        """Time the engine's f32 and int8 launch of the largest warm
+        bucket (or ``rows``) and publish ``tdn_int8_speedup_ratio``.
+
+        Returns f32 seconds / int8 seconds (> 1: int8 is faster here),
+        or None on an engine that is not quantized. Each arm runs the
+        engine's own dispatch (the f32 arm with the quantized state
+        cleared), best of 3 after one warm call. Where int8 is slower,
+        serving is rerouted to the f32 chain (``int8_auto_disabled``)
+        unless ``TDN_INT8_AUTO=0``, which measures and warns only.
+        Bring-up only: not safe beside live traffic.
+        """
+        if self._q is None:
+            return None
+        if rows is None:
+            rows = max(self._warm_buckets) if self._warm_buckets else 1
+        x = np.zeros((int(rows), self.model.input_dim), np.float32)
+
+        def best_of(n: int = 3) -> float:
+            self.infer(x)  # warm
+            times = []
+            for _ in range(n):
+                t0 = time.monotonic()
+                self.infer(x)
+                times.append(time.monotonic() - t0)
+            return min(times)
+
+        q, self._q = self._q, None
+        try:
+            f32_s = best_of()
+        finally:
+            self._q = q
+        # A re-measurement on a disabled engine times the real int8 path.
+        gate, self.int8_auto_disabled = self.int8_auto_disabled, False
+        try:
+            int8_s = best_of()
+        finally:
+            self.int8_auto_disabled = gate
+        ratio = f32_s / int8_s if int8_s > 0 else float("inf")
+        self._int8_measured = True
+        self.int8_speedup_ratio = ratio
+        _INT8_RATIO.set(ratio)
+        if ratio < 1.0:
+            slog.warning(
+                "int8.slower_than_f32", ratio=round(ratio, 3), rows=int(rows),
+                f32_ms=round(f32_s * 1e3, 3), int8_ms=round(int8_s * 1e3, 3),
+                device=self.device.type,
+                hint="serve without --quantize on this device",
+            )
+            if os.environ.get("TDN_INT8_AUTO", "1") != "0":
+                self.int8_auto_disabled = True
+                slog.warning(
+                    "int8.auto_disabled", ratio=round(ratio, 3), device=self.device.type,
+                    hint="serving launches rerouted to the f32 chain "
+                         "(TDN_INT8_AUTO=0 opts out of the fallback)",
+                )
+            else:
+                # The opt-out also clears a reroute an earlier
+                # measurement armed.
+                self.int8_auto_disabled = False
+        else:
+            self.int8_auto_disabled = False
+            slog.info("int8.speedup", ratio=round(ratio, 3), rows=int(rows),
+                      device=self.device.type)
+        return ratio
 
     @property
     def warm_bucket_count(self) -> int:
@@ -337,6 +468,80 @@ class Engine:
         if labels is not None:
             metrics = classification_metrics(outputs, labels, num_classes)
         return InferenceResult(outputs, seconds, batch_seconds, metrics)
+
+    # ------------------------------------------------------------- train
+
+    def train(self, train_data, config=None, eval_data=None, checkpoints=None,
+              schedule: str = "gpipe") -> list[dict]:
+        """Train a dense engine in place; returns the history.
+
+        ``config`` is a :class:`~tpu_dist_nn_torch.train.trainer.TrainConfig`
+        (default: the reference recipe); ``checkpoints`` a
+        :class:`~tpu_dist_nn_torch.checkpoint.CheckpointManager` for
+        epoch-level save and resume. Afterwards the engine serves the
+        trained weights on every path: ``model`` holds them in float64
+        and an int8 engine is re-quantized. ``schedule`` is validated as
+        the JAX Engine validates it; on this single-program placement
+        only "gpipe" trains.
+        """
+        from tpu_dist_nn_torch.train.trainer import TrainConfig, train_fcnn
+
+        if schedule not in SCHEDULES:
+            raise ValueError(
+                f"unknown pipeline schedule {schedule!r}: use "
+                + " or ".join(repr(s) for s in SCHEDULES)
+            )
+        if schedule in ("zb", "zb-v"):
+            raise ValueError(
+                "zero-bubble schedules are implemented for the "
+                "transformer LM pipeline only (tdn lm --schedule zb); "
+                "the classifier engine supports gpipe/1f1b/interleaved"
+            )
+        if schedule == "interleaved":
+            if self.requested_virtual_stages <= 1:
+                raise ValueError(
+                    "schedule='interleaved' needs an interleaved placement: "
+                    "bring the engine up with virtual_stages=v (tdn train "
+                    "--virtual-stages v) so the distribution's V chunks land "
+                    "on V/v devices"
+                )
+            log.warning(
+                "train: interleaved placement was collapsed to the "
+                "single-chip executor at up() (too few devices); "
+                "training with the default schedule"
+            )
+            schedule = "gpipe"
+        if schedule != "gpipe":
+            raise ValueError(
+                f"schedule={schedule!r} applies to the dense pipelined "
+                "placement only (this engine was placed single-program); "
+                "place a dense model with a multi-stage distribution to use it"
+            )
+        if self._plan is not None:
+            raise InvalidArgumentError(
+                "training a conv/pool network is not ported yet (ROADMAP "
+                "Queue 1 item 8: conv training and the hetero pipeline); "
+                "the port trains dense models"
+            )
+        if self._params is None:
+            raise UnavailableError(
+                "engine is down; relaunch with Engine.up from the model JSON"
+            )
+        self._params, history = train_fcnn(
+            self._params, train_data, config or TrainConfig(),
+            eval_data=eval_data, checkpoints=checkpoints,
+        )
+        layers = [
+            dataclasses.replace(layer, weights=p["w"].cpu().double().numpy(),
+                                biases=p["b"].cpu().double().numpy())
+            for layer, p in zip(self.model.layers, self._params)
+        ]
+        self.model = ModelSpec(layers, dict(self.model.metadata))
+        if self._q is not None:
+            # Re-quantize: the int8 path would otherwise serve the
+            # pre-training weights.
+            self._q = quantize_fcnn(self._params)
+        return history
 
     # ------------------------------------------------------------ export
 

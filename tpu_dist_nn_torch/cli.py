@@ -17,6 +17,14 @@ printed lines:
 * ``oracle`` — the float64 numpy baseline (scripts/manual_nn.py:88-99).
 * ``doctor`` — a readiness report: the forward against the oracle, and
   a ``fused_dense`` kernel probe against its plain version.
+* ``train`` — native FCNN training (``tdn train``): a fresh model
+  (``--layers``, dataset-aware default) or ``--config``, on synthetic,
+  fashion, the vendored digits, IDX or examples-JSON data, with the
+  optimizer controls, per-epoch checkpoints and resume, per-epoch report
+  lines, ``--metrics-out`` and ``--out`` (the trained model JSON). The
+  step is plain autograd; each epoch's eval runs the chain kernel on the
+  card. Left for later slices: ``--metrics-port`` and the multi-host
+  flags; ``--checkpoint-format orbax`` is refused.
 * ``lm`` — train and evaluate the byte-level Transformer LM on one
   device (the flash-attention kernels on the card), with ``tdn lm``'s
   corpus tiers, 95/5 split, per-step log lines and final JSON report.
@@ -335,6 +343,125 @@ def _write_metrics_jsonl(path, records) -> None:
     log.info("wrote %d metric records to %s", len(records), path)
 
 
+def _validate_metrics_out(path) -> None:
+    """Fail an unwritable ``--metrics-out`` before training, not after."""
+    if not path:
+        return
+    try:
+        with open(path, "a"):
+            pass
+    except OSError as e:
+        raise ValueError(f"--metrics-out path is not writable: {e}") from e
+
+
+def _train_data(args, model):
+    """-> (train, eval) Datasets for ``--data``."""
+    from tpu_dist_nn_torch.data import datasets
+
+    if args.data.startswith("idx:"):
+        return (datasets.load_mnist_idx(args.data[4:], "train"),
+                datasets.load_mnist_idx(args.data[4:], "test"))
+    if args.data == "digits":
+        return datasets.real_digits("train"), datasets.real_digits("test")
+    if args.data.startswith("json:"):
+        from tpu_dist_nn_torch.core.schema import load_examples
+
+        x, y = load_examples(args.data[5:])
+        if (y < 0).any():
+            # load_examples marks missing labels with -1: training on the
+            # sentinel would push everything to the last class.
+            raise ValueError(f"{args.data[5:]}: examples without labels cannot be trained on")
+        full = datasets.Dataset(x, y, int(y.max()) + 1)
+    elif args.data in ("synthetic", "fashion"):
+        make = (datasets.synthetic_fashion_mnist if args.data == "fashion"
+                else datasets.synthetic_mnist)
+        full = make(args.num_examples, dim=model.input_dim, num_classes=model.output_dim,
+                    seed=args.seed)
+    else:
+        raise ValueError(f"unknown --data {args.data!r}: synthetic | fashion | digits | "
+                         "idx:DIR | json:FILE")
+    return full.split(0.9, seed=args.seed)
+
+
+def cmd_train(args) -> int:
+    """Native FCNN training (``tdn train``'s single-program path)."""
+    import torch
+
+    from tpu_dist_nn_torch.api.engine import Engine
+    from tpu_dist_nn_torch.core.schema import load_model
+    from tpu_dist_nn_torch.models.fcnn import init_fcnn, spec_from_params
+    from tpu_dist_nn_torch.obs.trace import TRACER
+    from tpu_dist_nn_torch.train.trainer import TrainConfig
+    from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
+
+    if args.trace_sample_rate is not None:
+        try:
+            TRACER.configure(sample_rate=args.trace_sample_rate)
+        except ValueError as e:
+            raise ValueError(f"--trace-sample-rate: {e}") from e
+    if args.checkpoint_dir and args.checkpoint_format == "orbax":
+        raise ValueError(
+            "--checkpoint-format orbax is not ported: the port writes its "
+            "native .npz store (drop the flag)"
+        )
+    _validate_metrics_out(args.metrics_out)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.config:
+        model = load_model(args.config)
+    else:
+        if args.layers is None:
+            # The reference's 784-128-64-10 torch shape, or its geometry
+            # at the 8x8 digits' size; an explicit --layers always wins.
+            args.layers = "64,32,16,10" if args.data == "digits" else "784,128,64,10"
+            log.info("using default layers %s", args.layers)
+        sizes = _parse_distribution(args.layers)
+        acts = ["relu"] * (len(sizes) - 2) + ["softmax"]
+        params = init_fcnn(torch.Generator().manual_seed(args.seed), sizes, acts, device="cpu")
+        model = spec_from_params(params, acts)
+    data, eval_data = _train_data(args, model)
+    if data.x.shape[1] != model.input_dim:
+        raise InvalidArgumentError(
+            f"data has {data.x.shape[1]} features but the model expects "
+            f"{model.input_dim} inputs — pass --layers (or --config) "
+            f"matching the dataset (e.g. --data digits is 64-dim)"
+        )
+    engine = Engine.up(
+        model, _parse_distribution(args.distribution), data_parallel=args.data_parallel,
+        num_microbatches=args.microbatches, virtual_stages=args.virtual_stages,
+        device=args.device,
+    )
+    cfg = TrainConfig(
+        learning_rate=args.lr, epochs=args.epochs, batch_size=args.batch_size,
+        seed=args.seed, clip_norm=args.clip_norm, warmup_steps=args.warmup_steps,
+        lr_schedule=args.lr_schedule, weight_decay=args.weight_decay,
+        grad_accum=args.grad_accum,
+    )
+    checkpoints = None
+    if args.checkpoint_dir:
+        from tpu_dist_nn_torch.checkpoint import AsyncCheckpointManager, CheckpointManager
+
+        manager = AsyncCheckpointManager if args.async_checkpoints else CheckpointManager
+        checkpoints = manager(args.checkpoint_dir, keep=args.keep_checkpoints)
+    try:
+        history = engine.train(data, cfg, eval_data=eval_data, checkpoints=checkpoints,
+                               schedule=args.schedule)
+    finally:
+        if hasattr(checkpoints, "close"):
+            checkpoints.close()
+    if args.metrics_out:
+        _write_metrics_jsonl(args.metrics_out, history)
+    for h in history:
+        msg = f"epoch {h['epoch']}: loss {h['loss']:.4f} ({h['seconds']:.2f}s)"
+        if "eval" in h:
+            msg += f" eval_acc {h['eval']['accuracy']:.4f}"
+        log.info(msg)
+    metrics = history[-1].get("eval") if history else None
+    if args.out:
+        engine.export(args.out, metrics=metrics)
+        log.info("exported trained model to %s", args.out)
+    return 0
+
+
 def cmd_lm(args) -> int:
     """Train + evaluate the byte-level Transformer LM (``tdn lm``'s
     single-device path)."""
@@ -478,6 +605,53 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu' for the plain PyTorch path")
     p.set_defaults(fn=cmd_doctor)
+
+    p = sub.add_parser("train", help="native FCNN training")
+    p.add_argument("--config", help="start from an existing model JSON")
+    p.add_argument("--layers", default=None,
+                   help="fresh model sizes; default 784,128,64,10 "
+                        "(generate_mnist_pytorch.py:25-27), or 64,32,16,10 "
+                        "with --data digits")
+    p.add_argument("--data", default="synthetic",
+                   help="synthetic | fashion | digits (vendored real "
+                        "handwritten digits) | idx:DIR | json:FILE")
+    p.add_argument("--num-examples", type=int, default=12000)
+    p.add_argument("--distribution", help="layer distribution (validated, then "
+                   "trained on one device)")
+    p.add_argument("--data-parallel", type=int, default=1)
+    p.add_argument("--microbatches", type=int, default=4)
+    p.add_argument("--schedule", choices=["gpipe", "1f1b", "interleaved"], default="gpipe",
+                   help="pipeline training schedule; a single-program placement "
+                        "trains gpipe only")
+    p.add_argument("--virtual-stages", type=int, default=1,
+                   help="interleaved placement request (validated, then collapsed "
+                        "to one device)")
+    p.add_argument("--epochs", type=int, default=5)
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--clip-norm", type=float, default=None,
+                   help="global-norm gradient clipping")
+    p.add_argument("--warmup-steps", type=int, default=0)
+    p.add_argument("--lr-schedule", choices=["constant", "cosine"], default="constant")
+    p.add_argument("--weight-decay", type=float, default=0.0,
+                   help="decoupled (AdamW) weight decay")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="average gradients over N micro-steps per optimizer update")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", help="export trained model JSON here")
+    p.add_argument("--metrics-out", help="append per-epoch training records as JSONL here")
+    p.add_argument("--checkpoint-dir",
+                   help="save per-epoch training state here and resume from it")
+    p.add_argument("--keep-checkpoints", type=int, default=3)
+    p.add_argument("--async-checkpoints", action="store_true",
+                   help="write checkpoints on a background thread")
+    p.add_argument("--checkpoint-format", choices=["native", "orbax"], default="native",
+                   help="native .npz store (orbax is not ported)")
+    p.add_argument("--trace-sample-rate", type=float, default=None, metavar="RATE",
+                   help="head-sampling rate for the run trace (epoch spans) in [0, 1]")
+    p.add_argument("--device", default=None,
+                   help="'cuda' (default) or 'cpu' for the plain PyTorch path")
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("lm", help="train + eval the byte-level Transformer LM")
     p.add_argument("--corpus", help="path to a text corpus (WikiText-2); falls back "
