@@ -36,6 +36,22 @@ package. Phases, each fatal on failure (exit 1, no result line):
      The float32 outputs must match the float64 oracle and the int8
      outputs the plain int8 chain; uint8 rows through the f32 engine
      must be bit-equal to the same rows cast to float32.
+   * the layer pipeline path (``pipeline_phase``): ``Engine.up(path,
+     [1, 1, 1], devices=[card] * 3)`` (three stage slots, one CUDA
+     stream each) at 4 microbatches, ``run_inference`` over the 60,000
+     rows at batch 8192 in f32 and int8, in turns with the single
+     program: the chain (int8 chain) launching stages x microbatches
+     times a batch, f32 within 1e-5 of the float64 oracle, int8
+     bit-equal to the single-program int8 engine; each stage's launch
+     at 2,048 rows timed beside the whole chain at 8,192; 20 runs of one
+     batch in flight together under allocator churn, bit-equal;
+     ``step_latency`` at batch 256; the 34-layer model on ``[9, 9, 8,
+     8]`` at ``virtual_stages=2`` (f32 within 1e-5 of its single
+     program and the oracle, int8 bit-equal); the digits record's recipe
+     trained through ``[1, 1, 1]`` with ``schedule="1f1b"`` (held-out
+     >= 0.97, the exported model at the same accuracy on one program);
+     gpipe and 1f1b first-step losses and gradients (the CPU tests'
+     tolerances) and one 60,000-row epoch of each beside one program.
    * the train path (native FCNN training), with ``TDN_INT8_AUTO=0``
      for every int8 check but the gate's: the digits record's command
      (``cli train --data digits --layers 64,128,64,10 --epochs 40
@@ -389,6 +405,7 @@ def socket_phase(grpc, eng, model_path, data, reqs, tmp) -> None:
     finally:
         up.send_signal(signal.SIGTERM)
         up_rc = up.wait(timeout=120)
+        up_err = up.stderr.read()
     local = io.StringIO()
     with contextlib.redirect_stdout(local):
         local_rc = cli_main(["infer", "--config", str(model_path), "--inputs", str(examples),
@@ -409,7 +426,8 @@ def socket_phase(grpc, eng, model_path, data, reqs, tmp) -> None:
     print(f"check cli infer --target accuracy line equals the local infer's | "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        fail(f"cli up / infer --target: {remote.stderr[-1500:]}")
+        fail(f"cli up / infer --target: {remote.stderr[-1500:]}\ncli up's stderr: "
+             f"{up_err[-3000:]}")
 
     bench = subprocess.run([sys.executable, "-m", "tpu_dist_nn_torch.bench", "--serving"],
                            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
@@ -771,6 +789,263 @@ def train_phase(dev, model, data, out_dir, smi_line, compare, failures) -> None:
         if not ok:
             fail("the launches do not follow the int8 warm-up gate's decision")
     print(f"train phase took {time.monotonic() - t_phase:.1f} s")
+
+
+PIPE_DEVICES = 3  # [1, 1, 1]: three stage slots (streams) on one card
+PIPE_MICROBATCHES = 4
+PIPE_CHURN_RUNS = 20
+GRAD_TOL = (1e-6, 1e-4)  # atol, rtol: tests/test_pipeline_1f1b.py's gradients
+LOSS_RTOL = 1e-5  # and its losses
+
+
+def pipeline_phase(dev, model, data, resq, he_model, out_dir, smi_line, failures) -> None:
+    """The layer-distribution pipeline on one card: ``[1, 1, 1]`` on
+    three stage slots (one stream each) of ``dev``, f32 and int8, the
+    interleaved placement of the 34-layer model, ``step_latency``,
+    allocator churn, and training through the GPipe and 1F1B schedules
+    (the digits record's recipe through ``[1, 1, 1]`` with 1F1B, and one
+    full-width epoch of each)."""
+    import numpy as np
+    import torch
+
+    from tpu_dist_nn_torch.api.engine import Engine
+    from tpu_dist_nn_torch.core.schema import load_model, partition_model, save_model
+    from tpu_dist_nn_torch.data.datasets import Dataset, real_digits, synthetic_mnist
+    from tpu_dist_nn_torch.kernels import (
+        KERNEL_WRAPPERS,
+        fcnn_fused_forward,
+        fcnn_quantized_forward,
+        reset_launch_counts,
+    )
+    from tpu_dist_nn_torch.kernels.fused_dense import activation_ids, chain_plan, int8_plan
+    from tpu_dist_nn_torch.models.fcnn import init_fcnn, spec_from_params
+    from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+    from tpu_dist_nn_torch.parallel.pipeline import build_pipeline_params
+    from tpu_dist_nn_torch.testing.oracle import oracle_forward_batch
+    from tpu_dist_nn_torch.train.metrics import classification_metrics
+    from tpu_dist_nn_torch.train.pipeline_trainer import (
+        pipeline_loss_and_grad,
+        prepare_pipeline_batch,
+        train_pipelined,
+    )
+    from tpu_dist_nn_torch.train.trainer import TrainConfig
+    from tpu_dist_nn_torch.utils.profiling import cuda_graph_time_ms
+
+    print(f"pipeline path on {smi_line} (nvidia-smi name, power.limit)")
+    t_phase = time.monotonic()
+    slots = [dev] * PIPE_DEVICES
+    M = PIPE_MICROBATCHES
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=out_dir) as tmp:
+        tmp = Path(tmp)
+        model_path = tmp / "mnist_fcnn.json"
+        save_model(model, model_path)
+        one = Engine.up(model_path)
+        onq = Engine.up(model_path, quantize="int8")
+        eng = Engine.up(model_path, [1, 1, 1], devices=slots, num_microbatches=M)
+        engq = Engine.up(model_path, [1, 1, 1], devices=slots, num_microbatches=M,
+                         quantize="int8")
+        place = eng.placement()
+        print(f"pipelined placement: {json.dumps(place)}")
+        if not place["pipelined"] or place["num_stages"] != 3:
+            fail("Engine.up(model, [1, 1, 1], devices=3 slots) did not place a 3-stage pipeline")
+
+        # (a) 60,000 rows at batch 8,192, f32 and int8, beside the single
+        # program in turns (one, pipeline, pipeline, one).
+        n_batches = math.ceil(ROWS / BATCH)
+        runs = {}
+        for label, e in (("one f32", one), ("pipeline f32", eng), ("pipeline f32 ", eng),
+                         ("one f32 ", one), ("one int8", onq), ("pipeline int8", engq),
+                         ("pipeline int8 ", engq), ("one int8 ", onq)):
+            reset_launch_counts()
+            res = e.run_inference(data, batch_size=BATCH)
+            runs.setdefault(label.strip(), []).append((res, counts()))
+        for label, got in runs.items():
+            for res, c in got:
+                lat = res.latency_summary()
+                print(f"{label}: {ROWS / res.seconds:.1f} samples/s ({res.seconds:.4f} s for "
+                      f"{ROWS} rows at batch {BATCH}), batch p50 {lat['p50_s'] * 1e3:.3f} ms; "
+                      f"launches {json.dumps({k: n for k, n in c.items() if n})}")
+        want_launches = {"pipeline f32": ("fcnn_fused_forward", 3 * M * n_batches),
+                         "pipeline int8": ("fcnn_quantized_forward", 3 * M * n_batches)}
+        for label, (kname, n) in want_launches.items():
+            got = [c[kname] for _, c in runs[label]]
+            ok = got == [n, n]
+            print(f"check {label} launches: {kname} {got} per run, expected stages x "
+                  f"microbatches x batches = 3 x {M} x {n_batches} = {n} | "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"the pipelined {label} run did not launch {kname} once a stage a "
+                     "microbatch")
+        res32 = runs["pipeline f32"][0][0]
+        o_err = float(np.abs(res32.outputs - oracle_forward_batch(model, data)).max())
+        print(f"check pipeline f32 vs float64 oracle ({ROWS} rows): max_abs {o_err:.3e} | "
+              f"tol atol 1e-05 | {'ok' if o_err <= 1e-5 else 'FAIL'}")
+        if o_err > 1e-5:
+            fail("the pipelined f32 outputs disagree with the float64 oracle")
+        for label, ref in (("pipeline int8", resq.outputs),
+                           ("pipeline int8 (second run)", runs["pipeline int8"][1][0].outputs)):
+            got = runs["pipeline int8"][0][0].outputs
+            diff = int((got != ref).sum())
+            print(f"check {label} vs the single-program int8 engine: not-bit-equal {diff} | "
+                  f"{'ok' if diff == 0 else 'FAIL'}")
+            if diff:
+                fail("the int8 pipeline is not bit-equal to the single-program int8 engine")
+
+        # The chain at the pipeline's row split: each stage's launch on
+        # 2,048 rows (8,192 in 4 microbatches) beside the whole chain on
+        # 8,192; device time (a CUDA graph of 50 calls), TF32 off.
+        xd = torch.from_numpy(data[:BATCH]).to(dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for label, stages, whole, fn in (
+                ("f32", eng._placed.chunks[0], one._params, fcnn_fused_forward),
+                ("int8", engq._q.chunks[0], onq._q, fcnn_quantized_forward)):
+            h, per_stage = xd[:BATCH // M], []
+            for layers in stages:
+                per_stage.append(cuda_graph_time_ms(lambda h=h, layers=layers: fn(layers, h)))
+                h = fn(layers, h)
+            ms_whole = cuda_graph_time_ms(lambda: fn(whole, xd))
+            dims0 = [MNIST[0], MNIST[1]]
+            plan = (chain_plan(dims0, activation_ids(ACTS[:1]), BATCH // M, sms,
+                               torch.cuda.current_device()) if label == "f32"
+                    else int8_plan(dims0, BATCH // M, sms))
+            print(f"time {label} stage launches at {BATCH // M} rows: "
+                  f"{', '.join(f'{ms:.4f}' for ms in per_stage)} ms (stages 1-3), x {M} "
+                  f"microbatches = {M * sum(per_stage):.4f} ms a batch, vs the whole chain at "
+                  f"{BATCH} rows {ms_whole:.4f} ms; stage 1's plan at {BATCH // M} rows: {plan}")
+
+        # (b) One batch 20 times under allocator churn, every run in
+        # flight before the first fetch: bit-equal run to run.
+        xb = data[:BATCH]
+        ref = eng.infer(xb)
+        pending = []
+        reset_launch_counts()
+        junk_rng = np.random.default_rng(1)
+        for _ in range(PIPE_CHURN_RUNS):
+            pending.append(eng.infer_async(xb))
+            for row in eng.mesh.slots:
+                with torch.cuda.stream(row[0].stream):
+                    n = int(junk_rng.integers(1 << 16, 1 << 20))
+                    torch.empty(n, device=dev).fill_(float("nan"))
+            torch.empty(int(junk_rng.integers(1 << 16, 1 << 20)), device=dev).fill_(float("nan"))
+        outs = [eng.fetch(p) for p in pending]
+        churn_launches = counts()["fcnn_fused_forward"]
+        diff = sum(int((o != ref).sum()) for o in outs)
+        ok = diff == 0 and churn_launches == 3 * M * PIPE_CHURN_RUNS
+        print(f"check {PIPE_CHURN_RUNS} runs of one {BATCH}-row batch in flight together under "
+              f"allocator churn (NaN-filled blocks on every stage stream): not-bit-equal {diff}, "
+              f"chain launches {churn_launches} | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("pipelined runs under allocator churn are not bit-equal run to run")
+
+        # (c) step_latency, pipelined and single program.
+        for label, e in (("pipeline [1, 1, 1]", eng), ("one program", one)):
+            lat = e.step_latency(batch_size=256)
+            print(f"step_latency {label} at batch 256: p50 {lat['p50_s'] * 1e3:.4f} ms, p99 "
+                  f"{lat['p99_s'] * 1e3:.4f} ms, num_stages {lat['num_stages']}, "
+                  f"p50_per_stage {lat['p50_per_stage_s'] * 1e3:.4f} ms")
+
+        # (d) The interleaved placement of the 34-layer model: [9, 9, 8, 8]
+        # at virtual_stages 2 on two slots, f32 and int8.
+        dims34 = [16] * 35
+        model34 = he_model(dims34, ["relu"] * 33 + ["softmax"], seed=len(dims34) + dims34[1])
+        x34 = np.random.default_rng(34).uniform(0.0, 1.0, (2048, 16)).astype(np.float32)
+        for quant in (None, "int8"):
+            single = Engine.up(model34, quantize=quant).infer(x34)
+            e34 = Engine.up(model34, [9, 9, 8, 8], virtual_stages=2, devices=[dev] * 2,
+                            num_microbatches=M, quantize=quant)
+            reset_launch_counts()
+            got = e34.infer(x34)
+            c = counts()
+            kname = "fcnn_quantized_forward" if quant else "fcnn_fused_forward"
+            label = f"interleaved 34-layer [9, 9, 8, 8] v=2 {quant or 'f32'}"
+            if quant:
+                diff = int((got != single).sum())
+                ok = diff == 0
+                detail = f"not-bit-equal to the single-program int8 engine {diff}"
+            else:
+                e_one = float(np.abs(got - single).max())
+                e_orc = float(np.abs(got - oracle_forward_batch(model34, x34)).max())
+                ok = e_one <= 1e-5 and e_orc <= 1e-5
+                detail = (f"max_abs vs the single-program engine {e_one:.3e}, vs the float64 "
+                          f"oracle {e_orc:.3e} (tol atol 1e-05)")
+            ok = ok and c[kname] == 4 * M
+            print(f"check {label}: placement {e34.placement()['slots']}, {detail}, {kname} "
+                  f"launches {c[kname]} (4 chunks x {M} microbatches) | {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"the {label} engine disagrees with its single-program engine")
+
+        # (e) The digits record's recipe through [1, 1, 1] with 1F1B.
+        digits, test = real_digits("train"), real_digits("test")
+        sizes, acts = [64, 128, 64, 10], ["relu", "relu", "softmax"]
+        spec = spec_from_params(init_fcnn(torch.Generator().manual_seed(0), sizes, acts,
+                                          device="cpu"), acts)
+        eng_d = Engine.up(spec, [1, 1, 1], devices=slots, num_microbatches=M)
+        cfg_d = TrainConfig(epochs=40, batch_size=64, lr_schedule="cosine", warmup_steps=50,
+                            seed=0)
+        t0 = time.monotonic()
+        hist = eng_d.train(digits, cfg_d, eval_data=test, schedule="1f1b")
+        wall = time.monotonic() - t0
+        steps = len(digits) // 64
+        acc = hist[-1]["eval"]["accuracy"]
+        exported = tmp / "digits_1f1b.json"
+        eng_d.export(exported, metrics=hist[-1]["eval"])
+        served = Engine.up(load_model(exported), [3]).infer(test.x)
+        served_acc = classification_metrics(served, test.y, 10)["accuracy"]
+        ok = acc >= DIGITS_RECORD["bar"] and served_acc == acc
+        print(f"check digits recipe through [1, 1, 1] with schedule 1f1b: {wall:.2f} s for 40 "
+              f"epochs ({wall / (40 * steps) * 1e3:.3f} ms/step with eval), losses "
+              f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.6f}, held-out accuracy {acc:.4f} "
+              f"F1 {hist[-1]['eval']['f1_score']:.4f} (bar {DIGITS_RECORD['bar']}); the "
+              f"exported model on one program {served_acc!r} | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("the digits recipe through the 1F1B pipeline missed 0.97 held-out, or the "
+                 "exported model serves at another accuracy")
+
+        # (f) One full-width epoch: gpipe and 1f1b beside one program.
+        full = synthetic_mnist(TRAIN_ROWS, seed=0)
+        train = Dataset(full.x, full.y, 10)
+        spec = spec_from_params(init_fcnn(torch.Generator().manual_seed(0), MNIST, ACTS,
+                                          device="cpu"), ACTS)
+        pp = build_pipeline_params(partition_model(spec, [1, 1, 1]))
+        mesh = build_mesh(MeshSpec(stage=3), slots)
+        batch = prepare_pipeline_batch(pp.meta, full.x[:TRAIN_BATCH], full.y[:TRAIN_BATCH], M, 1)
+        first = {s: pipeline_loss_and_grad(mesh, pp, *batch, schedule=s, num_microbatches=M)
+                 for s in ("gpipe", "1f1b")}
+        (lg, gg), (lf, gf) = first["gpipe"], first["1f1b"]
+        g_err = max(float(np.abs(a - b).max()) for a, b in ((gg.w, gf.w), (gg.b, gf.b)))
+        ok = (abs(lg - lf) <= LOSS_RTOL * abs(lg)
+              and all(np.allclose(a, b, atol=GRAD_TOL[0], rtol=GRAD_TOL[1])
+                      for a, b in ((gg.w, gf.w), (gg.b, gf.b))))
+        print(f"check first-step loss and grads, gpipe vs 1f1b (784-128-64-10, batch "
+              f"{TRAIN_BATCH}, {M} microbatches): loss {lg!r} vs {lf!r}, grads max_abs "
+              f"{g_err:.3e} | tol loss rtol {LOSS_RTOL:g}, grads atol {GRAD_TOL[0]:g} rtol "
+              f"{GRAD_TOL[1]:g} | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("gpipe vs 1f1b first step")
+        steps = TRAIN_ROWS // TRAIN_BATCH
+        cfg = TrainConfig(epochs=1, batch_size=TRAIN_BATCH, seed=0)
+        one_t = Engine.up(spec)
+        reset_launch_counts()
+        for label in ("gpipe", "1f1b", "one program"):
+            if label == "one program":
+                h = one_t.train(train, cfg)
+            else:
+                _, h = train_pipelined(pp, mesh, train, cfg, num_microbatches=M, schedule=label)
+            sec = h[0]["seconds"]
+            print(f"train 784-128-64-10 one epoch, {label}: loss {h[0]['loss']:.6f}, {sec:.3f} s "
+                  f"({steps} steps of {TRAIN_BATCH}: {sec / steps * 1e3:.4f} ms/step, "
+                  f"{steps * TRAIN_BATCH / sec:.1f} samples/s)")
+            if not math.isfinite(h[0]["loss"]):
+                failures.append(f"{label} epoch loss")
+        if any(counts().values()):
+            failures.append(f"training launched a kernel: {counts()}")
+    if failures:
+        fail(f"pipeline checks failed: {failures}")
+    print(f"pipeline phase took {time.monotonic() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -1308,6 +1583,9 @@ def main() -> None:
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail("uint8 rows through the dense engine differ from the float32 rows")
+
+    # ------------------------------------------ the layer pipeline path
+    pipeline_phase(dev, model, data, resq, he_model, out_dir, smi[0], failures)
 
     # ------------------------------------------------- the train path
     train_phase(dev, model, data, out_dir, smi[0], compare, failures)

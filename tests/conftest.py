@@ -322,6 +322,10 @@ QUICK_TESTS = {
                            "test_handler_and_batcher_run_with_jax_and_grpc_blocked"],
     "test_torch_cli_serve": ["test_infer_target_prints_the_lines_tdn_prints"],
     "test_torch_bench": ["test_headline_line_on_the_cpu"],
+    "test_torch_pipeline": ["test_pipeline_forward_matches_jax_and_the_oracle[data-x-stage]",
+                            "test_engine_matches_the_jax_engine[int8-interleaved]"],
+    "test_torch_pipeline_train": ["test_first_step_loss_and_grads_match_jax[canonical-1f1b]",
+                                  "test_engine_train_schedule_errors_match_jax"],
     "test_torch_datasets": ["test_real_digits_match_jax[train]",
                             "test_shuffled_batch_iterator_matches_jax[xy-drop]"],
     "test_torch_checkpoint": ["test_train_resume_matches_uninterrupted",

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_dist_nn_torch.bench import BASELINE_SAMPLES_PER_SEC, main
+from tpu_dist_nn_torch.bench import BASELINE_SAMPLES_PER_SEC, main, pipeline_latency_bench
 
 ROOT = Path(__file__).resolve().parents[1]
 HEADLINE = {"metric", "value", "unit", "vs_baseline", "backend", "device_kind",
@@ -47,6 +47,21 @@ def test_headline_line_on_the_cpu(capsys):
     assert line["agreement"]["rows"] == 1024
     assert line["agreement"]["argmax_agreement"] == 1.0
     assert line["agreement"]["max_abs"] < 1e-5
+    assert line["pipeline_num_stages"] == 1 and line["pipeline_step_p50_s"] > 0
+
+
+def test_pipeline_keys_on_the_cpu():
+    # bench.py:432-457's keys. The default placement on the CPU is one
+    # device, so [1, 1, 1] collapses to one stage, as the JAX bench
+    # reports on one chip.
+    torch.set_num_threads(2)
+    keys = pipeline_latency_bench(torch.device("cpu"))
+    assert set(keys) == {"pipeline_step_p50_s", "pipeline_step_p99_s",
+                         "p50_per_stage_pipeline_step_latency_s", "pipeline_num_stages",
+                         "pipeline_step_batch"}
+    assert keys["pipeline_num_stages"] == 1 and keys["pipeline_step_batch"] == 256
+    assert keys["pipeline_step_p99_s"] >= keys["pipeline_step_p50_s"] > 0
+    assert keys["p50_per_stage_pipeline_step_latency_s"] == keys["pipeline_step_p50_s"]
 
 
 def test_without_a_card_it_exits_with_one_error_line():

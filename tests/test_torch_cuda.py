@@ -570,3 +570,120 @@ def test_int8_gate_launches_follow_its_decision_on_the_card(cuda, monkeypatch):
     kept = not eng.int8_auto_disabled
     assert fcnn_quantized_forward.launches == (3 if kept else 0)
     assert fcnn_fused_forward.launches == (0 if kept else 3)
+
+
+# The layer-distribution pipeline on stage slots of one card:
+# (distribution, microbatches, rows, virtual stages). Odd microbatch
+# counts, an empty stage, a ragged last microbatch (rows not a multiple
+# of the microbatches), fewer rows than microbatches, the interleaved
+# table.
+PIPELINE_CASES = {
+    "odd-microbatches": ([1, 1, 1], 3, 999, 1),
+    "empty-stage": ([1, 0, 2], 4, 1000, 1),
+    "ragged-last-microbatch": ([2, 1], 4, 1001, 1),
+    "fewer-rows-than-microbatches": ([1, 1, 1], 5, 3, 1),
+    "interleaved": ([1, 1, 1, 0], 3, 997, 2),
+}
+
+
+@pytest.mark.parametrize("case", PIPELINE_CASES, ids=list(PIPELINE_CASES))
+def test_pipeline_on_stage_slots_of_the_card(cuda, case):
+    from tpu_dist_nn_torch.parallel.pipeline import split_rows
+
+    dist, micro, rows, virtual = PIPELINE_CASES[case]
+    model = _model([784, 128, 64, 10], ["relu", "relu", "softmax"])
+    x = np.random.default_rng(9).uniform(0, 1, (rows, 784)).astype(np.float32)
+    slots = ["cuda:0"] * (len(dist) // virtual)
+    chunks = sum(1 for n in dist if n) * sum(r is not None for row in split_rows(rows, micro, 1)
+                                             for r in row)
+    for quantize in (None, "int8"):
+        one = Engine.up(model, quantize=quantize)
+        eng = Engine.up(model, dist, devices=slots, num_microbatches=micro,
+                        virtual_stages=virtual, quantize=quantize)
+        assert eng.placement()["pipelined"]
+        reset_launch_counts()
+        got = eng.infer(x)
+        kname = "fcnn_quantized_forward" if quantize else "fcnn_fused_forward"
+        launched = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+        assert launched[kname] == chunks, launched
+        if quantize:
+            np.testing.assert_array_equal(got, one.infer(x))
+        else:
+            np.testing.assert_allclose(got, one.infer(x), rtol=1e-5, atol=1e-6)
+        # Several batches in flight at once, fetched after: bit-equal.
+        pending = [eng.infer_async(x) for _ in range(4)]
+        for p in pending:
+            np.testing.assert_array_equal(eng.fetch(p), got)
+
+
+def test_pipeline_training_schedules_agree_on_the_card(cuda):
+    from tpu_dist_nn_torch.core.schema import partition_model
+    from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+    from tpu_dist_nn_torch.parallel.pipeline import build_pipeline_params
+    from tpu_dist_nn_torch.train.pipeline_trainer import (
+        pipeline_loss_and_grad,
+        prepare_pipeline_batch,
+    )
+
+    model = _model([64, 32, 16, 10], ["relu", "relu", "softmax"])
+    rng = np.random.default_rng(10)
+    x, y = rng.uniform(0, 1, (48, 64)).astype(np.float32), rng.integers(0, 10, 48)
+    results = {}
+    for sched, dist, v in (("gpipe", [1, 1, 1], 1), ("1f1b", [1, 1, 1], 1),
+                           ("interleaved", [1, 1, 1, 0], 2)):
+        pp = build_pipeline_params(partition_model(model, dist))
+        stage = len(dist) // v
+        mesh = build_mesh(MeshSpec(stage=stage, data=2), ["cuda:0"] * (2 * stage))
+        batch = prepare_pipeline_batch(pp.meta, x, y, 3, 2)
+        results[sched] = pipeline_loss_and_grad(mesh, pp, *batch, schedule=sched,
+                                                num_microbatches=3, num_virtual=v)
+        cpu_mesh = build_mesh(MeshSpec(stage=stage, data=2), ["cpu"] * (2 * stage))
+        loss_cpu, g_cpu = pipeline_loss_and_grad(cpu_mesh, pp, *batch, schedule=sched,
+                                                 num_microbatches=3, num_virtual=v)
+        np.testing.assert_allclose(results[sched][0], loss_cpu, rtol=1e-5)
+        np.testing.assert_allclose(results[sched][1].w[:3], g_cpu.w[:3], rtol=1e-4, atol=1e-6)
+    for sched in ("1f1b",):
+        np.testing.assert_allclose(results[sched][0], results["gpipe"][0], rtol=1e-5)
+        np.testing.assert_allclose(results[sched][1].w, results["gpipe"][1].w, rtol=1e-4,
+                                   atol=1e-6)
+
+
+def test_pipeline_across_cards(cuda):
+    # The default placement: the visible cards, each once. With three or
+    # more, [1, 1, 1] pipelines across cards (peer copies at every
+    # hand-off, both ways in training); with four, [2, 1] also runs two
+    # data replicas on distinct cards.
+    n_cards = torch.cuda.device_count()
+    if n_cards < 3:
+        pytest.skip(f"needs three or more cards, {n_cards} visible")
+    from tpu_dist_nn_torch.data.datasets import Dataset
+    from tpu_dist_nn_torch.train.trainer import TrainConfig
+
+    model = _model([784, 128, 64, 10], ["relu", "relu", "softmax"])
+    x = np.random.default_rng(11).uniform(0, 1, (1001, 784)).astype(np.float32)
+    cases = [([1, 1, 1], 1)] + ([([2, 1], 2)] if n_cards >= 4 else [])
+    for dist, data_parallel in cases:
+        for quantize in (None, "int8"):
+            one = Engine.up(model, quantize=quantize).infer(x)
+            eng = Engine.up(model, dist, data_parallel=data_parallel, quantize=quantize)
+            slots = {d for row in eng.placement()["slots"] for d in row}
+            assert eng.placement()["pipelined"] and len(slots) == len(dist) * data_parallel
+            pending = [eng.infer_async(x) for _ in range(4)]
+            got = [eng.fetch(p) for p in pending]
+            for g in got:
+                np.testing.assert_array_equal(g, got[0])
+            if quantize:
+                np.testing.assert_array_equal(got[0], one)
+            else:
+                np.testing.assert_allclose(got[0], one, rtol=1e-5, atol=1e-6)
+    # Training across cards equals training on three slots of one card.
+    rng = np.random.default_rng(12)
+    data = Dataset(x[:512], rng.integers(0, 10, 512), 10)
+    cfg = TrainConfig(epochs=1, batch_size=64, clip_norm=1.0)
+    across = Engine.up(model, [1, 1, 1])
+    h_across = across.train(data, cfg, schedule="1f1b")
+    one_card = Engine.up(model, [1, 1, 1], devices=["cuda:0"] * 3)
+    h_one = one_card.train(data, cfg, schedule="1f1b")
+    np.testing.assert_allclose(h_across[0]["loss"], h_one[0]["loss"], rtol=1e-6)
+    for a, b in zip(across.model.layers, one_card.model.layers):
+        np.testing.assert_allclose(a.weights, b.weights, rtol=1e-5, atol=1e-7)

@@ -221,6 +221,19 @@ for q in (None, "int8"):
         np.random.default_rng(0).uniform(size=(20, 12)), batch_size=8).outputs
     assert out.shape == (20, 3)
 assert main(["doctor", "--device", "cpu"]) == 0
+# The layer-distribution pipeline on CPU stage slots: served, then
+# trained through 1F1B.
+from tpu_dist_nn_torch.data.datasets import Dataset
+from tpu_dist_nn_torch.testing.oracle import oracle_forward_batch
+from tpu_dist_nn_torch.train.trainer import TrainConfig
+from tpu_dist_nn_torch.core.schema import load_model
+pipe = Engine.up(sys.argv[1], [1, 1], devices=["cpu", "cpu"], num_microbatches=2)
+assert pipe.placement()["pipelined"] and pipe.placement()["num_stages"] == 2
+xs = np.random.default_rng(0).uniform(size=(9, 12))
+assert np.allclose(pipe.infer(xs), oracle_forward_batch(load_model(sys.argv[1]), xs), atol=1e-6)
+hist = pipe.train(Dataset(xs[:8].astype(np.float32), np.arange(8) % 3, 3),
+                  TrainConfig(epochs=1, batch_size=4), schedule="1f1b")
+assert len(hist) == 1 and pipe.infer(xs).shape == (9, 3)
 # The LM training slice: flash attention's plain path with its backward,
 # two train_lm steps, evaluate_lm and the CLI's lm verb.
 from tpu_dist_nn_torch.data.text import lm_sequences, encode, synthetic_wikitext

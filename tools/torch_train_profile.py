@@ -4,6 +4,7 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU::
 
     python3 tools/torch_train_profile.py [--batch-size 64] [--warmup 50] [--steps 200]
+        [--schedule gpipe|1f1b]
 
 Builds ``chip_smoke.py``'s full-width training recipe (784-128-64-10,
 relu / relu / softmax, Adam at 1e-3, seeded weights, ``synthetic_mnist``
@@ -15,8 +16,12 @@ clock (ending in a synchronise), then ``--steps`` more under
 time with the profiler off and on, the device time per step by group
 (matrix products, copies, everything else), the launches per step, and
 the share of the profiled wall time in which the device ran nothing.
-Exits 1 when the profiler recorded no device time. Imports nothing of
-JAX.
+``--schedule`` profiles the pipelined step instead
+(``tpu_dist_nn_torch.train.pipeline_trainer.make_pipeline_train_step``
+on ``[1, 1, 1]`` over three stage slots of the card, 4 microbatches,
+the trainer's host-to-device copies included) and also prints the host
+operations with the most self time. Exits 1 when the profiler recorded
+no device time. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch-size", type=int, default=64)
     ap.add_argument("--warmup", type=int, default=50)
     ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--schedule", choices=["gpipe", "1f1b"], default=None,
+                    help="profile the pipelined step on [1, 1, 1] (three slots of the card)")
     args = ap.parse_args(argv)
     import torch
     from torch.autograd import DeviceType
@@ -75,12 +82,37 @@ def main(argv=None) -> int:
     batches = batch_iterator(data.x, data.y, args.batch_size, shuffle=True, seed=0,
                              drop_remainder=True)
 
-    def run(n):
-        for _ in range(n):
-            bx, by = next(batches)
+    if args.schedule:
+        from tpu_dist_nn_torch.core.schema import partition_model
+        from tpu_dist_nn_torch.models.fcnn import spec_from_params
+        from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+        from tpu_dist_nn_torch.parallel.pipeline import build_pipeline_params
+        from tpu_dist_nn_torch.train.pipeline_trainer import (
+            _leaves as stage_leaves,
+            make_pipeline_train_step,
+            place_leaves,
+            prepare_pipeline_batch,
+        )
+
+        spec = spec_from_params(init_fcnn(torch.Generator().manual_seed(0), [784, 128, 64, 10],
+                                          acts, device="cpu"), acts)
+        pp = build_pipeline_params(partition_model(spec, [1, 1, 1]))
+        mesh = build_mesh(MeshSpec(stage=3), [dev] * 3)
+        placed = place_leaves(mesh, pp)
+        pstate = opt.init(stage_leaves(placed))
+        pstep = make_pipeline_train_step(mesh, pp.meta, 4, opt, schedule=args.schedule)
+
+        def one_step(bx, by):
+            pstep(placed, pstate, *prepare_pipeline_batch(pp.meta, bx, by, 4, 1))
+    else:
+        def one_step(bx, by):
             x = torch.as_tensor(bx, dtype=torch.float32, device=dev)
             y = torch.as_tensor(by, dtype=torch.long, device=dev)
             step(wb, state, x, y)
+
+    def run(n):
+        for _ in range(n):
+            one_step(*next(batches))
         torch.cuda.synchronize()
 
     run(args.warmup)
@@ -95,8 +127,10 @@ def main(argv=None) -> int:
     per_step = {e.key: e.self_device_time_total / 1e3 / args.steps for e in events}
     counts = {e.key: e.count / args.steps for e in events}
     busy = sum(per_step.values())
+    what = (f"the {args.schedule} pipeline on [1, 1, 1], 3 slots, 4 microbatches"
+            if args.schedule else "one program")
     print(f"device {torch.cuda.get_device_name(0)}; torch {torch.__version__}; "
-          f"784-128-64-10 at batch {args.batch_size}; {args.steps} steps timed after "
+          f"784-128-64-10 at batch {args.batch_size}, {what}; {args.steps} steps timed after "
           f"{args.warmup}, {args.steps} more profiled")
     if busy <= 0:
         print("torch_train_profile: the profiler recorded no device time", file=sys.stderr)
@@ -117,6 +151,12 @@ def main(argv=None) -> int:
     print("top device operations (ms/step, count/step):")
     for key, ms in sorted(per_step.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {ms:9.4f}  {counts[key]:6.1f}  {key[:110]}")
+    if args.schedule:
+        host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+        print("top host operations by self time (ms/step, count/step; profiler on):")
+        for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:15]:
+            print(f"  {e.self_cpu_time_total / 1e3 / args.steps:9.4f}  "
+                  f"{e.count / args.steps:6.1f}  {e.key[:110]}")
     return 0
 
 

@@ -28,12 +28,20 @@ PyTorch version. The JAX package serves float32 through XLA's fused
 program; eager PyTorch has no such fusion, and the kernels do the same
 work with no intermediate activation written to device memory.
 
-Placement: a distribution that names more stages (times data shards)
-than there are visible GPUs collapses to the single-program executor,
-as the JAX Engine collapses to one chip. The cross-GPU pipeline (and,
-for conv models, the heterogeneous per-stage pipeline) is not ported
-yet, so a multi-card placement also serves on one card; both are
-logged.
+Placement (the JAX Engine's rules): a dense model whose distribution
+names S stages, times ``data_parallel`` replicas, that fit the
+``devices`` is served by the layer-distribution pipeline
+(:mod:`tpu_dist_nn_torch.parallel.pipeline`): each stage's real layers
+on a stage slot (a device and its own CUDA stream), the GPipe schedule
+(or, with ``virtual_stages=v``, the interleaved table over S/v slots)
+issuing one chain-kernel launch a stage a microbatch. ``devices``
+defaults to the visible cards, each counted once; a list may name one
+card several times, and each mention is a slot with its own stream.
+A placement that needs more slots than there are collapses to the
+single-program executor, as the JAX Engine collapses to one chip, and
+so do a conv model's multi-stage distribution (the heterogeneous
+pipeline is not ported) and a single-stage data-parallel placement
+(the data-sharded single program is not ported); each is logged.
 
 The int8 warm-up gate: a quantized engine's first :meth:`Engine.warm_buckets`
 times one f32 and one int8 launch of the largest warm bucket
@@ -43,8 +51,11 @@ reroutes serving to the f32 chain (``int8_auto_disabled``).
 ``TDN_INT8_WARMUP_MEASURE=0`` skips the measurement.
 
 Training (:meth:`Engine.train`) trains a dense engine's params in place
-with :func:`~tpu_dist_nn_torch.train.trainer.train_fcnn` and serves
-the trained weights on every path afterwards.
+with :func:`~tpu_dist_nn_torch.train.trainer.train_fcnn`, or a
+pipelined engine's stages through the ``gpipe``, ``1f1b`` or
+``interleaved`` schedule
+(:func:`~tpu_dist_nn_torch.train.pipeline_trainer.train_pipelined`),
+and serves the trained weights on every path afterwards.
 """
 
 from __future__ import annotations
@@ -64,6 +75,16 @@ from tpu_dist_nn_torch.models.fcnn import params_from_spec
 from tpu_dist_nn_torch.models.network import build_network, dense_forward, network_forward
 from tpu_dist_nn_torch.obs.log import get_logger
 from tpu_dist_nn_torch.obs.registry import REGISTRY
+from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh, visible_devices
+from tpu_dist_nn_torch.parallel.one_f_one_b import validate_schedule
+from tpu_dist_nn_torch.parallel.pipeline import (
+    build_pipeline_params,
+    extract_model,
+    pipeline_spec_summary,
+    place_pipeline,
+    place_pipeline_quantized,
+    run_placed,
+)
 from tpu_dist_nn_torch.train.metrics import classification_metrics
 from tpu_dist_nn_torch.utils.device import resolve_device
 from tpu_dist_nn_torch.utils.errors import (
@@ -75,9 +96,6 @@ from tpu_dist_nn_torch.utils.profiling import LatencyStats
 
 log = logging.getLogger("tpu_dist_nn_torch.engine")
 slog = get_logger("tpu_dist_nn_torch.engine")
-
-#: Pipeline schedule names the JAX package knows (``parallel/one_f_one_b.py``).
-SCHEDULES = ("gpipe", "1f1b", "interleaved", "zb", "zb-v", "zb-stash")
 
 # Measured at warm-up on quantized engines: f32 wall time / int8 wall
 # time for one launch of the largest warm bucket (> 1: int8 pays off).
@@ -122,7 +140,8 @@ class Engine:
     """A brought-up model: placed, warmed, ready to serve."""
 
     def __init__(self, model: ModelSpec, distribution, dtype, device,
-                 quantize: str | None = None):
+                 quantize: str | None = None, *, mesh_spec: MeshSpec = MeshSpec(),
+                 num_microbatches: int = 4, devices=None, virtual_stages: int = 1):
         if quantize is not None and quantize != "int8":
             raise InvalidArgumentError(
                 f"unknown quantize mode {quantize!r}; supported: 'int8'"
@@ -142,13 +161,40 @@ class Engine:
         self.model = ModelSpec(model.layers, dict(model.metadata))
         self.distribution = list(distribution)
         self.dtype = dtype
-        self.device = device
+        self.mesh_spec = mesh_spec
+        self.num_microbatches = int(num_microbatches)
+        self.virtual_stages = int(virtual_stages)
+        # Engine.up overwrites this with the request when the placement
+        # collapsed it (train() then falls back instead of raising).
+        self.requested_virtual_stages = int(virtual_stages)
+        # Interleaved placements pipeline V = stage * v chunks over
+        # stage slots, so stage == 1 with v > 1 still pipelines.
+        self.pipelined = mesh_spec.stage > 1 or self.virtual_stages > 1
         self._plan = None  # mixed-layer (conv/pool) networks only
-        if model.is_dense:
-            self._params = params_from_spec(model, dtype, device)
+        self._params = None  # single-program params
+        self._pp = None  # pipelined: the padded contract
+        self._placed = None  # pipelined: the f32 stages on their slots
+        if self.pipelined:
+            if not model.is_dense:
+                raise InvalidArgumentError(
+                    "the heterogeneous (conv) pipeline is not ported; Engine.up "
+                    "collapses a conv model to the single-program executor")
+            self.mesh = build_mesh(mesh_spec, devices)
+            self._pp = build_pipeline_params(partition_model(model, self.distribution))
+            self._placed = place_pipeline(self.mesh, self._pp, num_virtual=self.virtual_stages)
+            self.device = self._placed.device
         else:
-            self._plan, self._params = build_network(model, dtype, device)
-        self._q = quantize_fcnn(self._params) if quantize else None
+            self.mesh = None
+            self.device = device
+            if model.is_dense:
+                self._params = params_from_spec(model, dtype, device)
+            else:
+                self._plan, self._params = build_network(model, dtype, device)
+        # The int8 path: quantize_fcnn's layers on one program, or the
+        # placed stages of the padded int8 contract on a pipeline.
+        self._q = None
+        if quantize:
+            self._quantize()
         self._warm_buckets: set[int] = set()
         self.setup_seconds: float | None = None
         self._int8_measured = False
@@ -156,32 +202,51 @@ class Engine:
         # serving launches take the f32 chain.
         self.int8_auto_disabled = False
         self.int8_speedup_ratio: float | None = None
-        self.requested_virtual_stages = 1
+
+    def _quantize(self) -> None:
+        if self.pipelined:
+            from tpu_dist_nn_torch.kernels.quantized import quantize_pipeline_weights
+
+            self._q = place_pipeline_quantized(self.mesh,
+                                               quantize_pipeline_weights(self._pp.weights),
+                                               self._pp.meta, num_virtual=self.virtual_stages)
+        else:
+            self._q = quantize_fcnn(self._params)
 
     # ---------------------------------------------------------------- up
 
     @classmethod
     def up(cls, model, distribution=None, *, data_parallel: int = 1,
            num_microbatches: int = 4, dtype=torch.float32, device=None,
-           warmup: bool = True, quantize: str | None = None,
+           devices=None, warmup: bool = True, quantize: str | None = None,
            warm_rows: int = 0, virtual_stages: int = 1) -> "Engine":
         """Validate, place, warm; returns a ready engine.
 
-        ``model`` is a path or a ModelSpec. ``num_microbatches`` is kept
-        for the JAX Engine's signature: it sizes the cross-GPU pipeline,
-        which is not ported. ``device`` defaults to the
+        ``model`` is a path or a ModelSpec. ``device`` defaults to the
         card (raises :class:`UnavailableError` without one); pass
-        ``"cpu"`` for the plain PyTorch path. ``quantize="int8"`` serves
-        through the int8 chain kernel (dense models only). A conv model
-        serves through the conv and chain kernels. ``warm_rows > 0``
-        runs the whole pow2 row-bucket ladder up to that many rows at
-        bring-up. ``virtual_stages > 1`` asks for the interleaved
-        placement: validated as the JAX Engine validates it, then
-        collapsed to the single-program executor like every placement
-        here (remembered for :meth:`train`'s schedule choice).
+        ``"cpu"`` for the plain PyTorch path. ``devices`` (default: the
+        visible cards, each once; ``[device]`` on the CPU) are the slots
+        a multi-stage distribution may take: one per stage and data
+        replica, and one card may be named several times. A dense
+        model's ``S``-stage distribution with ``S x data_parallel`` slots
+        runs the pipeline in ``num_microbatches`` microbatches; with
+        too few it collapses to one program (logged). ``quantize="int8"``
+        serves through the int8 chain kernel (dense models only). A conv
+        model serves through the conv and chain kernels, on one program.
+        ``warm_rows > 0`` runs the whole pow2 row-bucket ladder up to
+        that many rows at bring-up. ``virtual_stages=v > 1`` selects the
+        interleaved placement: the distribution's ``V`` entries are
+        chunks, chunk ``c`` on stage slot ``c % (V/v)``.
         """
         t0 = time.monotonic()
-        dev = resolve_device(device)
+        if devices is not None:
+            devices = [resolve_device(d) for d in devices]
+            if not devices:
+                raise InvalidArgumentError("devices is empty")
+            dev = devices[0]
+        else:
+            dev = resolve_device(device)
+            devices = visible_devices(dev)
         if not isinstance(model, ModelSpec):
             model = load_model(model)
         if distribution is None:
@@ -190,9 +255,15 @@ class Engine:
             distribution = [len(model.layers)]
         # Fail fast on an invalid plan (run_grpc_fcnn.py:182-183).
         partition_model(model, distribution)
+        n_devices = len(devices)
         stages = len(distribution)
         if virtual_stages < 1:
             raise InvalidArgumentError(f"virtual_stages must be >= 1, got {virtual_stages}")
+        # Remember the request: the collapse below may reset it, and
+        # train(schedule="interleaved") then falls back instead of
+        # asking for the flag the caller already passed.
+        requested_virtual = virtual_stages
+        single = MeshSpec(stage=1, data=1)
         if virtual_stages > 1:
             if not model.is_dense:
                 raise InvalidArgumentError(
@@ -204,18 +275,51 @@ class Engine:
                     f"distribution has {stages} entries (chunks), not "
                     f"divisible by virtual_stages={virtual_stages}"
                 )
-        if stages * data_parallel > 1:
-            n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
-            if stages * data_parallel > n_devices:
-                why = f"exceed {n_devices} device(s)"
+            stage_devices = stages // virtual_stages
+            if stage_devices * data_parallel > n_devices:
+                log.info(
+                    "placement: interleaved %d stage device(s) x %d data shards "
+                    "exceed %d device(s); collapsing to the single-program executor",
+                    stage_devices, data_parallel, n_devices,
+                )
+                virtual_stages = 1
+                mesh_spec = single
             else:
-                why = "need the cross-GPU pipeline, which is not ported yet"
-            log.info(
-                "placement: %d stages x %d data shards %s; collapsing to "
-                "the single-program executor", stages, data_parallel, why,
-            )
-        engine = cls(model, [len(model.layers)], dtype, dev, quantize=quantize)
-        engine.requested_virtual_stages = int(virtual_stages)
+                mesh_spec = MeshSpec(stage=stage_devices, data=data_parallel)
+        else:
+            if stages > 1 and not model.is_dense and data_parallel > 1:
+                log.info("placement: non-dense pipeline ignores data_parallel=%d",
+                         data_parallel)
+                data_parallel = 1
+            if stages * data_parallel > n_devices:
+                log.info(
+                    "placement: %d stages x %d data shards exceed %d device(s); "
+                    "collapsing to the single-program executor",
+                    stages, data_parallel, n_devices,
+                )
+                mesh_spec = single
+            elif stages > 1 and not model.is_dense:
+                log.info(
+                    "placement: the heterogeneous pipeline of a conv model is not "
+                    "ported (ROADMAP Queue 1 item 8); collapsing %d stages to the "
+                    "single-program executor", stages,
+                )
+                mesh_spec = single
+            elif stages == 1 and data_parallel > 1:
+                log.info(
+                    "placement: the data-sharded single program is not ported; "
+                    "%d data shards collapse to the single-program executor",
+                    data_parallel,
+                )
+                mesh_spec = single
+            else:
+                mesh_spec = MeshSpec(stage=stages, data=data_parallel)
+        if mesh_spec.stage == 1 and virtual_stages == 1:
+            distribution = [len(model.layers)]
+        engine = cls(model, distribution, dtype, dev, quantize=quantize,
+                     mesh_spec=mesh_spec, num_microbatches=num_microbatches,
+                     devices=devices, virtual_stages=virtual_stages)
+        engine.requested_virtual_stages = int(requested_virtual)
         if warmup or warm_rows > 0:
             engine.warm_buckets(max(warm_rows, 1 if warmup else 0))
         engine.setup_seconds = time.monotonic() - t0
@@ -231,16 +335,22 @@ class Engine:
 
     def placement(self) -> dict:
         """Placement summary — the spawn-log analogue (run_grpc_fcnn.py:133-143)."""
-        return {
-            "devices": 1,
+        base = {
+            "devices": self.mesh_spec.num_devices,
             "device": str(self.device),
             "distribution": self.distribution,
-            "data_parallel": 1,
-            "pipelined": False,
-            "num_stages": 1,
-            "input_dim": self.model.input_dim,
-            "output_dim": self.model.output_dim,
+            "data_parallel": self.mesh_spec.data,
+            "pipelined": self.pipelined,
         }
+        if self.virtual_stages > 1:
+            base["virtual_stages"] = self.virtual_stages
+        if self.pipelined:
+            base.update(pipeline_spec_summary(self._pp))
+            base["slots"] = [[str(slot.device) for slot in row] for row in self.mesh.slots]
+        else:
+            base.update({"num_stages": 1, "input_dim": self.model.input_dim,
+                         "output_dim": self.model.output_dim})
+        return base
 
     # ------------------------------------------------------------- infer
 
@@ -262,7 +372,7 @@ class Engine:
         back into pinned memory, all queued on the current CUDA stream;
         :meth:`fetch` is the host sync. Validation errors raise here.
         """
-        if self._params is None:
+        if not self.is_ready:
             raise UnavailableError(
                 "engine is down; relaunch with Engine.up from the model JSON"
             )
@@ -302,6 +412,10 @@ class Engine:
         return self._q is not None and not self.int8_auto_disabled
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pipelined:
+            # Plain, interleaved, int8 or both: the placed stages carry it.
+            placed = self._q if self._serves_int8 else self._placed
+            return run_placed(placed, x, self.num_microbatches)
         if self._serves_int8:
             return dense_forward(self._q, x, quantized=True)
         if self._plan is not None:
@@ -412,7 +526,9 @@ class Engine:
 
     def step_latency(self, batch_size: int = 256, iters: int = 20) -> dict:
         """The BASELINE "p50 per-stage pipeline step latency" probe:
-        ``iters`` synchronous forward steps on a synthetic batch."""
+        ``iters`` synchronous forward steps on a synthetic batch, their
+        percentiles, the stage count and ``p50_per_stage_s`` (the step
+        p50 over the stage count)."""
         if iters < 1 or batch_size < 1:
             raise InvalidArgumentError(
                 f"step_latency needs iters >= 1 and batch_size >= 1, "
@@ -426,9 +542,10 @@ class Engine:
             t0 = time.monotonic()
             self.infer(x)
             stats.record(time.monotonic() - t0)
+        num_stages = self.placement()["num_stages"]
         summary = stats.summary()
-        summary["num_stages"] = 1
-        summary["p50_per_stage_s"] = summary["p50_s"]
+        summary["num_stages"] = num_stages
+        summary["p50_per_stage_s"] = summary["p50_s"] / num_stages
         return summary
 
     def run_inference(self, inputs, labels=None, *, batch_size: int | None = None,
@@ -478,26 +595,37 @@ class Engine:
         ``config`` is a :class:`~tpu_dist_nn_torch.train.trainer.TrainConfig`
         (default: the reference recipe); ``checkpoints`` a
         :class:`~tpu_dist_nn_torch.checkpoint.CheckpointManager` for
-        epoch-level save and resume. Afterwards the engine serves the
-        trained weights on every path: ``model`` holds them in float64
-        and an int8 engine is re-quantized. ``schedule`` is validated as
-        the JAX Engine validates it; on this single-program placement
-        only "gpipe" trains.
+        epoch-level save and resume. A pipelined engine trains through
+        its stages with ``schedule`` "gpipe", "1f1b" or, on an
+        interleaved placement (which selects it), "interleaved"; a
+        single-program engine trains "gpipe" only. Afterwards the engine
+        serves the trained weights on every path: ``model`` holds them
+        in float64 and an int8 engine is re-quantized.
         """
+        from tpu_dist_nn_torch.train.pipeline_trainer import train_pipelined
         from tpu_dist_nn_torch.train.trainer import TrainConfig, train_fcnn
 
-        if schedule not in SCHEDULES:
-            raise ValueError(
-                f"unknown pipeline schedule {schedule!r}: use "
-                + " or ".join(repr(s) for s in SCHEDULES)
-            )
+        validate_schedule(schedule)
         if schedule in ("zb", "zb-v"):
             raise ValueError(
                 "zero-bubble schedules are implemented for the "
                 "transformer LM pipeline only (tdn lm --schedule zb); "
                 "the classifier engine supports gpipe/1f1b/interleaved"
             )
-        if schedule == "interleaved":
+        if self.virtual_stages > 1:
+            # V chunks on V/v slots run the interleaved table only.
+            if schedule == "1f1b":
+                raise ValueError(
+                    "schedule='1f1b' does not apply to an interleaved "
+                    "(virtual_stages > 1) placement; the schedule is "
+                    "'interleaved' there (the default 'gpipe' auto-"
+                    "selects it)"
+                )
+            if schedule == "gpipe":
+                log.info("train: interleaved placement (virtual_stages=%d) "
+                         "selects schedule='interleaved'", self.virtual_stages)
+            schedule = "interleaved"
+        elif schedule == "interleaved":
             if self.requested_virtual_stages <= 1:
                 raise ValueError(
                     "schedule='interleaved' needs an interleaved placement: "
@@ -511,7 +639,7 @@ class Engine:
                 "training with the default schedule"
             )
             schedule = "gpipe"
-        if schedule != "gpipe":
+        if schedule != "gpipe" and not self.pipelined:
             raise ValueError(
                 f"schedule={schedule!r} applies to the dense pipelined "
                 "placement only (this engine was placed single-program); "
@@ -523,24 +651,33 @@ class Engine:
                 "Queue 1 item 8: conv training and the hetero pipeline); "
                 "the port trains dense models"
             )
-        if self._params is None:
+        if not self.is_ready:
             raise UnavailableError(
                 "engine is down; relaunch with Engine.up from the model JSON"
             )
-        self._params, history = train_fcnn(
-            self._params, train_data, config or TrainConfig(),
-            eval_data=eval_data, checkpoints=checkpoints,
-        )
-        layers = [
-            dataclasses.replace(layer, weights=p["w"].cpu().double().numpy(),
-                                biases=p["b"].cpu().double().numpy())
-            for layer, p in zip(self.model.layers, self._params)
-        ]
-        self.model = ModelSpec(layers, dict(self.model.metadata))
+        if self.pipelined:
+            self._pp, history = train_pipelined(
+                self._pp, self.mesh, train_data, config or TrainConfig(),
+                num_microbatches=self.num_microbatches, eval_data=eval_data,
+                checkpoints=checkpoints, schedule=schedule, num_virtual=self.virtual_stages,
+            )
+            self.model = extract_model(self._pp, self.model, self.distribution)
+            self._placed = place_pipeline(self.mesh, self._pp, num_virtual=self.virtual_stages)
+        else:
+            self._params, history = train_fcnn(
+                self._params, train_data, config or TrainConfig(),
+                eval_data=eval_data, checkpoints=checkpoints,
+            )
+            layers = [
+                dataclasses.replace(layer, weights=p["w"].cpu().double().numpy(),
+                                    biases=p["b"].cpu().double().numpy())
+                for layer, p in zip(self.model.layers, self._params)
+            ]
+            self.model = ModelSpec(layers, dict(self.model.metadata))
         if self._q is not None:
             # Re-quantize: the int8 path would otherwise serve the
             # pre-training weights.
-            self._q = quantize_fcnn(self._params)
+            self._quantize()
         return history
 
     # ------------------------------------------------------------ export
@@ -550,6 +687,8 @@ class Engine:
         under inference_metrics (notebook cell 10 parity)."""
         if metrics is not None:
             self.model.metadata["inference_metrics"] = metrics
+        if "layer_distribution" not in self.model.metadata and self.pipelined:
+            self.model.metadata["layer_distribution"] = self.distribution
         save_model(self.model, path)
         return self.model
 
@@ -559,9 +698,10 @@ class Engine:
         """Release the device state. Idempotent; relaunch = ``Engine.up``
         again from the JSON model (run_grpc_fcnn.py:329-344)."""
         self._params = None
+        self._placed = None
         self._q = None
 
     @property
     def is_ready(self) -> bool:
-        return self._params is not None
+        return self._params is not None or self._placed is not None
 

@@ -22,6 +22,12 @@ on the device:
   ``xla_resident``), never run in its place.
 * ``agreement``: argmax agreement and max_abs of the f32 outputs
   against the float64 oracle on 2,048 rows.
+* ``pipeline_*`` (``bench.py:432-457``): BASELINE's p50 per-stage
+  pipeline step latency. The same model brought up by ``Engine.up(model,
+  [1, 1, 1])`` with the default placement (the visible cards, each
+  once): a 3-stage pipeline on three cards; on one card it collapses to
+  one program and ``pipeline_num_stages`` says 1, as the JAX bench does
+  on one chip. ``step_latency`` at batch 256, 20 steps.
 
 ``--serving``, the loopback gRPC numbers of ``serving_bench``: the
 ``Process`` RPC at 512 and 4,096 rows a request (min of 7, with each
@@ -183,6 +189,23 @@ def throughput_bench(dev: torch.device, n_samples: int) -> dict:
     }
 
 
+def pipeline_latency_bench(dev: torch.device) -> dict:
+    """``Engine.step_latency`` of the model on ``[1, 1, 1]``, default
+    placement, batch 256: bench.py's pipeline keys."""
+    from tpu_dist_nn_torch.api.engine import Engine
+    from tpu_dist_nn_torch.models.fcnn import spec_from_params
+
+    engine = Engine.up(spec_from_params(_model("cpu"), ACTS), [1, 1, 1], device=dev)
+    lat = engine.step_latency(batch_size=256, iters=20)
+    return {
+        "pipeline_step_p50_s": round(lat["p50_s"], 6),
+        "pipeline_step_p99_s": round(lat["p99_s"], 6),
+        "p50_per_stage_pipeline_step_latency_s": round(lat["p50_per_stage_s"], 6),
+        "pipeline_num_stages": lat["num_stages"],
+        "pipeline_step_batch": 256,
+    }
+
+
 def serving_bench(dev: torch.device, *, batch_rpcs: int = REPS,
                   clients: int = 10, rpcs_per_client: int = 50) -> dict:
     """The full loopback path (client encode, gRPC, decode, batcher,
@@ -308,7 +331,7 @@ def main(argv=None) -> int:
                 "library_resident_samples_per_sec": tp["library_resident"],
                 "int8_vs_f32": tp["int8_vs_f32"],
                 "kernel_vs_library": tp["kernel_vs_library"],
-                "agreement": tp["agreement"]}
+                "agreement": tp["agreement"], **pipeline_latency_bench(dev)}
     print(json.dumps(line))
     return 0
 

@@ -10,7 +10,9 @@ printed lines:
 * ``infer`` — local-engine inference of a dense or conv model JSON over
   an examples file: whole set, ``--batch-size`` chunks, or one
   ``input_index``; ``--quantize int8`` (dense models);
-  ``--distribution`` (validated, then served on one card). With
+  ``--distribution``, ``--data-parallel``, ``--microbatches`` and
+  ``--virtual-stages`` (the Engine's placement: the layer pipeline over
+  the visible cards, one program on one card). With
   ``--target host:port`` (or ``--port``) it is a pure gRPC client of a
   running ``up --grpc-port`` server (the reference client's role; no
   ``--config``).
@@ -62,6 +64,9 @@ def _engine_from_args(args):
     return Engine.up(
         args.config,
         _parse_distribution(args.distribution),
+        data_parallel=args.data_parallel,
+        num_microbatches=args.microbatches,
+        virtual_stages=args.virtual_stages,
         device=args.device,
         quantize=args.quantize,
     )
@@ -228,6 +233,7 @@ def cmd_infer(args) -> int:
             ("--config", args.config is not None),
             ("--quantize", args.quantize is not None),
             ("--distribution", args.distribution is not None),
+            ("--data-parallel", args.data_parallel != 1),
             ("--device", args.device is not None),
         ) if bad]
         if ignored:
@@ -536,6 +542,12 @@ def build_parser() -> argparse.ArgumentParser:
     def add_engine_args(p, config_required=True):
         p.add_argument("--config", required=config_required, help="model JSON file")
         p.add_argument("--distribution", help="layer distribution, e.g. 1,1,1")
+        p.add_argument("--data-parallel", type=int, default=1)
+        p.add_argument("--microbatches", type=int, default=4)
+        p.add_argument("--virtual-stages", type=int, default=1,
+                       help="interleaved (virtual-stage) placement: the distribution's "
+                            "V entries become V pipeline chunks on V/v stage slots, "
+                            "chunk c on slot c %% (V/v)")
         p.add_argument("--quantize", choices=["int8"],
                        help="serve through the int8 chain kernel")
         p.add_argument("--device", default=None,
@@ -616,16 +628,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="synthetic | fashion | digits (vendored real "
                         "handwritten digits) | idx:DIR | json:FILE")
     p.add_argument("--num-examples", type=int, default=12000)
-    p.add_argument("--distribution", help="layer distribution (validated, then "
-                   "trained on one device)")
+    p.add_argument("--distribution", help="layer distribution: a pipeline over the "
+                   "visible cards where they suffice, else one program")
     p.add_argument("--data-parallel", type=int, default=1)
     p.add_argument("--microbatches", type=int, default=4)
     p.add_argument("--schedule", choices=["gpipe", "1f1b", "interleaved"], default="gpipe",
-                   help="pipeline training schedule; a single-program placement "
-                        "trains gpipe only")
+                   help="pipeline training schedule (a single-program placement "
+                        "trains gpipe only)")
     p.add_argument("--virtual-stages", type=int, default=1,
-                   help="interleaved placement request (validated, then collapsed "
-                        "to one device)")
+                   help="interleaved (virtual-stage) placement: V chunks on V/v "
+                        "stage slots")
     p.add_argument("--epochs", type=int, default=5)
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--lr", type=float, default=1e-3)

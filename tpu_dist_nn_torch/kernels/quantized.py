@@ -191,3 +191,19 @@ def fcnn_quantized_forward(qparams, x, *, activations: Sequence[str] | None = No
 
 
 fcnn_quantized_forward.launches = 0
+
+
+def quantize_pipeline_weights(weights) -> dict:
+    """Padded pipeline weights (``PipelineWeights``: ``w`` (S, L, D, D),
+    ``b`` (S, L, D)) -> the padded int8 contract ``{"wq" int8 (S, L, D,
+    D), "scale" f32 (S, L, D), "b" f32 (S, L, D)}`` in numpy, the JAX
+    ``quantize_pipeline_weights`` arithmetic. Real blocks quantize over
+    their embedded [in, out] region (the zero rows below do not move a
+    column's max), so each stage's real slice equals :func:`quantize_fcnn`
+    of its layers code for code; the filler is quantized too but never
+    served (``place_pipeline_quantized`` places real layers only)."""
+    w = np.asarray(weights.w, np.float32)
+    absmax = np.maximum(np.abs(w).max(axis=2), 1e-8)
+    scale = (absmax / 127.0).astype(np.float32)
+    wq = np.clip(np.round(w / scale[:, :, None, :]), -127, 127).astype(np.int8)
+    return {"wq": wq, "scale": scale, "b": np.asarray(weights.b, np.float32)}

@@ -94,9 +94,11 @@ class Optimizer:
             grads, state.acc = state.acc, [torch.zeros_like(a) for a in state.acc]
             state.mini_step = 0
         if self.clip_norm is not None:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            grads = [torch.where(norm < self.clip_norm, g, (g / norm) * self.clip_norm)
-                     for g in grads]
+            # Leaves may sit on several cards (a pipeline's stages).
+            norm = torch.sqrt(sum(torch.sum(g * g).to(grads[0].device) for g in grads))
+            norms = [norm.to(g.device) for g in grads]
+            grads = [torch.where(n < self.clip_norm, g, (g / n) * self.clip_norm)
+                     for g, n in zip(grads, norms)]
         t = state.count + 1
         state.mu = [(1 - B1) * g + B1 * m for g, m in zip(grads, state.mu)]
         state.nu = [(1 - B2) * (g * g) + B2 * v for g, v in zip(grads, state.nu)]

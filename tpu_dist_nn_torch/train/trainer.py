@@ -11,9 +11,10 @@ chain kernel, which has no backward, runs only in :func:`evaluate_fcnn`
 on the card. Epoch-level checkpoints and resume go through
 :mod:`tpu_dist_nn_torch.checkpoint`.
 
-Left for later slices: the data-parallel ``mesh`` step (a data-parallel
-placement collapses to one device in the port's Engine), the pipelined
-trainer, and conv-network training (ROADMAP Queue 1 items 4 and 8).
+The pipelined trainer is :mod:`tpu_dist_nn_torch.train.pipeline_trainer`.
+Left for later slices: the data-parallel ``mesh`` step (a single-stage
+data-parallel placement collapses to one device in the port's Engine)
+and conv-network training (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
