@@ -52,6 +52,14 @@ package. Phases, each fatal on failure (exit 1, no result line):
      >= 0.97, the exported model at the same accuracy on one program);
      gpipe and 1f1b first-step losses and gradients (the CPU tests'
      tolerances) and one 60,000-row epoch of each beside one program.
+     Compiled steps (CUDA graphs): the pipelined forward of 256 rows
+     graphed against eager (p50, bit-equal); the gpipe, 1f1b and
+     interleaved training steps at batch 64, eager and graphed in turns
+     over 300 steps, ms/step and samples/s beside BASELINE's 10,000,
+     weights, Adam state and losses bit-equal; and BASELINE
+     ``configs[2]`` (``artifacts/deep_pipeline_r04/RECORD.json``:
+     64-96-80-64-48-32-24-16-10 on ``[1] * 8``, 30 digits epochs) on
+     eight stage slots of the card, held-out >= 0.97.
    * the train path (native FCNN training), with ``TDN_INT8_AUTO=0``
      for every int8 check but the gate's: the digits record's command
      (``cli train --data digits --layers 64,128,64,10 --epochs 40
@@ -66,9 +74,13 @@ package. Phases, each fatal on failure (exit 1, no result line):
      printed; 1 epoch plus a checkpoint resume to 3 equals the straight
      3 (atol 1e-7, rtol 1e-6); 2 digits epochs on the card and on the
      CPU from one init (losses within rtol 1e-4); a trained int8 engine
-     bit-equal to the plain int8 chain on its re-quantized weights; and
-     the int8 warm-up gate on (``warm_rows=8192``): its ratio and
-     decision, and launches that follow the decision.
+     bit-equal to the plain int8 chain on its re-quantized weights; the
+     FCNN step eager and graphed in turns over 300 steps (ms/step,
+     samples/s, bit-equal); and the int8 warm-up gate with
+     ``TDN_INT8_AUTO`` unset at 64 rows (``up --grpc-port``'s warm
+     ladder) and 8,192: its ratio (CUDA-event device times) and decision
+     beside the chain kernels' own event times (a decision against a
+     kernel ratio past 1 +- 0.10 fails), and launches that follow it.
    * the Process path (the reference's ``LayerService.Process`` RPC):
      the 60,000 rows encoded as float64 ``Matrix`` requests of 1, 7,
      64, 512 and 4,096 rows in turn, sent from 10 threads through the
@@ -84,7 +96,9 @@ package. Phases, each fatal on failure (exit 1, no result line):
      installed, the same over loopback gRPC (``serve_engine``,
      ``GrpcClient``), the CLI's ``up --grpc-port 0`` in a subprocess
      with ``infer --target`` (its accuracy line equal to the local
-     ``infer``'s), and ``python3 -m tpu_dist_nn_torch.bench
+     ``infer``'s), five more ``up --grpc-port`` servers at once (one
+     int8 with its gate on), each SIGTERMed after answering a request,
+     every return code 0, and ``python3 -m tpu_dist_nn_torch.bench
      --serving``; without grpcio it prints ``grpc: not installed;
      socket phase not run``. Then each stage's median time from the
      trace spans (decode, queue_wait, stage, launch, fetch, encode),
@@ -113,7 +127,11 @@ package. Phases, each fatal on failure (exit 1, no result line):
      path for the launch counts) first loss within rtol 1e-5, all three
      within 1e-4, first-step gradients within 5e-4; in bf16 (the sm90
      route) first loss within rtol 1e-3, all three within 1e-2.
-     After it, the CLI's ``lm`` verb runs a few steps.
+     Every ``train_lm`` step here is a captured CUDA graph. After it,
+     the same recipe's step eager (8 steps) and as 4-step supersteps
+     (``steps_per_call=4``, its first 16 steps; losses within rtol 1e-4
+     of one step a call): s/step and tokens/s of each; then the CLI's
+     ``lm`` verb runs 4 steps with ``--steps-per-call 2``.
 
    * the float32 LM path, ``tdn lm``'s default recipe
      (``artifacts/real_text_r04/RECORD.json``): d 128, 4 heads, 4
@@ -125,7 +143,9 @@ package. Phases, each fatal on failure (exit 1, no result line):
      batch launches, ``flash_bwd_f32`` steps x 4, sm90 never); every
      loss finite, the last below the first, held-out loss within 0.10
      nats of the record's 2.5303 (the port's weights come from a
-     ``torch.Generator``, its batches are the JAX package's).
+     ``torch.Generator``, its batches are the JAX package's); then its
+     step eager (100 steps) and as 8-step supersteps (all 400; losses
+     within rtol 1e-4 of one step a call).
 
    * dense runs past one chain launch, each engine's counts zeroed
      before its run: a 34-layer 16-wide FCNN in float32 (float64
@@ -156,6 +176,7 @@ the last is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -186,6 +207,7 @@ LM = dict(d_model=768, heads=12, layers=12, seq_len=1024, batch=16, steps=30, wa
 RECIPE = dict(d_model=128, heads=4, layers=4, seq_len=128, batch=16, steps=400, warmup=20,
               lr=1e-3, seed=0, corpus="tpu_dist_nn/data/corpus/licenses_corpus.txt",
               loss=2.5303, perplexity=12.5567, bits_per_byte=3.6504, band=0.10)
+RECIPE_K = 8  # the recipe's steps_per_call in its superstep run
 FLASH_TOL = (2e-5, 2e-5)  # atol, rtol: tests/test_flash_attention.py's forward
 FLASH_GRAD_TOL = (2e-4, 2e-4)  # and gradients
 # A bf16 output is its float32 value rounded to nearest even: at most
@@ -247,6 +269,7 @@ def in_image_taps(size: int, k: int) -> int:
 
 
 PROCESS_SIZES = (1, 7, 64, 512, 4096)  # rows of the Process requests, in turn
+F5_SERVERS = 5  # `up --grpc-port` servers SIGTERMed at once
 PROCESS_THREADS = 10
 # The digits record (artifacts/real_digits_r03/RECORD.json): its command,
 # run on the card, and its held-out results; the bar is BASELINE's 0.97.
@@ -256,6 +279,75 @@ DIGITS_RECORD = dict(accuracy=0.9805013927576601, f1_score=0.9805454271308642, b
 # Full-width training: the reference's 784-128-64-10 recipe (batch 64,
 # Adam 1e-3) on 60,000 seeded synthetic_mnist rows, 10,000 held out.
 TRAIN_ROWS, TRAIN_EVAL_ROWS, TRAIN_BATCH, TRAIN_EPOCHS = 60000, 10000, 64, 3
+GRAPH_STEPS = 300  # steps a graphed-vs-eager arm times
+GATE_MARGIN = 0.10  # kernel time ratios within 1 +- this: either gate decision stands
+
+
+def timed_arms(arms: dict, order=("eager", "graphed", "graphed", "eager")):
+    """Run ``arms[label]()`` (each returns ``(ms_per_step, tensors)``)
+    in ``order``; fail unless every run's tensors equal the first run's
+    bit for bit. Returns ``[(label, ms)]`` in run order."""
+    import torch
+
+    out, ref = [], None
+    for label in order:
+        ms, tensors = arms[label]()
+        if ref is None:
+            ref = tensors
+        diff = sum(int((a != b).sum()) for a, b in zip(tensors, ref))
+        if diff or len(tensors) != len(ref):
+            fail(f"the {label} step's weights, Adam state or losses differ from the first "
+                 f"arm's ({diff} elements)")
+        out.append((label, ms))
+    torch.cuda.synchronize()
+    return out
+
+
+def fcnn_step_arms(dev, train, n_steps):
+    """The FCNN step eager and graphed (see ``timed_arms``): ``n_steps``
+    batches of 64 after the first step, seeded init, host clock around
+    the steps and a synchronise."""
+    import torch
+
+    from tpu_dist_nn_torch.models.fcnn import init_fcnn
+    from tpu_dist_nn_torch.train.trainer import (
+        TrainConfig,
+        _leaves,
+        _split_params,
+        compile_train_step,
+        make_train_step,
+        optimizer_for,
+    )
+
+    bs = TRAIN_BATCH
+    batches = [(train.x[i * bs:(i + 1) * bs], train.y[i * bs:(i + 1) * bs])
+               for i in range(n_steps + 1)]
+
+    def arm(graphed):
+        wb, ids = _split_params(init_fcnn(torch.Generator().manual_seed(0), MNIST, ACTS,
+                                          device=dev))
+        opt = optimizer_for(TrainConfig(batch_size=bs), train)
+        st = opt.init(_leaves(wb))
+        step = make_train_step(ids, opt)
+        if graphed:
+            compiled = compile_train_step(step, wb, st, opt, bs, MNIST[0])
+            run = compiled
+        else:
+            def run(bx, by):
+                return step(wb, st, torch.as_tensor(bx, dtype=torch.float32, device=dev),
+                            torch.as_tensor(by, dtype=torch.long, device=dev))[2]
+        losses = [run(*batches[0]).clone()]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for bx, by in batches[1:]:
+            losses.append(run(bx, by).clone())
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) * 1e3 / n_steps
+        return ms, _leaves(wb) + st.mu + st.nu + [st.count] + losses
+
+    return timed_arms({"eager": lambda: arm(False), "graphed": lambda: arm(True)})
+
+
 RESUME_TOL = (1e-7, 1e-6)  # atol, rtol: tests/test_checkpoint.py:93's
 CARD_CPU_LOSS_RTOL = 1e-4  # per-epoch losses, card vs CPU, TF32 off
 PROCESS_STAGES = ("decode", "queue_wait", "stage", "launch", "fetch", "encode")
@@ -428,6 +520,47 @@ def socket_phase(grpc, eng, model_path, data, reqs, tmp) -> None:
     if not ok:
         fail(f"cli up / infer --target: {remote.stderr[-1500:]}\ncli up's stderr: "
              f"{up_err[-3000:]}")
+
+    # F5: `up --grpc-port` torn down by SIGTERM after serving, five more
+    # servers at once (the fifth int8, its warm-up gate on), each
+    # answering one request first: every exit code 0.
+    servers = []
+    for i in range(F5_SERVERS):
+        extra = ["--quantize", "int8"] if i == F5_SERVERS - 1 else []
+        env_i = {k: v for k, v in env.items() if k != "TDN_INT8_AUTO"} if extra else env
+        servers.append(subprocess.Popen(
+            cli + ["up", "--config", str(model_path), "--grpc-port", "0", "--serve-seconds",
+                   "300", "--drain-grace-seconds", "2", *extra],
+            cwd=ROOT, env=env_i, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    rcs, errs, served = [], [], []
+    for proc in servers:
+        try:
+            port = None
+            for line in proc.stdout:
+                if '"grpc_port"' in line:
+                    port = json.loads(line)["grpc_port"]
+                    break
+            if port is not None:
+                client = GrpcClient(f"127.0.0.1:{port}")
+                try:
+                    served.append(client.process(data[:3]).shape == (3, MNIST[-1]))
+                finally:
+                    client.close()
+        finally:
+            proc.send_signal(signal.SIGTERM)
+    for proc in servers:
+        rcs.append(proc.wait(timeout=120))
+        errs.append(proc.stderr.read())
+    gate = [ln[ln.index("int8."):][:300] for ln in errs[-1].splitlines() if "int8." in ln]
+    ok = rcs == [0] * F5_SERVERS and served == [True] * F5_SERVERS
+    print(f"check F5: {F5_SERVERS} `up --grpc-port` servers at once, each SIGTERMed after "
+          f"answering a request: return codes {rcs} | {'ok' if ok else 'FAIL'}")
+    print(f"F5 int8 server's warm-up gate (TDN_INT8_AUTO unset, 64-row warm ladder): {gate}")
+    if not ok:
+        for rc, err in zip(rcs, errs):
+            if rc != 0:
+                print(f"server stderr (rc {rc}):\n{err[-3000:]}")
+        fail(f"`up --grpc-port` exited {rcs} on SIGTERM (served {served})")
 
     bench = subprocess.run([sys.executable, "-m", "tpu_dist_nn_torch.bench", "--serving"],
                            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
@@ -638,6 +771,7 @@ def train_phase(dev, model, data, out_dir, smi_line, compare, failures) -> None:
     )
     from tpu_dist_nn_torch.models.fcnn import init_fcnn, spec_from_params
     from tpu_dist_nn_torch.train.trainer import TrainConfig, train_fcnn
+    from tpu_dist_nn_torch.utils.profiling import device_call_ms
 
     print(f"train path on {smi_line} (nvidia-smi name, power.limit)")
     t_phase = time.monotonic()
@@ -721,6 +855,16 @@ def train_phase(dev, model, data, out_dir, smi_line, compare, failures) -> None:
         if not ok:
             fail("training launched a kernel inside a step, or eval missed the chain kernel")
 
+        # (b2) The compiled step beside the eager one: the same seeded
+        # init and the same batches, in turns (eager, graphed, graphed,
+        # eager); every arm's weights and Adam state after its steps,
+        # and its losses, bit for bit equal (the same cuBLAS and
+        # elementwise kernels run).
+        step_ms = fcnn_step_arms(dev, train, GRAPH_STEPS)
+        print(f"FCNN step 784-128-64-10 at batch {TRAIN_BATCH} on {smi_line}: " + "; ".join(
+            f"{label} {ms:.4f} ms/step ({TRAIN_BATCH / ms * 1e3:.1f} samples/s)"
+            for label, ms in step_ms))
+
         # 1 epoch, then a resume to 3: the straight run's weights.
         ckpt = CheckpointManager(tmp / "resume", keep=3)
         Engine.up(spec, device=dev).train(train, TrainConfig(epochs=1, batch_size=TRAIN_BATCH,
@@ -768,27 +912,141 @@ def train_phase(dev, model, data, out_dir, smi_line, compare, failures) -> None:
         if failures or not ok:
             fail(f"train checks failed: {failures or 'the trained int8 engine'}")
 
-        # (e) The int8 warm-up gate, on: its verdict, then launches
-        # that follow it (two batches of 8,192 rows).
-        os.environ["TDN_INT8_AUTO"] = "1"
-        try:
-            engg = Engine.up(model, quantize="int8", warm_rows=BATCH, device=dev)
-        finally:
-            os.environ["TDN_INT8_AUTO"] = "0"
-        kept = not engg.int8_auto_disabled
-        reset_launch_counts()
-        engg.run_inference(data[:2 * BATCH], batch_size=BATCH)
-        launches = counts()
-        want = {"fcnn_quantized_forward": 2 if kept else 0,
-                "fcnn_fused_forward": 0 if kept else 2}
-        ok = all(launches[k] == n for k, n in want.items())
-        print(f"check int8 warm-up gate at {BATCH} rows: ratio f32/int8 "
-              f"{engg.int8_speedup_ratio:.4f}, int8 {'kept' if kept else 'disabled'}; launches "
-              f"over 2 batches {json.dumps({k: launches[k] for k in want})}, expected "
-              f"{json.dumps(want)} | {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail("the launches do not follow the int8 warm-up gate's decision")
+        # (e) The int8 warm-up gate with TDN_INT8_AUTO unset (its
+        # default, on), at the row count of `up --grpc-port`'s engine
+        # (its 64-row warm ladder) and at 8,192 rows: its ratio and
+        # decision beside the chain kernels' own event times at that row
+        # count, then launches that follow the decision.
+        for warm_rows in (64, BATCH):
+            os.environ.pop("TDN_INT8_AUTO", None)
+            try:
+                engg = Engine.up(model, quantize="int8", warm_rows=warm_rows, device=dev)
+            finally:
+                os.environ["TDN_INT8_AUTO"] = "0"
+            kept = not engg.int8_auto_disabled
+            xg = torch.from_numpy(data[:warm_rows]).to(dev)
+            f32_ms = device_call_ms(lambda: fcnn_fused_forward(engg._params, xg), calls=21)
+            int8_ms = device_call_ms(lambda: fcnn_quantized_forward(engg._q, xg), calls=21)
+            kernel_ratio = f32_ms / int8_ms
+            contradicts = ((kernel_ratio > 1 + GATE_MARGIN and not kept)
+                           or (kernel_ratio < 1 - GATE_MARGIN and kept))
+            reset_launch_counts()
+            engg.run_inference(data[:2 * warm_rows], batch_size=warm_rows)
+            launches = counts()
+            want = {"fcnn_quantized_forward": 2 if kept else 0,
+                    "fcnn_fused_forward": 0 if kept else 2}
+            ok = not contradicts and all(launches[k] == n for k, n in want.items())
+            print(f"check int8 warm-up gate (TDN_INT8_AUTO unset) at {warm_rows} rows on "
+                  f"{smi_line}: ratio f32/int8 {engg.int8_speedup_ratio:.4f} (CUDA-event device "
+                  f"time of each arm's forward, median of 7), int8 "
+                  f"{'kept' if kept else 'disabled'}; the chain kernels at {warm_rows} rows: "
+                  f"f32 {f32_ms:.4f} ms, int8 {int8_ms:.4f} ms (device_call_ms: CUDA-event "
+                  f"median of 21, the card busy while the host issues each), ratio "
+                  f"{kernel_ratio:.4f}; a decision contradicts them past +-{GATE_MARGIN:g}; "
+                  f"launches over 2 batches {json.dumps({k: launches[k] for k in want})} | "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail("the int8 warm-up gate's decision contradicts the kernels' device times, "
+                     "or the launches do not follow it")
     print(f"train phase took {time.monotonic() - t_phase:.1f} s")
+
+
+def pipeline_step_arms(dev, spec, train, schedule, dist, virtual, n_steps):
+    """The pipelined step eager and graphed (see ``timed_arms``) on
+    ``dist`` over ``len(dist) // virtual`` slots of ``dev``."""
+    import torch
+
+    from tpu_dist_nn_torch.core.schema import partition_model
+    from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+    from tpu_dist_nn_torch.parallel.pipeline import build_pipeline_params
+    from tpu_dist_nn_torch.train.pipeline_trainer import (
+        _leaves,
+        compile_pipeline_step,
+        make_pipeline_train_step,
+        place_leaves,
+        prepare_pipeline_batch,
+    )
+    from tpu_dist_nn_torch.train.trainer import TrainConfig, optimizer_for
+
+    M, bs = PIPE_MICROBATCHES, TRAIN_BATCH
+    pp = build_pipeline_params(partition_model(spec, dist))
+    batches = [prepare_pipeline_batch(pp.meta, train.x[i * bs:(i + 1) * bs],
+                                      train.y[i * bs:(i + 1) * bs], M, 1)
+               for i in range(n_steps + 1)]
+
+    def arm(graphed):
+        stages = len(dist) // virtual
+        mesh = build_mesh(MeshSpec(stage=stages), [dev] * stages)
+        placed = place_leaves(mesh, pp, virtual)
+        opt = optimizer_for(TrainConfig(batch_size=bs), train)
+        st = opt.init(_leaves(placed))
+        step = make_pipeline_train_step(mesh, pp.meta, M, opt, schedule=schedule,
+                                        num_virtual=virtual)
+        if graphed:
+            compiled = compile_pipeline_step(step, placed, st, opt, M, bs)
+
+            def run(xs, labels, mask):
+                return compiled(xs[:, :, :pp.meta.in_dim], labels, mask)
+        else:
+            def run(xs, labels, mask):
+                return step(placed, st, xs, labels, mask)[2]
+        losses = [run(*batches[0]).clone()]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for b in batches[1:]:
+            losses.append(run(*b).clone())
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) * 1e3 / n_steps
+        return ms, _leaves(placed) + st.mu + st.nu + [st.count] + losses
+
+    return timed_arms({"eager": lambda: arm(False), "graphed": lambda: arm(True)})
+
+
+def lm_k_arms(cfg, params, batches, train_cfg, k, n_eager, first_losses, label, smi_line):
+    """The LM step beside its graph: ``n_eager`` eager steps (the steady
+    s/step of all but the first two), then ``train_cfg`` again as
+    ``steps_per_call=k`` supersteps (the captured step replayed k times
+    a call, losses read once),
+    its logged losses held to ``first_losses`` (the K=1 run's loss at
+    each step; rtol 1e-4: the flash backward adds dq with atomics, so
+    the runs are not bit-equal). Prints s/step and tokens/s of each."""
+    import numpy as np
+    import torch
+
+    from tpu_dist_nn_torch.models.transformer import param_leaves, tree_map
+    from tpu_dist_nn_torch.train.lm_trainer import make_lm_train_step, train_lm
+    from tpu_dist_nn_torch.train.optimizers import build_optimizer
+
+    tokens = train_cfg.batch_size * train_cfg.seq_len
+    opt = build_optimizer(train_cfg.learning_rate, schedule=train_cfg.lr_schedule,
+                          warmup_steps=train_cfg.warmup_steps, total_steps=train_cfg.steps)
+    p = tree_map(lambda a: a.detach().clone().requires_grad_(True), params)
+    state = opt.init(param_leaves(p))
+    step = make_lm_train_step(cfg, opt)
+    stamps = []
+    for b in batches[:n_eager]:
+        step(p, state, torch.as_tensor(b, device=param_leaves(p)[0].device).long())
+        torch.cuda.synchronize()
+        stamps.append(time.monotonic())
+    eager = (stamps[-1] - stamps[1]) / (len(stamps) - 2)
+    del p, state
+    torch.cuda.empty_cache()
+    cfg_k = dataclasses.replace(train_cfg, steps_per_call=k, log_every=k)
+    _, hist = train_lm(params, cfg, batches, cfg_k)
+    graphed_k = (hist[-1]["seconds"] - hist[1]["seconds"]) / (hist[-1]["step"] - hist[1]["step"])
+    got = np.array([h["loss"] for h in hist])
+    want = np.array([first_losses[h["step"] - 1] for h in hist])
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    ok = bool(np.isfinite(got).all()) and rel <= 1e-4
+    print(f"{label} on {smi_line}: eager {eager:.6f} s/step ({tokens / eager:.1f} tokens/s, "
+          f"steps 3-{n_eager}); graphed K={k} ({k} replays a call, losses read once) "
+          f"{graphed_k:.6f} s/step ({tokens / graphed_k:.1f} tokens/s, steps "
+          f"{hist[1]['step'] + 1}-{hist[-1]['step']})")
+    print(f"check {label} K={k} losses vs K=1 at the same steps: max rel {rel:.3e} | tol rtol "
+          f"1e-4 | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{label}: the K={k} superstep's losses disagree with one step a call")
+    return eager, graphed_k
 
 
 PIPE_DEVICES = 3  # [1, 1, 1]: three stage slots (streams) on one card
@@ -820,7 +1078,7 @@ def pipeline_phase(dev, model, data, resq, he_model, out_dir, smi_line, failures
     from tpu_dist_nn_torch.kernels.fused_dense import activation_ids, chain_plan, int8_plan
     from tpu_dist_nn_torch.models.fcnn import init_fcnn, spec_from_params
     from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
-    from tpu_dist_nn_torch.parallel.pipeline import build_pipeline_params
+    from tpu_dist_nn_torch.parallel.pipeline import build_pipeline_params, run_placed
     from tpu_dist_nn_torch.testing.oracle import oracle_forward_batch
     from tpu_dist_nn_torch.train.metrics import classification_metrics
     from tpu_dist_nn_torch.train.pipeline_trainer import (
@@ -941,12 +1199,36 @@ def pipeline_phase(dev, model, data, resq, he_model, out_dir, smi_line, failures
         if not ok:
             fail("pipelined runs under allocator churn are not bit-equal run to run")
 
-        # (c) step_latency, pipelined and single program.
+        # (c) step_latency, pipelined (the captured forward) and single
+        # program; then the pipelined forward of 256 rows eager
+        # (run_placed) and graphed, each with its copy back to the host.
         for label, e in (("pipeline [1, 1, 1]", eng), ("one program", one)):
             lat = e.step_latency(batch_size=256)
-            print(f"step_latency {label} at batch 256: p50 {lat['p50_s'] * 1e3:.4f} ms, p99 "
-                  f"{lat['p99_s'] * 1e3:.4f} ms, num_stages {lat['num_stages']}, "
-                  f"p50_per_stage {lat['p50_per_stage_s'] * 1e3:.4f} ms")
+            print(f"step_latency {label} at batch 256 on {smi_line}: p50 "
+                  f"{lat['p50_s'] * 1e3:.4f} ms, p99 {lat['p99_s'] * 1e3:.4f} ms, num_stages "
+                  f"{lat['num_stages']}, p50_per_stage {lat['p50_per_stage_s'] * 1e3:.4f} ms")
+        graphed = eng._graphed(eng._placed)
+        for rows in (256, BATCH):
+            xr = torch.from_numpy(data[:rows]).to(dev)
+            p50 = {}
+            for label, fn in (("eager", lambda: run_placed(eng._placed, xr, M).cpu()),
+                              ("graphed", lambda: graphed(xr).cpu()),
+                              ("graphed ", lambda: graphed(xr).cpu()),
+                              ("eager ", lambda: run_placed(eng._placed, xr, M).cpu())):
+                fn()
+                times = []
+                for _ in range(50):
+                    t0 = time.monotonic()
+                    fn()
+                    times.append(time.monotonic() - t0)
+                p50.setdefault(label.strip(), []).append(float(np.median(times)) * 1e3)
+            diff = int((graphed(xr) != run_placed(eng._placed, xr, M)).sum())
+            print(f"check pipelined forward of {rows} rows on [1, 1, 1], graphed vs eager on "
+                  f"{smi_line}: p50 {p50['graphed']} vs {p50['eager']} ms (host clock, the "
+                  f"copy to the host included, in turns); not-bit-equal {diff} | "
+                  f"{'ok' if diff == 0 else 'FAIL'}")
+            if diff:
+                fail("the graphed pipelined forward is not bit-equal to the eager one")
 
         # (d) The interleaved placement of the 34-layer model: [9, 9, 8, 8]
         # at virtual_stages 2 on two slots, f32 and int8.
@@ -1043,6 +1325,45 @@ def pipeline_phase(dev, model, data, resq, he_model, out_dir, smi_line, failures
                 failures.append(f"{label} epoch loss")
         if any(counts().values()):
             failures.append(f"training launched a kernel: {counts()}")
+
+        # (g) The pipelined step eager and graphed, each schedule, batch
+        # 64 (BASELINE's headline: >= 10,000 samples/s through a 3-stage
+        # layer pipeline), bit for bit equal.
+        for sched, dist, v in (("gpipe", [1, 1, 1], 1), ("1f1b", [1, 1, 1], 1),
+                               ("interleaved", [1, 1, 1, 0], 2)):
+            arms = pipeline_step_arms(dev, spec, train, sched, dist, v, GRAPH_STEPS)
+            print(f"pipelined step {sched} on {dist} ({len(dist) // v} slots of the card, {M} "
+                  f"microbatches), 784-128-64-10 at batch {TRAIN_BATCH} on {smi_line}: "
+                  + "; ".join(f"{label} {ms:.4f} ms/step ({TRAIN_BATCH / ms * 1e3:.1f} "
+                              f"samples/s)" for label, ms in arms)
+                  + f"; BASELINE's bar 10000 samples/s")
+
+        # (h) BASELINE configs[2] (artifacts/deep_pipeline_r04/RECORD.json):
+        # 64-96-80-64-48-32-24-16-10 on [1] * 8, eight stage slots of the
+        # card (the record ran eight devices), 30 epochs of the vendored
+        # digits at batch 64, Adam 1e-3, 4 microbatches, gpipe; held-out
+        # accuracy against the record's 0.9861 and the 0.97 bar.
+        deep = [64, 96, 80, 64, 48, 32, 24, 16, 10]
+        acts8 = ["relu"] * 7 + ["softmax"]
+        spec8 = spec_from_params(init_fcnn(torch.Generator().manual_seed(0), deep, acts8,
+                                           device="cpu"), acts8)
+        eng8 = Engine.up(spec8, [1] * 8, devices=[dev] * 8, num_microbatches=M)
+        t0 = time.monotonic()
+        hist8 = eng8.train(digits, TrainConfig(epochs=30, batch_size=64, learning_rate=1e-3),
+                           eval_data=test)
+        wall8 = time.monotonic() - t0
+        acc8 = hist8[-1]["eval"]["accuracy"]
+        lat8 = eng8.step_latency(batch_size=256, iters=30)
+        ok = acc8 >= DIGITS_RECORD["bar"]
+        print(f"check BASELINE configs[2] (64-96-80-64-48-32-24-16-10 on [1] * 8, eight slots "
+              f"of the card) on {smi_line}: 30 epochs in {wall8:.2f} s "
+              f"({wall8 / (30 * (len(digits) // 64)) * 1e3:.3f} ms/step with eval), losses "
+              f"{hist8[0]['loss']:.4f} -> {hist8[-1]['loss']:.6f}, held-out accuracy {acc8:.4f} "
+              f"F1 {hist8[-1]['eval']['f1_score']:.4f} (record 0.9861 on eight devices; bar "
+              f"{DIGITS_RECORD['bar']}); step_latency at 256 p50 {lat8['p50_s'] * 1e3:.4f} ms, "
+              f"per stage {lat8['p50_per_stage_s'] * 1e3:.4f} ms | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("BASELINE configs[2] missed 0.97 held-out")
     if failures:
         fail(f"pipeline checks failed: {failures}")
     print(f"pipeline phase took {time.monotonic() - t_phase:.1f} s")
@@ -1823,6 +2144,14 @@ def main() -> None:
         fail("the LM main path did not launch the flash kernels the expected number of times")
     del lm_params
     torch.cuda.empty_cache()
+    # The same recipe's step eager (8 steps) and as 4-step supersteps
+    # (the first 16 of its 30 steps), from the same init and batches.
+    lm_params = init_transformer(torch.Generator().manual_seed(0), cfg, device=dev)
+    stream = lm_batches(train_rows, LM["batch"], seed=0, epochs=None)
+    lm_k_arms(cfg, lm_params, [next(stream) for _ in range(16)], train_cfg, 4, 8, losses,
+              "LM 85M bf16 step (graphed K=1: the steady line above)", smi[0])
+    del lm_params
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=out_dir) as tmp:
         metrics = Path(tmp) / "lm_metrics.jsonl"
@@ -1830,8 +2159,8 @@ def main() -> None:
             [sys.executable, "-m", "tpu_dist_nn_torch.cli", "lm", "--d-model", "768",
              "--heads", "12", "--layers", "2", "--seq-len", "1024", "--steps", "4",
              "--batch-size", "4", "--bf16", "--remat", "--lr", "3e-4", "--lr-schedule",
-             "cosine", "--warmup-steps", "1", "--eval-batches", "2", "--log-every", "1",
-             "--metrics-out", str(metrics)],
+             "cosine", "--warmup-steps", "1", "--eval-batches", "2", "--log-every", "2",
+             "--steps-per-call", "2", "--metrics-out", str(metrics)],
             cwd=ROOT, capture_output=True, text=True, timeout=600,
             env={**os.environ, "PYTHONPATH": str(ROOT)},
         )
@@ -1842,8 +2171,9 @@ def main() -> None:
     report = json.loads(cli_lm.stdout.strip().splitlines()[-1])
     keys = {"train_seconds", "final_train_loss", "eval_split", "loss_nats_per_token",
             "perplexity", "bits_per_byte", "eval_rows_used"}
-    if set(report) != keys or report["eval_split"] != "held-out" or n_metrics != 6:
-        fail(f"cli lm report keys {sorted(report)} or {n_metrics} metrics lines (want 6)")
+    # --steps-per-call 2 --log-every 2: the begin record, steps 2 and 4, the report
+    if set(report) != keys or report["eval_split"] != "held-out" or n_metrics != 4:
+        fail(f"cli lm report keys {sorted(report)} or {n_metrics} metrics lines (want 4)")
 
     # The float32 LM main path: tdn lm's default recipe, as cmd_lm runs it
     # (corpus split 95/5, weights from the seed, batches from the seed,
@@ -1901,6 +2231,15 @@ def main() -> None:
              f"{RECIPE['loss']}")
     if any(rc_launches[k] != n for k, n in want_rc.items()):
         fail("the float32 recipe did not go through the f32 flash kernels only")
+    del params_rc
+    # The recipe's step eager (100 steps) and as 8-step supersteps (all
+    # 400 steps), from the same init and batches.
+    params_rc = init_transformer(torch.Generator().manual_seed(RECIPE["seed"]), cfg_rc,
+                                 device=dev)
+    stream = lm_batches(train_rc, RECIPE["batch"], seed=RECIPE["seed"], epochs=None)
+    lm_k_arms(cfg_rc, params_rc, [next(stream) for _ in range(RECIPE["steps"])], train_cfg_rc,
+              RECIPE_K, 100, losses_rc, "float32 recipe step (graphed K=1: the steady line "
+              "above)", smi[0])
     del params_rc
 
     # ----------------------------------------------- 4. card's numbers

@@ -333,6 +333,12 @@ QUICK_TESTS = {
     "test_torch_train": ["test_train_fcnn_matches_jax[cosine-warmup]",
                          "test_int8_gate_reroutes_by_its_measurement[int8-slower]",
                          "test_train_runs_with_jax_and_the_jax_package_blocked"],
+    "test_torch_graphs": ["test_capturable_adam_follows_optax[grad-accum-2]",
+                          "test_launch_accounting_through_the_graph_runner"],
+    "test_torch_superstep": ["test_train_lm_superstep_matches_jax_train_lm[k4-short-last-group]",
+                             "test_superstep_validation_matches_jax[log-every]"],
+    "test_torch_repairs": ["test_no_serving_thread_outlives_cmd_up[f32]",
+                           "test_int8_gate_times_the_host_on_the_cpu"],
     # ISSUE 10: the codec fast lane's correctness anchor (byte-exact
     # scalar/vectorized equivalence + fuzz agreement), the decode-into-
     # staging path through a real batcher, the codec A/B perf smoke,

@@ -259,11 +259,14 @@ def test_train_lm_matches_jax_train_lm():
 
 
 def test_the_superstep_is_not_ported_yet():
+    # The superstep is ported (tests/test_torch_superstep.py holds it to
+    # JAX's); the refusal that stood here became JAX's validation.
     _, _, cfg, params = _both()
     opt = build_optimizer(1e-3)
-    with pytest.raises(InvalidArgumentError, match="ROADMAP Queue 1 item 7"):
-        make_lm_train_step(cfg, opt, steps_per_call=2)
-    with pytest.raises(InvalidArgumentError, match="steps_per_call"):
+    with pytest.raises(ValueError, match="steps_per_call must be >= 1, got 0"):
+        make_lm_train_step(cfg, opt, steps_per_call=0)
+    assert callable(make_lm_train_step(cfg, opt, steps_per_call=2))
+    with pytest.raises(ValueError, match=r"log_every \(50\) must be a multiple"):
         train_lm(params, cfg, [], LMTrainConfig(steps_per_call=4))
 
 

@@ -4,24 +4,34 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU::
 
     python3 tools/torch_train_profile.py [--batch-size 64] [--warmup 50] [--steps 200]
-        [--schedule gpipe|1f1b]
+        [--schedule gpipe|1f1b|interleaved | --lm]
 
 Builds ``chip_smoke.py``'s full-width training recipe (784-128-64-10,
 relu / relu / softmax, Adam at 1e-3, seeded weights, ``synthetic_mnist``
-rows) and runs ``--warmup`` steps of
-``tpu_dist_nn_torch.train.trainer.make_train_step`` with the trainer's
-per-step host-to-device copies, then ``--steps`` more timed on the host
-clock (ending in a synchronise), then ``--steps`` more under
-``torch.profiler`` (CPU and CUDA activities). Prints the step's wall
-time with the profiler off and on, the device time per step by group
-(matrix products, copies, everything else), the launches per step, and
-the share of the profiled wall time in which the device ran nothing.
+rows) and profiles two arms of the same step in turns (eager, graphed):
+the eager step (``tpu_dist_nn_torch.train.trainer.make_train_step``,
+the batch copied to the card each step) and the captured one the trainer
+runs on a card (``compile_train_step``: static batch buffers fed through
+pinned memory, one CUDA graph replay a step). Each arm runs ``--warmup``
+steps, then ``--steps`` more timed on the host clock (ending in a
+synchronise), then ``--steps`` more under ``torch.profiler`` (CPU and
+CUDA activities). Prints, for each arm, the step's wall time with the
+profiler off and on, the device time per step by group (matrix
+products, copies, everything else), the device operations per step, and
+the share of the profiled wall time in which the device ran nothing
+(the union of the device operations' intervals against the wall).
 ``--schedule`` profiles the pipelined step instead
 (``tpu_dist_nn_torch.train.pipeline_trainer.make_pipeline_train_step``
-on ``[1, 1, 1]`` over three stage slots of the card, 4 microbatches,
-the trainer's host-to-device copies included) and also prints the host
-operations with the most self time. Exits 1 when the profiler recorded
-no device time. Imports nothing of JAX.
+and ``compile_pipeline_step`` on ``[1, 1, 1]`` over three stage slots of
+the card, or ``[1, 1, 1, 0]`` at 2 virtual stages over two for
+``interleaved``, 4 microbatches) and also prints the host operations
+with the most self time. ``--lm`` profiles the 85M LM step of
+``chip_smoke.py``'s LM path instead (d 768, 12 heads, 12 layers, T 1024,
+batch 16 of the vendored corpus, bf16 over float32 masters, remat, Adam
+at 3e-4, seeded weights; ``make_lm_train_step`` eager, and captured as
+``train_lm`` captures it on a card), 5 warm-up and 10 timed steps unless
+given. Exits 1 when the profiler recorded no device time. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -43,14 +53,39 @@ def group_of(name: str) -> str:
     return "other (elementwise, reductions, loss, optimizer)"
 
 
+def busy_ms(prof, device_type) -> float:
+    """Milliseconds in which the device ran at least one operation: the
+    union of the profiled device operations' intervals (operations on
+    several streams overlap)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == device_type and e.time_range.end > e.time_range.start)
+    total, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch-size", type=int, default=64)
     ap.add_argument("--warmup", type=int, default=50)
     ap.add_argument("--steps", type=int, default=200)
-    ap.add_argument("--schedule", choices=["gpipe", "1f1b"], default=None,
-                    help="profile the pipelined step on [1, 1, 1] (three slots of the card)")
+    ap.add_argument("--schedule", choices=["gpipe", "1f1b", "interleaved"], default=None,
+                    help="profile the pipelined step on [1, 1, 1] (three slots of the card; "
+                         "interleaved: [1, 1, 1, 0] at 2 virtual stages on two)")
+    ap.add_argument("--lm", action="store_true", help="profile the 85M LM step")
     args = ap.parse_args(argv)
+    if args.lm:
+        args.batch_size = 16
+        if "--warmup" not in (argv or sys.argv):
+            args.warmup = 5
+        if "--steps" not in (argv or sys.argv):
+            args.steps = 10
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -66,6 +101,7 @@ def main(argv=None) -> int:
         TrainConfig,
         _leaves,
         _split_params,
+        compile_train_step,
         make_train_step,
         optimizer_for,
     )
@@ -73,91 +109,159 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     acts = ["relu", "relu", "softmax"]
-    data = synthetic_mnist(args.batch_size * (args.warmup + 2 * args.steps), seed=0)
-    params = init_fcnn(torch.Generator().manual_seed(0), [784, 128, 64, 10], acts, device=dev)
-    wb, ids = _split_params(params)
-    opt = optimizer_for(TrainConfig(batch_size=args.batch_size), data)
-    state = opt.init(_leaves(wb))
-    step = make_train_step(ids, opt)
-    batches = batch_iterator(data.x, data.y, args.batch_size, shuffle=True, seed=0,
-                             drop_remainder=True)
-
+    data = synthetic_mnist(64 * (args.warmup + 2 * args.steps), seed=0)
+    what = "one program"
     if args.schedule:
-        from tpu_dist_nn_torch.core.schema import partition_model
-        from tpu_dist_nn_torch.models.fcnn import spec_from_params
-        from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
-        from tpu_dist_nn_torch.parallel.pipeline import build_pipeline_params
-        from tpu_dist_nn_torch.train.pipeline_trainer import (
-            _leaves as stage_leaves,
-            make_pipeline_train_step,
-            place_leaves,
-            prepare_pipeline_batch,
+        v = 2 if args.schedule == "interleaved" else 1
+        dist = [1, 1, 1, 0] if v == 2 else [1, 1, 1]
+        what = (f"the {args.schedule} pipeline on {dist}, {len(dist) // v} slots, "
+                "4 microbatches")
+
+    if args.lm:
+        what = "the 85M LM (d 768, 12 layers, T 1024, bf16, remat)"
+
+    def build_lm(graphed: bool):
+        from tpu_dist_nn_torch.data.text import encode, lm_batches, lm_sequences, load_corpus
+        from tpu_dist_nn_torch.models.transformer import (
+            TransformerConfig,
+            init_transformer,
+            param_leaves,
+            tree_map,
         )
+        from tpu_dist_nn_torch.train.graphs import CompiledStep
+        from tpu_dist_nn_torch.train.lm_trainer import make_lm_train_step
+        from tpu_dist_nn_torch.train.optimizers import build_optimizer
 
-        spec = spec_from_params(init_fcnn(torch.Generator().manual_seed(0), [784, 128, 64, 10],
-                                          acts, device="cpu"), acts)
-        pp = build_pipeline_params(partition_model(spec, [1, 1, 1]))
-        mesh = build_mesh(MeshSpec(stage=3), [dev] * 3)
-        placed = place_leaves(mesh, pp)
-        pstate = opt.init(stage_leaves(placed))
-        pstep = make_pipeline_train_step(mesh, pp.meta, 4, opt, schedule=args.schedule)
+        cfg = TransformerConfig(vocab_size=256, d_model=768, n_heads=12, n_layers=12,
+                                d_ff=3072, max_seq_len=1024, compute_dtype="bfloat16",
+                                remat=True)
+        stream = lm_batches(lm_sequences(encode(load_corpus()[0]), 1024), 16, seed=0,
+                            epochs=None)
+        params = tree_map(lambda a: a.requires_grad_(True),
+                          init_transformer(torch.Generator().manual_seed(0), cfg, device=dev))
+        opt = build_optimizer(3e-4)
+        state = opt.init(param_leaves(params))
+        step = make_lm_train_step(cfg, opt)
+        if graphed:
+            compiled = CompiledStep(step, (params, state), [((16, 1025), torch.int64)], opt,
+                                    state, dev)
 
-        def one_step(bx, by):
-            pstep(placed, pstate, *prepare_pipeline_batch(pp.meta, bx, by, 4, 1))
-    else:
+            def one_step(_bx, _by):
+                compiled(next(stream))
+        else:
+            def one_step(_bx, _by):
+                step(params, state, torch.from_numpy(next(stream)).to(dev).long())
+        return one_step
+
+    def build(graphed: bool):
+        """A fresh step from the seeded weights: ``one_step(bx, by)``."""
+        if args.lm:
+            return build_lm(graphed)
+        params = init_fcnn(torch.Generator().manual_seed(0), [784, 128, 64, 10], acts,
+                           device=dev)
+        opt = optimizer_for(TrainConfig(batch_size=args.batch_size), data)
+        if args.schedule:
+            from tpu_dist_nn_torch.core.schema import partition_model
+            from tpu_dist_nn_torch.models.fcnn import spec_from_params
+            from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+            from tpu_dist_nn_torch.parallel.pipeline import build_pipeline_params
+            from tpu_dist_nn_torch.train.pipeline_trainer import (
+                _leaves as stage_leaves,
+                compile_pipeline_step,
+                make_pipeline_train_step,
+                place_leaves,
+                prepare_pipeline_batch,
+            )
+
+            spec = spec_from_params(params, acts)
+            pp = build_pipeline_params(partition_model(spec, dist))
+            mesh = build_mesh(MeshSpec(stage=len(dist) // v), [dev] * (len(dist) // v))
+            placed = place_leaves(mesh, pp, v)
+            pstate = opt.init(stage_leaves(placed))
+            pstep = make_pipeline_train_step(mesh, pp.meta, 4, opt, schedule=args.schedule,
+                                             num_virtual=v)
+            if graphed:
+                compiled = compile_pipeline_step(pstep, placed, pstate, opt, 4, args.batch_size)
+
+                def one_step(bx, by):
+                    xs, labels, mask = prepare_pipeline_batch(pp.meta, bx, by, 4, 1)
+                    compiled(xs[:, :, :784], labels, mask)
+            else:
+                def one_step(bx, by):
+                    pstep(placed, pstate, *prepare_pipeline_batch(pp.meta, bx, by, 4, 1))
+            return one_step
+        wb, ids = _split_params(params)
+        state = opt.init(_leaves(wb))
+        step = make_train_step(ids, opt)
+        if graphed:
+            return compile_train_step(step, wb, state, opt, args.batch_size, 784)
+
         def one_step(bx, by):
             x = torch.as_tensor(bx, dtype=torch.float32, device=dev)
             y = torch.as_tensor(by, dtype=torch.long, device=dev)
             step(wb, state, x, y)
 
-    def run(n):
-        for _ in range(n):
-            one_step(*next(batches))
-        torch.cuda.synchronize()
+        return one_step
 
-    run(args.warmup)
-    t0 = time.perf_counter()
-    run(args.steps)
-    plain_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def profile_arm(label: str, graphed: bool) -> bool:
+        one_step = build(graphed)
+        batches = batch_iterator(data.x, data.y, 64 if args.lm else args.batch_size,
+                                 shuffle=True, seed=0, drop_remainder=True)
+
+        def run(n):
+            for _ in range(n):
+                one_step(*next(batches))
+            torch.cuda.synchronize()
+
+        run(args.warmup)
         t0 = time.perf_counter()
         run(args.steps)
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    per_step = {e.key: e.self_device_time_total / 1e3 / args.steps for e in events}
-    counts = {e.key: e.count / args.steps for e in events}
-    busy = sum(per_step.values())
-    what = (f"the {args.schedule} pipeline on [1, 1, 1], 3 slots, 4 microbatches"
-            if args.schedule else "one program")
+        plain_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(args.steps)
+            wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        per_step = {e.key: e.self_device_time_total / 1e3 / args.steps for e in events}
+        counts = {e.key: e.count / args.steps for e in events}
+        total = sum(per_step.values())
+        if total <= 0:
+            print(f"torch_train_profile: the profiler recorded no device time ({label})",
+                  file=sys.stderr)
+            return False
+        busy = busy_ms(prof, DeviceType.CUDA) / args.steps
+        rate = (f"{16 * 1024 / plain_ms * 1e3:.1f} tokens/s" if args.lm
+                else f"{args.batch_size / plain_ms * 1e3:.1f} samples/s")
+        print(f"{label}: wall {plain_ms:.4f} ms/step (host clock, profiler off; "
+              f"{rate}), {wall_ms:.4f} ms/step "
+              f"profiler on; device time {total:.4f} ms/step, device busy {busy:.4f} ms/step; "
+              f"device idle {100 * (1 - busy / wall_ms):.1f}% of the profiled wall time; "
+              f"{sum(counts.values()):.1f} device operations/step")
+        groups: dict[str, list[float]] = {}
+        for key, ms in per_step.items():
+            g = groups.setdefault(group_of(key), [0.0, 0.0])
+            g[0] += ms
+            g[1] += counts[key]
+        for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+            print(f"  {ms:9.4f} ms/step  {100 * ms / total:5.1f}% of device time  "
+                  f"{n:6.1f} operations/step  {group}")
+        print(f"  top device operations (ms/step, count/step):")
+        for key, ms in sorted(per_step.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"  {ms:9.4f}  {counts[key]:6.1f}  {key[:110]}")
+        if args.schedule or graphed:
+            host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+            print("  top host operations by self time (ms/step, count/step; profiler on):")
+            for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
+                print(f"  {e.self_cpu_time_total / 1e3 / args.steps:9.4f}  "
+                      f"{e.count / args.steps:6.1f}  {e.key[:110]}")
+        return True
+
+    model = "" if args.lm else "784-128-64-10 "
     print(f"device {torch.cuda.get_device_name(0)}; torch {torch.__version__}; "
-          f"784-128-64-10 at batch {args.batch_size}, {what}; {args.steps} steps timed after "
+          f"{model}at batch {args.batch_size}, {what}; {args.steps} steps timed after "
           f"{args.warmup}, {args.steps} more profiled")
-    if busy <= 0:
-        print("torch_train_profile: the profiler recorded no device time", file=sys.stderr)
-        return 1
-    print(f"wall {plain_ms:.4f} ms/step (host clock, profiler off; "
-          f"{args.batch_size / plain_ms * 1e3:.1f} samples/s), {wall_ms:.4f} ms/step "
-          f"profiler on; device busy {busy:.4f} ms/step; device idle "
-          f"{100 * (1 - busy / wall_ms):.1f}% of the profiled wall time; "
-          f"{sum(counts.values()):.1f} device operations/step")
-    groups: dict[str, list[float]] = {}
-    for key, ms in per_step.items():
-        g = groups.setdefault(group_of(key), [0.0, 0.0])
-        g[0] += ms
-        g[1] += counts[key]
-    for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {ms:9.4f} ms/step  {100 * ms / busy:5.1f}% of device time  "
-              f"{n:6.1f} operations/step  {group}")
-    print("top device operations (ms/step, count/step):")
-    for key, ms in sorted(per_step.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"  {ms:9.4f}  {counts[key]:6.1f}  {key[:110]}")
-    if args.schedule:
-        host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
-        print("top host operations by self time (ms/step, count/step; profiler on):")
-        for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:15]:
-            print(f"  {e.self_cpu_time_total / 1e3 / args.steps:9.4f}  "
-                  f"{e.count / args.steps:6.1f}  {e.key[:110]}")
-    return 0
+    ok = profile_arm("eager", False) and profile_arm("graphed", True)
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

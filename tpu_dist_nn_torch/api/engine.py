@@ -43,9 +43,18 @@ so do a conv model's multi-stage distribution (the heterogeneous
 pipeline is not ported) and a single-stage data-parallel placement
 (the data-sharded single program is not ported); each is logged.
 
+On a card, a pipelined engine whose slots share one card serves each
+pow2 row bucket through a captured CUDA graph of the pipelined forward
+(:class:`~tpu_dist_nn_torch.parallel.pipeline.GraphedPlaced`), f32 and
+int8 alike: one replay a batch where the host issued every stage's
+launch for every microbatch. A bucket is captured at its first use
+(:meth:`Engine.warm_buckets` runs the ladder at bring-up). Slots on
+several cards run the schedule eagerly: a graph belongs to one card.
+
 The int8 warm-up gate: a quantized engine's first :meth:`Engine.warm_buckets`
-times one f32 and one int8 launch of the largest warm bucket
-(:meth:`Engine.measure_int8_speedup`) and, where int8 is slower,
+times the f32 and the int8 forward of the largest warm bucket
+(:meth:`Engine.measure_int8_speedup`: on a card the device time between
+CUDA events, on the CPU the host clock) and, where int8 is slower,
 reroutes serving to the f32 chain (``int8_auto_disabled``).
 ``TDN_INT8_AUTO=0`` keeps int8 (measure and warn only);
 ``TDN_INT8_WARMUP_MEASURE=0`` skips the measurement.
@@ -78,6 +87,7 @@ from tpu_dist_nn_torch.obs.registry import REGISTRY
 from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh, visible_devices
 from tpu_dist_nn_torch.parallel.one_f_one_b import validate_schedule
 from tpu_dist_nn_torch.parallel.pipeline import (
+    GraphedPlaced,
     build_pipeline_params,
     extract_model,
     pipeline_spec_summary,
@@ -92,22 +102,27 @@ from tpu_dist_nn_torch.utils.errors import (
     UnavailableError,
     check_input_dim,
 )
-from tpu_dist_nn_torch.utils.profiling import LatencyStats
+from tpu_dist_nn_torch.utils.profiling import LatencyStats, device_call_ms
 
 log = logging.getLogger("tpu_dist_nn_torch.engine")
 slog = get_logger("tpu_dist_nn_torch.engine")
 
-# Measured at warm-up on quantized engines: f32 wall time / int8 wall
-# time for one launch of the largest warm bucket (> 1: int8 pays off).
+# Measured at warm-up on quantized engines: f32 time / int8 time for one
+# forward of the largest warm bucket (> 1: int8 pays off); device time
+# on a card, host wall time on the CPU.
 # NaN until a quantized engine has measured: an unlabeled gauge would
 # otherwise read 0, "int8 is catastrophically slow".
 _INT8_RATIO = REGISTRY.gauge(
     "tdn_int8_speedup_ratio",
-    "f32 launch wall time / int8 launch wall time on the largest warm "
-    "bucket (quantized engines; < 1 = int8 is slower on this device; "
-    "NaN until a quantized engine has measured)",
+    "f32 forward time / int8 forward time on the largest warm bucket "
+    "(quantized engines; device time on a card, wall time on the CPU; "
+    "< 1 = int8 is slower on this device; NaN until a quantized engine "
+    "has measured)",
 )
 _INT8_RATIO.set(float("nan"))
+# Timed forwards a gate arm takes on a card (after one warm forward); the
+# arm's time is their median.
+_GATE_CALLS = 7
 
 
 @dataclasses.dataclass
@@ -174,6 +189,7 @@ class Engine:
         self._params = None  # single-program params
         self._pp = None  # pipelined: the padded contract
         self._placed = None  # pipelined: the f32 stages on their slots
+        self._graphs: dict = {}  # pipelined on one card: "f32" / "int8" -> GraphedPlaced
         if self.pipelined:
             if not model.is_dense:
                 raise InvalidArgumentError(
@@ -204,6 +220,7 @@ class Engine:
         self.int8_speedup_ratio: float | None = None
 
     def _quantize(self) -> None:
+        self._graphs.clear()
         if self.pipelined:
             from tpu_dist_nn_torch.kernels.quantized import quantize_pipeline_weights
 
@@ -415,6 +432,9 @@ class Engine:
         if self.pipelined:
             # Plain, interleaved, int8 or both: the placed stages carry it.
             placed = self._q if self._serves_int8 else self._placed
+            graphed = self._graphed(placed)
+            if graphed is not None:
+                return graphed(x)
             return run_placed(placed, x, self.num_microbatches)
         if self._serves_int8:
             return dense_forward(self._q, x, quantized=True)
@@ -422,11 +442,23 @@ class Engine:
             return network_forward(self._plan, self._params, x)
         return dense_forward(self._params, x)
 
+    def _graphed(self, placed) -> GraphedPlaced | None:
+        """The captured forward of ``placed`` (the f32 or the int8
+        stages) when its slots share one card, created at first use;
+        else None."""
+        if not self.mesh.on_one_card:
+            return None
+        key = "int8" if placed is self._q else "f32"
+        if key not in self._graphs:
+            self._graphs[key] = GraphedPlaced(placed, self.num_microbatches)
+        return self._graphs[key]
+
     def warm_buckets(self, max_rows: int) -> list[int]:
         """Run the pow2 row-bucket ladder (1, 2, 4, … up to the pow2
         ceiling of ``max_rows``) once each. There is no compile to
         precede here; the first call builds the kernels and warms the
-        caching allocators. Idempotent; returns the buckets newly run.
+        caching allocators, and on a card a pipelined engine captures
+        each bucket's graph. Idempotent; returns the buckets newly run.
 
         A quantized engine's first warm ends with the int8 warm-up gate
         (:meth:`measure_int8_speedup`) unless
@@ -449,13 +481,19 @@ class Engine:
         return warmed
 
     def measure_int8_speedup(self, rows: int | None = None) -> float | None:
-        """Time the engine's f32 and int8 launch of the largest warm
+        """Time the engine's f32 and int8 forward of the largest warm
         bucket (or ``rows``) and publish ``tdn_int8_speedup_ratio``.
 
-        Returns f32 seconds / int8 seconds (> 1: int8 is faster here),
-        or None on an engine that is not quantized. Each arm runs the
-        engine's own dispatch (the f32 arm with the quantized state
-        cleared), best of 3 after one warm call. Where int8 is slower,
+        Returns f32 time / int8 time (> 1: int8 is faster here), or None
+        on an engine that is not quantized. Each arm runs the engine's
+        own dispatch (the f32 arm with the quantized state cleared). On
+        a card each arm is the device time of its forward: the input
+        already resident, one warm forward, then the median of
+        ``_GATE_CALLS`` forwards each between two CUDA events on the
+        current stream, the card kept busy while the host issues it
+        (:func:`~tpu_dist_nn_torch.utils.profiling.device_call_ms`). On
+        the CPU each arm is the host wall time of
+        ``infer``, best of 3 after one warm call. Where int8 is slower,
         serving is rerouted to the f32 chain (``int8_auto_disabled``)
         unless ``TDN_INT8_AUTO=0``, which measures and warns only.
         Bring-up only: not safe beside live traffic.
@@ -465,6 +503,11 @@ class Engine:
         if rows is None:
             rows = max(self._warm_buckets) if self._warm_buckets else 1
         x = np.zeros((int(rows), self.model.input_dim), np.float32)
+        clock = "cuda_events" if self.device.type == "cuda" else "host"
+
+        def device_median() -> float:
+            xd = torch.from_numpy(x).to(self.device, self.dtype)
+            return device_call_ms(lambda: self._forward(xd), calls=_GATE_CALLS) / 1e3
 
         def best_of(n: int = 3) -> float:
             self.infer(x)  # warm
@@ -475,15 +518,16 @@ class Engine:
                 times.append(time.monotonic() - t0)
             return min(times)
 
+        arm = device_median if clock == "cuda_events" else best_of
         q, self._q = self._q, None
         try:
-            f32_s = best_of()
+            f32_s = arm()
         finally:
             self._q = q
         # A re-measurement on a disabled engine times the real int8 path.
         gate, self.int8_auto_disabled = self.int8_auto_disabled, False
         try:
-            int8_s = best_of()
+            int8_s = arm()
         finally:
             self.int8_auto_disabled = gate
         ratio = f32_s / int8_s if int8_s > 0 else float("inf")
@@ -493,8 +537,8 @@ class Engine:
         if ratio < 1.0:
             slog.warning(
                 "int8.slower_than_f32", ratio=round(ratio, 3), rows=int(rows),
-                f32_ms=round(f32_s * 1e3, 3), int8_ms=round(int8_s * 1e3, 3),
-                device=self.device.type,
+                f32_ms=round(f32_s * 1e3, 4), int8_ms=round(int8_s * 1e3, 4),
+                clock=clock, device=self.device.type,
                 hint="serve without --quantize on this device",
             )
             if os.environ.get("TDN_INT8_AUTO", "1") != "0":
@@ -511,7 +555,8 @@ class Engine:
         else:
             self.int8_auto_disabled = False
             slog.info("int8.speedup", ratio=round(ratio, 3), rows=int(rows),
-                      device=self.device.type)
+                      f32_ms=round(f32_s * 1e3, 4), int8_ms=round(int8_s * 1e3, 4),
+                      clock=clock, device=self.device.type)
         return ratio
 
     @property
@@ -663,6 +708,7 @@ class Engine:
             )
             self.model = extract_model(self._pp, self.model, self.distribution)
             self._placed = place_pipeline(self.mesh, self._pp, num_virtual=self.virtual_stages)
+            self._graphs.clear()
         else:
             self._params, history = train_fcnn(
                 self._params, train_data, config or TrainConfig(),
@@ -695,8 +741,13 @@ class Engine:
     # -------------------------------------------------------------- down
 
     def down(self) -> None:
-        """Release the device state. Idempotent; relaunch = ``Engine.up``
-        again from the JSON model (run_grpc_fcnn.py:329-344)."""
+        """Release the device state, after the card has finished every
+        operation queued on it (a caller's thread may still hold a
+        launched batch). Idempotent; relaunch = ``Engine.up`` again from
+        the JSON model (run_grpc_fcnn.py:329-344)."""
+        if self.device.type == "cuda" and self.is_ready:
+            torch.cuda.synchronize(self.device)
+        self._graphs.clear()
         self._params = None
         self._placed = None
         self._q = None

@@ -58,7 +58,7 @@ def _parse_distribution(text):
     return [int(t) for t in text.replace(",", " ").split()]
 
 
-def _engine_from_args(args):
+def _engine_from_args(args, warm_rows: int = 0):
     from tpu_dist_nn_torch.api.engine import Engine
 
     return Engine.up(
@@ -69,6 +69,7 @@ def _engine_from_args(args):
         virtual_stages=args.virtual_stages,
         device=args.device,
         quantize=args.quantize,
+        warm_rows=warm_rows,
     )
 
 
@@ -126,7 +127,10 @@ def cmd_up(args) -> int:
     from tpu_dist_nn_torch.serving.resilience import GracefulDrain
 
     watermarks = _parse_class_watermarks(args.class_watermarks)
-    engine = _engine_from_args(args)
+    # A server warms its bucket ladder at bring-up, so a quantized
+    # engine's warm-up gate decides at the largest serving bucket.
+    engine = _engine_from_args(
+        args, warm_rows=args.serve_warm_rows if args.grpc_port is not None else 0)
     print(json.dumps({"ready": True, "setup_seconds": engine.setup_seconds,
                       "placement": engine.placement()}))
     if args.inputs:
@@ -153,8 +157,12 @@ def cmd_up(args) -> int:
         print(json.dumps({"grpc_port": bound}), flush=True)
 
         def teardown():
+            # Every thread that can touch CUDA ends before the engine
+            # (and, when cmd_up returns, the interpreter) lets go of it.
             drain.begin()
             drain.wait(args.drain_grace_seconds + 10.0)
+            if not server.join_closed(args.drain_grace_seconds + 10.0):
+                log.warning("serving threads still alive after the drain; downing the engine")
             engine.down()
 
         _serve_loop(engine, max_seconds=args.serve_seconds,
@@ -498,7 +506,8 @@ def cmd_lm(args) -> int:
         learning_rate=args.lr, steps=args.steps, batch_size=args.batch_size,
         seq_len=args.seq_len, clip_norm=args.clip_norm, warmup_steps=args.warmup_steps,
         lr_schedule=args.lr_schedule, weight_decay=args.weight_decay,
-        grad_accum=args.grad_accum, log_every=args.log_every)
+        grad_accum=args.grad_accum, log_every=args.log_every,
+        steps_per_call=args.steps_per_call)
     batches = lm_batches(train_rows, args.batch_size, seed=args.seed, epochs=None)
     t0 = time.monotonic()
     params, history = train_lm(params, cfg, batches, train_cfg)
@@ -683,6 +692,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decoupled (AdamW) weight decay")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="average gradients over N micro-steps per optimizer update")
+    p.add_argument("--steps-per-call", type=int, default=1,
+                   help="K optimizer steps per device call (one "
+                        "lax.scan over a K-step superbatch): removes "
+                        "per-step Python dispatch + host sync on the "
+                        "single-chip path; losses fetch once per call")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (f32 master params + CE)")

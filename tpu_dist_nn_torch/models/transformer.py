@@ -180,10 +180,14 @@ def block_apply(block: dict, x, cfg: TransformerConfig, attn_fn=dot_product_atte
 def maybe_remat(cfg: TransformerConfig):
     """:func:`block_apply` under per-block rematerialisation when ``cfg.remat``:
     the block keeps only its inputs after the forward and runs again in
-    the backward (``torch.utils.checkpoint``, non-reentrant)."""
+    the backward (``torch.utils.checkpoint``, non-reentrant). The block
+    draws no random numbers, so the RNG state is not saved and restored
+    around the recompute (reading it is refused inside a CUDA graph
+    capture)."""
     if not cfg.remat:
         return block_apply
-    return functools.partial(checkpoint, block_apply, use_reentrant=False)
+    return functools.partial(checkpoint, block_apply, use_reentrant=False,
+                             preserve_rng_state=False)
 
 
 def unstack_blocks(blocks: dict) -> list[dict]:

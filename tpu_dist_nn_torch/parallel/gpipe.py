@@ -16,6 +16,13 @@ allocator could hand its block to the producer's next microbatch before
 the reader is done. A tensor on another card is copied peer to peer:
 the copy runs on the source card's current stream after that stream has
 waited for the producer (see ``_receive``).
+
+The same calls run inside a CUDA graph capture (the captured training
+step and the pipelined forward, :mod:`tpu_dist_nn_torch.train.graphs`):
+each event wait becomes an edge of the graph, and a hand-off block that
+is ``record_stream``-ed and freed during the capture is kept out of
+reuse until the capture ends (the caching allocator defers its events),
+so the bookkeeping holds there unchanged.
 """
 
 from __future__ import annotations

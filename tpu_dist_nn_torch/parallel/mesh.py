@@ -59,6 +59,19 @@ class Mesh:
         """Axis sizes by name, as ``jax.sharding.Mesh.shape`` gives them."""
         return {AXIS_STAGE: self.spec.stage, AXIS_DATA: self.spec.data}
 
+    @property
+    def devices(self) -> set[torch.device]:
+        """The distinct devices of the slots."""
+        return {slot.device for row in self.slots for slot in row}
+
+    @property
+    def on_one_card(self) -> bool:
+        """Every slot on one CUDA card: where a step or a forward over
+        the slots can be one CUDA graph (a graph and its memory pool
+        belong to one card)."""
+        devices = self.devices
+        return len(devices) == 1 and next(iter(devices)).type == "cuda"
+
 
 def visible_devices(device=None) -> list[torch.device]:
     """The default placement: every visible card once (``device`` None

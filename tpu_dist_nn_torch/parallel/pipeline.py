@@ -55,6 +55,7 @@ from tpu_dist_nn_torch.models.network import dense_forward
 from tpu_dist_nn_torch.parallel.gpipe import caller_event, gather, gpipe_forward
 from tpu_dist_nn_torch.parallel.interleaved import interleaved_forward
 from tpu_dist_nn_torch.parallel.mesh import AXIS_STAGE, Mesh
+from tpu_dist_nn_torch.train.graphs import GraphedStep
 
 
 class PipelineWeights(NamedTuple):
@@ -382,6 +383,55 @@ def run_placed(placed: PlacedPipeline, x: torch.Tensor, num_microbatches: int) -
         outs = gpipe_forward(mesh, fns, xs, ready)
     flat = [o for row in outs for o in row if o is not None]
     return torch.cat(gather(flat, x.device))
+
+
+def row_bucket(n: int) -> int:
+    """The pow2 row bucket of ``n`` rows (1, 2, 4, ...)."""
+    return 1 << (n - 1).bit_length() if n > 1 else 1
+
+
+class GraphedPlaced:
+    """:func:`run_placed` on a card as one captured CUDA graph a pow2
+    row bucket and input dtype (the JAX package's jitted pipelined
+    forward, one program a padded shape).
+
+    A batch of ``n`` rows is copied into its bucket's static input
+    (rows past ``n`` keep whatever an earlier batch left; each row is
+    computed on its own), the bucket's graph is replayed (its first use
+    runs the eager forward, then captures it), and the first ``n`` rows
+    of the graph's output are copied out on the stream right after the
+    replay: the next replay of the bucket overwrites the static output
+    while an earlier batch may still be in flight. The chain kernels'
+    K ranges are fixed by K, so a row's bits do not depend on its
+    batch: the graphed forward equals the eager one bit for bit.
+    Slots on several cards are refused (a graph belongs to one card)."""
+
+    def __init__(self, placed: PlacedPipeline, num_microbatches: int):
+        if not placed.mesh.on_one_card:
+            raise ValueError(
+                "a captured pipelined forward needs every slot on one card, got "
+                f"{sorted(map(str, placed.mesh.devices))}")
+        self.placed = placed
+        self.num_microbatches = int(num_microbatches)
+        #: (bucket rows, dtype) -> (static input, GraphedStep)
+        self.graphs: dict = {}
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        n = int(x.shape[0])
+        if n == 0:
+            return run_placed(self.placed, x, self.num_microbatches)
+        key = (row_bucket(n), x.dtype)
+        entry = self.graphs.get(key)
+        if entry is None:
+            static = torch.zeros((key[0], x.shape[1]), dtype=x.dtype, device=self.placed.device)
+            # No reference back to self: graphs are freed by reference count.
+            graph = GraphedStep(
+                functools.partial(run_placed, self.placed, static, self.num_microbatches),
+                self.placed.device)
+            entry = self.graphs[key] = (static, graph)
+        static, graph = entry
+        static[:n].copy_(x, non_blocking=True)
+        return graph()[:n].clone()
 
 
 def _host_rows(meta: PipelineMeta, x, device: torch.device) -> torch.Tensor:

@@ -403,10 +403,16 @@ class Batcher:
         returns. Anything still queued (a wedged dispatch never popped
         it) fails over UNAVAILABLE."""
         self._core.close_begin()
-        self._dispatch_thread.join(timeout=timeout)
-        if self._drain_thread is not None:
-            self._drain_thread.join(timeout=timeout)
+        self.join(timeout)
         self._core.sweep_leftovers()
+
+    def join(self, timeout: float | None = None) -> bool:
+        """Wait for the dispatch and drain threads to end (each within
+        ``timeout``); True when neither is alive."""
+        threads = [t for t in (self._dispatch_thread, self._drain_thread) if t is not None]
+        for t in threads:
+            t.join(timeout=timeout)
+        return not any(t.is_alive() for t in threads)
 
 
 class RpcAbort(Exception):
@@ -587,7 +593,24 @@ def _wrap_server_stop(server, batcher) -> None:
     """server.stop() also stops the batcher, but only AFTER the grace
     drain: closing at once would turn in-flight RPCs that have not
     reached submit() yet into UNAVAILABLE during the window the caller
-    asked to protect."""
+    asked to protect. ``server.join_closed(timeout)`` waits for that
+    close (its thread, then the batcher's dispatch and drain threads):
+    a caller that tears CUDA down afterwards finds no serving thread
+    still inside the engine."""
+    closers: list[threading.Thread] = []
+
+    def join_closed(timeout: float | None = None) -> bool:
+        deadline = None if timeout is None else time.monotonic() + timeout
+
+        def left():
+            return None if deadline is None else max(0.0, deadline - time.monotonic())
+
+        for t in closers:
+            t.join(timeout=left())
+        done = not any(t.is_alive() for t in closers)
+        return (batcher.join(left()) if batcher is not None else True) and done
+
+    server.join_closed = join_closed
     if batcher is None:
         return
     inner_stop = server.stop
@@ -599,7 +622,10 @@ def _wrap_server_stop(server, batcher) -> None:
                 ev.wait()
                 batcher.close()
 
-            threading.Thread(target=_close_after_drain, daemon=True).start()
+            t = threading.Thread(target=_close_after_drain, name="tdn-serve-close",
+                                 daemon=True)
+            closers.append(t)
+            t.start()
         else:
             batcher.close()
         return ev

@@ -8,10 +8,16 @@ batch. Attention defaults to
 flash kernels on the card (training and evaluation alike), the
 materialised reference on the CPU.
 
-Left for later slices: the mesh and pipeline trainers, checkpoints,
-custom ``step_fn``s, and ``steps_per_call > 1`` (the JAX package's
-``lax.scan`` superstep, whose CUDA counterpart is a CUDA graph: ROADMAP
-Queue 1 item 7).
+On a card :func:`train_lm` runs the step as a captured CUDA graph
+(:mod:`~tpu_dist_nn_torch.train.graphs`), replayed each step over a
+static token buffer: the counterpart of the JAX package's ``jax.jit`` of
+the step. ``steps_per_call = K > 1`` is the JAX package's ``lax.scan``
+superstep: K steps per host call and K losses read at most once, as K
+replays with no host sync between them (on the card one graph of K
+steps ran no faster than K replays of one). On the CPU the superstep
+runs the K eager steps in one call.
+
+Left for later slices: the mesh and pipeline trainers and checkpoints.
 """
 
 from __future__ import annotations
@@ -30,11 +36,9 @@ from tpu_dist_nn_torch.models.transformer import (
     param_leaves,
     tree_map,
 )
+from tpu_dist_nn_torch.train.graphs import CompiledStep
 from tpu_dist_nn_torch.train.optimizers import Optimizer, apply_updates, build_optimizer
 from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
-
-_SUPERSTEP = ("steps_per_call > 1 (the JAX package's lax.scan superstep; on the card a "
-              "CUDA graph) is not ported yet: ROADMAP Queue 1 item 7")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,21 +61,40 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer: Optimizer, attn_fn=Non
     """``step(params, opt_state, tokens) -> (params, opt_state, loss)``:
     forward, backward, optimizer update. ``params`` (float32 leaves that
     require grad) are updated in place and returned; ``loss`` is a
-    detached scalar tensor (reading it synchronises)."""
-    if steps_per_call != 1:
-        raise InvalidArgumentError(_SUPERSTEP)
+    detached scalar tensor (reading it synchronises).
+
+    ``steps_per_call=K > 1`` returns the superstep
+    ``(params, opt_state, tokens_k (K, B, T+1)) -> (..., losses (K,))``:
+    K optimizer steps in one call with no host sync between them.
+    ``micro_step`` (a role, or K roles for a superstep): see
+    :meth:`Optimizer.update`. These are the eager steps;
+    :func:`train_lm` captures the one-step one on a card.
+    """
     attn_fn = attn_fn or default_attn_fn()
 
-    def step(params, opt_state, tokens):
+    def step(params, opt_state, tokens, *, micro_step=None):
         leaves = param_leaves(params)
         loss = lm_loss(params, tokens, cfg, attn_fn)
         grads = torch.autograd.grad(loss, leaves)
-        updates = optimizer.update(grads, opt_state, leaves)
+        updates = optimizer.update(grads, opt_state, leaves, micro_step=micro_step)
         if updates is not None:
             apply_updates(leaves, updates)
         return params, opt_state, loss.detach()
 
-    return step
+    if steps_per_call == 1:
+        return step
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+
+    def superstep(params, opt_state, tokens_k, *, micro_step=None):
+        losses = []
+        for j in range(tokens_k.shape[0]):
+            role = None if micro_step is None else micro_step[j]
+            params, opt_state, loss = step(params, opt_state, tokens_k[j], micro_step=role)
+            losses.append(loss)
+        return params, opt_state, torch.stack(losses)
+
+    return superstep
 
 
 def _device_of(params: dict) -> torch.device:
@@ -79,7 +102,7 @@ def _device_of(params: dict) -> torch.device:
 
 
 def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray],
-             train_cfg: LMTrainConfig, *, attn_fn=None):
+             train_cfg: LMTrainConfig, *, attn_fn=None, step_fn=None):
     """Train for ``train_cfg.steps`` batches of ``(batch, seq_len + 1)``
     token rows on the params' device; returns ``(params, history)``.
 
@@ -87,28 +110,88 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
     ``history`` holds ``{"step", "loss", "seconds"}`` every
     ``log_every`` steps and at the last, each stamped after
     ``float(loss)``, which waits for the step to finish on the device.
+    ``step_fn``: ``optimizer -> step`` factory overriding the built-in
+    step (one step a call; on a card it is captured too, so it takes
+    ``micro_step`` as :func:`make_lm_train_step`'s steps do).
+
+    With ``train_cfg.steps_per_call=K > 1`` the loop feeds groups of K
+    batches, ending on the global step grid (a last shorter group is a
+    superstep of its own length): losses are read at most once a group,
+    at log boundaries, which must land on group ends (the JAX package's
+    validation and texts). On the CPU a group runs through the eager
+    superstep; on a card the step is one captured graph
+    (:class:`~tpu_dist_nn_torch.train.graphs.CompiledStep`) replayed
+    once a step of the group with no host sync between: one graph of K
+    steps was measured no faster on the card (PERF.md, section 6).
     """
-    if train_cfg.steps_per_call != 1:
-        raise InvalidArgumentError(_SUPERSTEP)
     optimizer = build_optimizer(
         train_cfg.learning_rate, schedule=train_cfg.lr_schedule,
         warmup_steps=train_cfg.warmup_steps, total_steps=train_cfg.steps,
         clip_norm=train_cfg.clip_norm, weight_decay=train_cfg.weight_decay,
         grad_accum=train_cfg.grad_accum)
-    step = make_lm_train_step(cfg, optimizer, attn_fn)
+    k = train_cfg.steps_per_call
+    if k < 1:
+        # Same contract as make_lm_train_step: reject, don't clamp — a
+        # silently-ignored 0 would make an A/B harness believe it
+        # measured an arm that never ran.
+        raise ValueError(f"steps_per_call must be >= 1, got {k}")
+    if k > 1 and train_cfg.log_every % k != 0:
+        raise ValueError(
+            f"log_every ({train_cfg.log_every}) must be a multiple of "
+            f"steps_per_call ({k}): per-step timestamps inside one "
+            "grouped device call are not fetch barriers"
+        )
+    if k > 1 and step_fn is not None:
+        raise ValueError(
+            "steps_per_call > 1 is the built-in single-chip path only "
+            "(custom step_fn and pipelined schedules run one step per "
+            "call)"
+        )
+    step = step_fn(optimizer) if step_fn is not None else make_lm_train_step(
+        cfg, optimizer, attn_fn)
     params = tree_map(lambda a: a.detach().clone().requires_grad_(True), params)
     device = _device_of(params)
     opt_state = optimizer.init(param_leaves(params))
+    superstep = make_lm_train_step(cfg, optimizer, attn_fn, steps_per_call=k) if k > 1 else None
+    compiled = None
+
+    def flush(group):
+        """Run one group (one step, or one superstep) and log it."""
+        nonlocal compiled
+        stack = np.stack([np.asarray(b) for _, b in group])
+        if device.type == "cuda":
+            # One captured step over a static token buffer, replayed for
+            # every step of the group with no host sync between them.
+            if compiled is None:
+                compiled = CompiledStep(step, (params, opt_state),
+                                        [(stack.shape[1:], torch.int64)], optimizer,
+                                        opt_state, device)
+            # the graph's loss is overwritten by the next replay
+            out = [compiled(x).clone() for x in stack]
+        elif superstep is not None:
+            out = superstep(params, opt_state, torch.as_tensor(stack, device=device).long())[2]
+        else:
+            out = [step(params, opt_state, torch.as_tensor(stack[0], device=device).long())[2]]
+        for j, (i, _) in enumerate(group):
+            if (i + 1) % train_cfg.log_every == 0 or i == train_cfg.steps - 1:
+                # float() is the host sync: at most one fetch a group.
+                history.append({"step": i + 1, "loss": float(out[j]),
+                                "seconds": time.monotonic() - t0})
+
     history = []
     t0 = time.monotonic()
+    group = []
     for i, batch in enumerate(batches):
         if i >= train_cfg.steps:
             break
-        tokens = torch.as_tensor(np.asarray(batch), device=device).long()
-        params, opt_state, loss = step(params, opt_state, tokens)
-        if (i + 1) % train_cfg.log_every == 0 or i == train_cfg.steps - 1:
-            history.append({"step": i + 1, "loss": float(loss),
-                            "seconds": time.monotonic() - t0})
+        group.append((i, batch))
+        # Flush on the global step grid; a last shorter group is a
+        # superstep of its own length.
+        if (i + 1) % k == 0 or i == train_cfg.steps - 1:
+            flush(group)
+            group = []
+    if group:
+        flush(group)
     return tree_map(lambda a: a.detach(), params), history
 
 

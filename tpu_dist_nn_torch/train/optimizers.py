@@ -35,20 +35,43 @@ from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
+#: Counts past which every table entry is constant: f32(0.999)**t rounds
+#: to below half an ulp of 1 from t ~ 17,400 on, so ``1 - b**t`` is 1.0
+#: there; a schedule is constant past ``total_steps``. Reads clamp to
+#: the table's end.
+_MIN_TABLE = 20_000
+
 
 @dataclasses.dataclass
 class OptState:
-    """Adam's moments and count, and ``MultiSteps``' accumulator."""
+    """Adam's moments and count, and ``MultiSteps``' accumulator. Every
+    tensor is updated in place (a captured step replays on the same
+    addresses); ``mini_step`` is the host's micro-step index."""
 
-    count: int  # real updates applied (the schedules' step)
+    count: torch.Tensor | int  # real updates applied (the schedules' step), int64 on the card
     mu: list[torch.Tensor]
     nu: list[torch.Tensor]
     mini_step: int = 0
     acc: list[torch.Tensor] | None = None
 
 
+def _device_groups(tensors: Sequence[torch.Tensor]) -> dict:
+    """``{device: [indices]}`` of ``tensors``: a pipeline's leaves may
+    sit on several cards, and one ``_foreach_*`` call takes one."""
+    groups: dict = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.device, []).append(i)
+    return groups
+
+
 class Optimizer:
-    """Adam with the controls above; build it with :func:`build_optimizer`."""
+    """Adam with the controls above; build it with :func:`build_optimizer`.
+
+    The step is device work only: the count is a device tensor, and the
+    learning rate and the bias corrections are read from device tables
+    indexed by it (computed on the host with the arithmetic of
+    :meth:`lr` and optax's float32 ``1 - b**t``), so a CUDA graph of the
+    step replays every later step correctly."""
 
     def __init__(self, learning_rate: float, *, schedule: str, warmup_steps: int,
                  total_steps: int | None, clip_norm: float | None, weight_decay: float,
@@ -60,6 +83,7 @@ class Optimizer:
         self.clip_norm = clip_norm
         self.weight_decay = weight_decay
         self.grad_accum = grad_accum
+        self._tables: dict = {}
 
     def lr(self, count: int) -> float:
         """The learning rate of the update made at ``count`` real updates."""
@@ -74,50 +98,104 @@ class Optimizer:
             return lr * count / w
         return lr
 
+    def tables(self, device) -> torch.Tensor:
+        """``(3, n)`` float32 on ``device``: row 0 the negated learning
+        rate at count ``i``, rows 1-2 optax's ``1 - b1**(i + 1)`` and
+        ``1 - b2**(i + 1)`` (float32 powers of the float32-rounded b:
+        f32(0.999) is 1.3e-8 above 0.999, 1e-5 of ``1 - b``)."""
+        device = torch.device(device)
+        if device not in self._tables:
+            n = max(_MIN_TABLE, (self.total_steps or 0) + 1, self.warmup_steps + 1)
+            b1, b2 = np.float32(B1), np.float32(B2)
+            rows = np.empty((3, n), np.float32)
+            for i in range(n):
+                t = np.float32(i + 1)
+                rows[0, i] = -self.lr(i)
+                rows[1, i] = 1 - b1 ** t
+                rows[2, i] = 1 - b2 ** t
+            self._tables[device] = torch.from_numpy(rows).to(device)
+        return self._tables[device]
+
     def init(self, params: Sequence[torch.Tensor]) -> OptState:
         zeros = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         return OptState(
-            count=0, mu=zeros, nu=[torch.zeros_like(z) for z in zeros],
+            count=torch.zeros((), dtype=torch.int64, device=params[0].device),
+            mu=zeros, nu=[torch.zeros_like(z) for z in zeros],
             acc=[torch.zeros_like(z) for z in zeros] if self.grad_accum > 1 else None)
 
     def update(self, grads: Sequence[torch.Tensor], state: OptState,
-               params: Sequence[torch.Tensor]) -> list[torch.Tensor] | None:
-        """The updates to add to ``params`` (``state`` advances in
-        place), or ``None`` on a micro-step that only accumulates."""
+               params: Sequence[torch.Tensor], *,
+               micro_step: int | None = None) -> list[torch.Tensor] | None:
+        """The updates to add to ``params`` (``state``'s tensors advance
+        in place), or ``None`` on a micro-step that only accumulates.
+
+        ``micro_step`` None reads ``state.mini_step`` and advances it;
+        a given ``micro_step`` (a captured step's role) is used as it is
+        and ``state.mini_step`` is left to the caller
+        (:meth:`next_micro_step`)."""
         grads = [g.detach() for g in grads]
+        n = state.mini_step if micro_step is None else micro_step
+        if micro_step is None:
+            state.mini_step = self.next_micro_step(n)
         if self.grad_accum > 1:
-            n = state.mini_step
-            state.acc = [a + (g - a) / (n + 1) for a, g in zip(state.acc, grads)]
+            # acc + (g - acc) / (n + 1), in place
+            delta = torch._foreach_sub(grads, state.acc)
+            torch._foreach_div_(delta, n + 1)
+            torch._foreach_add_(state.acc, delta)
             if n < self.grad_accum - 1:
-                state.mini_step = n + 1
                 return None
-            grads, state.acc = state.acc, [torch.zeros_like(a) for a in state.acc]
-            state.mini_step = 0
+            grads = [a.clone() for a in state.acc]
+            torch._foreach_zero_(state.acc)
         if self.clip_norm is not None:
             # Leaves may sit on several cards (a pipeline's stages).
             norm = torch.sqrt(sum(torch.sum(g * g).to(grads[0].device) for g in grads))
             norms = [norm.to(g.device) for g in grads]
             grads = [torch.where(n < self.clip_norm, g, (g / n) * self.clip_norm)
                      for g, n in zip(grads, norms)]
-        t = state.count + 1
-        state.mu = [(1 - B1) * g + B1 * m for g, m in zip(grads, state.mu)]
-        state.nu = [(1 - B2) * (g * g) + B2 * v for g, v in zip(grads, state.nu)]
-        # optax's bias correction, 1 - b**t, is float32 arithmetic on the
-        # float32-rounded b (f32(0.999) is 1.3e-8 above 0.999: 1e-5 of 1 - b)
-        c1, c2 = (float(1 - np.float32(b) ** np.float32(t)) for b in (B1, B2))
-        updates = [(m / c1) / (torch.sqrt(v / c2) + EPS) for m, v in zip(state.mu, state.nu)]
-        if self.weight_decay:
-            updates = [u + self.weight_decay * p.detach() for u, p in zip(updates, params)]
-        step = -self.lr(state.count)
-        state.count = t
-        return [step * u for u in updates]
+        count = state.count
+        table = self.tables(count.device)
+        # index_select, not table[:, count]: a 0-d index tensor would be
+        # read on the host (a sync, refused inside a capture)
+        rows = table.index_select(1, count.clamp(max=table.shape[1] - 1).reshape(1))[:, 0]
+        updates = [None] * len(grads)
+        for dev, idx in _device_groups(params).items():
+            g, mu, nu = ([t[i] for i in idx] for t in (grads, state.mu, state.nu))
+            step, c1, c2 = rows.to(dev).unbind(0)
+            # mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu
+            g1 = torch._foreach_mul(g, 1 - B1)
+            torch._foreach_mul_(mu, B1)
+            torch._foreach_add_(mu, g1)
+            g2 = torch._foreach_mul(g, g)
+            torch._foreach_mul_(g2, 1 - B2)
+            torch._foreach_mul_(nu, B2)
+            torch._foreach_add_(nu, g2)
+            # (mu / c1) / (sqrt(nu / c2) + eps)
+            u = torch._foreach_div(mu, c1)
+            den = torch._foreach_div(nu, c2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, EPS)
+            torch._foreach_div_(u, den)
+            if self.weight_decay:
+                torch._foreach_add_(u, torch._foreach_mul([params[i].detach() for i in idx],
+                                                          self.weight_decay))
+            torch._foreach_mul_(u, step)
+            for i, ui in zip(idx, u):
+                updates[i] = ui
+        count.add_(1)
+        return updates
+
+    def next_micro_step(self, micro_step: int) -> int:
+        """The host's micro-step index after a step made at ``micro_step``."""
+        return (micro_step + 1) % self.grad_accum
 
 
 @torch.no_grad()
 def apply_updates(params: Sequence[torch.Tensor], updates: Sequence[torch.Tensor]) -> None:
-    """``p += u`` in place (``optax.apply_updates``)."""
-    for p, u in zip(params, updates):
-        p.add_(u.to(p.dtype))
+    """``p += u`` in place (``optax.apply_updates``), one multi-tensor
+    add a device."""
+    for idx in _device_groups(params).values():
+        torch._foreach_add_([params[i] for i in idx],
+                            [updates[i].to(params[i].dtype) for i in idx])
 
 
 def build_optimizer(learning_rate: float, *, schedule: str = "constant",

@@ -14,7 +14,12 @@ plays the schedule's op order with eager autograd
 (:func:`~tpu_dist_nn_torch.parallel.one_f_one_b.run_schedule`), then
 one optimizer update. The kernels have no backward, so training runs
 ``torch.matmul``; evaluation runs the pipelined forward, through the
-chain kernel on a card.
+chain kernel on a card. When every slot is on one card the step runs
+as one captured CUDA graph (:func:`compile_pipeline_step`, the JAX
+package's jitted ``shard_map`` step): the slot streams fork from the
+capturing stream and join it again, so each stage keeps its stream and
+its hand-off events as graph edges. Slots on several cards run the
+step eagerly: a graph and its memory pool belong to one card.
 
 ``data > 1``: each data replica holds its own copy of the leaves on its
 slot column and takes its share of every microbatch's rows, in the data
@@ -108,32 +113,43 @@ def serving_view(placed: PlacedPipeline) -> PlacedPipeline:
     return PlacedPipeline(placed.mesh, placed.meta, chunks, placed.num_virtual)
 
 
+def device_batch(placed: PlacedPipeline, xs, labels, mask) -> tuple[torch.Tensor, ...]:
+    """Host arrays (:func:`prepare_pipeline_batch`) -> the step's input
+    tensors on the first slot's device: rows ``(M, B, in_dim)``,
+    int64 labels and float32 mask ``(M, B)``."""
+    dev = placed.device
+    return (torch.tensor(np.asarray(xs, np.float32)[:, :, :placed.meta.in_dim], device=dev),
+            torch.tensor(np.asarray(labels), dtype=torch.int64, device=dev),
+            torch.tensor(np.asarray(mask, np.float32), device=dev))
+
+
 def _feed(placed: PlacedPipeline, xs, labels, mask):
-    """Host arrays -> per (microbatch, replica) tensors: rows on the
-    replica's first slot, labels and the mask (divided by the global
-    row count) on the slot of its last chunk; one copy of each a
-    replica."""
+    """The step's input tensors (:func:`device_batch`) -> per
+    (microbatch, replica) tensors: rows on the replica's first slot,
+    labels and the mask (divided by the global row count) on the slot
+    of its last chunk. On one card every piece is a view."""
     mesh, meta = placed.mesh, placed.meta
     S, D = mesh.spec.stage, mesh.spec.data
     b = xs.shape[1] // D
-    mask = np.asarray(mask, np.float32)
     mask = mask / mask.sum()
     last = (meta.num_stages - 1) % S
     cols = [[None] * D for _ in range(3)]
     for d in range(D):
         rows = slice(d * b, (d + 1) * b)
         first, tail = mesh.slots[0][d].device, mesh.slots[last][d].device
-        cols[0][d] = torch.tensor(np.asarray(xs)[:, rows, :meta.in_dim], device=first)
-        cols[1][d] = torch.tensor(np.asarray(labels)[:, rows], dtype=torch.int64, device=tail)
-        cols[2][d] = torch.tensor(mask[:, rows], device=tail)
+        cols[0][d] = xs[:, rows].to(first)
+        cols[1][d] = labels[:, rows].to(tail)
+        cols[2][d] = mask[:, rows].to(tail)
     return tuple([[col[d][m] for d in range(D)] for m in range(xs.shape[0])] for col in cols)
 
 
 def _loss_and_grads(placed: PlacedPipeline, order, xs, labels, mask):
-    """Play ``order`` on one padded batch: ``(loss, grads)`` with the
-    loss a scalar tensor on replica 0's first device and ``grads`` the
-    replicas' gradients summed in replica order, in :func:`_leaves`
-    order. The leaves' ``.grad`` is cleared."""
+    """Play ``order`` on one padded batch (:func:`device_batch`'s
+    tensors): ``(loss, grads)`` with the loss a scalar tensor on replica
+    0's first device and ``grads`` the replicas' gradients summed in
+    replica order, in :func:`_leaves` order. The leaves' ``.grad`` is
+    cleared: inside a captured step the gradients live in the graph's
+    pool and are consumed by the update in the same graph."""
     losses = run_schedule(placed.mesh, placed.chunk_fns(fcnn_forward), order,
                           *_feed(placed, xs, labels, mask))
     dev = placed.device
@@ -152,10 +168,13 @@ def make_pipeline_train_step(mesh: Mesh, meta: PipelineMeta, num_microbatches: i
                              dtype=torch.float32, schedule: str = "gpipe",
                              num_virtual: int = 1):
     """``step(placed, opt_state, xs, labels, mask) -> (placed, opt_state,
-    loss)`` for one padded batch (:func:`prepare_pipeline_batch`):
-    ``schedule`` "gpipe", "1f1b" or "interleaved" (``num_virtual`` >
-    1 chunks a slot), then one optimizer update of the leaves in place.
-    The three schedules compute the same loss and gradients."""
+    loss)`` for one padded batch (:func:`prepare_pipeline_batch`'s
+    arrays or :func:`device_batch`'s tensors):
+    ``schedule`` "gpipe", "1f1b" or "interleaved" (``num_virtual`` > 1
+    chunks a slot), then one optimizer update of the leaves in place.
+    The three schedules compute the same loss and gradients. This is
+    the eager step; :func:`train_pipelined` captures it on one card.
+    ``micro_step``: see the optimizer's ``update``."""
     validate_schedule(schedule)
     if schedule in ("zb", "zb-v", "zb-stash"):
         raise ValueError(
@@ -176,10 +195,12 @@ def make_pipeline_train_step(mesh: Mesh, meta: PipelineMeta, num_microbatches: i
             f"pipeline has {meta.num_stages} stages but the mesh 'stage' axis has size {S}")
     order = training_order(schedule, S, num_virtual, num_microbatches)
 
-    def step(placed: PlacedPipeline, opt_state: OptState, xs, labels, mask):
+    def step(placed: PlacedPipeline, opt_state: OptState, xs, labels, mask, *, micro_step=None):
+        if not isinstance(xs, torch.Tensor):
+            xs, labels, mask = device_batch(placed, xs, labels, mask)
         loss, grads = _loss_and_grads(placed, order, xs, labels, mask)
         leaves = _leaves(placed, 0)
-        updates = optimizer.update(grads, opt_state, leaves)
+        updates = optimizer.update(grads, opt_state, leaves, micro_step=micro_step)
         if updates is not None:
             apply_updates(leaves, updates)
             with torch.no_grad():
@@ -189,6 +210,29 @@ def make_pipeline_train_step(mesh: Mesh, meta: PipelineMeta, num_microbatches: i
         return placed, opt_state, loss.detach()
 
     return step
+
+
+def compile_pipeline_step(step, placed: PlacedPipeline, opt_state: OptState, optimizer,
+                          num_microbatches: int, batch_rows: int):
+    """``step`` as a :class:`~tpu_dist_nn_torch.train.graphs.CompiledStep`
+    over the slots of one card: ``compiled(xs, labels, mask) -> loss``
+    with :func:`prepare_pipeline_batch`'s host arrays for a batch of
+    ``batch_rows``. The slot streams fork from the capturing stream and
+    join it again inside the capture (``run_schedule``), so each stage's
+    operations keep their stream and their event edges in the graph.
+    Raises for slots on several cards: a CUDA graph and its memory pool
+    belong to one card."""
+    from tpu_dist_nn_torch.train.graphs import CompiledStep
+
+    if not placed.mesh.on_one_card:
+        raise ValueError("a captured pipeline step needs every slot on one card, got "
+                         f"{sorted(map(str, placed.mesh.devices))}")
+    meta, D = placed.meta, placed.mesh.spec.data
+    xs, _, _ = prepare_pipeline_batch(meta, np.zeros((batch_rows, meta.in_dim), np.float32),
+                                      np.zeros(batch_rows, np.int32), num_microbatches, D)
+    M, B = xs.shape[0], xs.shape[1]
+    like = [((M, B, meta.in_dim), torch.float32), ((M, B), torch.int64), ((M, B), torch.float32)]
+    return CompiledStep(step, (placed, opt_state), like, optimizer, opt_state, placed.device)
 
 
 def pipeline_loss_and_grad(mesh: Mesh, params: PipelineParams, xs, labels, mask, *,
@@ -201,7 +245,7 @@ def pipeline_loss_and_grad(mesh: Mesh, params: PipelineParams, xs, labels, mask,
     validate_schedule(schedule)
     placed = place_leaves(mesh, params, num_virtual)
     order = training_order(schedule, mesh.spec.stage, num_virtual, num_microbatches)
-    loss, grads = _loss_and_grads(placed, order, xs, labels, mask)
+    loss, grads = _loss_and_grads(placed, order, *device_batch(placed, xs, labels, mask))
     return float(loss), pad_blocks(params.meta, _unflatten(params.meta, grads), identity=False)
 
 
@@ -244,9 +288,13 @@ def _load_state(placed: PlacedPipeline, opt_state: OptState, state: dict) -> Non
                 for p, a in zip(ref, blocks(tree))]
 
     o = state["opt_state"]
-    opt_state.count, opt_state.mini_step = int(o["count"]), int(o["mini_step"])
-    opt_state.mu, opt_state.nu = tensors(o["mu"]), tensors(o["nu"])
-    opt_state.acc = None if o["acc"] is None else tensors(o["acc"])
+    opt_state.mini_step = int(o["mini_step"])
+    with torch.no_grad():
+        opt_state.count.fill_(int(o["count"]))
+        for dst, src in zip(opt_state.mu + opt_state.nu + (opt_state.acc or []),
+                            tensors(o["mu"]) + tensors(o["nu"])
+                            + ([] if o["acc"] is None else tensors(o["acc"]))):
+            dst.copy_(src)
 
 
 def train_pipelined(params: PipelineParams, mesh: Mesh, train_data: Dataset,
@@ -261,7 +309,8 @@ def train_pipelined(params: PipelineParams, mesh: Mesh, train_data: Dataset,
     pipelined forward when ``eval_data`` is given), epoch-level
     checkpoints and resume with ``checkpoints``.
     ``schedule="interleaved"`` with ``num_virtual=v`` trains the
-    virtual-stage placement (``meta`` of ``stage * v`` chunks)."""
+    virtual-stage placement (``meta`` of ``stage * v`` chunks). Slots
+    on one card run the captured step (:func:`compile_pipeline_step`)."""
     meta = params.meta
     data_size = mesh.shape[AXIS_DATA]
     optimizer = optimizer_for(config, train_data)
@@ -273,6 +322,10 @@ def train_pipelined(params: PipelineParams, mesh: Mesh, train_data: Dataset,
     start_epoch, state = resume_or_init(checkpoints, _padded_state(placed, opt_state))
     if start_epoch:
         _load_state(placed, opt_state, state)
+    compiled = None
+    if mesh.on_one_card:
+        compiled = compile_pipeline_step(step, placed, opt_state, optimizer, num_microbatches,
+                                         config.batch_size)
     history = []
     try:
         for epoch in range(start_epoch, config.epochs):
@@ -281,9 +334,12 @@ def train_pipelined(params: PipelineParams, mesh: Mesh, train_data: Dataset,
             for bx, by in batch_iterator(train_data.x, train_data.y, config.batch_size,
                                          shuffle=True, seed=config.seed + epoch,
                                          drop_remainder=True):
-                xs, labels, mask = prepare_pipeline_batch(meta, bx, by, num_microbatches,
-                                                          data_size)
-                placed, opt_state, loss = step(placed, opt_state, xs, labels, mask)
+                batch = prepare_pipeline_batch(meta, bx, by, num_microbatches, data_size)
+                if compiled is not None:
+                    # the graph's loss is overwritten by the next replay
+                    losses.append(compiled(batch[0][:, :, :meta.in_dim], *batch[1:]).clone())
+                    continue
+                placed, opt_state, loss = step(placed, opt_state, *batch)
                 losses.append(loss)
             record = {
                 "epoch": epoch,

@@ -8,7 +8,10 @@ optax-matched optimizer of :mod:`tpu_dist_nn_torch.train.optimizers`.
 The step is plain autograd over ``torch.matmul`` (the JAX package
 computes these products with ``jnp``, outside any Pallas kernel); the
 chain kernel, which has no backward, runs only in :func:`evaluate_fcnn`
-on the card. Epoch-level checkpoints and resume go through
+on the card. On a card the step runs as a captured CUDA graph, replayed
+each step over static batch buffers (:mod:`~tpu_dist_nn_torch.train.graphs`:
+the counterpart of the JAX package's ``jax.jit`` of the step); on the
+CPU it runs eagerly. Epoch-level checkpoints and resume go through
 :mod:`tpu_dist_nn_torch.checkpoint`.
 
 The pipelined trainer is :mod:`tpu_dist_nn_torch.train.pipeline_trainer`.
@@ -109,13 +112,15 @@ def _leaves(wb) -> list[torch.Tensor]:
 def make_train_step(acts, optimizer: Optimizer):
     """``step(wb, opt_state, x, y) -> (wb, opt_state, loss)``: forward,
     autograd backward, optimizer update applied in place; ``loss`` is a
-    detached scalar tensor (reading it synchronises)."""
+    detached scalar tensor (reading it synchronises). This is the eager
+    step; :func:`run_training_loop` captures it on a card.
+    ``micro_step``: see :meth:`Optimizer.update`."""
 
-    def step(wb, opt_state, x, y):
+    def step(wb, opt_state, x, y, *, micro_step=None):
         leaves = _leaves(wb)
         loss = cross_entropy(forward_logits(_join_params(wb, acts), x), y)
         grads = torch.autograd.grad(loss, leaves)
-        updates = optimizer.update(grads, opt_state, leaves)
+        updates = optimizer.update(grads, opt_state, leaves, micro_step=micro_step)
         if updates is not None:
             apply_updates(leaves, updates)
         return wb, opt_state, loss.detach()
@@ -123,20 +128,40 @@ def make_train_step(acts, optimizer: Optimizer):
     return step
 
 
+def compile_train_step(step, wb, opt_state, optimizer: Optimizer, batch_size: int, in_dim: int):
+    """``step`` over ``(batch_size, in_dim)`` float32 rows and int64
+    labels as a :class:`~tpu_dist_nn_torch.train.graphs.CompiledStep`
+    on the leaves' card: ``compiled(bx, by) -> loss``, the host batch
+    copied into static buffers, one replay a step."""
+    from tpu_dist_nn_torch.train.graphs import CompiledStep
+
+    like = [((batch_size, in_dim), torch.float32), ((batch_size,), torch.int64)]
+    return CompiledStep(step, (wb, opt_state), like, optimizer, opt_state,
+                        _leaves(wb)[0].device)
+
+
 def run_training_loop(step, params, opt_state, train_data: Dataset, config: TrainConfig,
-                      eval_fn=None, checkpoints=None):
+                      eval_fn=None, checkpoints=None, optimizer: Optimizer | None = None):
     """The epoch/batch loop: shuffled full batches (seed ``config.seed +
     epoch``), one history record per epoch (mean loss, wall seconds of
     the steps, and ``eval`` when ``eval_fn`` is given), epoch spans on
     the tracer, and per-epoch checkpoints when ``checkpoints`` is given.
     The latest checkpoint, if any, is restored into the caller's
     ``(params, opt_state)`` template first, and training continues from
-    the next epoch (checkpoint step k = k completed epochs)."""
+    the next epoch (checkpoint step k = k completed epochs). On a card,
+    ``step`` (built with ``optimizer``) runs as a captured graph
+    (:func:`compile_train_step`); on the CPU it is called as it is."""
     check_full_batch(len(train_data), config.batch_size)
     history = []
     start_epoch, state = resume_or_init(checkpoints, {"params": params, "opt_state": opt_state})
     params, opt_state = state["params"], state["opt_state"]
     device = _leaves(params)[0].device
+    compiled = None
+    if device.type == "cuda":
+        if optimizer is None:
+            raise ValueError("a step on the card is captured: pass its optimizer")
+        compiled = compile_train_step(step, params, opt_state, optimizer, config.batch_size,
+                                      train_data.x.shape[1])
     # One trace per run: epoch spans are recorded at the epoch boundary,
     # after the loss read already synchronised.
     run_span = TRACER.start("train.classifier", attrs={"epochs": config.epochs})
@@ -147,6 +172,10 @@ def run_training_loop(step, params, opt_state, train_data: Dataset, config: Trai
             for bx, by in batch_iterator(train_data.x, train_data.y, config.batch_size,
                                          shuffle=True, seed=config.seed + epoch,
                                          drop_remainder=True):
+                if compiled is not None:
+                    # the graph's loss is overwritten by the next replay
+                    losses.append(compiled(bx, by).clone())
+                    continue
                 x = torch.as_tensor(bx, dtype=torch.float32, device=device)
                 y = torch.as_tensor(by, dtype=torch.long, device=device)
                 params, opt_state, loss = step(params, opt_state, x, y)
@@ -193,7 +222,7 @@ def train_fcnn(params, train_data: Dataset, config: TrainConfig = TrainConfig(),
     if eval_data is not None:
         eval_fn = lambda wb_: evaluate_fcnn(_join_params(wb_, acts), eval_data)  # noqa: E731
     wb, history = run_training_loop(step, wb, opt_state, train_data, config, eval_fn,
-                                    checkpoints=checkpoints)
+                                    checkpoints=checkpoints, optimizer=optimizer)
     return [{"w": p["w"].detach(), "b": p["b"].detach(), "act": a}
             for p, a in zip(wb, acts)], history
 

@@ -4,7 +4,8 @@ Port of :mod:`tpu_dist_nn.utils.profiling`. :class:`LatencyStats` is a
 copy (the source of the "p50 batch latency" figures);
 :func:`cuda_time_ms` times device work with CUDA events, the card's
 counterpart of the JAX package's device traces; :func:`cuda_graph_time_ms`
-does the same with the host's launch cost taken out.
+and :func:`device_call_ms` do the same with the host's launch cost taken
+out.
 """
 
 from __future__ import annotations
@@ -151,3 +152,33 @@ def cuda_graph_time_ms(fn, *, iters: int = 50, warmup: int = 5) -> float:
     ms = start.elapsed_time(stop) / iters
     del graph
     return ms
+
+
+# Busy-wait cycles queued ahead of each call's start event in
+# device_call_ms (about half a millisecond on an H100): longer than the
+# host takes to issue one forward.
+_LEAD_CYCLES = 1_000_000
+
+
+def device_call_ms(fn, *, calls: int = 7) -> float:
+    """Median device milliseconds of one ``fn()`` call on the current
+    CUDA stream, over ``calls`` calls after one warm call. Each call sits
+    between two CUDA events with a busy-wait kernel queued ahead of the
+    first, so the card is still busy while the host issues the call: the
+    time between the events is the call's device time, not the host's
+    (an idle card would count the host's issue time). Raises without a
+    visible GPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_call_ms needs a CUDA device")
+    fn()
+    marks = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(_LEAD_CYCLES)
+        start.record()
+        fn()
+        stop.record()
+        marks.append((start, stop))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in marks]))
