@@ -133,6 +133,29 @@ package. Phases, each fatal on failure (exit 1, no result line):
      of one step a call): s/step and tokens/s of each; then the CLI's
      ``lm`` verb runs 4 steps with ``--steps-per-call 2``.
 
+   * the generation path (``generate_phase``, after the supersteps),
+     on the params the 85M path trained, in bf16: ``generate`` greedy at
+     batch 16, 128-byte held-out prompts, 512 new tokens (a 639-position
+     cache), the decode step eager and as its replayed CUDA graph in
+     turns (a warm-up of each, then 3 each): every run's tokens
+     bit-equal, ms/step and tokens/s of each arm, the start (params
+     cast, prefill, first sample) and the prefill alone (CUDA events,
+     medians of 3), beside the step's bound (weight and K/V bytes); at
+     depth 2 in float32 (TF32 off) greedy tokens against the
+     teacher-forced argmax for 64 tokens (a divergence fails unless its
+     top-2 logit gap is at most 1e-3); ``decode_step_slots`` at one
+     position bit-equal to ``decode_step``, and
+     ``prefill_chunk_into_cache`` split 40 + 88 and after a copied
+     64-token prefix bit-equal to ``prefill_into_cache``; sampling at
+     temperature 0.8, top-k 40, top-p 0.9: every draw inside its
+     truncated set (stepped through the cache eagerly), a seed repeats,
+     a generator's second call differs; ``tdn lm``'s float32 recipe
+     with ``--checkpoint-dir --sample-bytes 64`` straight, and cut at
+     step 200 (asynchronous saves) then resumed: held-out within 0.01
+     nats; one asynchronous save of the 85M training state (params,
+     Adam's mu and nu): the time the step waits for its host snapshot,
+     and a bit-exact restore.
+
    * the float32 LM path, ``tdn lm``'s default recipe
      (``artifacts/real_text_r04/RECORD.json``): d 128, 4 heads, 4
      layers, T 128, batch 16, 400 steps, Adam at 1e-3 cosine after 20
@@ -1047,6 +1070,299 @@ def lm_k_arms(cfg, params, batches, train_cfg, k, n_eager, first_losses, label, 
     if not ok:
         fail(f"{label}: the K={k} superstep's losses disagree with one step a call")
     return eager, graphed_k
+
+
+# Generation: the 85M LM's decode at full width, batch 16, a
+# 128-byte prompt and 512 new tokens (a 639-position cache).
+GEN = dict(batch=16, prompt=128, new=512, runs=3, check_depth=2, check_tokens=64, gap=1e-3,
+           temperature=0.8, top_k=40, top_p=0.9, seed=1234)
+RESUME_BAND = 0.01  # nats: tdn lm interrupted + resumed against straight, held-out
+
+
+class Interrupted(Exception):
+    """Raised by the recipe's batch stream to cut a `tdn lm` run short."""
+
+
+def generate_phase(dev, cfg, params, eval_rows, out_dir, smi_line, rates) -> None:
+    """The generation path on the trained 85M params (``cfg``: its bf16
+    config), then ``tdn lm``'s float32 recipe through ``--checkpoint-dir
+    --sample-bytes``, and one asynchronous 85M save. Every check fails
+    the run (module docstring, phase 3)."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    import tpu_dist_nn_torch.data.text as text_mod
+    from tpu_dist_nn_torch.checkpoint import AsyncCheckpointManager
+    from tpu_dist_nn_torch.cli import main as cli_main
+    from tpu_dist_nn_torch.models.generate import (
+        _NEG,
+        _compiled_generate,
+        _truncate_logits,
+        copy_cache_slot,
+        decode_step,
+        decode_step_slots,
+        generate,
+        init_slot_cache,
+        prefill,
+        prefill_chunk_into_cache,
+        prefill_into_cache,
+    )
+    from tpu_dist_nn_torch.models.transformer import (
+        dot_product_attention,
+        forward,
+        num_params,
+        param_leaves,
+        tree_map,
+    )
+    from tpu_dist_nn_torch.train.optimizers import build_optimizer
+
+    t_phase = time.monotonic()
+    mem_rate, bf16_rate = rates
+    B, T, N = GEN["batch"], GEN["prompt"], GEN["new"]
+    M = T + N - 1
+    prompt = torch.as_tensor(np.asarray(eval_rows[:B, :T]), device=dev).long()
+
+    def events_ms(*fns):
+        """Each ``fn`` run in turn between CUDA events: their times (ms)."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(fns) + 1)]
+        ev[0].record()
+        for e, fn in zip(ev[1:], fns):
+            fn()
+            e.record()
+        ev[-1].synchronize()
+        return [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+
+    # 1. Greedy, the decode step graphed and eager in turns (a warm-up of
+    # each first: the graphed arm's is its capture).
+    prog = _compiled_generate(cfg, B, T, N, 0.0, None, None, None, prompt.device)
+    times = {"eager": [], "graphed": []}
+    outs = []
+    for arm in ("eager", "graphed") + ("eager", "graphed", "graphed", "eager", "eager", "graphed"):
+        start_ms, decode_ms = events_ms(lambda: prog.start(params, prompt, None),
+                                        lambda arm=arm: prog.decode(graphed=arm == "graphed"))
+        outs.append(prog.state.out.clone())
+        times[arm].append((start_ms, decode_ms))
+    greedy = outs[1]
+    same = all(torch.equal(o, greedy) for o in outs)
+    prefill_ms = [events_ms(lambda: prefill(prog.state.params, prompt, cfg, M))[0]
+                  for _ in range(GEN["runs"])]
+    print(f"generate 85M bf16 (B {B}, prompt {T}, {N} new, cache {M}) on {smi_line}: "
+          f"{num_params(params):,} params; graph replays {prog.graph.replays}")
+    summary = {}
+    for arm in ("eager", "graphed"):
+        runs = times[arm][1:]  # after its warm-up
+        step_ms = float(np.median([d / (N - 1) for _, d in runs]))
+        start_ms = float(np.median([s for s, _ in runs]))
+        tok_s = float(np.median([B * N / ((s + d) / 1e3) for s, d in runs]))
+        summary[arm] = step_ms
+        print(f"  {arm}: decode {step_ms:.4f} ms/step (median of {len(runs)}: "
+              f"{json.dumps([round(d / (N - 1), 4) for _, d in runs])}), {B / step_ms * 1e3:.1f} "
+              f"tokens/s decoding, {tok_s:.1f} tokens/s end to end; start (params cast, "
+              f"prefill, first sample) {start_ms:.3f} ms")
+    print(f"  prefill alone (B {B} x {T}): {float(np.median(prefill_ms)):.3f} ms (median of "
+          f"{GEN['runs']}: {json.dumps([round(t, 3) for t in prefill_ms])})")
+    # The least time of one decode step: the bf16 weights it reads (all
+    # but the positional table) and the K/V cache, over the memory rate;
+    # the step reads the whole cache extent (JAX's form), its data needs
+    # the keys up to its position (the mean over the run).
+    w_bytes = 2.0 * (num_params(params) - params["pos_embed"].numel())
+    kv_row = 2 * 2.0 * cfg.n_layers * B * cfg.n_heads * cfg.head_dim  # k and v, bf16
+    live = T + (N - 2) / 2.0
+    flops = 2.0 * B * (num_params(params) - params["pos_embed"].numel())
+    flops += 4.0 * B * cfg.n_layers * cfg.n_heads * cfg.head_dim * live
+    b_full = max((w_bytes + kv_row * M) / mem_rate, flops / bf16_rate) * 1e3
+    b_live = max((w_bytes + kv_row * live) / mem_rate, flops / bf16_rate) * 1e3
+    print(f"  bound a decode step: {b_live:.4f} ms (bytes: {w_bytes / 1e6:.1f} MB weights + "
+          f"{kv_row * live / 1e6:.1f} MB of live K/V, mean position {live:.0f}); reading the "
+          f"whole {M}-position cache as the step does: {b_full:.4f} ms "
+          f"({kv_row * M / 1e6:.1f} MB K/V); graphed at {b_live / summary['graphed'] * 100:.1f}% "
+          f"of the first, {summary['eager'] / summary['graphed']:.2f}x eager's speed")
+    print(f"check graphed greedy tokens bit-equal to eager ({len(outs)} runs of {B} x {N}) | "
+          f"{'ok' if same else 'FAIL'}")
+    if not same:
+        fail("graphed greedy decode differs from the eager decode")
+    prog = None
+    _compiled_generate.cache_clear()
+    torch.cuda.empty_cache()
+
+    # 2. float32, depth 2 (the trained params' first two blocks), TF32
+    # off: greedy tokens against the teacher-forced argmax.
+    cfg2 = dc.replace(cfg, n_layers=GEN["check_depth"], compute_dtype="float32", remat=False)
+    p2 = {**params, "blocks": {k: v[:GEN["check_depth"]] for k, v in params["blocks"].items()}}
+    n_chk = GEN["check_tokens"]
+    out2 = generate(p2, cfg2, prompt, n_chk)
+    with torch.no_grad():
+        tf = forward(p2, torch.cat([prompt, out2], 1), cfg2, dot_product_attention)[:, T - 1:-1]
+    top2 = tf.topk(2, dim=-1).values
+    miss = (tf.argmax(-1) != out2).nonzero().tolist()
+    gaps = [float(top2[b, i, 0] - top2[b, i, 1]) for b, i in miss]
+    first = (f"first at row {miss[0][0]} token {miss[0][1]}, top-2 gap {gaps[0]:.3e}"
+             if miss else "none")
+    ok2 = all(g <= GEN["gap"] for g in gaps)
+    print(f"check float32 depth-2 greedy vs teacher-forced argmax ({B} x {n_chk} tokens): "
+          f"{len(miss)} divergences ({first}; largest gap {max(gaps, default=0.0):.3e}) | tol a "
+          f"divergence's top-2 gap <= {GEN['gap']:g} | {'ok' if ok2 else 'FAIL'}")
+    if not ok2:
+        fail("float32 greedy decode diverges from the teacher-forced argmax past a near-tie")
+    del p2, out2, tf
+    _compiled_generate.cache_clear()
+
+    # 3. The bit-equal pairs at full width (bf16): the slot step at one
+    # position against the scalar step; a prompt prefilled in chunks,
+    # and after a copied prefix, against the monolithic slot prefill.
+    with torch.no_grad():
+        _, cache = prefill(params, prompt, cfg, M)
+        ref = {k: v.clone() for k, v in cache.items()}
+        tok = greedy[:, 0]
+        ref_logits, ref = decode_step(params, ref, torch.tensor(T, device=dev), tok, cfg)
+        got_logits, cache = decode_step_slots(params, cache, torch.full((B,), T, device=dev), tok,
+                                              cfg)
+        ok_slot = (torch.equal(ref_logits, got_logits) and torch.equal(ref["k"], cache["k"])
+                   and torch.equal(ref["v"], cache["v"]))
+        del cache, ref
+        slots = init_slot_cache(cfg, 4, M, device=dev)
+        one = prompt[:1]
+        cut, pre_len = T * 5 // 16, T // 2  # 40 + 88, and a 64-token prefix
+        mono_logits, mono = prefill_into_cache(
+            params, cfg, {k: v.clone() for k, v in slots.items()}, 2, one)
+        _, split = prefill_chunk_into_cache(params, cfg, {k: v.clone() for k, v in slots.items()},
+                                            2, one[:, :cut], 0)
+        split_logits, split = prefill_chunk_into_cache(params, cfg, split, 2, one[:, cut:],
+                                                       torch.tensor(cut, device=dev))
+        _, pre = prefill_chunk_into_cache(params, cfg, slots, 0, one[:, :pre_len], 0)
+        pre = copy_cache_slot(pre, 0, 3)
+        copy_logits, pre = prefill_chunk_into_cache(params, cfg, pre, 3, one[:, pre_len:],
+                                                    pre_len)
+        ok_chunk = (torch.equal(mono_logits, split_logits)
+                    and all(torch.equal(mono[p], split[p]) for p in ("k", "v"))
+                    and torch.equal(mono_logits, copy_logits)
+                    and all(torch.equal(mono[p][:, 2, :T], pre[p][:, 3, :T]) for p in ("k", "v")))
+    print(f"check decode_step_slots at one position bit-equal to decode_step (B {B}, cache {M}) "
+          f"| {'ok' if ok_slot else 'FAIL'}")
+    print(f"check prefill_chunk_into_cache {cut} + {T - cut} and after a copied {pre_len}-token "
+          f"prefix bit-equal to prefill_into_cache ({T} tokens, 4 slots of {M}) | "
+          f"{'ok' if ok_chunk else 'FAIL'}")
+    if not (ok_slot and ok_chunk):
+        fail("a slot-cache contract is not bit-equal on the card")
+    del slots, mono, split, pre
+    torch.cuda.empty_cache()
+
+    # 4. Sampling at temperature 0.8, top-k 40, top-p 0.9.
+    kw = dict(temperature=GEN["temperature"], top_k=GEN["top_k"], top_p=GEN["top_p"])
+    gen = torch.Generator(device=dev).manual_seed(GEN["seed"])
+    a = generate(params, cfg, prompt, N, generator=gen, **kw)
+    b = generate(params, cfg, prompt, N, generator=gen, **kw)  # the generator moved on
+    c = generate(params, cfg, prompt, N,
+                 generator=torch.Generator(device=dev).manual_seed(GEN["seed"]), **kw)
+    sampled_ms = events_ms(lambda: generate(params, cfg, prompt, N, generator=gen, **kw))[0]
+    with torch.no_grad():  # each draw's own logits, stepped eagerly through the cache
+        logits, cache = prefill(params, prompt, cfg, M)
+        logits = logits[:, T - 1]
+        outside = 0
+        for i in range(N):
+            allowed = _truncate_logits(logits, GEN["top_k"], GEN["top_p"]) > _NEG
+            outside += int((~allowed.gather(1, a[:, i:i + 1])).sum())
+            if i < N - 1:
+                logits, cache = decode_step(params, cache, T + i, a[:, i], cfg)
+    del cache
+    ok_s = outside == 0 and torch.equal(a, c) and not torch.equal(a, b)
+    print(f"sampled generate (T {GEN['temperature']}, top-k {GEN['top_k']}, top-p "
+          f"{GEN['top_p']}, graphed): {sampled_ms:.3f} ms for {B} x {N} tokens "
+          f"({B * N / sampled_ms * 1e3:.1f} tokens/s); first row: "
+          f"{bytes(a[0, :48].tolist()).decode('utf-8', 'replace')!r}")
+    print(f"check sampling: {outside} of {B * N} draws outside their truncated set; the same "
+          f"seed repeats: {torch.equal(a, c)}; a second call of one generator differs: "
+          f"{not torch.equal(a, b)} | {'ok' if ok_s else 'FAIL'}")
+    if not ok_s:
+        fail("sampling broke a property (truncated set, seed repeat, draws that move on)")
+    _compiled_generate.cache_clear()
+    torch.cuda.empty_cache()
+
+    # 5. tdn lm's float32 recipe through --checkpoint-dir and
+    # --sample-bytes 64: straight, and cut at step 200 (the stream raises
+    # there; the asynchronous saves land on the way out) then resumed.
+    recipe = ["lm", "--corpus", str(ROOT / RECIPE["corpus"]), "--steps", str(RECIPE["steps"]),
+              "--warmup-steps", str(RECIPE["warmup"]), "--lr-schedule", "cosine", "--lr",
+              str(RECIPE["lr"]), "--seed", str(RECIPE["seed"]), "--sample-bytes", "64"]
+    cut = RECIPE["steps"] // 2
+    real_batches = text_mod.lm_batches
+
+    def cut_batches(*args, **kwargs):
+        for i, batch in enumerate(real_batches(*args, **kwargs)):
+            if i == cut:
+                raise Interrupted(f"cut before step {cut + 1}")
+            yield batch
+
+    def run_cli(args):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(args)
+        if rc != 0:
+            fail(f"cli {' '.join(args)} exited {rc}")
+        return json.loads(out.getvalue().strip().splitlines()[-1])
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=out_dir) as tmp:
+        straight = run_cli(recipe + ["--checkpoint-dir", f"{tmp}/straight"])
+        text_mod.lm_batches = cut_batches
+        try:
+            run_cli(recipe + ["--checkpoint-dir", f"{tmp}/cut", "--async-checkpoints"])
+            fail("the cut recipe run was not cut")
+        except Interrupted:
+            pass
+        finally:
+            text_mod.lm_batches = real_batches
+        saved = json.loads(Path(f"{tmp}/cut/manifest.json").read_text())["latest_step"]
+        resumed = run_cli(recipe + ["--checkpoint-dir", f"{tmp}/cut"])
+        d = abs(straight["loss_nats_per_token"] - resumed["loss_nats_per_token"])
+        ok_r = (saved == cut and math.isfinite(d) and d <= RESUME_BAND
+                and "sample" in straight and "sample" in resumed)
+        for label, rep in (("straight", straight), (f"cut at {saved}, resumed", resumed)):
+            print(f"tdn lm recipe --checkpoint-dir --sample-bytes 64, {label}: held-out "
+                  f"{rep['loss_nats_per_token']!r} nats, final train loss "
+                  f"{rep['final_train_loss']!r}, {rep['train_seconds']} s; sample "
+                  f"{rep['sample']!r}")
+        print(f"check tdn lm resumed held-out within {RESUME_BAND} nats of straight: {d:.4f} "
+              f"(saved step {saved}, want {cut}) | {'ok' if ok_r else 'FAIL'}")
+        if not ok_r:
+            fail("tdn lm interrupted and resumed does not land on the straight run")
+
+        # 6. One asynchronous save of the 85M training state (float32
+        # params and two Adam moments): how long the step waits on the
+        # host snapshot, the write behind it, and a bit-exact restore.
+        leaves = param_leaves(params)
+        opt_state = build_optimizer(3e-4).init(leaves)
+        torch._foreach_copy_(opt_state.mu, [p * 0.5 for p in leaves])
+        torch._foreach_copy_(opt_state.nu, [p * p for p in leaves])
+        state = {"params": params, "opt_state": opt_state}
+        nbytes = 3 * 4 * num_params(params)
+        mgr = AsyncCheckpointManager(f"{tmp}/ck85")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(LM["steps"], state)
+        snap_s = time.perf_counter() - t0
+        mgr.wait()
+        write_s = time.perf_counter() - t0
+        template = {"params": tree_map(torch.zeros_like, params),
+                    "opt_state": build_optimizer(3e-4).init(leaves)}
+        step, back = mgr.restore(template)
+        mgr.close()
+        ok_c = step == LM["steps"] and all(
+            torch.equal(x, y) for x, y in zip(
+                param_leaves(back["params"]) + back["opt_state"].mu + back["opt_state"].nu,
+                leaves + opt_state.mu + opt_state.nu))
+        print(f"async save of the 85M training state ({nbytes / 1e9:.3f} GB: params, mu, nu "
+              f"in float32) on {smi_line}: the step waits {snap_s * 1e3:.1f} ms for the host "
+              f"snapshot ({nbytes / snap_s / 1e9:.2f} GB/s), durable after "
+              f"{write_s * 1e3:.1f} ms")
+        print(f"check the 85M checkpoint restores bit-exact onto the card | "
+              f"{'ok' if ok_c else 'FAIL'}")
+        if not ok_c:
+            fail("the 85M checkpoint does not restore bit-exact")
+        del state, template, back, opt_state
+    torch.cuda.empty_cache()
+    print(f"generate phase took {time.monotonic() - t_phase:.1f} s")
 
 
 PIPE_DEVICES = 3  # [1, 1, 1]: three stage slots (streams) on one card
@@ -2142,14 +2458,17 @@ def main() -> None:
         fail(f"LM held-out loss {lm_eval['loss_nats_per_token']}")
     if any(lm_launches[k] != v for k, v in want_launches.items()):
         fail("the LM main path did not launch the flash kernels the expected number of times")
-    del lm_params
     torch.cuda.empty_cache()
     # The same recipe's step eager (8 steps) and as 4-step supersteps
     # (the first 16 of its 30 steps), from the same init and batches.
-    lm_params = init_transformer(torch.Generator().manual_seed(0), cfg, device=dev)
+    fresh = init_transformer(torch.Generator().manual_seed(0), cfg, device=dev)
     stream = lm_batches(train_rows, LM["batch"], seed=0, epochs=None)
-    lm_k_arms(cfg, lm_params, [next(stream) for _ in range(16)], train_cfg, 4, 8, losses,
+    lm_k_arms(cfg, fresh, [next(stream) for _ in range(16)], train_cfg, 4, 8, losses,
               "LM 85M bf16 step (graphed K=1: the steady line above)", smi[0])
+    del fresh
+    torch.cuda.empty_cache()
+    # Generation from the trained params.
+    generate_phase(dev, cfg, lm_params, eval_rows, out_dir, smi[0], (mem_rate, bf16_rate))
     del lm_params
     torch.cuda.empty_cache()
 

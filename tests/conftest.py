@@ -339,6 +339,11 @@ QUICK_TESTS = {
                              "test_superstep_validation_matches_jax[log-every]"],
     "test_torch_repairs": ["test_no_serving_thread_outlives_cmd_up[f32]",
                            "test_int8_gate_times_the_host_on_the_cpu"],
+    "test_torch_generate": ["test_greedy_generation_matches_jax_and_the_teacher_forced_oracle",
+                            "test_prefill_chunk_into_cache_is_bit_equal_to_the_monolithic_prefill"],
+    "test_torch_lm_checkpoint": [
+        "test_interrupted_run_resumes_bit_equal_to_a_straight_run[sync]",
+        "test_cli_lm_refuses_bad_flags_before_training[top-k]"],
     # ISSUE 10: the codec fast lane's correctness anchor (byte-exact
     # scalar/vectorized equivalence + fuzz agreement), the decode-into-
     # staging path through a real batcher, the codec A/B perf smoke,

@@ -843,3 +843,92 @@ def test_graphed_lm_step_holds_to_the_eager_step(cuda, dtype, remat, k):
     np.testing.assert_allclose(got[0]["loss"], want[1], rtol=1e-5)
     np.testing.assert_allclose([h["loss"] for h in got], want[1::2], rtol=1e-4)
     assert all(torch.isfinite(t).all() for t in param_leaves(got_params))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kw", [{}, dict(temperature=0.8, top_k=40, top_p=0.9, eos_id=7)],
+                         ids=["greedy", "sampled-eos"])
+def test_graphed_generate_equals_the_eager_loop_on_the_card(cuda, dtype, kw):
+    from tpu_dist_nn_torch.models.generate import _compiled_generate, generate
+
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=2, n_layers=2, d_ff=512,
+                            max_seq_len=64, compute_dtype=dtype)
+    params = init_transformer(torch.Generator().manual_seed(0), cfg, device=cuda)
+    prompt = np.random.default_rng(0).integers(0, 256, (3, 5))
+    seed = 5 if kw else None
+
+    def gen():
+        return None if seed is None else torch.Generator(device=cuda).manual_seed(seed)
+
+    graphed = generate(params, cfg, prompt, 20, generator=gen(), **kw)
+    prog = _compiled_generate(cfg, 3, 5, 20, kw.get("temperature", 0.0), kw.get("top_k"),
+                              kw.get("top_p"), kw.get("eos_id"), params["tok_embed"].device)
+    assert prog.graph is not None and prog.graph.replays == 20 - 2
+    prog.start(params, torch.as_tensor(prompt, device=cuda), gen())
+    prog.decode(graphed=False)
+    assert torch.equal(graphed, prog.state.out)
+    again = generate(params, cfg, prompt, 20, generator=gen(), **kw)
+    assert torch.equal(graphed, again) and prog.graph.replays == 2 * 20 - 3
+    if seed is not None:
+        other = generate(params, cfg, prompt, 20, generator=torch.Generator(device=cuda)
+                         .manual_seed(seed + 1), **kw)
+        assert not torch.equal(graphed, other)
+
+
+def test_slot_and_chunk_contracts_are_bit_equal_on_the_card(cuda):
+    from tpu_dist_nn_torch.models.generate import (
+        decode_step,
+        decode_step_slots,
+        init_slot_cache,
+        prefill,
+        prefill_chunk_into_cache,
+        prefill_into_cache,
+    )
+
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=2, n_layers=2, d_ff=512,
+                            max_seq_len=64, compute_dtype="bfloat16")
+    params = init_transformer(torch.Generator().manual_seed(1), cfg, device=cuda)
+    prompts = torch.as_tensor(np.random.default_rng(1).integers(0, 256, (4, 19)), device=cuda)
+    _, cache = prefill(params, prompts, cfg, max_len=40)
+    ref = {k: v.clone() for k, v in cache.items()}
+    tok = prompts[:, 0]
+    ref_logits, ref = decode_step(params, ref, torch.tensor(19, device=cuda), tok, cfg)
+    got_logits, cache = decode_step_slots(params, cache, torch.full((4,), 19, device=cuda), tok,
+                                          cfg)
+    assert torch.equal(ref_logits, got_logits)
+    assert torch.equal(ref["k"], cache["k"]) and torch.equal(ref["v"], cache["v"])
+    slots = init_slot_cache(cfg, 3, 40, device=cuda)
+    mono_logits, mono = prefill_into_cache(params, cfg, {k: v.clone() for k, v in slots.items()},
+                                           1, prompts[:1])
+    _, split = prefill_chunk_into_cache(params, cfg, slots, 1, prompts[:1, :7], 0)
+    split_logits, split = prefill_chunk_into_cache(params, cfg, split, 1, prompts[:1, 7:],
+                                                   torch.tensor(7, device=cuda))
+    assert torch.equal(mono_logits, split_logits)
+    assert torch.equal(mono["k"], split["k"]) and torch.equal(mono["v"], split["v"])
+
+
+def test_lm_resume_on_the_card_is_bit_equal_to_a_straight_run(cuda, tmp_path):
+    # The materialised attention (no atomics) makes the card's step
+    # deterministic: the resumed graph must update the restored tensors.
+    from tpu_dist_nn_torch.checkpoint import CheckpointManager
+    from tpu_dist_nn_torch.models.transformer import param_leaves
+
+    cfg = TransformerConfig(vocab_size=256, d_model=64, n_heads=2, n_layers=2, d_ff=256,
+                            max_seq_len=32)
+    params = init_transformer(torch.Generator().manual_seed(0), cfg, device=cuda)
+    batches = [np.random.default_rng(i).integers(0, 256, (4, 33)) for i in range(6)]
+    tc = LMTrainConfig(learning_rate=1e-3, steps=6, batch_size=4, seq_len=32, log_every=3,
+                       warmup_steps=2, lr_schedule="cosine")
+    want, want_hist = train_lm(params, cfg, batches, tc, attn_fn=dot_product_attention)
+
+    def interrupted():
+        yield from batches[:3]
+        raise KeyboardInterrupt
+
+    with pytest.raises(KeyboardInterrupt):
+        train_lm(params, cfg, interrupted(), tc, attn_fn=dot_product_attention,
+                 checkpoints=CheckpointManager(tmp_path))
+    got, hist = train_lm(params, cfg, batches, tc, attn_fn=dot_product_attention,
+                         checkpoints=CheckpointManager(tmp_path))
+    assert [h["loss"] for h in hist] == [want_hist[1]["loss"]]
+    assert all(torch.equal(a, b) for a, b in zip(param_leaves(got), param_leaves(want)))

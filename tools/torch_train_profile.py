@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU::
 
     python3 tools/torch_train_profile.py [--batch-size 64] [--warmup 50] [--steps 200]
-        [--schedule gpipe|1f1b|interleaved | --lm]
+        [--schedule gpipe|1f1b|interleaved | --lm | --generate]
 
 Builds ``chip_smoke.py``'s full-width training recipe (784-128-64-10,
 relu / relu / softmax, Adam at 1e-3, seeded weights, ``synthetic_mnist``
@@ -30,8 +30,12 @@ with the most self time. ``--lm`` profiles the 85M LM step of
 batch 16 of the vendored corpus, bf16 over float32 masters, remat, Adam
 at 3e-4, seeded weights; ``make_lm_train_step`` eager, and captured as
 ``train_lm`` captures it on a card), 5 warm-up and 10 timed steps unless
-given. Exits 1 when the profiler recorded no device time. Imports
-nothing of JAX.
+given. ``--generate`` profiles one decode step of that LM's generation
+(``tpu_dist_nn_torch.models.generate``: seeded weights in bf16, batch
+16, a 128-byte prompt, a 639-position cache as for 512 new tokens; the
+eager step, and its captured graph as ``generate`` replays it), 10
+warm-up and 200 timed steps unless given. Exits 1 when the profiler
+recorded no device time. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -79,8 +83,16 @@ def main(argv=None) -> int:
                     help="profile the pipelined step on [1, 1, 1] (three slots of the card; "
                          "interleaved: [1, 1, 1, 0] at 2 virtual stages on two)")
     ap.add_argument("--lm", action="store_true", help="profile the 85M LM step")
+    ap.add_argument("--generate", action="store_true",
+                    help="profile the 85M LM's decode step")
     args = ap.parse_args(argv)
-    if args.lm:
+    if args.generate:
+        args.batch_size = 16
+        if "--warmup" not in (argv or sys.argv):
+            args.warmup = 10
+        if "--steps" not in (argv or sys.argv):
+            args.steps = 200
+    elif args.lm:
         args.batch_size = 16
         if "--warmup" not in (argv or sys.argv):
             args.warmup = 5
@@ -119,6 +131,28 @@ def main(argv=None) -> int:
 
     if args.lm:
         what = "the 85M LM (d 768, 12 layers, T 1024, bf16, remat)"
+    if args.generate:
+        what = "the 85M LM's decode step (bf16, prompt 128, cache 639)"
+
+    def build_generate(graphed: bool):
+        from tpu_dist_nn_torch.data.text import encode, lm_sequences, load_corpus
+        from tpu_dist_nn_torch.models.generate import _compiled_generate
+        from tpu_dist_nn_torch.models.transformer import TransformerConfig, init_transformer
+
+        cfg = TransformerConfig(vocab_size=256, d_model=768, n_heads=12, n_layers=12,
+                                d_ff=3072, max_seq_len=1024, compute_dtype="bfloat16")
+        params = init_transformer(torch.Generator().manual_seed(0), cfg, device=dev)
+        prompt = torch.as_tensor(lm_sequences(encode(load_corpus()[0]), 1024)[-16:, :128],
+                                 device=dev).long()
+        new = 512
+        if args.warmup + 2 * args.steps > new - 1:
+            raise SystemExit(f"--warmup + 2 --steps must stay within {new - 1} decode steps")
+        prog = _compiled_generate(cfg, 16, 128, new, 0.0, None, None, None, prompt.device)
+        prog.start(params, prompt, None)
+
+        def one_step(_bx, _by):
+            prog.decode(1, graphed=graphed)
+        return one_step
 
     def build_lm(graphed: bool):
         from tpu_dist_nn_torch.data.text import encode, lm_batches, lm_sequences, load_corpus
@@ -155,6 +189,8 @@ def main(argv=None) -> int:
 
     def build(graphed: bool):
         """A fresh step from the seeded weights: ``one_step(bx, by)``."""
+        if args.generate:
+            return build_generate(graphed)
         if args.lm:
             return build_lm(graphed)
         params = init_fcnn(torch.Generator().manual_seed(0), [784, 128, 64, 10], acts,
@@ -205,8 +241,9 @@ def main(argv=None) -> int:
 
     def profile_arm(label: str, graphed: bool) -> bool:
         one_step = build(graphed)
-        batches = batch_iterator(data.x, data.y, 64 if args.lm else args.batch_size,
-                                 shuffle=True, seed=0, drop_remainder=True)
+        rows = 64 if args.lm or args.generate else args.batch_size
+        batches = batch_iterator(data.x, data.y, rows, shuffle=True, seed=0,
+                                 drop_remainder=True)
 
         def run(n):
             for _ in range(n):
@@ -231,6 +268,7 @@ def main(argv=None) -> int:
             return False
         busy = busy_ms(prof, DeviceType.CUDA) / args.steps
         rate = (f"{16 * 1024 / plain_ms * 1e3:.1f} tokens/s" if args.lm
+                else f"{16 / plain_ms * 1e3:.1f} tokens/s" if args.generate
                 else f"{args.batch_size / plain_ms * 1e3:.1f} samples/s")
         print(f"{label}: wall {plain_ms:.4f} ms/step (host clock, profiler off; "
               f"{rate}), {wall_ms:.4f} ms/step "
@@ -256,7 +294,7 @@ def main(argv=None) -> int:
                       f"{e.count / args.steps:6.1f}  {e.key[:110]}")
         return True
 
-    model = "" if args.lm else "784-128-64-10 "
+    model = "" if args.lm or args.generate else "784-128-64-10 "
     print(f"device {torch.cuda.get_device_name(0)}; torch {torch.__version__}; "
           f"{model}at batch {args.batch_size}, {what}; {args.steps} steps timed after "
           f"{args.warmup}, {args.steps} more profiled")

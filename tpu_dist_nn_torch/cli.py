@@ -29,9 +29,12 @@ printed lines:
   flags; ``--checkpoint-format orbax`` is refused.
 * ``lm`` — train and evaluate the byte-level Transformer LM on one
   device (the flash-attention kernels on the card), with ``tdn lm``'s
-  corpus tiers, 95/5 split, per-step log lines and final JSON report.
-  Its generation, serving, checkpoint and parallel flags wait for their
-  slices.
+  corpus tiers, 95/5 split, per-step log lines and final JSON report;
+  step checkpoints and resume (``--checkpoint-dir``), and a sample from
+  the trained model (``--sample-bytes``, greedy or top-k / top-p
+  sampling, ``--eos-id``). Its serving and parallel flags
+  (``--serve-*``, ``--sample-tensor-parallel``,
+  ``--sample-pipeline-stages``) wait for their slices.
 
 Every engine-side verb runs on the card unless ``--device cpu`` is
 given.
@@ -368,6 +371,25 @@ def _validate_metrics_out(path) -> None:
         raise ValueError(f"--metrics-out path is not writable: {e}") from e
 
 
+def _refuse_orbax(args) -> None:
+    if args.checkpoint_dir and args.checkpoint_format == "orbax":
+        raise ValueError(
+            "--checkpoint-format orbax is not ported: the port writes its "
+            "native .npz store (drop the flag)"
+        )
+
+
+def _checkpoint_manager(args):
+    """The ``--checkpoint-dir`` store (asynchronous writes with
+    ``--async-checkpoints``), or None."""
+    if not args.checkpoint_dir:
+        return None
+    from tpu_dist_nn_torch.checkpoint import AsyncCheckpointManager, CheckpointManager
+
+    manager = AsyncCheckpointManager if args.async_checkpoints else CheckpointManager
+    return manager(args.checkpoint_dir, keep=args.keep_checkpoints)
+
+
 def _train_data(args, model):
     """-> (train, eval) Datasets for ``--data``."""
     from tpu_dist_nn_torch.data import datasets
@@ -413,11 +435,7 @@ def cmd_train(args) -> int:
             TRACER.configure(sample_rate=args.trace_sample_rate)
         except ValueError as e:
             raise ValueError(f"--trace-sample-rate: {e}") from e
-    if args.checkpoint_dir and args.checkpoint_format == "orbax":
-        raise ValueError(
-            "--checkpoint-format orbax is not ported: the port writes its "
-            "native .npz store (drop the flag)"
-        )
+    _refuse_orbax(args)
     _validate_metrics_out(args.metrics_out)
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.config:
@@ -450,12 +468,7 @@ def cmd_train(args) -> int:
         lr_schedule=args.lr_schedule, weight_decay=args.weight_decay,
         grad_accum=args.grad_accum,
     )
-    checkpoints = None
-    if args.checkpoint_dir:
-        from tpu_dist_nn_torch.checkpoint import AsyncCheckpointManager, CheckpointManager
-
-        manager = AsyncCheckpointManager if args.async_checkpoints else CheckpointManager
-        checkpoints = manager(args.checkpoint_dir, keep=args.keep_checkpoints)
+    checkpoints = _checkpoint_manager(args)
     try:
         history = engine.train(data, cfg, eval_data=eval_data, checkpoints=checkpoints,
                                schedule=args.schedule)
@@ -476,12 +489,51 @@ def cmd_train(args) -> int:
     return 0
 
 
+def _validate_sampling(args, cfg, generator) -> None:
+    """``tdn lm``'s sampling flags, refused before training with the JAX
+    package's texts (its CLI checks, then the shared generation
+    contract), so a bad flag cannot discard a run."""
+    from tpu_dist_nn_torch.data.text import encode
+    from tpu_dist_nn_torch.models.generate import validate_generate_args
+
+    if args.eos_id is not None and not 0 <= args.eos_id < 256:
+        raise ValueError(f"--eos-id must be a byte id in [0, 256), got {args.eos_id}")
+    if args.sample_bytes <= 0:
+        return
+    if args.temperature < 0:
+        raise ValueError("--temperature must be >= 0")
+    prompt_len = len(encode(args.prompt))
+    if prompt_len == 0:
+        raise ValueError("--prompt must be non-empty")
+    if prompt_len >= args.seq_len:
+        raise ValueError(
+            f"--prompt is {prompt_len} bytes but must be shorter than "
+            f"--seq-len {args.seq_len} to leave room for generation"
+        )
+    if args.sample_bytes > args.seq_len - prompt_len:
+        raise ValueError(
+            f"--sample-bytes {args.sample_bytes} does not fit: the "
+            f"{prompt_len}-byte prompt leaves {args.seq_len - prompt_len} "
+            f"positions within --seq-len {args.seq_len}"
+        )
+    validate_generate_args(cfg, prompt_len, args.sample_bytes, args.temperature, args.top_k,
+                           args.top_p, generator, args.eos_id)
+
+
 def cmd_lm(args) -> int:
     """Train + evaluate the byte-level Transformer LM (``tdn lm``'s
-    single-device path)."""
+    single-device path), resuming from and saving to ``--checkpoint-dir``,
+    then sample ``--sample-bytes`` from it."""
     import torch
 
-    from tpu_dist_nn_torch.data.text import encode, lm_batches, lm_sequences, load_corpus
+    from tpu_dist_nn_torch.data.text import (
+        decode,
+        encode,
+        lm_batches,
+        lm_sequences,
+        load_corpus,
+    )
+    from tpu_dist_nn_torch.models.generate import generate
     from tpu_dist_nn_torch.models.transformer import (
         TransformerConfig,
         init_transformer,
@@ -490,11 +542,14 @@ def cmd_lm(args) -> int:
     from tpu_dist_nn_torch.train.lm_trainer import LMTrainConfig, evaluate_lm, train_lm
     from tpu_dist_nn_torch.utils.device import resolve_device
 
+    _refuse_orbax(args)
     device = resolve_device(args.device)
     cfg = TransformerConfig(
         vocab_size=256, d_model=args.d_model, n_heads=args.heads, n_layers=args.layers,
         d_ff=4 * args.d_model, max_seq_len=args.seq_len,
         compute_dtype="bfloat16" if args.bf16 else "float32", remat=args.remat)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    _validate_sampling(args, cfg, generator)
     text, source = load_corpus(args.corpus)
     rows = lm_sequences(encode(text), args.seq_len)
     split = max(1, int(len(rows) * 0.95))
@@ -509,8 +564,13 @@ def cmd_lm(args) -> int:
         grad_accum=args.grad_accum, log_every=args.log_every,
         steps_per_call=args.steps_per_call)
     batches = lm_batches(train_rows, args.batch_size, seed=args.seed, epochs=None)
+    checkpoints = _checkpoint_manager(args)
     t0 = time.monotonic()
-    params, history = train_lm(params, cfg, batches, train_cfg)
+    try:
+        params, history = train_lm(params, cfg, batches, train_cfg, checkpoints=checkpoints)
+    finally:
+        if hasattr(checkpoints, "close"):
+            checkpoints.close()
     train_seconds = time.monotonic() - t0
     for h in history:
         log.info("step %d: loss %.4f (%.2fs)", h["step"], h["loss"], h["seconds"])
@@ -537,6 +597,20 @@ def cmd_lm(args) -> int:
     }
     if args.metrics_out:
         _write_metrics_jsonl(args.metrics_out, history + [{"final_report": report}])
+    if args.sample_bytes > 0:
+        # Sizes and flags were validated before training.
+        out = generate(params, cfg, encode(args.prompt)[None, :], args.sample_bytes,
+                       temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+                       generator=generator, eos_id=args.eos_id)
+        sample_row = out[0].cpu().numpy()
+        if args.eos_id is not None:
+            # Trim at the stop token: everything after it is pad.
+            hits = np.flatnonzero(sample_row == args.eos_id)
+            if hits.size:
+                sample_row = sample_row[:hits[0]]
+        # Raw bytes decode as UTF-8 with replacement: the string may be
+        # shorter than the bytes.
+        report["sample"] = decode(sample_row)
     print(json.dumps(report))
     return 0
 
@@ -708,6 +782,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="record the loss every N steps (each record waits for the device)")
     p.add_argument("--metrics-out",
                    help="append per-step records + the final report as JSONL here")
+    p.add_argument("--checkpoint-dir",
+                   help="save per-interval training state here and resume from it")
+    p.add_argument("--keep-checkpoints", type=int, default=3)
+    p.add_argument("--async-checkpoints", action="store_true",
+                   help="write checkpoints on a background thread")
+    p.add_argument("--checkpoint-format", choices=["native", "orbax"], default="native",
+                   help="native .npz store (orbax is not ported)")
+    p.add_argument("--sample-bytes", type=int, default=0,
+                   help="generate this many bytes after training")
+    p.add_argument("--prompt", default="The ", help="generation prompt")
+    p.add_argument("--top-k", type=int, default=None,
+                   help="sample from the k highest-probability bytes only")
+    p.add_argument("--top-p", type=float, default=None,
+                   help="nucleus sampling: smallest set with cumulative probability >= p")
+    p.add_argument("--temperature", type=float, default=0.8, help="0 = greedy")
+    p.add_argument("--eos-id", type=int, default=None,
+                   help="stop token: a generated row freezes at this byte id and pads "
+                        "the remainder with it")
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu' for the plain PyTorch path")
     p.set_defaults(fn=cmd_lm)

@@ -154,15 +154,19 @@ def dot_product_attention(q, k, v, *, causal: bool):
     return torch.einsum("...hqk,...khd->...qhd", probs, v)
 
 
-def attn_sublayer(block: dict, x, cfg: TransformerConfig, attn_fn=dot_product_attention):
-    """Pre-LN attention sublayer with residual: ``(B, T, D) -> (B, T, D)``."""
+def attn_sublayer(block: dict, x, cfg: TransformerConfig, attn_fn=dot_product_attention, *,
+                  return_kv: bool = False):
+    """Pre-LN attention sublayer with residual: ``(B, T, D) -> (B, T, D)``.
+    ``return_kv`` also returns the sublayer's ``(B, T, H, Dh)`` k and v,
+    the KV-cache fill of :mod:`tpu_dist_nn_torch.models.generate`."""
     B, T, D = x.shape
     H, Dh = cfg.n_heads, cfg.head_dim
     h = layer_norm(x, block["ln1_g"], block["ln1_b"])
     qkv = h @ block["w_qkv"] + block["b_qkv"]
     q, k, v = qkv.reshape(B, T, 3 * H, Dh).split(H, dim=2)
     o = attn_fn(q, k, v, causal=cfg.causal).reshape(B, T, D)
-    return x + o @ block["w_o"] + block["b_o"]
+    y = x + o @ block["w_o"] + block["b_o"]
+    return (y, k, v) if return_kv else y
 
 
 def ffn_sublayer(block: dict, x):

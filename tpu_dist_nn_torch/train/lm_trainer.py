@@ -17,7 +17,10 @@ replays with no host sync between them (on the card one graph of K
 steps ran no faster than K replays of one). On the CPU the superstep
 runs the K eager steps in one call.
 
-Left for later slices: the mesh and pipeline trainers and checkpoints.
+Checkpoints (``train_lm(checkpoints=)``, the store of
+:mod:`tpu_dist_nn_torch.checkpoint.store`) save and resume the params
+and the Adam state at step granularity, as the JAX package's do. Left
+for later slices: the mesh and pipeline trainers.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from tpu_dist_nn_torch.checkpoint.store import flush, resume_or_init
 from tpu_dist_nn_torch.kernels.flash_attention import default_attn_fn
 from tpu_dist_nn_torch.models.transformer import (
     TransformerConfig,
@@ -102,7 +106,8 @@ def _device_of(params: dict) -> torch.device:
 
 
 def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray],
-             train_cfg: LMTrainConfig, *, attn_fn=None, step_fn=None):
+             train_cfg: LMTrainConfig, *, attn_fn=None, step_fn=None, checkpoints=None,
+             checkpoint_every: int | None = None):
     """Train for ``train_cfg.steps`` batches of ``(batch, seq_len + 1)``
     token rows on the params' device; returns ``(params, history)``.
 
@@ -114,12 +119,23 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
     step (one step a call; on a card it is captured too, so it takes
     ``micro_step`` as :func:`make_lm_train_step`'s steps do).
 
+    ``checkpoints`` (a checkpoint manager) saves and resumes ``{"params",
+    "opt_state"}``: the newest checkpoint is restored before the first
+    step (and so before a card captures the step, whose graph then
+    updates the restored tensors in place), its index counts completed
+    steps, and the batch stream is consumed up to it so a seeded stream
+    stays aligned. Saves land every ``checkpoint_every`` steps (default
+    ``log_every``) and at the last step, with ``{"step", "loss"}``
+    metadata; enqueued asynchronous saves are flushed on both exits of
+    the loop. The saved tensors are the ones the step updates in place.
+
     With ``train_cfg.steps_per_call=K > 1`` the loop feeds groups of K
     batches, ending on the global step grid (a last shorter group is a
     superstep of its own length): losses are read at most once a group,
-    at log boundaries, which must land on group ends (the JAX package's
-    validation and texts). On the CPU a group runs through the eager
-    superstep; on a card the step is one captured graph
+    at log boundaries, which must land on group ends, as must
+    checkpoints (the JAX package's validation and texts). On the CPU a
+    group runs through the eager superstep; on a card the step is one
+    captured graph
     (:class:`~tpu_dist_nn_torch.train.graphs.CompiledStep`) replayed
     once a step of the group with no host sync between: one graph of K
     steps was measured no faster on the card (PERF.md, section 6).
@@ -141,6 +157,12 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
             f"steps_per_call ({k}): per-step timestamps inside one "
             "grouped device call are not fetch barriers"
         )
+    if k > 1 and checkpoint_every and checkpoint_every % k != 0:
+        raise ValueError(
+            f"checkpoint_every ({checkpoint_every}) must be a multiple "
+            f"of steps_per_call ({k}): checkpoints inside one grouped "
+            "device call can only capture group-end state"
+        )
     if k > 1 and step_fn is not None:
         raise ValueError(
             "steps_per_call > 1 is the built-in single-chip path only "
@@ -151,12 +173,15 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
         cfg, optimizer, attn_fn)
     params = tree_map(lambda a: a.detach().clone().requires_grad_(True), params)
     device = _device_of(params)
-    opt_state = optimizer.init(param_leaves(params))
+    start_step, state = resume_or_init(
+        checkpoints, {"params": params, "opt_state": optimizer.init(param_leaves(params))})
+    params, opt_state = state["params"], state["opt_state"]
+    every = checkpoint_every or train_cfg.log_every
     superstep = make_lm_train_step(cfg, optimizer, attn_fn, steps_per_call=k) if k > 1 else None
     compiled = None
 
-    def flush(group):
-        """Run one group (one step, or one superstep) and log it."""
+    def run_group(group):
+        """Run one group (one step, or one superstep), log and save it."""
         nonlocal compiled
         stack = np.stack([np.asarray(b) for _, b in group])
         if device.type == "cuda":
@@ -177,21 +202,36 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
                 # float() is the host sync: at most one fetch a group.
                 history.append({"step": i + 1, "loss": float(out[j]),
                                 "seconds": time.monotonic() - t0})
+        if checkpoints is not None and any(
+                (i + 1) % every == 0 or i == train_cfg.steps - 1 for i, _ in group):
+            done = group[-1][0] + 1
+            checkpoints.save(done, {"params": params, "opt_state": opt_state},
+                             metadata={"step": done, "loss": float(out[-1])})
 
     history = []
     t0 = time.monotonic()
-    group = []
-    for i, batch in enumerate(batches):
-        if i >= train_cfg.steps:
-            break
-        group.append((i, batch))
-        # Flush on the global step grid; a last shorter group is a
-        # superstep of its own length.
-        if (i + 1) % k == 0 or i == train_cfg.steps - 1:
-            flush(group)
-            group = []
-    if group:
-        flush(group)
+    try:
+        group = []
+        for i, batch in enumerate(batches):
+            if i >= train_cfg.steps:
+                break
+            if i < start_step:
+                continue  # replay-skip: keeps a seeded stream aligned
+            group.append((i, batch))
+            # Flush on the global step grid: after a resume at a step
+            # off the grid the first group is shorter; a last shorter
+            # group is a superstep of its own length.
+            if (i + 1) % k == 0 or i == train_cfg.steps - 1:
+                run_group(group)
+                group = []
+        if group:
+            run_group(group)
+    except BaseException:
+        # Enqueued async saves become durable even when the loop raises.
+        flush(checkpoints)
+        raise
+    else:
+        flush(checkpoints)
     return tree_map(lambda a: a.detach(), params), history
 
 
