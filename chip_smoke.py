@@ -24,7 +24,9 @@ package. Phases, each fatal on failure (exit 1, no result line):
    implicit GEMM at batch 1023, an odd 31x29 image with overlapping 3x3
    stride-2 windows, stride 2 VALID, softmax over the channels, and the
    two shapes a band planner refused ((1, 64, 64, 256) x 3x3x256x256 and
-   (1, 3, 32, 1024) x 3x3x1024x1).
+   (1, 3, 32, 1024) x 3x3x1024x1). Each flash backward twice on one
+   input at the 85M shape (B 16, H 12, T 1024, Dh 64) and at Dh 32 and
+   128: dq, dk and dv bit-equal.
 3. Drive each main path with every kernel's launch count set to 0
    just before it and read just after:
 
@@ -105,6 +107,31 @@ package. Phases, each fatal on failure (exit 1, no result line):
      the wall time of a request by size, the chain kernel's device time
      for the same batches, and the headline bench line
      (``python3 -m tpu_dist_nn_torch.bench``).
+   * the conv train path (``conv_train_phase``, after the Process
+     path): BASELINE ``configs[3]``'s network at full width
+     (``init_conv_mlp``'s defaults, seeded) on ``tdn train``'s
+     synthetic rows and defaults (12,000 rows split 0.9, 5 epochs,
+     batch 64, Adam 1e-3): ``cli train --config conv.json`` single
+     program (per-epoch losses and seconds, held-out accuracy, the loss
+     falling every epoch), ``cli infer`` of its export at the same
+     accuracy; the conv step eager and graphed in turns (weights, Adam
+     state and losses bit-equal); then the heterogeneous pipeline on
+     ``[2, 2, 2]`` over three slots of the card, 4 microbatches: its
+     first-step loss and gradients against the single program (the
+     pipeline tests' tolerances, with the process's cuDNN flags at
+     PyTorch's defaults, so each step must set its own), ``Engine.train``
+     with eval over the recipe's 5 epochs (no launch in the steps, 2
+     conv and 1 chain launches an eval, the loss falling every epoch;
+     its per-epoch losses and final weights against the CLI's run are
+     printed, not held: the two trajectories drift apart), per-step
+     losses over 16 steps with and without ``clip_norm`` 0.05 within
+     rtol 1e-4 of the single program, the hetero gradients from the
+     single program's weights at each of those 16 steps, then
+     ``train_hetero`` cut after epoch 2 and resumed (rtol 1e-5 / atol
+     1e-7 of the 5-epoch run), its step eager and graphed (bit-equal), the forward of 10,000 rows at batch 1024 beside the
+     single-program engine (2 conv and 1 chain launches a microbatch;
+     bit-equal, or within 1e-5 of the float64 oracle) and
+     ``measure_dispatch_overlap``.
    * the conv path: the CIFAR-10 conv+MLP network (``init_conv_mlp``'s
      defaults, 32x32x3 -> conv16+pool -> conv32+pool -> 64 -> 10),
      ``Engine.up(path, [2, 2, 2])`` and ``run_inference`` over 10,000
@@ -129,8 +156,8 @@ package. Phases, each fatal on failure (exit 1, no result line):
      route) first loss within rtol 1e-3, all three within 1e-2.
      Every ``train_lm`` step here is a captured CUDA graph. After it,
      the same recipe's step eager (8 steps) and as 4-step supersteps
-     (``steps_per_call=4``, its first 16 steps; losses within rtol 1e-4
-     of one step a call): s/step and tokens/s of each; then the CLI's
+     (``steps_per_call=4``, its first 16 steps; losses bit-equal to one
+     step a call): s/step and tokens/s of each; then the CLI's
      ``lm`` verb runs 4 steps with ``--steps-per-call 2``.
 
    * the generation path (``generate_phase``, after the supersteps),
@@ -168,7 +195,7 @@ package. Phases, each fatal on failure (exit 1, no result line):
      nats of the record's 2.5303 (the port's weights come from a
      ``torch.Generator``, its batches are the JAX package's); then its
      step eager (100 steps) and as 8-step supersteps (all 400; losses
-     within rtol 1e-4 of one step a call).
+     bit-equal to one step a call).
 
    * dense runs past one chain launch, each engine's counts zeroed
      before its run: a 34-layer 16-wide FCNN in float32 (float64
@@ -1031,8 +1058,9 @@ def lm_k_arms(cfg, params, batches, train_cfg, k, n_eager, first_losses, label, 
     ``steps_per_call=k`` supersteps (the captured step replayed k times
     a call, losses read once),
     its logged losses held to ``first_losses`` (the K=1 run's loss at
-    each step; rtol 1e-4: the flash backward adds dq with atomics, so
-    the runs are not bit-equal). Prints s/step and tokens/s of each."""
+    each step) bit for bit: every kernel of the step, the flash backward
+    included, gives the same bits on every run. Prints s/step and
+    tokens/s of each."""
     import numpy as np
     import torch
 
@@ -1060,16 +1088,410 @@ def lm_k_arms(cfg, params, batches, train_cfg, k, n_eager, first_losses, label, 
     got = np.array([h["loss"] for h in hist])
     want = np.array([first_losses[h["step"] - 1] for h in hist])
     rel = float(np.max(np.abs(got - want) / np.abs(want)))
-    ok = bool(np.isfinite(got).all()) and rel <= 1e-4
+    ok = bool(np.isfinite(got).all()) and bool(np.array_equal(got, want))
     print(f"{label} on {smi_line}: eager {eager:.6f} s/step ({tokens / eager:.1f} tokens/s, "
           f"steps 3-{n_eager}); graphed K={k} ({k} replays a call, losses read once) "
           f"{graphed_k:.6f} s/step ({tokens / graphed_k:.1f} tokens/s, steps "
           f"{hist[1]['step'] + 1}-{hist[-1]['step']})")
-    print(f"check {label} K={k} losses vs K=1 at the same steps: max rel {rel:.3e} | tol rtol "
-          f"1e-4 | {'ok' if ok else 'FAIL'}")
+    print(f"check {label} K={k} losses vs K=1 at the same steps: max rel {rel:.3e} | "
+          f"bit-equal | {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{label}: the K={k} superstep's losses disagree with one step a call")
     return eager, graphed_k
+
+
+# Conv training (conv_train_phase): BASELINE configs[3]'s network at full
+# width (init_conv_mlp's defaults, seeded) on tdn train's synthetic rows
+# and defaults (12,000 rows split 0.9, 5 epochs, batch 64, Adam 1e-3),
+# single-program through the CLI and through [2, 2, 2] on three slots
+# of the card (cut from three chips), 4 microbatches.
+CONV_TRAIN_ROWS, CONV_DIST, CONV_MICRO, CONV_EPOCHS = 12000, [2, 2, 2], 4, 5
+CONV_STEPS = 100  # steps a graphed-vs-eager conv arm times
+HETERO_LOSS_RTOL = 1e-4  # tests/test_hetero_pipeline.py:127-135
+HETERO_STEPS = 16  # that test's run: 2 epochs of 8 steps
+HETERO_RESUME_TOL = (1e-7, 1e-5)  # its resume
+HETERO_ROWS, HETERO_BATCH = 10000, 1024
+
+
+class GradGrab:
+    """An optimizer stand-in whose update keeps the gradients and applies
+    nothing: a step built with it yields its loss and gradients."""
+
+    def update(self, grads, state, leaves, *, micro_step=None):
+        self.grads = [g.detach().clone() for g in grads]
+
+
+def make_conv_step(dev, spec, dist, opt, clip_norm=None):
+    """``(params, step)`` from ``spec``'s weights with ``opt``: the single
+    program's conv step (``dist`` None) or the heterogeneous pipeline's
+    on ``dist`` over slots of ``dev``, ``CONV_MICRO`` microbatches. The
+    hetero step clips across its stages itself (JAX's rule), so it takes
+    ``clip_norm`` and a clip-free ``opt``; the single program's ``opt``
+    clips."""
+    from tpu_dist_nn_torch.models.network import build_network
+    from tpu_dist_nn_torch.parallel.hetero_pipeline import HeteroPipeline
+    from tpu_dist_nn_torch.train.hetero_trainer import make_hetero_train_step
+    from tpu_dist_nn_torch.train.trainer import _trainable, make_network_train_step
+
+    if dist is None:
+        plan, params = build_network(spec, device=dev)
+        return _trainable(params), make_network_train_step(plan, opt)
+    hp = HeteroPipeline(spec, dist, devices=[dev] * len(dist))
+    return (_trainable(hp.stage_params()),
+            make_hetero_train_step(hp, opt, CONV_MICRO, clip_norm=clip_norm))
+
+
+def conv_step_arms(dev, spec, train, dist, n_steps):
+    """The conv step eager and graphed (see ``timed_arms``): the single
+    program (``dist`` None) or the heterogeneous pipeline on ``dist``
+    over slots of ``dev``, ``n_steps`` batches of 64 after the first."""
+    import torch
+
+    from tpu_dist_nn_torch.train.trainer import (
+        TrainConfig,
+        _leaves,
+        compile_train_step,
+        optimizer_for,
+    )
+
+    bs = TRAIN_BATCH
+    batches = [(train.x[i * bs:(i + 1) * bs], train.y[i * bs:(i + 1) * bs])
+               for i in range(n_steps + 1)]
+
+    def arm(graphed):
+        opt = optimizer_for(TrainConfig(batch_size=bs), train)
+        p, step = make_conv_step(dev, spec, dist, opt)
+        st = opt.init(_leaves(p))
+        if graphed:
+            run = compile_train_step(step, p, st, opt, bs, spec.input_dim)
+        else:
+            def run(bx, by):
+                return step(p, st, torch.as_tensor(bx, device=dev),
+                            torch.as_tensor(by, dtype=torch.long, device=dev))[2]
+        losses = [run(*batches[0]).clone()]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for bx, by in batches[1:]:
+            losses.append(run(bx, by).clone())
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) * 1e3 / n_steps
+        return ms, _leaves(p) + st.mu + st.nu + [st.count] + losses
+
+    return timed_arms({"eager": lambda: arm(False), "graphed": lambda: arm(True)})
+
+
+def conv_trajectories(dev, spec, train, n_steps, clip_norm):
+    """The single program's and the hetero pipeline's captured steps from
+    one init over the same ``n_steps`` batches of 64: ``{label: (losses,
+    leaves)}`` after the last step."""
+    from tpu_dist_nn_torch.train.trainer import (
+        TrainConfig,
+        _leaves,
+        compile_train_step,
+        optimizer_for,
+    )
+
+    bs = TRAIN_BATCH
+    out = {}
+    for label, dist in (("single", None), ("hetero", CONV_DIST)):
+        opt = optimizer_for(TrainConfig(batch_size=bs, clip_norm=None if dist else clip_norm),
+                            train)
+        p, step = make_conv_step(dev, spec, dist, opt, clip_norm)
+        run = compile_train_step(step, p, opt.init(_leaves(p)), opt, bs, spec.input_dim)
+        losses = [float(run(train.x[i * bs:(i + 1) * bs], train.y[i * bs:(i + 1) * bs]))
+                  for i in range(n_steps)]
+        out[label] = (losses, [t.detach().clone() for t in _leaves(p)])
+    return out
+
+
+def conv_gradients_along(dev, spec, train, n_steps):
+    """The hetero pipeline's gradients against the single program's at
+    each of the single program's first ``n_steps`` weights (both steps
+    eager, the hetero leaves set to the single program's before each):
+    ``[(loss_rel, worst share of GRAD_TOL)]`` a step."""
+    import torch
+
+    from tpu_dist_nn_torch.train.trainer import TrainConfig, _leaves, optimizer_for
+
+    bs, (atol, rtol) = TRAIN_BATCH, GRAD_TOL
+    opt = optimizer_for(TrainConfig(batch_size=bs), train)
+    p_s, step = make_conv_step(dev, spec, None, opt)
+    st = opt.init(_leaves(p_s))
+    grab_s, grab_h = GradGrab(), GradGrab()
+    grads_s = make_conv_step(dev, spec, None, grab_s)[1]
+    p_h, grads_h = make_conv_step(dev, spec, CONV_DIST, grab_h)
+    out = []
+    for i in range(n_steps):
+        x = torch.as_tensor(train.x[i * bs:(i + 1) * bs], device=dev)
+        y = torch.as_tensor(train.y[i * bs:(i + 1) * bs], dtype=torch.long, device=dev)
+        with torch.no_grad():
+            for a, b in zip(_leaves(p_h), _leaves(p_s)):
+                a.copy_(b)
+        loss_s = float(grads_s(p_s, None, x, y)[2])
+        loss_h = float(grads_h(p_h, None, x, y)[2])
+        share = max(float(((a - b).abs() / (atol + rtol * b.abs())).max())
+                    for a, b in zip(grab_h.grads, grab_s.grads))
+        out.append((abs(loss_h - loss_s) / abs(loss_s), share))
+        step(p_s, st, x, y)
+    return out
+
+
+def conv_train_phase(dev, out_dir, smi_line, compare, failures) -> None:
+    """Conv training on the card: ``tdn train --config`` single-program,
+    ``tdn infer`` of its export, the step graphed beside eager, then the
+    heterogeneous pipeline on [2, 2, 2]: held to the single program by
+    the first-step loss and gradients, per-step losses over 16 steps
+    (unclipped and clipped) and gradients along the single program's
+    first 16 steps; trained through ``Engine.train`` over the recipe
+    (launches, falling loss) and resumed against that run; its step
+    graphed beside eager, its forward of 10,000 rows beside the
+    single-program engine with the kernels' launches, and its dispatch
+    overlap."""
+    import numpy as np
+    import torch
+
+    from tpu_dist_nn_torch.api.engine import Engine
+    from tpu_dist_nn_torch.checkpoint import CheckpointManager
+    from tpu_dist_nn_torch.core.schema import load_model, save_model
+    from tpu_dist_nn_torch.data.datasets import synthetic_mnist
+    from tpu_dist_nn_torch.kernels import (
+        KERNEL_WRAPPERS,
+        fcnn_fused_forward,
+        fused_conv2d,
+        reset_launch_counts,
+    )
+    from tpu_dist_nn_torch.models.network import build_network, init_conv_mlp
+    from tpu_dist_nn_torch.parallel.hetero_pipeline import HeteroPipeline, measure_dispatch_overlap
+    from tpu_dist_nn_torch.testing.oracle import oracle_forward_batch
+    from tpu_dist_nn_torch.train.hetero_trainer import train_hetero
+    from tpu_dist_nn_torch.train.trainer import TrainConfig
+
+    print(f"conv train path on {smi_line} (nvidia-smi name, power.limit)")
+    t_phase = time.monotonic()
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    spec = init_conv_mlp(torch.Generator().manual_seed(0))
+    full = synthetic_mnist(CONV_TRAIN_ROWS, dim=spec.input_dim, num_classes=10, seed=0)
+    train, held = full.split(0.9, seed=0)
+    cfg = TrainConfig(epochs=CONV_EPOCHS, batch_size=TRAIN_BATCH, seed=0)
+    steps = len(train) // TRAIN_BATCH
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS if fn.launches}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=out_dir) as tmp:
+        tmp = Path(tmp)
+        # (a) Single program through the CLI, at tdn train's defaults.
+        conv_json, exported, metrics = tmp / "conv.json", tmp / "conv_trained.json", tmp / "m.jsonl"
+        save_model(spec, conv_json)
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_dist_nn_torch.cli", "train", "--config", str(conv_json),
+             "--num-examples", str(CONV_TRAIN_ROWS), "--epochs", str(CONV_EPOCHS),
+             "--out", str(exported),
+             "--metrics-out", str(metrics)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600, env=env)
+        wall = time.monotonic() - t0
+        if proc.returncode != 0:
+            fail(f"cli train --config conv.json exited {proc.returncode}: {proc.stderr[-2000:]}")
+        hist_cli = [json.loads(ln) for ln in metrics.read_text().splitlines()[1:]]
+        for h in hist_cli:
+            print(f"cli train --config conv.json (configs[3], single program) epoch {h['epoch']}: "
+                  f"loss {h['loss']:.6f}, {h['seconds']:.3f} s ({steps} steps of {TRAIN_BATCH}: "
+                  f"{h['seconds'] / steps * 1e3:.4f} ms/step), held-out accuracy "
+                  f"{h['eval']['accuracy']:.4f}")
+        acc = load_model(exported).metadata["inference_metrics"]["accuracy"]
+        print(f"cli train --config conv.json: {wall:.1f} s wall (process start, kernel build, "
+              f"{CONV_EPOCHS} epochs with eval, export); held-out accuracy {acc:.4f}")
+        losses = [h["loss"] for h in hist_cli]
+        if len(hist_cli) != CONV_EPOCHS or not all(b < a for a, b in zip(losses, losses[1:])):
+            fail(f"conv training through the CLI: the mean loss did not fall every epoch: {losses}")
+        held_json = tmp / "conv_heldout.json"
+        held.to_examples_json(held_json)
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_dist_nn_torch.cli", "infer", "--config", str(exported),
+             "--inputs", str(held_json), "--batch-size", "1024"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600, env=env)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("Metrics: ")]
+        if proc.returncode != 0 or not lines:
+            fail(f"cli infer of the trained conv model exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        served = json.loads(lines[0][len("Metrics: "):])["accuracy"]
+        ok = served == acc
+        print(f"check cli infer of the exported conv model on the {len(held)} held-out rows: "
+              f"accuracy {served!r} vs the trainer's eval {acc!r} | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("the served trained conv model's accuracy differs from the trainer's eval")
+        trained_single = build_network(load_model(exported), device=dev)[1]
+
+        # (b) The single-program step graphed beside eager, bit for bit.
+        step_ms = conv_step_arms(dev, spec, train, None, CONV_STEPS)
+        print(f"conv step (configs[3], single program) at batch {TRAIN_BATCH} on {smi_line}: "
+              + "; ".join(f"{label} {ms:.4f} ms/step ({TRAIN_BATCH / ms * 1e3:.1f} samples/s)"
+                          for label, ms in step_ms))
+
+        # (c) The first step's loss and gradients, hetero vs single. The
+        # process runs with cuDNN's TF32 off (main); here the flags are
+        # PyTorch's defaults (TF32 on, nondeterministic algorithms
+        # allowed), so the two agree only if each step sets its own
+        # (conv_flags) around every conv it runs.
+        bx = torch.from_numpy(train.x[:TRAIN_BATCH]).to(dev)
+        by = torch.from_numpy(train.y[:TRAIN_BATCH]).to(dev).long()
+        grab_s, grab_h = GradGrab(), GradGrab()
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                        allow_tf32=True):
+            p_s, step_s = make_conv_step(dev, spec, None, grab_s)
+            loss_s = step_s(p_s, None, bx, by)[2]
+            p_h, step_h = make_conv_step(dev, spec, CONV_DIST, grab_h)
+            loss_h = step_h(p_h, None, bx, by)[2]
+        compare(f"hetero {CONV_DIST} first-step loss vs single program", loss_h, loss_s,
+                0.0, LOSS_RTOL)
+        for i, (a, b) in enumerate(zip(grab_h.grads, grab_s.grads)):
+            compare(f"hetero {CONV_DIST} first-step gradient {i} vs single program", a, b,
+                    *GRAD_TOL)
+
+        # (d) The hetero engine trains the recipe: eval launches counted,
+        # the loss falling every epoch; the straight run (f) resumes to.
+        eng = Engine.up(spec, CONV_DIST, devices=[dev] * len(CONV_DIST),
+                        num_microbatches=CONV_MICRO)
+        print(f"hetero engine placement: {json.dumps(eng.placement())}")
+        reset_launch_counts()
+        t0 = time.monotonic()
+        hist_h = eng.train(train, cfg, eval_data=held)
+        wall = time.monotonic() - t0
+        launches = counts()
+        for h in hist_h:
+            print(f"hetero {CONV_DIST} train epoch {h['epoch']}: loss {h['loss']:.6f}, "
+                  f"{h['seconds']:.3f} s ({h['seconds'] / steps * 1e3:.4f} ms/step), held-out "
+                  f"accuracy {h['eval']['accuracy']:.4f}")
+        print(f"hetero {CONV_DIST} train: {wall:.3f} s wall for {CONV_EPOCHS} epochs with eval; "
+              f"launches {json.dumps(launches)}")
+        want = {"fused_conv2d": 2 * CONV_EPOCHS, "fcnn_fused_forward": CONV_EPOCHS}
+        ok = launches == want
+        print(f"check hetero training launches: none in the {CONV_EPOCHS * steps} steps; each "
+              f"epoch's eval one chunk: 2 conv and 1 chain launches | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("hetero training launched a kernel inside a step, or its eval missed one")
+        # The two 840-step runs are not held at JAX's tolerances: microbatch
+        # means and cuDNN's algorithm at 16 rows round otherwise than one
+        # 64-row program, and Adam carries those last bits into a trajectory
+        # that drifts apart as the loss falls to 1e-4 (the first step's loss
+        # is bit-equal, its gradients within GRAD_TOL). Held-out accuracy is
+        # printed beside the single program's; on these synthetic rows both
+        # read 1.0000 from epoch 0, so it cannot tell a wrong pipeline from
+        # a right one: (c) and (e) hold what the pipeline computes.
+        rels = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(hist_h, hist_cli)]
+        trained_h = build_network(eng.model, device=dev)[1]
+        w_diff = max(float((a[k] - b[k]).abs().max())
+                     for a, b in zip(trained_h, trained_single) for k in a)
+        print(f"hetero {CONV_DIST} vs single program over {CONV_EPOCHS} epochs (the trajectories "
+              f"drift apart, not a gate): per-epoch loss rel "
+              f"{', '.join(f'{r:.3e}' for r in rels)}; final weights max_abs {w_diff:.3e}")
+        acc_h, acc_s = hist_h[-1]["eval"]["accuracy"], hist_cli[-1]["eval"]["accuracy"]
+        h_losses = [h["loss"] for h in hist_h]
+        ok = all(b < a for a, b in zip(h_losses, h_losses[1:]))
+        print(f"check hetero {CONV_DIST} training: loss falling every epoch | "
+              f"{'ok' if ok else 'FAIL'}; held-out accuracy {acc_h:.4f} (single program "
+              f"{acc_s:.4f}; saturated, not a gate)")
+        if not ok:
+            fail("the hetero pipeline's training loss did not fall every epoch")
+
+        # (e) The JAX test's run length (16 steps), unclipped and with
+        # clip_norm 0.05: per-step losses, hetero vs single program, at
+        # JAX's rtol 1e-4. The weights after them are printed, not held:
+        # Adam moves a weight by about lr whatever its gradient's size,
+        # so a gradient at the rounding level whose sign differs between
+        # the two programs moves that weight 2 lr apart (the first
+        # conv's filters). What the pipeline computes is held instead at
+        # each of the 16 steps: its gradients from the single program's
+        # weights, within GRAD_TOL.
+        for clip in (None, 0.05):
+            traj = conv_trajectories(dev, spec, train, HETERO_STEPS, clip)
+            (l_s, w_s), (l_h, w_h) = traj["single"], traj["hetero"]
+            rels = [abs(a - b) / abs(b) for a, b in zip(l_h, l_s)]
+            ok = max(rels) <= HETERO_LOSS_RTOL
+            print(f"check hetero {CONV_DIST} vs single program, {HETERO_STEPS} steps, clip_norm "
+                  f"{clip}: per-step loss rel at steps 1, 4, 8, 16: "
+                  f"{', '.join(f'{rels[i - 1]:.3e}' for i in (1, 4, 8, 16))}, max "
+                  f"{max(rels):.3e} | tol rtol {HETERO_LOSS_RTOL:g} | {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"hetero losses clip {clip}")
+            print(f"hetero {CONV_DIST} vs single program, clip_norm {clip}, weights after "
+                  f"{HETERO_STEPS} steps (not a gate): max_abs by leaf "
+                  + ", ".join(f"{float((a - b).abs().max()):.3e}" for a, b in zip(w_h, w_s)))
+        along = conv_gradients_along(dev, spec, train, HETERO_STEPS)
+        worst = max(share for _, share in along)
+        ok = worst <= 1.0 and max(rel for rel, _ in along) <= LOSS_RTOL
+        print(f"check hetero {CONV_DIST} gradients from the single program's weights at each of "
+              f"its first {HETERO_STEPS} steps: largest share of GRAD_TOL (atol {GRAD_TOL[0]:g} "
+              f"rtol {GRAD_TOL[1]:g}) {worst:.3f}, loss max rel "
+              f"{max(rel for rel, _ in along):.3e} (tol {LOSS_RTOL:g}) | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("hetero gradients along the single program's steps")
+        if failures:
+            fail(f"the hetero pipeline disagrees with the single program: {failures}")
+
+        # (f) train_hetero cut after epoch 2 and resumed, vs straight.
+        ck = CheckpointManager(tmp / "hetero_resume", keep=2)
+        train_hetero(HeteroPipeline(spec, CONV_DIST, devices=[dev] * 3), train,
+                     TrainConfig(epochs=2, batch_size=TRAIN_BATCH, seed=0), checkpoints=ck,
+                     num_microbatches=CONV_MICRO)
+        resumed, hist_r = train_hetero(HeteroPipeline(spec, CONV_DIST, devices=[dev] * 3), train,
+                                       cfg, checkpoints=ck, num_microbatches=CONV_MICRO)
+        if [h["epoch"] for h in hist_r] != list(range(2, CONV_EPOCHS)):
+            fail(f"the hetero resume ran epochs {[h['epoch'] for h in hist_r]}")
+        for i, (a, b) in enumerate(zip([q for sp in resumed for q in sp], trained_h)):
+            for key in a:
+                compare(f"hetero resume 2 -> {CONV_EPOCHS} epochs vs straight, layer {i} {key}",
+                        a[key], b[key], *HETERO_RESUME_TOL)
+
+        # (g) The hetero step graphed beside eager, bit for bit.
+        step_ms = conv_step_arms(dev, spec, train, CONV_DIST, CONV_STEPS)
+        print(f"hetero {CONV_DIST} step at batch {TRAIN_BATCH}, {CONV_MICRO} microbatches, on "
+              f"{smi_line}: " + "; ".join(
+                  f"{label} {ms:.4f} ms/step ({TRAIN_BATCH / ms * 1e3:.1f} samples/s)"
+                  for label, ms in step_ms))
+
+        # (h) The forward: 10,000 rows at batch 1024 through [2, 2, 2]
+        # (len // 4 rows a chunk) beside the single-program engine.
+        x = np.random.default_rng(3).uniform(0, 1, (HETERO_ROWS, spec.input_dim)).astype(
+            np.float32)
+        one = Engine.up(eng.model, device=dev)
+        reset_launch_counts()
+        res_h = eng.run_inference(x, batch_size=HETERO_BATCH)
+        launches = counts()
+        res_1 = one.run_inference(x, batch_size=HETERO_BATCH)
+        n_b = math.ceil(HETERO_ROWS / HETERO_BATCH)
+        want = {"fused_conv2d": 2 * CONV_MICRO * n_b, "fcnn_fused_forward": CONV_MICRO * n_b}
+        ok = launches == want
+        print(f"check hetero forward launches over {n_b} batches of {HETERO_BATCH}: "
+              f"{json.dumps(launches)} (2 conv and 1 chain a microbatch) | "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("the hetero forward did not launch the conv and chain kernels per microbatch")
+        p50 = sorted(res_h.batch_seconds)[len(res_h.batch_seconds) // 2]
+        p50_1 = sorted(res_1.batch_seconds)[len(res_1.batch_seconds) // 2]
+        print(f"hetero {CONV_DIST} forward of {HETERO_ROWS} rows at batch {HETERO_BATCH} on "
+              f"{smi_line}: {HETERO_ROWS / res_h.seconds:.1f} samples/s, batch p50 "
+              f"{p50 * 1e3:.3f} ms; single program {HETERO_ROWS / res_1.seconds:.1f} samples/s, "
+              f"batch p50 {p50_1 * 1e3:.3f} ms")
+        differ = int((res_h.outputs != res_1.outputs).sum())
+        o_err = float(np.abs(res_h.outputs[:1024] - oracle_forward_batch(eng.model,
+                                                                         x[:1024])).max())
+        ok = differ == 0 or o_err <= 1e-5
+        print(f"check hetero forward vs the single-program engine: not-bit-equal {differ} "
+              f"(max_abs {float(np.abs(res_h.outputs - res_1.outputs).max()):.3e}); vs the "
+              f"float64 oracle on 1024 rows max_abs {o_err:.3e} | bit-equal, or atol 1e-05 of "
+              f"the oracle | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("the hetero forward disagrees with the single program and the oracle")
+
+        # (i) How far the host runs ahead of the microbatched forward.
+        m = measure_dispatch_overlap(eng._hp, x[:8192], microbatch_size=1024)
+        print(f"hetero dispatch overlap ({m['num_chunks']} chunks x {m['num_stages']} stages of "
+              f"1024 rows, host clock, min of 3) on {smi_line}: {json.dumps(m)}")
+        if failures:
+            fail(f"conv train checks failed: {failures}")
+    print(f"conv train phase took {time.monotonic() - t_phase:.1f} s")
 
 
 # Generation: the 85M LM's decode at full width, batch 16, a
@@ -2051,8 +2473,7 @@ def main() -> None:
     # v read as the three strided views of one fused projection as the
     # transformer passes them, lse and delta from the plain forward:
     # "f32" calls tdn_flash_fwd_f32 and tdn_flash_bwd_f32 by name
-    # (float32; dq is summed with atomics, so it is compared within the
-    # tolerance, never bit for bit); "sm90" goes through the routed
+    # (float32); "sm90" goes through the routed
     # flash_fwd / flash_bwd with bf16, which must reach
     # tdn_flash_fwd_sm90 and tdn_flash_bwd_sm90. bf16 kernels against the
     # plain version in float32 on the same bf16 inputs (BF16_RTOL more
@@ -2136,6 +2557,28 @@ def main() -> None:
                                          (129, 64, True)]):
         flash_check("ragged", 2, T, 4, Dh, causal, torch.float32, "f32", seed=1 + i)
         flash_check("ragged", 2, T, 4, Dh, causal, torch.bfloat16, "sm90", seed=1 + i)
+    # Each backward twice on one input, at the 85M shape and at Dh 32 and
+    # 128: dq, dk and dv bit-equal (the kernels sum dq in key-block order).
+    for Dh in (DH_LM, 32, 128):
+        for route, dtype, kern in (("f32", torch.float32, flash_bwd_f32),
+                                   ("sm90", torch.bfloat16, flash_bwd_sm90)):
+            rq, rk, rv, rdo = flash_inputs(B_LM, T_LM, H_LM, Dh, dtype, seed=Dh)
+            r_o, r_lse = flash_fwd_plain(rq.float(), rk.float(), rv.float(),
+                                         scale=1.0 / math.sqrt(Dh), causal=True)
+            r_delta = (rdo.float() * r_o).sum(-1).transpose(1, 2).contiguous()
+            del r_o
+            first = kern(rq, rk, rv, rdo, r_lse, r_delta, causal=True)
+            second = kern(rq, rk, rv, rdo, r_lse, r_delta, causal=True)
+            torch.cuda.synchronize()
+            differ = [int((a != b).sum()) for a, b in zip(first, second)]
+            ok = not any(differ)
+            print(f"check flash_bwd_{route} twice on one input, B{B_LM} T{T_LM} H{H_LM} Dh{Dh} "
+                  f"causal: not-bit-equal dq, dk, dv {differ} | bit-equal | "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"flash_bwd_{route} repeat Dh{Dh}")
+            del rq, rk, rv, rdo, r_lse, r_delta, first, second
+            torch.cuda.empty_cache()
     DH_RC = RECIPE["d_model"] // RECIPE["heads"]
     flash_check("recipe shape", RECIPE["batch"], RECIPE["seq_len"], RECIPE["heads"], DH_RC,
                 True, torch.float32, "f32")
@@ -2230,6 +2673,9 @@ def main() -> None:
     # ------------------------------------------------ the Process path
     process_phase(dev, model, conv_model, data, rng, params, q, out_dir, smi[0], compare,
                   failures)
+
+    # --------------------------------------------- the conv train path
+    conv_train_phase(dev, out_dir, smi[0], compare, failures)
 
     # Dense runs past one chain launch: deeper than 32 layers or wider
     # than a chain's shared memory holds. chain_segments cuts each; every

@@ -344,6 +344,13 @@ QUICK_TESTS = {
     "test_torch_lm_checkpoint": [
         "test_interrupted_run_resumes_bit_equal_to_a_straight_run[sync]",
         "test_cli_lm_refuses_bad_flags_before_training[top-k]"],
+    "test_torch_conv_train": ["test_train_network_matches_jax[constant]",
+                              "test_training_forward_and_its_gradients_match_jax[edges]"],
+    "test_torch_hetero_pipeline": ["test_train_hetero_matches_jax[clip_norm]",
+                                   "test_hetero_training_checkpoint_resume"],
+    "test_torch_flash_order": [
+        "test_ordered_sum_is_the_same_bits_under_any_dispatch_order[sm90-causal]",
+        "test_block_index_without_tickets_can_deadlock"],
     # ISSUE 10: the codec fast lane's correctness anchor (byte-exact
     # scalar/vectorized equivalence + fuzz agreement), the decode-into-
     # staging path through a real batcher, the codec A/B perf smoke,

@@ -345,10 +345,8 @@ BF16_RTOL = 2.0**-8
 def test_flash_kernels_match_plain_on_the_card(cuda, T, Dh, seq_len, causal):
     # float32 through the 3xTF32 kernels, called by name (Dh 33: rows
     # not 16-byte aligned, so the 4-byte copies, and an odd dq row for
-    # the scalar atomics). Tolerances: the
-    # float32 ones of tests/test_flash_attention.py (2e-5 forward, 2e-4
-    # gradients); dq is summed with atomics, so it is not compared bit for
-    # bit with a second call.
+    # the scalar adds). Tolerances: the float32 ones of
+    # tests/test_flash_attention.py (2e-5 forward, 2e-4 gradients).
     B, H = 2, 3
     rng = np.random.default_rng(T + Dh)
     qkv = torch.from_numpy(rng.standard_normal((B, T, 3 * H, Dh)).astype(np.float32)).to(cuda)
@@ -695,10 +693,8 @@ def test_pipeline_across_cards(cuda):
 # Compiled steps: each captured graph against its eager step on the card.
 # Where the same kernels run (the FCNN and pipelined steps, cuBLAS and
 # elementwise kernels only, and the pipelined forward through the chain
-# kernels) the graph is bit-equal; the LM step's flash backward adds dq
-# with atomics (its order varies run to run), so the LM holds to
-# train_fcnn's tolerance (tests/test_torch_train.py: rtol 1e-5 first,
-# 1e-4 after).
+# kernels) the graph is bit-equal; the LM step holds to train_fcnn's
+# tolerance (tests/test_torch_train.py: rtol 1e-5 first, 1e-4 after).
 
 
 def _fcnn_state(cuda, sizes, acts, **opt_kw):
@@ -908,8 +904,8 @@ def test_slot_and_chunk_contracts_are_bit_equal_on_the_card(cuda):
 
 
 def test_lm_resume_on_the_card_is_bit_equal_to_a_straight_run(cuda, tmp_path):
-    # The materialised attention (no atomics) makes the card's step
-    # deterministic: the resumed graph must update the restored tensors.
+    # The materialised attention makes the card's step deterministic: the
+    # resumed graph must update the restored tensors.
     from tpu_dist_nn_torch.checkpoint import CheckpointManager
     from tpu_dist_nn_torch.models.transformer import param_leaves
 
@@ -932,3 +928,146 @@ def test_lm_resume_on_the_card_is_bit_equal_to_a_straight_run(cuda, tmp_path):
                          checkpoints=CheckpointManager(tmp_path))
     assert [h["loss"] for h in hist] == [want_hist[1]["loss"]]
     assert all(torch.equal(a, b) for a, b in zip(param_leaves(got), param_leaves(want)))
+
+
+@pytest.mark.parametrize("route", ["sm90", "f32"])
+@pytest.mark.parametrize("T,Dh,causal,seq_len", [(1024, 64, True, None), (1000, 32, True, None),
+                                                 (1000, 128, False, 900), (77, 64, False, None)],
+                         ids=["T1024-Dh64", "T1000-Dh32", "T1000-Dh128-seq900", "T77-Dh64"])
+def test_flash_backward_is_the_same_bits_on_every_call(cuda, route, T, Dh, causal, seq_len):
+    # dq is summed in key-block order (a ticket and a turn counter per
+    # query tile), so two calls on one input agree bit for bit, as the
+    # TPU's fixed-order _bwd_dq_kernel does.
+    B, H = 3, 4
+    dtype = torch.bfloat16 if route == "sm90" else torch.float32
+    rng = np.random.default_rng(T + Dh)
+    qkv = torch.from_numpy(rng.standard_normal((B, T, 3 * H, Dh)).astype(np.float32)).to(cuda)
+    q, k, v = (t.to(dtype) for t in qkv.split(H, dim=2))
+    do = torch.from_numpy(rng.standard_normal((B, T, H, Dh)).astype(np.float32)).to(cuda, dtype)
+    o, lse = flash_fwd_plain(q.float(), k.float(), v.float(), scale=1.0 / np.sqrt(Dh),
+                             causal=causal, seq_len=seq_len)
+    delta = (do.float() * o).sum(-1).transpose(1, 2).contiguous()
+    kern = flash_bwd_sm90 if route == "sm90" else flash_bwd_f32
+    first = kern(q, k, v, do, lse, delta, causal=causal, seq_len=seq_len)
+    for _ in range(3):
+        again = kern(q, k, v, do, lse, delta, causal=causal, seq_len=seq_len)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def _conv_train_setup(cuda, seed=0):
+    from tpu_dist_nn_torch.models.network import build_network
+
+    model = init_conv_mlp(torch.Generator().manual_seed(seed), in_shape=(16, 16, 3),
+                          conv_filters=(8, 16), hidden=(32,), num_classes=10)
+    rng = np.random.default_rng(seed + 1)
+    batches = [(rng.uniform(0, 1, (64, model.input_dim)).astype(np.float32),
+                rng.integers(0, 10, 64)) for _ in range(6)]
+    plan, params = build_network(model, device=cuda)
+    return model, plan, params, batches
+
+
+@pytest.mark.parametrize("opt_kw", [{}, dict(clip_norm=0.5, schedule="cosine", warmup_steps=2)],
+                         ids=["adam", "clip-cosine"])
+def test_graphed_conv_step_equals_the_eager_step(cuda, opt_kw):
+    # The conv step's convs run under cuDNN's deterministic algorithms,
+    # TF32 off (conv_flags): the captured step replays the eager one bit
+    # for bit.
+    from tpu_dist_nn_torch.train.optimizers import build_optimizer
+    from tpu_dist_nn_torch.train.trainer import (
+        _leaves,
+        _trainable,
+        compile_train_step,
+        make_network_train_step,
+    )
+
+    model, plan, params, batches = _conv_train_setup(cuda)
+    runs = []
+    for graphed in (False, True):
+        p = _trainable(params)
+        opt = build_optimizer(1e-3, total_steps=12, **opt_kw)
+        state = opt.init(_leaves(p))
+        step = make_network_train_step(plan, opt)
+        if graphed:
+            compiled = compile_train_step(step, p, state, opt, 64, model.input_dim)
+            losses = [compiled(bx, by).clone() for bx, by in batches]
+            assert next(iter(compiled.graphs.values())).replays == len(batches) - 1
+        else:
+            losses = [step(p, state, torch.from_numpy(bx).to(cuda),
+                           torch.from_numpy(by).to(cuda))[2].clone() for bx, by in batches]
+        runs.append(losses + _leaves(p) + state.mu + state.nu)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("clip_norm", [None, 0.05], ids=["plain", "clip"])
+def test_graphed_hetero_step_equals_the_eager_step(cuda, clip_norm):
+    from tpu_dist_nn_torch.parallel.hetero_pipeline import HeteroPipeline
+    from tpu_dist_nn_torch.train.hetero_trainer import make_hetero_train_step
+    from tpu_dist_nn_torch.train.optimizers import build_optimizer
+    from tpu_dist_nn_torch.train.trainer import _leaves, _trainable, compile_train_step
+
+    model, _, _, batches = _conv_train_setup(cuda, seed=2)
+    runs = []
+    for graphed in (False, True):
+        hp = HeteroPipeline(model, [2, 2, 2], devices=["cuda:0"] * 3)
+        p = _trainable(hp.stage_params())
+        opt = build_optimizer(1e-3, total_steps=12)
+        state = opt.init(_leaves(p))
+        step = make_hetero_train_step(hp, opt, 4, clip_norm=clip_norm)
+        if graphed:
+            compiled = compile_train_step(step, p, state, opt, 64, model.input_dim)
+            losses = [compiled(bx, by).clone() for bx, by in batches]
+        else:
+            losses = [step(p, state, torch.from_numpy(bx).to(cuda),
+                           torch.from_numpy(by).to(cuda))[2].clone() for bx, by in batches]
+        runs.append(losses + _leaves(p) + state.mu + state.nu)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_hetero_forward_launches_the_kernels_and_overlaps_dispatch(cuda):
+    from tpu_dist_nn_torch.models.network import build_network, network_forward
+    from tpu_dist_nn_torch.parallel.hetero_pipeline import (
+        HeteroPipeline,
+        measure_dispatch_overlap,
+    )
+
+    model = init_conv_mlp(torch.Generator().manual_seed(3))
+    hp = HeteroPipeline(model, [2, 2, 2], devices=["cuda:0"] * 3)
+    x = np.random.default_rng(4).uniform(0, 1, (1000, model.input_dim)).astype(np.float32)
+    plan, params = build_network(model, device=cuda)
+    want = network_forward(plan, params, torch.from_numpy(x).to(cuda)).cpu().numpy()
+    reset_launch_counts()
+    got = hp.forward(x, microbatch_size=256)  # 4 chunks, the last ragged
+    assert (fused_conv2d.launches, fcnn_fused_forward.launches) == (8, 4)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    # Chunks of 4,096 rows: each stage call's device time (~0.5 ms for
+    # the two convs) above the host's time to issue it.
+    m = measure_dispatch_overlap(hp, np.tile(x[:512], (64, 1)), microbatch_size=4096)
+    assert m["num_chunks"] == 8 and m["dispatch_ratio"] < 0.7, m
+
+
+def test_hetero_pipeline_across_cards(cuda):
+    # Beside test_pipeline_across_cards: [2, 2, 2] on three cards (peer
+    # copies at every hand-off, both ways in training; the step runs
+    # eagerly) against three slots of one card.
+    n_cards = torch.cuda.device_count()
+    if n_cards < 3:
+        pytest.skip(f"needs three or more cards, {n_cards} visible")
+    from tpu_dist_nn_torch.data.datasets import synthetic_mnist
+    from tpu_dist_nn_torch.train.trainer import TrainConfig
+
+    model = init_conv_mlp(torch.Generator().manual_seed(5))
+    x = np.random.default_rng(6).uniform(0, 1, (1001, model.input_dim)).astype(np.float32)
+    across = Engine.up(model, [2, 2, 2])
+    one_card = Engine.up(model, [2, 2, 2], devices=["cuda:0"] * 3)
+    assert len({d for row in across.placement()["slots"] for d in row}) == 3
+    np.testing.assert_allclose(across.infer(x), one_card.infer(x), rtol=1e-6, atol=1e-7)
+    data = synthetic_mnist(512, dim=model.input_dim, seed=7)
+    cfg = TrainConfig(epochs=1, batch_size=64, clip_norm=1.0)
+    h_across, h_one = across.train(data, cfg), one_card.train(data, cfg)
+    np.testing.assert_allclose(h_across[0]["loss"], h_one[0]["loss"], rtol=1e-6)
+    for a, b in zip(across.model.layers, one_card.model.layers):
+        if hasattr(a, "weights"):
+            np.testing.assert_allclose(a.weights, b.weights, rtol=1e-5, atol=1e-7)

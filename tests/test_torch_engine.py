@@ -234,6 +234,19 @@ assert np.allclose(pipe.infer(xs), oracle_forward_batch(load_model(sys.argv[1]),
 hist = pipe.train(Dataset(xs[:8].astype(np.float32), np.arange(8) % 3, 3),
                   TrainConfig(epochs=1, batch_size=4), schedule="1f1b")
 assert len(hist) == 1 and pipe.infer(xs).shape == (9, 3)
+# A conv model trained and served through the heterogeneous pipeline
+# on [2, n - 2] CPU slots, then single-program.
+from tpu_dist_nn_torch.models.network import init_conv_mlp
+conv = init_conv_mlp(torch.Generator().manual_seed(1), in_shape=(6, 6, 1), conv_filters=(4,),
+                     hidden=(8,), num_classes=3)
+n = len(conv.layers)
+cx = np.random.default_rng(1).uniform(size=(16, 36)).astype(np.float32)
+for dist, devs in (([2, n - 2], ["cpu", "cpu"]), (None, None)):
+    hetero = Engine.up(conv, dist, devices=devs, device="cpu", num_microbatches=2)
+    assert hetero.placement()["pipelined"] == (dist is not None)
+    hist = hetero.train(Dataset(cx, np.arange(16) % 3, 3), TrainConfig(epochs=2, batch_size=8))
+    assert len(hist) == 2 and np.isfinite(hist[-1]["loss"])
+    assert np.allclose(hetero.infer(cx), oracle_forward_batch(hetero.model, cx), atol=1e-5)
 # The LM training slice: flash attention's plain path with its backward,
 # two train_lm steps, evaluate_lm and the CLI's lm verb.
 from tpu_dist_nn_torch.data.text import lm_sequences, encode, synthetic_wikitext

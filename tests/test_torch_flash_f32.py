@@ -342,7 +342,8 @@ def _emulate_fwd(q, k, v, *, causal, seq_len):
 def _emulate_bwd(q, k, v, do, lse, delta, *, causal, seq_len):
     """``tdn_flash_bwd_f32``'s loops: one CTA per ``f32_tiles(Dh).bwd_keys``
     keys, query tiles of ``bwd_rows`` from the causal start; dq summed
-    one key block's partial at a time."""
+    one key block's partial at a time, in key-block order (the kernel's
+    turn counters)."""
     B, T, H, Dh = q.shape
     blk, bq = f32_tiles(Dh).bwd_keys, f32_tiles(Dh).bwd_rows
     scale = 1.0 / math.sqrt(Dh)

@@ -199,8 +199,9 @@ def _emulate_fwd(q, k, v, *, causal, seq_len, round_p):
 
 def _emulate_bwd(q, k, v, do, lse, delta, *, causal, seq_len, round_bf16):
     """``tdn_flash_bwd_sm90``'s loops: one CTA per 128 keys, two 64-key
-    warpgroups, 64-row query tiles from the causal start; dq summed into
-    a float32 workspace one warpgroup's partial at a time."""
+    warpgroups, 64-row query tiles from the causal start; a tile's dq is
+    warpgroup 0's partial plus warpgroup 1's, added into the float32
+    workspace in key-block order (the kernel's turn counters)."""
     B, T, H, Dh = q.shape
     blk, wg = SM90_TILES
     scale = 1.0 / math.sqrt(Dh)
@@ -216,9 +217,10 @@ def _emulate_bwd(q, k, v, do, lse, delta, *, causal, seq_len, round_bf16):
     dk = torch.zeros(B, T, H, Dh)
     dv = torch.zeros(B, T, H, Dh)
     rnd = (lambda t: t.to(torch.bfloat16).float()) if round_bf16 else (lambda t: t)
-    for kb in range(n_kb):
+    for kb in range(n_kb):  # the order the turn counters impose on each tile
         k0 = kb * blk
         i_begin = n_qt if k0 >= n_keys else (k0 // wg if causal else 0)
+        parts = {}  # query tile -> the CTA's dq partial, warpgroup 0's first
         for w in range(blk // wg):
             key_lo = k0 + wg * w
             keys = key_lo + torch.arange(wg)
@@ -242,12 +244,15 @@ def _emulate_bwd(q, k, v, do, lse, delta, *, causal, seq_len, round_bf16):
                 p, ds = rnd(p), rnd(ds)
                 dv_acc += torch.einsum("bhkq,bqhd->bhkd", p, dot)
                 dk_acc += torch.einsum("bhkq,bqhd->bhkd", ds, qt)
-                part = torch.einsum("bhkq,bkhd->bqhd", ds, kw_) * scale
-                keep = qs < T
-                dq[:, qs[keep]] += part[:, keep]
+                part = torch.einsum("bhkq,bkhd->bqhd", ds, kw_)
+                parts[i] = part if i not in parts else parts[i] + part
             keep = keys < T
             dk[:, keys[keep]] = (dk_acc * scale)[:, :, keep].transpose(1, 2)
             dv[:, keys[keep]] = dv_acc[:, :, keep].transpose(1, 2)
+        for i, part in sorted(parts.items()):
+            qs = i * wg + torch.arange(wg)
+            keep = qs < T
+            dq[:, qs[keep]] += (part * scale)[:, keep]
     return dq, dk, dv
 
 

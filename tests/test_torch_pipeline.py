@@ -372,7 +372,8 @@ def test_engine_placement_collapse_and_validation_match_jax(engine_file, tmp_pat
     assert eng.placement()["distribution"] == [4]
     # devices=None on the CPU is one slot: [1, 1, 1] collapses.
     assert not Engine.up(engine_file, [2, 1, 1], device="cpu").pipelined
-    # A conv model's multi-stage distribution collapses, logged.
+    # A conv model's multi-stage distribution runs the heterogeneous
+    # pipeline; with too few slots it collapses, logged.
     from tpu_dist_nn_torch.core.schema import save_model as port_save
     from tpu_dist_nn_torch.models.network import init_conv_mlp
 
@@ -380,9 +381,12 @@ def test_engine_placement_collapse_and_validation_match_jax(engine_file, tmp_pat
                          conv_filters=(2,), hidden=(6,), num_classes=3)
     port_save(conv, tmp_path / "conv.json")
     caplog.clear()
+    engc = Engine.up(tmp_path / "conv.json", [2, 2], devices=["cpu"] * 2)
+    assert engc.pipelined and engc.placement()["stage_layers"] == [2, 2]
+    assert engc.infer(np.zeros((2, 64))).shape == (2, 3)
     with caplog.at_level("INFO"):
-        engc = Engine.up(tmp_path / "conv.json", [2, 2], devices=["cpu"] * 2)
-    assert "heterogeneous pipeline" in caplog.text and not engc.pipelined
+        engc = Engine.up(tmp_path / "conv.json", [2, 2], devices=["cpu"])
+    assert "collapsing to the single-program executor" in caplog.text and not engc.pipelined
     assert engc.infer(np.zeros((2, 64))).shape == (2, 3)
     eng = Engine.up(engine_file, [1, 1, 1, 1], devices=["cpu"] * 4)
     eng.down()

@@ -255,11 +255,13 @@ def test_engine_train_refusals_match_jax(tmp_path):
                           schedule="interleaved")) == 1
     with pytest.raises(InvalidArgumentError, match="not divisible by virtual_stages=3"):
         Engine.up(path, [1, 1], virtual_stages=3, device="cpu")
-    with pytest.raises(InvalidArgumentError, match="Queue 1 item 8"):
-        Engine.up(init_conv_mlp(torch.Generator().manual_seed(0), in_shape=(6, 6, 1),
-                                conv_filters=(2,), hidden=(4,), num_classes=3),
-                  device="cpu").train(synthetic_mnist(32, num_classes=3, dim=36),
-                                      TrainConfig(epochs=1, batch_size=16))
+    # A conv model trains single-program, "gpipe" only, as in JAX.
+    conv = Engine.up(init_conv_mlp(torch.Generator().manual_seed(0), in_shape=(6, 6, 1),
+                                   conv_filters=(2,), hidden=(4,), num_classes=3), device="cpu")
+    conv_data = synthetic_mnist(32, num_classes=3, dim=36)
+    assert len(conv.train(conv_data, TrainConfig(epochs=1, batch_size=16))) == 1
+    with pytest.raises(ValueError, match="placed single-program"):
+        conv.train(conv_data, TrainConfig(epochs=1, batch_size=16), schedule="1f1b")
     eng.down()
     with pytest.raises(UnavailableError, match="engine is down"):
         eng.train(data, TrainConfig(epochs=1, batch_size=32))

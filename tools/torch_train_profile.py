@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU::
 
     python3 tools/torch_train_profile.py [--batch-size 64] [--warmup 50] [--steps 200]
-        [--schedule gpipe|1f1b|interleaved | --lm | --generate]
+        [--schedule gpipe|1f1b|interleaved | --conv | --hetero | --lm | --generate]
 
 Builds ``chip_smoke.py``'s full-width training recipe (784-128-64-10,
 relu / relu / softmax, Adam at 1e-3, seeded weights, ``synthetic_mnist``
@@ -34,8 +34,14 @@ given. ``--generate`` profiles one decode step of that LM's generation
 (``tpu_dist_nn_torch.models.generate``: seeded weights in bf16, batch
 16, a 128-byte prompt, a 639-position cache as for 512 new tokens; the
 eager step, and its captured graph as ``generate`` replays it), 10
-warm-up and 200 timed steps unless given. Exits 1 when the profiler
-recorded no device time. Imports nothing of JAX.
+warm-up and 200 timed steps unless given. ``--conv`` profiles the conv
+step of ``chip_smoke.py``'s conv train path instead (BASELINE
+``configs[3]``: ``init_conv_mlp``'s defaults, seeded, 32x32x3 rows of
+``synthetic_mnist``; ``make_network_train_step`` eager and captured by
+``compile_train_step``), and ``--hetero`` that network's step through
+the heterogeneous pipeline on ``[2, 2, 2]`` over three stage slots of
+the card, 4 microbatches (``make_hetero_train_step``). Exits 1 when the
+profiler recorded no device time. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -82,6 +88,10 @@ def main(argv=None) -> int:
     ap.add_argument("--schedule", choices=["gpipe", "1f1b", "interleaved"], default=None,
                     help="profile the pipelined step on [1, 1, 1] (three slots of the card; "
                          "interleaved: [1, 1, 1, 0] at 2 virtual stages on two)")
+    ap.add_argument("--conv", action="store_true",
+                    help="profile the configs[3] conv step, one program")
+    ap.add_argument("--hetero", action="store_true",
+                    help="profile the configs[3] conv step through [2, 2, 2]")
     ap.add_argument("--lm", action="store_true", help="profile the 85M LM step")
     ap.add_argument("--generate", action="store_true",
                     help="profile the 85M LM's decode step")
@@ -121,7 +131,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     acts = ["relu", "relu", "softmax"]
-    data = synthetic_mnist(64 * (args.warmup + 2 * args.steps), seed=0)
+    conv = args.conv or args.hetero
+    data = synthetic_mnist(args.batch_size * (args.warmup + 2 * args.steps),
+                           dim=3072 if conv else 784, seed=0)
     what = "one program"
     if args.schedule:
         v = 2 if args.schedule == "interleaved" else 1
@@ -129,6 +141,10 @@ def main(argv=None) -> int:
         what = (f"the {args.schedule} pipeline on {dist}, {len(dist) // v} slots, "
                 "4 microbatches")
 
+    if conv:
+        what = ("the configs[3] conv network (32x32x3, conv 16 + pool, conv 32 + pool, "
+                "2048-64-10), " + ("[2, 2, 2] on three slots, 4 microbatches" if args.hetero
+                                   else "one program"))
     if args.lm:
         what = "the 85M LM (d 768, 12 layers, T 1024, bf16, remat)"
     if args.generate:
@@ -187,12 +203,39 @@ def main(argv=None) -> int:
                 step(params, state, torch.from_numpy(next(stream)).to(dev).long())
         return one_step
 
+    def build_conv(graphed: bool):
+        from tpu_dist_nn_torch.models.network import build_network, init_conv_mlp
+        from tpu_dist_nn_torch.parallel.hetero_pipeline import HeteroPipeline
+        from tpu_dist_nn_torch.train.hetero_trainer import make_hetero_train_step
+        from tpu_dist_nn_torch.train.trainer import _trainable, make_network_train_step
+
+        spec = init_conv_mlp(torch.Generator().manual_seed(0))
+        opt = optimizer_for(TrainConfig(batch_size=args.batch_size), data)
+        if args.hetero:
+            hp = HeteroPipeline(spec, [2, 2, 2], devices=[dev] * 3)
+            p = _trainable(hp.stage_params())
+            step = make_hetero_train_step(hp, opt, 4)
+        else:
+            plan, params = build_network(spec, device=dev)
+            p = _trainable(params)
+            step = make_network_train_step(plan, opt)
+        state = opt.init(_leaves(p))
+        if graphed:
+            return compile_train_step(step, p, state, opt, args.batch_size, spec.input_dim)
+
+        def one_step(bx, by):
+            step(p, state, torch.as_tensor(bx, device=dev),
+                 torch.as_tensor(by, dtype=torch.long, device=dev))
+        return one_step
+
     def build(graphed: bool):
         """A fresh step from the seeded weights: ``one_step(bx, by)``."""
         if args.generate:
             return build_generate(graphed)
         if args.lm:
             return build_lm(graphed)
+        if conv:
+            return build_conv(graphed)
         params = init_fcnn(torch.Generator().manual_seed(0), [784, 128, 64, 10], acts,
                            device=dev)
         opt = optimizer_for(TrainConfig(batch_size=args.batch_size), data)
@@ -286,7 +329,7 @@ def main(argv=None) -> int:
         print(f"  top device operations (ms/step, count/step):")
         for key, ms in sorted(per_step.items(), key=lambda kv: -kv[1])[:8]:
             print(f"  {ms:9.4f}  {counts[key]:6.1f}  {key[:110]}")
-        if args.schedule or graphed:
+        if args.schedule or args.hetero or graphed:
             host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
             print("  top host operations by self time (ms/step, count/step; profiler on):")
             for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
@@ -294,7 +337,7 @@ def main(argv=None) -> int:
                       f"{e.count / args.steps:6.1f}  {e.key[:110]}")
         return True
 
-    model = "" if args.lm or args.generate else "784-128-64-10 "
+    model = "" if args.lm or args.generate or conv else "784-128-64-10 "
     print(f"device {torch.cuda.get_device_name(0)}; torch {torch.__version__}; "
           f"{model}at batch {args.batch_size}, {what}; {args.steps} steps timed after "
           f"{args.warmup}, {args.steps} more profiled")

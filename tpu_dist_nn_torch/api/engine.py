@@ -37,11 +37,15 @@ on a stage slot (a device and its own CUDA stream), the GPipe schedule
 issuing one chain-kernel launch a stage a microbatch. ``devices``
 defaults to the visible cards, each counted once; a list may name one
 card several times, and each mention is a slot with its own stream.
-A placement that needs more slots than there are collapses to the
-single-program executor, as the JAX Engine collapses to one chip, and
-so do a conv model's multi-stage distribution (the heterogeneous
-pipeline is not ported) and a single-stage data-parallel placement
-(the data-sharded single program is not ported); each is logged.
+A conv model's multi-stage distribution is served by the
+heterogeneous pipeline
+(:class:`~tpu_dist_nn_torch.parallel.hetero_pipeline.HeteroPipeline`):
+each stage's layers on a slot, through the conv and chain kernels,
+``len(x) // num_microbatches`` rows a chunk. A placement that needs
+more slots than there are collapses to the single-program executor, as
+the JAX Engine collapses to one chip, and so does a single-stage
+data-parallel placement (the data-sharded single program is not
+ported); each is logged.
 
 On a card, a pipelined engine whose slots share one card serves each
 pow2 row bucket through a captured CUDA graph of the pipelined forward
@@ -60,10 +64,13 @@ reroutes serving to the f32 chain (``int8_auto_disabled``).
 ``TDN_INT8_WARMUP_MEASURE=0`` skips the measurement.
 
 Training (:meth:`Engine.train`) trains a dense engine's params in place
-with :func:`~tpu_dist_nn_torch.train.trainer.train_fcnn`, or a
-pipelined engine's stages through the ``gpipe``, ``1f1b`` or
+with :func:`~tpu_dist_nn_torch.train.trainer.train_fcnn`, a conv
+engine's with :func:`~tpu_dist_nn_torch.train.trainer.train_network`,
+a pipelined dense engine's stages through the ``gpipe``, ``1f1b`` or
 ``interleaved`` schedule
 (:func:`~tpu_dist_nn_torch.train.pipeline_trainer.train_pipelined`),
+or a heterogeneous pipeline's through its GPipe schedule
+(:func:`~tpu_dist_nn_torch.train.hetero_trainer.train_hetero`),
 and serves the trained weights on every path afterwards.
 """
 
@@ -81,7 +88,12 @@ from tpu_dist_nn_torch.core.schema import ModelSpec, load_model, partition_model
 from tpu_dist_nn_torch.data.feed import batch_iterator
 from tpu_dist_nn_torch.kernels.quantized import quantize_fcnn
 from tpu_dist_nn_torch.models.fcnn import params_from_spec
-from tpu_dist_nn_torch.models.network import build_network, dense_forward, network_forward
+from tpu_dist_nn_torch.models.network import (
+    build_network,
+    dense_forward,
+    network_forward,
+    network_model_from_params,
+)
 from tpu_dist_nn_torch.obs.log import get_logger
 from tpu_dist_nn_torch.obs.registry import REGISTRY
 from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh, visible_devices
@@ -189,12 +201,17 @@ class Engine:
         self._params = None  # single-program params
         self._pp = None  # pipelined: the padded contract
         self._placed = None  # pipelined: the f32 stages on their slots
+        self._hp = None  # heterogeneous (non-dense) pipeline executor
         self._graphs: dict = {}  # pipelined on one card: "f32" / "int8" -> GraphedPlaced
-        if self.pipelined:
-            if not model.is_dense:
-                raise InvalidArgumentError(
-                    "the heterogeneous (conv) pipeline is not ported; Engine.up "
-                    "collapses a conv model to the single-program executor")
+        if self.pipelined and not model.is_dense:
+            from tpu_dist_nn_torch.parallel.hetero_pipeline import HeteroPipeline
+
+            self._hp = HeteroPipeline(model, self.distribution,
+                                      devices=visible_devices(device) if devices is None
+                                      else devices, dtype=dtype)
+            self.mesh = self._hp.mesh
+            self.device = self._hp.device
+        elif self.pipelined:
             self.mesh = build_mesh(mesh_spec, devices)
             self._pp = build_pipeline_params(partition_model(model, self.distribution))
             self._placed = place_pipeline(self.mesh, self._pp, num_virtual=self.virtual_stages)
@@ -249,11 +266,13 @@ class Engine:
         runs the pipeline in ``num_microbatches`` microbatches; with
         too few it collapses to one program (logged). ``quantize="int8"``
         serves through the int8 chain kernel (dense models only). A conv
-        model serves through the conv and chain kernels, on one program.
+        model serves through the conv and chain kernels.
         ``warm_rows > 0`` runs the whole pow2 row-bucket ladder up to
         that many rows at bring-up. ``virtual_stages=v > 1`` selects the
         interleaved placement: the distribution's ``V`` entries are
-        chunks, chunk ``c`` on stage slot ``c % (V/v)``.
+        chunks, chunk ``c`` on stage slot ``c % (V/v)``. A conv model's
+        ``S``-stage distribution with ``S`` slots runs the heterogeneous
+        pipeline (its ``data_parallel`` is ignored, logged).
         """
         t0 = time.monotonic()
         if devices is not None:
@@ -315,13 +334,6 @@ class Engine:
                     stages, data_parallel, n_devices,
                 )
                 mesh_spec = single
-            elif stages > 1 and not model.is_dense:
-                log.info(
-                    "placement: the heterogeneous pipeline of a conv model is not "
-                    "ported (ROADMAP Queue 1 item 8); collapsing %d stages to the "
-                    "single-program executor", stages,
-                )
-                mesh_spec = single
             elif stages == 1 and data_parallel > 1:
                 log.info(
                     "placement: the data-sharded single program is not ported; "
@@ -361,7 +373,10 @@ class Engine:
         }
         if self.virtual_stages > 1:
             base["virtual_stages"] = self.virtual_stages
-        if self.pipelined:
+        if self._hp is not None:
+            base.update(self._hp.placement_summary())
+            base["slots"] = [[str(slot.device) for slot in row] for row in self.mesh.slots]
+        elif self.pipelined:
             base.update(pipeline_spec_summary(self._pp))
             base["slots"] = [[str(slot.device) for slot in row] for row in self.mesh.slots]
         else:
@@ -404,7 +419,7 @@ class Engine:
         # are (the same float32 values at a quarter of the bytes); the
         # int8 and conv paths take them cast.
         dtype = (torch.uint8 if x.dtype == np.uint8 and not self._serves_int8
-                 and self._plan is None else self.dtype)
+                 and self._plan is None and self._hp is None else self.dtype)
         if self.device.type == "cpu":
             out = self._forward(host.to(dtype))
             return PendingInference(out, None)
@@ -429,6 +444,8 @@ class Engine:
         return self._q is not None and not self.int8_auto_disabled
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._hp is not None:
+            return self._hp.run(x, max(1, len(x) // self.num_microbatches))
         if self.pipelined:
             # Plain, interleaved, int8 or both: the placed stages carry it.
             placed = self._q if self._serves_int8 else self._placed
@@ -635,7 +652,7 @@ class Engine:
 
     def train(self, train_data, config=None, eval_data=None, checkpoints=None,
               schedule: str = "gpipe") -> list[dict]:
-        """Train a dense engine in place; returns the history.
+        """Train the engine's weights in place; returns the history.
 
         ``config`` is a :class:`~tpu_dist_nn_torch.train.trainer.TrainConfig`
         (default: the reference recipe); ``checkpoints`` a
@@ -643,12 +660,13 @@ class Engine:
         epoch-level save and resume. A pipelined engine trains through
         its stages with ``schedule`` "gpipe", "1f1b" or, on an
         interleaved placement (which selects it), "interleaved"; a
-        single-program engine trains "gpipe" only. Afterwards the engine
+        single-program engine and a conv model's heterogeneous pipeline
+        train "gpipe" only. Afterwards the engine
         serves the trained weights on every path: ``model`` holds them
         in float64 and an int8 engine is re-quantized.
         """
         from tpu_dist_nn_torch.train.pipeline_trainer import train_pipelined
-        from tpu_dist_nn_torch.train.trainer import TrainConfig, train_fcnn
+        from tpu_dist_nn_torch.train.trainer import TrainConfig, train_fcnn, train_network
 
         validate_schedule(schedule)
         if schedule in ("zb", "zb-v"):
@@ -684,25 +702,54 @@ class Engine:
                 "training with the default schedule"
             )
             schedule = "gpipe"
-        if schedule != "gpipe" and not self.pipelined:
+        # The heterogeneous executor trains through its own GPipe
+        # schedule (train_hetero), which has no 1f1b variant.
+        if schedule != "gpipe" and (not self.pipelined or self._hp is not None):
             raise ValueError(
                 f"schedule={schedule!r} applies to the dense pipelined "
-                "placement only (this engine was placed single-program); "
-                "place a dense model with a multi-stage distribution to use it"
-            )
-        if self._plan is not None:
-            raise InvalidArgumentError(
-                "training a conv/pool network is not ported yet (ROADMAP "
-                "Queue 1 item 8: conv training and the hetero pipeline); "
-                "the port trains dense models"
+                "placement only (this engine was placed "
+                + ("heterogeneous" if self._hp is not None else "single-program")
+                + "); place a dense model with a multi-stage distribution "
+                "to use it"
             )
         if not self.is_ready:
             raise UnavailableError(
                 "engine is down; relaunch with Engine.up from the model JSON"
             )
+        config = config or TrainConfig()
+        if self._hp is not None:
+            from tpu_dist_nn_torch.train.hetero_trainer import train_hetero
+
+            # num_microbatches is an inference knob set at up(); training
+            # takes the largest divisor of the batch size not above it.
+            mb = max(d for d in range(1, self.num_microbatches + 1)
+                     if config.batch_size % d == 0)
+            if mb != self.num_microbatches:
+                log.log(
+                    logging.WARNING if mb == 1 else logging.INFO,
+                    "train: using %d microbatches (engine's %d does not "
+                    "divide batch_size %d)%s",
+                    mb, self.num_microbatches, config.batch_size,
+                    " — pipelined training fully serializes; choose a "
+                    "batch size with a divisor > 1" if mb == 1 else "",
+                )
+            params_list, history = train_hetero(
+                self._hp, train_data, config, eval_data=eval_data,
+                checkpoints=checkpoints, num_microbatches=mb,
+            )
+            flat = [p for stage_params in params_list for p in stage_params]
+            self.model = network_model_from_params(self.model, flat)
+            return history
+        if self._plan is not None:
+            self._params, history = train_network(
+                self._plan, self._params, train_data, config,
+                eval_data=eval_data, checkpoints=checkpoints,
+            )
+            self.model = network_model_from_params(self.model, self._params)
+            return history
         if self.pipelined:
             self._pp, history = train_pipelined(
-                self._pp, self.mesh, train_data, config or TrainConfig(),
+                self._pp, self.mesh, train_data, config,
                 num_microbatches=self.num_microbatches, eval_data=eval_data,
                 checkpoints=checkpoints, schedule=schedule, num_virtual=self.virtual_stages,
             )
@@ -711,7 +758,7 @@ class Engine:
             self._graphs.clear()
         else:
             self._params, history = train_fcnn(
-                self._params, train_data, config or TrainConfig(),
+                self._params, train_data, config,
                 eval_data=eval_data, checkpoints=checkpoints,
             )
             layers = [
@@ -745,14 +792,17 @@ class Engine:
         operation queued on it (a caller's thread may still hold a
         launched batch). Idempotent; relaunch = ``Engine.up`` again from
         the JSON model (run_grpc_fcnn.py:329-344)."""
-        if self.device.type == "cuda" and self.is_ready:
-            torch.cuda.synchronize(self.device)
+        if self.is_ready:
+            for dev in {self.device} | (self.mesh.devices if self.mesh is not None else set()):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
         self._graphs.clear()
         self._params = None
         self._placed = None
         self._q = None
+        self._hp = None
 
     @property
     def is_ready(self) -> bool:
-        return self._params is not None or self._placed is not None
+        return self._params is not None or self._placed is not None or self._hp is not None
 

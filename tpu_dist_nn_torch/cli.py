@@ -11,22 +11,25 @@ printed lines:
   an examples file: whole set, ``--batch-size`` chunks, or one
   ``input_index``; ``--quantize int8`` (dense models);
   ``--distribution``, ``--data-parallel``, ``--microbatches`` and
-  ``--virtual-stages`` (the Engine's placement: the layer pipeline over
-  the visible cards, one program on one card). With
+  ``--virtual-stages`` (the Engine's placement: the layer pipeline, or
+  a conv model's heterogeneous pipeline, over the visible cards; one
+  program on one card). With
   ``--target host:port`` (or ``--port``) it is a pure gRPC client of a
   running ``up --grpc-port`` server (the reference client's role; no
   ``--config``).
 * ``oracle`` — the float64 numpy baseline (scripts/manual_nn.py:88-99).
 * ``doctor`` — a readiness report: the forward against the oracle, and
   a ``fused_dense`` kernel probe against its plain version.
-* ``train`` — native FCNN training (``tdn train``): a fresh model
-  (``--layers``, dataset-aware default) or ``--config``, on synthetic,
-  fashion, the vendored digits, IDX or examples-JSON data, with the
-  optimizer controls, per-epoch checkpoints and resume, per-epoch report
-  lines, ``--metrics-out`` and ``--out`` (the trained model JSON). The
-  step is plain autograd; each epoch's eval runs the chain kernel on the
-  card. Left for later slices: ``--metrics-port`` and the multi-host
-  flags; ``--checkpoint-format orbax`` is refused.
+* ``train`` — native training (``tdn train``): a fresh FCNN
+  (``--layers``, dataset-aware default) or ``--config`` (a dense or a
+  conv model, single-program or through ``--distribution``), on
+  synthetic, fashion, the vendored digits, IDX or examples-JSON data,
+  with the optimizer controls, per-epoch checkpoints and resume,
+  per-epoch report lines, ``--metrics-out`` and ``--out`` (the trained
+  model JSON). The step is plain autograd; each epoch's eval runs the
+  chain (and conv) kernels on the card. Left for later slices:
+  ``--metrics-port`` and the multi-host flags; ``--checkpoint-format
+  orbax`` is refused.
 * ``lm`` — train and evaluate the byte-level Transformer LM on one
   device (the flash-attention kernels on the card), with ``tdn lm``'s
   corpus tiers, 95/5 split, per-step log lines and final JSON report;
@@ -420,7 +423,8 @@ def _train_data(args, model):
 
 
 def cmd_train(args) -> int:
-    """Native FCNN training (``tdn train``'s single-program path)."""
+    """Native training of an FCNN or a ``--config`` model (dense or conv),
+    single-program or through the Engine's pipelined placement."""
     import torch
 
     from tpu_dist_nn_torch.api.engine import Engine

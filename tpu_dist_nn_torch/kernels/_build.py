@@ -63,11 +63,11 @@ LIBRARIES = {
     "conv2d": {"tdn_conv2d": (_P, _P, _P, _P, _PI, _P)},
     "flash_attention_f32": {
         "tdn_flash_fwd_f32": (_P, _P, _P, _P, _P, _PI, _F, _P),
-        "tdn_flash_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _PI, _F, _P),
+        "tdn_flash_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _PI, _F, _P),
     },
     "flash_attention_sm90": {
         "tdn_flash_fwd_sm90": (_P, _P, _P, _P, _P, _PL, _F, _P),
-        "tdn_flash_bwd_sm90": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _PL, _F, _P),
+        "tdn_flash_bwd_sm90": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _PL, _F, _P),
     },
 }
 

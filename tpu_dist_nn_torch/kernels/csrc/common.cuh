@@ -64,6 +64,36 @@ __device__ __forceinline__ void softmax_row_warp(float* row, int n, int lane) {
   for (int c = lane; c < n; c += 32) row[c] = row[c] / s;
 }
 
+// Ordered sums across CTAs (the flash backwards' dq). A CTA takes a
+// ticket from a zeroed counter at its start and maps the ticket, not
+// blockIdx, to its work: a CTA holding ticket t is running, so every
+// ticket below t belongs to a CTA that is running or has finished. A CTA
+// that waits only on lower tickets therefore always makes progress,
+// whatever order the hardware dispatches the grid in. A turn counter per
+// summed tile then lets its adders in one at a time, in a fixed order.
+__device__ __forceinline__ int take_ticket(int* counter) { return atomicAdd(counter, 1); }
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// Spin until *turn == want. A turn that has not come after about 9 s
+// traps, so a fault ends the launch with an error instead of hanging
+// the card.
+__device__ __forceinline__ void wait_turn(const int* turn, int want) {
+  const long long t0 = clock64();
+  while (load_acquire(turn) != want) {
+    if (clock64() - t0 > (1LL << 34)) __trap();
+    __nanosleep(64);
+  }
+}
+
 }  // namespace tdn
 
 // Each kernel library exports this so the Python wrapper can name a

@@ -57,10 +57,21 @@
 //   P^T = exp2(S^T scale log2 e - lse log2 e), masked to 0,
 //   dS^T = P^T (dP^T - delta),
 //   dV += P^T dO and dK += dS^T Q (P^T, dS^T: A fragments in registers),
-//   dS goes to shared memory, then dQ += dS K by query rows, added into
-//   the float32 dq output (zeroed by the wrapper) with float2 atomicAdd
-//   (a red.global.add: its result is unused).
-// dq therefore sums in an order that changes from run to run.
+//   dS goes to shared memory, then dQ += dS K by query rows (each dQ
+//   element of the tile from one warp), added into the float32 dq output
+//   (zeroed by the wrapper) with float2 red.global.add.
+// dq is summed in a fixed order, so a call's dq is the same bits on every
+// run of the same inputs (the TPU's _bwd_dq_kernel sums the key blocks of
+// a query block in a fixed loop order too): a turn counter per
+// (batch*head, query tile) lets key block j add its partial only after
+// block j - 1 has added. Thread 0 waits for the turn before the barrier
+// that publishes dS, and moves it on (a release store) after the next
+// tile's first barrier, which follows every warp's adds. A CTA takes its
+// (key block, batch*head) from a ticket counter at its start, lower key
+// blocks first, so the block it waits on is running or done and the
+// waits cannot deadlock whatever order the grid is dispatched in
+// (tdn::take_ticket). Both counters live in an int32 workspace the
+// wrapper zeroes with dq (one allocation).
 //
 // Contracts kept from the TPU kernels: lse (B, H, T) float32 in natural
 // log, keys at or past seq_len masked, causal, the finite -1e30 start of
@@ -491,7 +502,7 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
-                     Args a, float scale) {
+                     int* __restrict__ order, Args a, float scale) {
   constexpr int P = D + 4, BQ = bwd_rows(D);
   constexpr int kMT = BQ / 16;         // dQ: 16-row m-tiles of a query tile
   constexpr int kNT = D / 8 / (kWarps / kMT);  // dQ: n-tiles of a warp
@@ -503,9 +514,14 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* ring = Vl + kBlock * P;      // 2 stages
   float* dSs = ring + 2 * bwd_stage_floats<D>();  // BQ x kDsPitch, [query][key]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  __shared__ int ticket;
+  if (threadIdx.x == 0) ticket = tdn::take_ticket(order);
+  __syncthreads();
   const int BH = a.B * a.H;
-  const int k0 = static_cast<int>(blockIdx.x) / BH * kBlock;  // the longest causal columns first
-  const int bh = static_cast<int>(blockIdx.x) % BH, b = bh / a.H, h = bh % a.H;
+  const int kb = ticket / BH;  // the key block: the longest causal columns first
+  const int k0 = kb * kBlock;
+  const int bh = ticket % BH, b = bh / a.H, h = bh % a.H;
+  int* turns = order + 1 + static_cast<size_t>(bh) * cdiv(a.T, BQ);  // one a query tile
   const int n_keys = min(a.T, a.seq_len);
   // Keys at or past seq_len are masked for every query: their dk, dv stay 0.
   const int q_begin = k0 >= n_keys ? a.T : (a.causal ? k0 : 0);
@@ -541,6 +557,8 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int it = 0; it < n_qt; ++it) {
     cp_async_wait_all();
     __syncthreads();  // tile it landed; every warp is done with the stage tile it + 1 overwrites
+    // Every warp has added the previous tile: its turn moves on.
+    if (it > 0 && threadIdx.x == 0) tdn::store_release(turns + (q_begin / BQ + it - 1), kb + 1);
     const int q0 = q_begin + it * BQ;
     if (it + 1 < n_qt)
       stage_q_tile<D>(ring + ((it + 1) & 1) * bwd_stage_floats<D>(), qbase, obase, lse_row,
@@ -619,7 +637,8 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         dSs[(8 * j + 2 * t + (e & 1)) * kDsPitch + kr + g + 8 * (e >> 1)] = dp[0][j][e];
-    __syncthreads();
+    if (threadIdx.x == 0) tdn::wait_turn(turns + q0 / BQ, kb);
+    __syncthreads();  // dS is in shared memory; key block kb - 1 has added this tile
 
     // dQ += dS K over the block's 64 keys (permuted order), then into dq.
     const int mt = warp % kMT, n_base = (warp / kMT) * kNT;
@@ -666,6 +685,8 @@ flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   cp_async_wait_all();
+  __syncthreads();
+  if (n_qt > 0 && threadIdx.x == 0) tdn::store_release(turns + (q_begin / BQ + n_qt - 1), kb + 1);
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -730,13 +751,13 @@ int launch_fwd(const Args& a, const float* q, const float* k, const float* v, fl
 
 template <int D>
 int launch_bwd(const Args& a, const float* q, const float* k, const float* v, const float* dout,
-               const float* lse, const float* delta, float* dq, float* dk, float* dv, float scale,
-               cudaStream_t s) {
+               const float* lse, const float* delta, float* dq, float* dk, float* dv, int* order,
+               float scale, cudaStream_t s) {
   const int floats = bwd_floats<D>();
   if (int err = prepare(flash_bwd_f32_kernel<D>, floats)) return err;
   const unsigned grid = (unsigned)(a.B * a.H) * cdiv(a.T, kBlock);
   flash_bwd_f32_kernel<D><<<grid, kThreads, floats * sizeof(float), s>>>(
-      q, k, v, dout, lse, delta, dq, dk, dv, a, scale);
+      q, k, v, dout, lse, delta, dq, dk, dv, order, a, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -763,10 +784,11 @@ extern "C" int tdn_flash_fwd_f32(const void* q, const void* k, const void* v, vo
 // As tdn_flash_fwd_f32, plus dout: contiguous float32 (B, T, H, Dh);
 // lse, delta: contiguous (B, H, T) float32; dq: contiguous float32 (B,
 // T, H, Dh), zeroed by the caller (the kernel adds into it); dk, dv:
-// contiguous float32 (B, T, H, Dh).
+// contiguous float32 (B, T, H, Dh); order: zeroed int32, 1 + B * H *
+// ceil(T / bwd_rows) of them (the ticket and the turn counters).
 extern "C" int tdn_flash_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                                 const int* p, float scale, void* stream) {
+                                 void* order, const int* p, float scale, void* stream) {
   Args a;
   const int d = args_from(p, true, &a);
   if (d < 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -775,8 +797,9 @@ extern "C" int tdn_flash_bwd_f32(const void* q, const void* k, const void* v, co
               *fv = static_cast<const float*>(v), *fo = static_cast<const float*>(dout),
               *fl = static_cast<const float*>(lse), *fd = static_cast<const float*>(delta);
   float *gq = static_cast<float*>(dq), *gk = static_cast<float*>(dk), *gv = static_cast<float*>(dv);
+  int* ord = static_cast<int*>(order);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 32) return launch_bwd<32>(a, fq, fk, fv, fo, fl, fd, gq, gk, gv, scale, s);
-  if (d == 64) return launch_bwd<64>(a, fq, fk, fv, fo, fl, fd, gq, gk, gv, scale, s);
-  return launch_bwd<128>(a, fq, fk, fv, fo, fl, fd, gq, gk, gv, scale, s);
+  if (d == 32) return launch_bwd<32>(a, fq, fk, fv, fo, fl, fd, gq, gk, gv, ord, scale, s);
+  if (d == 64) return launch_bwd<64>(a, fq, fk, fv, fo, fl, fd, gq, gk, gv, ord, scale, s);
+  return launch_bwd<128>(a, fq, fk, fv, fo, fl, fd, gq, gk, gv, ord, scale, s);
 }

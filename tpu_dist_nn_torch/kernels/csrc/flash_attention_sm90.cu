@@ -49,11 +49,25 @@
 //   dV += P^T dO and dK += dS^T Q (P^T, dS^T bf16 A operands from
 //   registers, dO and Q MN-major),
 //   dQ += dS K: dS^T goes to shared memory (bf16, 128B swizzle) and is
-//   wgmma's A with the transpose bit; each warpgroup adds its 64 x Dh
-//   partial into a float32 (B, T, H, Dh) workspace with float2 atomicAdd
-//   (a vector red.global.add: its result is unused), which the wrapper
-//   zeroes first and casts after.
-// dq therefore sums in an order that changes from run to run.
+//   wgmma's A with the transpose bit.
+// dq is summed in a fixed order, so a call's dq is the same bits on
+// every run of the same inputs (the TPU's _bwd_dq_kernel sums the key
+// blocks of a query block in a fixed loop order too). Warpgroup 1 puts
+// its 64 x Dh dq partial of the tile into shared memory (two buffers, by
+// the tile's parity, handed over with named barriers) and warpgroup 0
+// adds it to its own; then warpgroup 0 adds the CTA's partial into a
+// float32 (B, T, H, Dh) workspace (float2 red.global.add), which the
+// wrapper zeroes first and casts after, in key-block order: a turn
+// counter per (batch*head, query tile) lets key block j add only after
+// block j - 1 has added. One thread waits for the turn while the tile's
+// dQ product runs, and moves it on (a release store after a barrier over
+// the adding warpgroup) during the next tile's products, so neither
+// latency stalls the warpgroup. Key block j waits only on block j - 1,
+// and a CTA takes its (key block, batch*head) from a ticket counter at
+// its start (lower key blocks get lower tickets), so the block it waits
+// on is running or done: the waits cannot deadlock whatever order the
+// grid is dispatched in (tdn::take_ticket). Both counters live in an
+// int32 workspace the wrapper zeroes with dq's (one allocation).
 //
 // Contracts kept from the TPU kernels: o in q's type, lse (B, H, T)
 // float32 in natural log, keys at or past seq_len masked, causal, the
@@ -163,6 +177,17 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 // is __syncthreads).
 __device__ __forceinline__ void wg_barrier(int wg) {
   asm volatile("bar.sync %0, 128;" ::"r"(wg + 1) : "memory");
+}
+
+// The backward's hand-over of warpgroup 1's dq partial to warpgroup 0:
+// barrier ids 3-6 over both consumer warpgroups (256 threads); one side
+// arrives, the other waits.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -554,7 +579,9 @@ struct BwdSmem {
   static constexpr int kQ = kV + kKV;                   // kStages tiles
   static constexpr int kDO = kQ + kStages * kQT;        // kStages tiles
   static constexpr int kDs = kDO + kStages * kQT;       // 2 warpgroups
-  static constexpr int kRows = kDs + 2 * kDsT;          // [kStages][lse * log2(e), delta][64] f32
+  static constexpr int kDqX = kDs + 2 * kDsT;          // warpgroup 1's dq partials: 2 buffers
+  static constexpr int kDqXT = kWgRows * D * 4;         // one: 128 threads x D/2 floats
+  static constexpr int kRows = kDqX + 2 * kDqXT;        // [kStages][lse * log2(e), delta][64] f32
   static constexpr int kBars = kRows + kStages * 2 * kWgRows * 4;  // kv_full, full[], empty[]
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
 };
@@ -567,7 +594,7 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dq_accum,
                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                      const Sm90Args a) {
+                      int* __restrict__ order, const Sm90Args a) {
   using L = Tile<D>;
   using S = BwdSmem<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -577,15 +604,20 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + kStages;
 
+  __shared__ int ticket;
+  if (threadIdx.x == 0) ticket = tdn::take_ticket(order);
+  __syncthreads();
   const int BH = a.B * a.H;
-  const int bh = static_cast<int>(blockIdx.x) % BH;
-  const int k0 = static_cast<int>(blockIdx.x) / BH * kBlock;  // the longest causal columns first
+  const int bh = ticket % BH;
+  const int kb = ticket / BH;  // the key block: the longest causal columns first
+  const int k0 = kb * kBlock;
   const int b = bh / a.H, h = bh % a.H;
   const int n_keys = min(a.T, a.seq_len);
   const int n_qt = (a.T + kWgRows - 1) / kWgRows;
   // Keys at or past seq_len are masked for every query: their dk, dv stay 0.
   const int i_begin = k0 >= n_keys ? n_qt : (a.causal ? k0 / kWgRows : 0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int* turns = order + 1 + static_cast<size_t>(bh) * n_qt;  // one a query tile
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -648,13 +680,18 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
 
+  const int tid = threadIdx.x % 128;  // the thread's place in its warpgroup
+  int pending = -1;  // warpgroup 0: the query tile whose turn it has yet to move on
   mbar_wait(kv_full, 0);
   for (int i = i_begin, it = 0; i < n_qt; ++i, ++it) {
     const int s = it % kStages;
     mbar_wait(&full[s], (it / kStages) & 1);
     const int q0 = i * kWgRows;
-    // Every pair of this tile masked: no product, no dq contribution.
+    // Every pair of a warpgroup's tile masked: no product, no dq contribution.
     const bool skip = key_lo >= n_keys || (a.causal && q0 + kWgRows - 1 < key_lo);
+    const int lo1 = k0 + kWgRows;  // warpgroup 1's first key
+    const bool skip1 = lo1 >= n_keys || (a.causal && q0 + kWgRows - 1 < lo1);
+    float dq[D / 2];  // this warpgroup's share of dQ for the tile: 64 queries x D
     if (!skip) {
       const uint32_t q_base = smem_u32(smem + S::kQ + s * S::kQT);
       const uint32_t do_base = smem_u32(smem + S::kDO + s * S::kQT);
@@ -715,6 +752,9 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       // dS^T to shared memory, 128B-swizzled as TMA would have written it,
       // for dQ = dS K with dS^T as an MN-major A operand.
       wg_barrier(wg);  // every warp's previous dQ product has read the tile
+      // ... and has added it: the previous tile's turn moves on.
+      if (wg == 0 && tid == 0 && pending >= 0) tdn::store_release(turns + pending, kb + 1);
+      pending = -1;
 #pragma unroll
       for (int kk = 0; kk < kWgRows / 16; ++kk)
 #pragma unroll
@@ -727,20 +767,57 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       wg_barrier(wg);
 
-      float dq[D / 2];  // this warpgroup's share of dQ for the tile: 64 queries x D
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < kWgRows / 16; ++kk)
         Mma<D>::template ss<1, 1>(dq, make_desc(ds_base + 16 * kk * 128, kWgRows * 128, 1024, 1),
                                   mnmajor<D>(k_base, kk, kv_slab), kk > 0);
       wg_commit();
+      if (wg == 0 && tid == 0) tdn::wait_turn(turns + i, kb);  // beside the dQ product
+      __syncwarp();
       wg_wait_all();
       fence_regs(dv_acc);
       fence_regs(dk_acc);
       fence_regs(dq);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);  // Q and dO of stage s are read
+    } else {
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) dq[x] = 0.0f;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (wg == 0) {
+        wg_barrier(0);
+        if (tid == 0) {
+          if (pending >= 0) tdn::store_release(turns + pending, kb + 1);
+          tdn::wait_turn(turns + i, kb);
+        }
+        pending = -1;
+      }
+    }
 
+    // The tile's dq, in a fixed order: warpgroup 0's partial plus
+    // warpgroup 1's (thread t of each holds the same elements), then into
+    // the workspace after key block kb - 1 (see the header).
+    float* xbuf = reinterpret_cast<float*>(smem + S::kDqX + (it & 1) * S::kDqXT);
+    if (wg == 1) {
+      if (it >= 2) named_sync(5 + (it & 1));  // warpgroup 0 has read this buffer
+      if (!skip) {
+#pragma unroll
+        for (int x = 0; x < D / 2; ++x) xbuf[x * 128 + tid] = dq[x];
+      }
+      named_arrive(3 + (it & 1));
+      continue;
+    }
+    named_sync(3 + (it & 1));
+    if (!skip1) {
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) dq[x] += xbuf[x * 128 + tid];
+    }
+    if (i + 2 < n_qt) named_arrive(5 + (it & 1));
+    // The hand-over's barrier also ordered these adds after thread 0's
+    // wait for the turn.
+    if (!(skip && skip1)) {
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         const int qi = q0 + r0 + 8 * rr;
@@ -752,10 +829,12 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       make_float2(dq[4 * jj + 2 * rr] * a.scale, dq[4 * jj + 2 * rr + 1] * a.scale));
         }
       }
-    } else {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);
     }
+    pending = i;  // its turn moves on after a barrier in the next tile
+  }
+  if (wg == 0) {
+    wg_barrier(0);
+    if (tid == 0 && pending >= 0) tdn::store_release(turns + pending, kb + 1);
   }
 
 #pragma unroll
@@ -842,7 +921,7 @@ int launch_fwd(const Sm90Args& a, const long long* st, const void* q, const void
 template <int D>
 int launch_bwd(const Sm90Args& a, const long long* st, const void* q, const void* k,
                const void* v, const void* dout, const float* lse, const float* delta,
-               float* dq_accum, void* dk, void* dv, cudaStream_t s) {
+               float* dq_accum, void* dk, void* dv, int* order, cudaStream_t s) {
   CUtensorMap mq, mk, mv, mdo;
   if (int e = make_map<D>(&mq, q, a, st, kWgRows)) return e;
   if (int e = make_map<D>(&mk, k, a, st + 3, kBlock)) return e;
@@ -855,7 +934,7 @@ int launch_bwd(const Sm90Args& a, const long long* st, const void* q, const void
   const unsigned grid = static_cast<unsigned>(a.B * a.H) * ((a.T + kBlock - 1) / kBlock);
   flash_bwd_sm90_kernel<D><<<grid, kThreads, bytes, s>>>(
       mq, mk, mv, mdo, lse, delta, dq_accum, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), a);
+      static_cast<__nv_bfloat16*>(dv), order, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -894,21 +973,24 @@ extern "C" int tdn_flash_fwd_sm90(const void* q, const void* k, const void* v, v
 // As tdn_flash_fwd_sm90, plus dout: bf16 (B, T, H, Dh) (strides in p);
 // lse, delta: contiguous (B, H, T) float32; dq_accum: zeroed contiguous
 // (B, T, H, Dh) float32, to which dq is added; dk, dv: contiguous (B, T,
-// H, Dh) bf16.
+// H, Dh) bf16; order: zeroed int32, 1 + B * H * ceil(T / 64) of them (the
+// ticket and the turn counters).
 extern "C" int tdn_flash_bwd_sm90(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dq_accum, void* dk,
-                                  void* dv, const long long* p, float scale, void* stream) {
+                                  void* dv, void* order, const long long* p, float scale,
+                                  void* stream) {
   Sm90Args a;
   const int d = args_from(p, scale, &a);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   float* dqa = static_cast<float*>(dq_accum);
+  int* ord = static_cast<int*>(order);
   const long long* st = p + 8;
   switch (d) {
-    case 32: return launch_bwd<32>(a, st, q, k, v, dout, l, dl, dqa, dk, dv, s);
-    case 64: return launch_bwd<64>(a, st, q, k, v, dout, l, dl, dqa, dk, dv, s);
-    case 128: return launch_bwd<128>(a, st, q, k, v, dout, l, dl, dqa, dk, dv, s);
+    case 32: return launch_bwd<32>(a, st, q, k, v, dout, l, dl, dqa, dk, dv, ord, s);
+    case 64: return launch_bwd<64>(a, st, q, k, v, dout, l, dl, dqa, dk, dv, ord, s);
+    case 128: return launch_bwd<128>(a, st, q, k, v, dout, l, dl, dqa, dk, dv, ord, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -418,13 +418,24 @@ def _check_bwd(q, k, v, do, lse, delta, causal, seq_len):
     return T, seq_len
 
 
+def _dq_workspace(q, tile_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A zeroed float32 dq of q's shape and, in the same allocation (one
+    memset), the zeroed int32 counters a backward kernel orders its dq
+    adds with: one ticket, then a turn counter per (batch x head, query
+    tile of ``tile_rows``)."""
+    B, T, H, _ = q.shape
+    n = q.numel()
+    buf = torch.zeros(n + 1 + B * H * -(-T // tile_rows), dtype=torch.float32, device=q.device)
+    return buf[:n].view(q.shape), buf[n:].view(torch.int32)
+
+
 def flash_bwd_f32(q, k, v, do, lse, delta, *, causal: bool, seq_len=None):
     """``(dq, dk, dv)`` of attention in one TF32 tensor-core kernel,
     ``tdn_flash_bwd_f32`` (3xTF32 products), recomputing ``p`` from the
     forward's ``lse``: float32 only; ``do`` is contiguous float32 and
     ``delta = rowsum(dO * O)`` float32 ``(B, H, T)``. dq is summed into
-    a zeroed float32 output with atomics (its order changes from run to
-    run)."""
+    a zeroed float32 output in key-block order, so two calls on one
+    input give the same bits."""
     T, seq_len = _check_bwd(q, k, v, do, lse, delta, causal, seq_len)
     scale = _scale(q)
     if q.device.type == "cpu":
@@ -432,14 +443,15 @@ def flash_bwd_f32(q, k, v, do, lse, delta, *, causal: bool, seq_len=None):
                                seq_len=seq_len)
     if q.dtype != torch.float32:
         raise InvalidArgumentError(f"flash_bwd_f32 takes float32, got {q.dtype}")
-    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dq, order = _dq_workspace(q, f32_tiles(q.shape[3]).bwd_rows)
     dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     launch = _build.launcher("flash_attention_f32", "tdn_flash_bwd_f32")
     with torch.cuda.device(q.device):
         code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                       lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                      dv.data_ptr(), _f32_params(q, k, v, seq_len, causal, backward=True),
+                      dv.data_ptr(), order.data_ptr(),
+                      _f32_params(q, k, v, seq_len, causal, backward=True),
                       scale, _stream(q.device))
     _build.check(code, "flash_bwd_f32 launch")
     flash_bwd_f32.launches += 1
@@ -453,8 +465,8 @@ def flash_bwd_sm90(q, k, v, do, lse, delta, *, causal: bool, seq_len=None):
     """``(dq, dk, dv)`` of attention in one tensor-core kernel,
     ``tdn_flash_bwd_sm90``: bfloat16 only, head dims ``SM90_HEAD_DIMS``;
     arguments as :func:`flash_bwd_f32`. dq is summed in a zeroed float32
-    workspace (atomics: its order changes from run to run) and cast to
-    q's type."""
+    workspace in a fixed order (two calls on one input give the same
+    bits) and cast to q's type."""
     T, seq_len = _check_bwd(q, k, v, do, lse, delta, causal, seq_len)
     scale = _scale(q)
     if q.device.type == "cpu":
@@ -462,15 +474,15 @@ def flash_bwd_sm90(q, k, v, do, lse, delta, *, causal: bool, seq_len=None):
                                seq_len=seq_len)
     if _route(q, k, v, do) != "sm90":
         raise InvalidArgumentError(f"flash_bwd_sm90 takes bfloat16, got {q.dtype}")
-    dq_accum = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dq_accum, order = _dq_workspace(q, SM90_TILES.wg_rows)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     launch = _build.launcher("flash_attention_sm90", "tdn_flash_bwd_sm90")
     with torch.cuda.device(q.device):
         code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                       lse.data_ptr(), delta.data_ptr(), dq_accum.data_ptr(), dk.data_ptr(),
-                      dv.data_ptr(), _sm90_params(q, seq_len, causal, q, k, v, do), scale,
-                      _stream(q.device))
+                      dv.data_ptr(), order.data_ptr(),
+                      _sm90_params(q, seq_len, causal, q, k, v, do), scale, _stream(q.device))
     _build.check(code, "flash_bwd_sm90 launch")
     flash_bwd_sm90.launches += 1
     return dq_accum.to(q.dtype), dk, dv

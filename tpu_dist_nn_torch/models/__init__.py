@@ -12,6 +12,7 @@ from tpu_dist_nn_torch.models.network import (
     build_network,
     init_conv_mlp,
     network_forward,
+    network_forward_lax,
     network_logits,
     network_model_from_params,
     network_params_from_jax,
@@ -25,6 +26,7 @@ __all__ = [
     "init_conv_mlp",
     "init_fcnn",
     "network_forward",
+    "network_forward_lax",
     "network_logits",
     "network_model_from_params",
     "network_params_from_jax",

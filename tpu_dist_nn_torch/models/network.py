@@ -23,7 +23,11 @@ kernel):
   these products to XLA).
 
 On the card the CIFAR conv+MLP network is three launches a batch.
-Training through these functions (autodiff) is not ported.
+
+Training runs :func:`network_forward_lax` and :func:`network_logits`
+instead: plain differentiable PyTorch ops, as the JAX package trains on
+lax ops (``pallas_call`` has no VJP there; the kernels here have no
+backward). The serving forward stays on the kernels.
 """
 
 from __future__ import annotations
@@ -33,10 +37,11 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from tpu_dist_nn_torch.core.activations import ACTIVATION_NAMES, activation_id
+from tpu_dist_nn_torch.core.activations import ACTIVATION_NAMES, activation_id, apply_activation
 from tpu_dist_nn_torch.core.schema import Conv2DSpec, LayerSpec, MaxPool2DSpec, ModelSpec
-from tpu_dist_nn_torch.kernels.conv2d import fused_conv2d, maxpool_nhwc
+from tpu_dist_nn_torch.kernels.conv2d import fused_conv2d, maxpool_nhwc, same_pad
 from tpu_dist_nn_torch.kernels.fused_dense import chain_segments, fcnn_fused_forward, fused_dense
 from tpu_dist_nn_torch.kernels.quantized import fcnn_quantized_forward
 from tpu_dist_nn_torch.utils.device import resolve_device
@@ -160,10 +165,50 @@ def network_forward(plan: Sequence[LayerPlan], params, x: torch.Tensor) -> torch
     return x
 
 
+def _apply_layer(p: LayerPlan, w: dict, x: torch.Tensor) -> torch.Tensor:
+    """One layer on a flat batch ``x: (B, in_dim)`` -> ``(B, out_dim)``
+    in plain differentiable ops (the JAX ``_apply_layer``)."""
+    if p.kind == "dense":
+        return apply_activation(x @ w["w"] + w["b"], p.activation)
+    h, wd, c = p.in_shape
+    imgs = x.reshape(-1, h, wd, c).permute(0, 3, 1, 2)  # NHWC viewed as NCHW
+    if p.kind == "conv2d":
+        kh, kw = w["w"].shape[:2]
+        if p.padding == "SAME":
+            (pt, pb), (pl, pr) = same_pad(h, kh, p.stride[0]), same_pad(wd, kw, p.stride[1])
+            imgs = F.pad(imgs, (pl, pr, pt, pb))
+        out = F.conv2d(imgs, w["w"].permute(3, 2, 0, 1), stride=p.stride)
+        out = apply_activation(out.permute(0, 2, 3, 1) + w["b"], p.activation)
+    elif p.kind == "maxpool2d":
+        out = F.max_pool2d(imgs, p.window, p.stride).permute(0, 2, 3, 1)
+    else:
+        raise ValueError(f"unsupported layer kind: {p.kind}")
+    return out.reshape(out.shape[0], -1)
+
+
+def network_forward_lax(plan: Sequence[LayerPlan], params, x: torch.Tensor) -> torch.Tensor:
+    """The training-time forward, every layer's activation applied: the
+    JAX ``network_forward_lax`` (``models/network.py:164-174``) on plain
+    differentiable ops: ``F.conv2d`` on NHWC viewed as NCHW (lax's SAME
+    split of the padding), ``F.max_pool2d``, ``x @ w + b`` and the
+    activations of :mod:`~tpu_dist_nn_torch.core.activations`. The JAX
+    package computes these ops outside any Pallas kernel, so the
+    library's conv here (cuDNN on a card) is its own lax path, not a
+    port of a kernel; :func:`network_forward` serves on the kernels. The
+    heterogeneous pipeline's backward recomputes a stage with this
+    function, so its forward runs it too."""
+    for p, w in zip(plan, params):
+        x = _apply_layer(p, w, x)
+    return x
+
+
 def network_logits(plan: Sequence[LayerPlan], params, x: torch.Tensor) -> torch.Tensor:
-    """Forward with the final layer's activation skipped (raw logits)."""
-    last = dataclasses.replace(plan[-1], activation="linear")
-    return network_forward((*plan[:-1], last), params, x)
+    """:func:`network_forward_lax` with the final layer's activation
+    skipped: the training entry (cross-entropy takes raw logits), as the
+    JAX ``network_logits``."""
+    for p, w in zip(plan[:-1], params[:-1]):
+        x = _apply_layer(p, w, x)
+    return _apply_layer(dataclasses.replace(plan[-1], activation="linear"), params[-1], x)
 
 
 def network_model_from_params(model: ModelSpec, params) -> ModelSpec:

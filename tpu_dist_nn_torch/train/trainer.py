@@ -1,23 +1,31 @@
-"""Native training for dense FCNN models on one device.
+"""Native training for dense FCNN and mixed-layer (conv) networks on one
+device.
 
 Port of the single-device half of :mod:`tpu_dist_nn.train.trainer`: the
 reference's recipe (Adam lr 1e-3, cross-entropy, batch 64,
 ``generate_mnist_pytorch.py:37-52``) as an eager PyTorch loop with the
-optax-matched optimizer of :mod:`tpu_dist_nn_torch.train.optimizers`.
+optax-matched optimizer of :mod:`tpu_dist_nn_torch.train.optimizers`:
+:func:`train_fcnn` for dense params, :func:`train_network` for a
+network's layer plan (conv / pool / dense).
 
-The step is plain autograd over ``torch.matmul`` (the JAX package
-computes these products with ``jnp``, outside any Pallas kernel); the
-chain kernel, which has no backward, runs only in :func:`evaluate_fcnn`
-on the card. On a card the step runs as a captured CUDA graph, replayed
-each step over static batch buffers (:mod:`~tpu_dist_nn_torch.train.graphs`:
-the counterpart of the JAX package's ``jax.jit`` of the step); on the
-CPU it runs eagerly. Epoch-level checkpoints and resume go through
+The step is plain autograd: ``torch.matmul`` for a dense model, and
+:func:`~tpu_dist_nn_torch.models.network.network_logits` (``F.conv2d``,
+``F.max_pool2d``, matmuls) for a network, as the JAX package computes
+these ops outside any Pallas kernel. A network step's convs run under
+cuDNN's deterministic algorithms with TF32 off (:func:`conv_flags`):
+float32 products as the dense step's, and a captured step equal to the
+eager one. The kernels, which have no backward, run in
+:func:`evaluate_fcnn` and :func:`evaluate_network` on the card. On a
+card the step runs as a captured CUDA graph, replayed each step over
+static batch buffers (:mod:`~tpu_dist_nn_torch.train.graphs`: the
+counterpart of the JAX package's ``jax.jit`` of the step); on the CPU it
+runs eagerly. Epoch-level checkpoints and resume go through
 :mod:`tpu_dist_nn_torch.checkpoint`.
 
-The pipelined trainer is :mod:`tpu_dist_nn_torch.train.pipeline_trainer`.
+The pipelined trainers are :mod:`tpu_dist_nn_torch.train.pipeline_trainer`
+(dense) and :mod:`tpu_dist_nn_torch.train.hetero_trainer` (conv).
 Left for later slices: the data-parallel ``mesh`` step (a single-stage
-data-parallel placement collapses to one device in the port's Engine)
-and conv-network training (ROADMAP Queue 1 item 8).
+data-parallel placement collapses to one device in the port's Engine).
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ from tpu_dist_nn_torch.core.schema import ModelSpec, save_model
 from tpu_dist_nn_torch.data.datasets import Dataset
 from tpu_dist_nn_torch.data.feed import batch_iterator
 from tpu_dist_nn_torch.models.fcnn import forward_logits, spec_from_params
-from tpu_dist_nn_torch.models.network import dense_forward
+from tpu_dist_nn_torch.models.network import dense_forward, network_forward, network_logits
 from tpu_dist_nn_torch.obs.registry import REGISTRY
 from tpu_dist_nn_torch.obs.trace import TRACER
 from tpu_dist_nn_torch.train.metrics import classification_metrics
@@ -105,8 +113,39 @@ def _join_params(wb, acts):
     return [{"w": p["w"], "b": p["b"], "act": a} for p, a in zip(wb, acts)]
 
 
-def _leaves(wb) -> list[torch.Tensor]:
-    return [t for p in wb for t in (p["w"], p["b"])]
+def _leaves(params) -> list[torch.Tensor]:
+    """The trainable tensors of ``params`` in order: ``w`` then ``b`` of
+    each layer (a pool's ``{}`` has none); nested lists (a pipeline's
+    stages) flatten in order."""
+    out = []
+    for p in params:
+        if isinstance(p, (list, tuple)):
+            out += _leaves(p)
+        elif p:
+            out += [p["w"], p["b"]]
+    return out
+
+
+def _trainable(params) -> list:
+    """Copies of a network's (or a stage list's) ``{"w", "b"}`` / ``{}``
+    params whose tensors require grad; the caller's stay as they are."""
+    return [_trainable(p) if isinstance(p, (list, tuple)) else
+            {k: p[k].detach().clone().requires_grad_(True) for k in ("w", "b")} if p else {}
+            for p in params]
+
+
+def _detached(params) -> list:
+    return [_detached(p) if isinstance(p, (list, tuple)) else
+            {k: p[k].detach() for k in ("w", "b")} if p else {} for p in params]
+
+
+def conv_flags():
+    """Where a network step runs: cuDNN's deterministic algorithms with
+    TF32 off and no autotuning, so its float32 convs are FP32 products
+    and a graph captured from the step replays what the eager step
+    computes. Set around the step, not for the process."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                      allow_tf32=False)
 
 
 def make_train_step(acts, optimizer: Optimizer):
@@ -128,16 +167,39 @@ def make_train_step(acts, optimizer: Optimizer):
     return step
 
 
-def compile_train_step(step, wb, opt_state, optimizer: Optimizer, batch_size: int, in_dim: int):
+def make_network_train_step(plan, optimizer: Optimizer):
+    """The mixed-layer network's step (JAX ``make_network_train_step``):
+    ``step(params, opt_state, x, y) -> (params, opt_state, loss)`` with
+    ``params`` the plan's ``{"w", "b"}`` / ``{}`` list of leaves that
+    require grad; cross-entropy of :func:`network_logits`, autograd,
+    the update applied in place, under :func:`conv_flags`."""
+
+    def step(params, opt_state, x, y, *, micro_step=None):
+        leaves = _leaves(params)
+        with conv_flags():
+            loss = cross_entropy(network_logits(plan, params, x), y)
+            grads = torch.autograd.grad(loss, leaves)
+        updates = optimizer.update(grads, opt_state, leaves, micro_step=micro_step)
+        if updates is not None:
+            apply_updates(leaves, updates)
+        return params, opt_state, loss.detach()
+
+    return step
+
+
+def compile_train_step(step, params, opt_state, optimizer: Optimizer, batch_size: int,
+                       in_dim: int):
     """``step`` over ``(batch_size, in_dim)`` float32 rows and int64
     labels as a :class:`~tpu_dist_nn_torch.train.graphs.CompiledStep`
     on the leaves' card: ``compiled(bx, by) -> loss``, the host batch
-    copied into static buffers, one replay a step."""
+    copied into static buffers, one replay a step. ``params`` is any
+    tree :func:`_leaves` reads (dense ``{w, b}`` layers, a network's
+    plan list, a pipeline's stage lists) with every leaf on one card."""
     from tpu_dist_nn_torch.train.graphs import CompiledStep
 
     like = [((batch_size, in_dim), torch.float32), ((batch_size,), torch.int64)]
-    return CompiledStep(step, (wb, opt_state), like, optimizer, opt_state,
-                        _leaves(wb)[0].device)
+    return CompiledStep(step, (params, opt_state), like, optimizer, opt_state,
+                        _leaves(params)[0].device)
 
 
 def run_training_loop(step, params, opt_state, train_data: Dataset, config: TrainConfig,
@@ -148,16 +210,18 @@ def run_training_loop(step, params, opt_state, train_data: Dataset, config: Trai
     the tracer, and per-epoch checkpoints when ``checkpoints`` is given.
     The latest checkpoint, if any, is restored into the caller's
     ``(params, opt_state)`` template first, and training continues from
-    the next epoch (checkpoint step k = k completed epochs). On a card,
-    ``step`` (built with ``optimizer``) runs as a captured graph
-    (:func:`compile_train_step`); on the CPU it is called as it is."""
+    the next epoch (checkpoint step k = k completed epochs). With every
+    leaf on one card, ``step`` (built with ``optimizer``) runs as a
+    captured graph (:func:`compile_train_step`); on the CPU, or with
+    leaves on several cards, it is called as it is."""
     check_full_batch(len(train_data), config.batch_size)
     history = []
     start_epoch, state = resume_or_init(checkpoints, {"params": params, "opt_state": opt_state})
     params, opt_state = state["params"], state["opt_state"]
+    devices = {t.device for t in _leaves(params)}
     device = _leaves(params)[0].device
     compiled = None
-    if device.type == "cuda":
+    if device.type == "cuda" and len(devices) == 1:
         if optimizer is None:
             raise ValueError("a step on the card is captured: pass its optimizer")
         compiled = compile_train_step(step, params, opt_state, optimizer, config.batch_size,
@@ -225,6 +289,37 @@ def train_fcnn(params, train_data: Dataset, config: TrainConfig = TrainConfig(),
                                     checkpoints=checkpoints, optimizer=optimizer)
     return [{"w": p["w"].detach(), "b": p["b"].detach(), "act": a}
             for p, a in zip(wb, acts)], history
+
+
+def train_network(plan, params, train_data: Dataset, config: TrainConfig = TrainConfig(),
+                  eval_data: Dataset | None = None, checkpoints=None):
+    """Train a mixed-layer network (JAX ``train_network``); returns
+    ``(params, history)``: new detached tensors in the plan's ``{"w",
+    "b"}`` / ``{}`` layout, the caller's left as they are."""
+    params = _trainable(params)
+    optimizer = optimizer_for(config, train_data)
+    opt_state = optimizer.init(_leaves(params))
+    step = make_network_train_step(plan, optimizer)
+    eval_fn = None
+    if eval_data is not None:
+        eval_fn = lambda p: evaluate_network(plan, p, eval_data)  # noqa: E731
+    params, history = run_training_loop(step, params, opt_state, train_data, config, eval_fn,
+                                        checkpoints=checkpoints, optimizer=optimizer)
+    return _detached(params), history
+
+
+@torch.no_grad()
+def evaluate_network(plan, params, data: Dataset, batch_size: int = 1024) -> dict:
+    """Classification metrics over a dataset through
+    :func:`~tpu_dist_nn_torch.models.network.network_forward`: the conv
+    and chain kernels on the card, their plain versions on the CPU."""
+    params = _detached(params)
+    device = _leaves(params)[0].device
+    preds = []
+    for bx in batch_iterator(data.x, batch_size=batch_size):
+        x = torch.as_tensor(bx, dtype=torch.float32, device=device)
+        preds.append(network_forward(plan, params, x).argmax(-1).cpu().numpy())
+    return classification_metrics(np.concatenate(preds), data.y, data.num_classes)
 
 
 @torch.no_grad()
