@@ -107,6 +107,16 @@ package. Phases, each fatal on failure (exit 1, no result line):
      the wall time of a request by size, the chain kernel's device time
      for the same batches, and the headline bench line
      (``python3 -m tpu_dist_nn_torch.bench``).
+   * the numeric guard on the Process path (``guard_phase``, F8's
+     repair): 8 requests of 7 rows, one with a NaN row, queued behind
+     an 8,192-row request and coalesced into one chain launch of a
+     784-128-64-10 sigmoid model: the poisoned request fails
+     ``DATA_LOSS`` alone, its neighbours bit-equal to their solo
+     replies, two chain launches; ``Engine.infer`` on the poisoned rows
+     raises ``IntegrityError``; then the Process path's 60,000 rows
+     with the guard armed and disarmed in turns (rows/s each, printed),
+     and the guard's own time in the armed passes (host clock, beside
+     the pass's wall, printed).
    * the conv train path (``conv_train_phase``, after the Process
      path): BASELINE ``configs[3]``'s network at full width
      (``init_conv_mlp``'s defaults, seeded) on ``tdn train``'s
@@ -182,6 +192,40 @@ package. Phases, each fatal on failure (exit 1, no result line):
      nats; one asynchronous save of the 85M training state (params,
      Adam's mu and nu): the time the step waits for its host snapshot,
      and a bit-exact restore.
+
+   * LM serving (``serving_phase``, after the generation path), on the
+     85M LM in bf16 with seeded init params whose query and key
+     projections are drawn at twice the scale (the 30-step params emit
+     spaces whatever the prompt, the plain init one repeated byte a
+     prompt). First a probe: every load prompt through a scheduler
+     without eos or prefix cache; more than half of the continuations'
+     first 16 tokens must differ, and ``pick_eos`` picks from them an
+     eos that ends some requests and not others. Then
+     ``serve_lm_generate`` with the continuous scheduler (16 slots,
+     128-byte held-out prompts, 256 new tokens, that eos, prefill chunks
+     of 64, 4 prefix blocks) on a loopback port, 32 handler threads.
+     The load: 24 requests from 12 threads (12 share a 64-byte header),
+     every other one a ``Generate`` RPC, the rest submitted with budgets
+     of 16 to 255 tokens; some must retire on eos and some on their
+     budgets. Then 4 ``best_effort`` ``GenerateStream`` requests bind
+     first, the 12 longest other load requests fill the other slots,
+     and 4 ``critical`` requests are sent while every slot is busy and
+     the streams decode, so preemption evicts the streams and they
+     resume by forced-token replay. Each load request alone on the
+     scheduler is the reference. Checks: (a) each reply (load, the 12,
+     the critical) bit-equal to its prompt's run alone; (b) every
+     emitted token's logit within 0.25 of the full forward's max (bf16,
+     materialised attention); (c) the preempted streams equal their
+     unpreempted runs; (d) the probe (prefix cache off) bit-equal to
+     the load (on) up to eos; (e) each stream's tokens equal its unary
+     reply, each once; (f) the captured step bit-equal to the eager
+     step (tokens, ok mask, cache) at staggered positions with an
+     inactive slot; (g) a NaN forced into one slot's cache through
+     ``fetch_hook`` fails that request alone ``DATA_LOSS``. Printed:
+     TTFT p50 / p99, tokens/s, slot occupancy, prefill chunks, prefix
+     hits / misses / evictions, preemptions, the step graphed and eager
+     (ms/step), a prefill chunk's ms, and the static arm's tokens/s
+     (within the budgets) and latency on the same 24 prompts.
 
    * the float32 LM path, ``tdn lm``'s default recipe
      (``artifacts/real_text_r04/RECORD.json``): d 128, 4 heads, 4
@@ -1787,6 +1831,659 @@ def generate_phase(dev, cfg, params, eval_rows, out_dir, smi_line, rates) -> Non
     print(f"generate phase took {time.monotonic() - t_phase:.1f} s")
 
 
+SERVE = dict(slots=16, prompt=128, new=256, chunk=64, blocks=4, requests=24, threads=12,
+             shared=64, critical=4, streams=4, seed=4321, step_runs=50, chunk_runs=10,
+             logit_tol=0.25, min_budget=16, qk_scale=2.0,
+             rpc_workers=32)  # the server's handler threads: a stream holds one to its end
+
+
+def pick_eos(tails, budget, quick):
+    """The eos id for the served load, from each request's continuation
+    without eos (``tails`` (R, N)): the token that ends the most
+    requests within their budgets but after their first ``quick``
+    tokens, while as many others never emit it within theirs. Returns
+    (eos, requests it ends late, requests it ends within ``quick``,
+    requests it leaves to their budget)."""
+    import numpy as np
+
+    best = None
+    for v in np.unique(tails):
+        hit = tails == v
+        first = np.where(hit.any(axis=1), hit.argmax(axis=1), tails.shape[1])
+        ends = int(sum(int(k) < b for k, b in zip(first, budget)))
+        early = int((first < quick).sum())
+        key = (min(ends - early, len(budget) - ends), -early, -int(v))
+        if best is None or key > best[0]:
+            best = (key, int(v), ends - early, early, len(budget) - ends)
+    return best[1:]
+
+
+def serving_phase(dev, cfg, eval_rows, out_dir, smi_line) -> None:
+    """LM serving on the 85M LM in bf16 (``cfg``), seeded init params
+    with sharper attention (``SERVE["qk_scale"]``):
+    ``serve_lm_generate`` with the continuous scheduler (16 slots,
+    128-byte held-out prompts, 256 new tokens, 64-token prefill chunks,
+    4 prefix blocks) on a loopback port. The eos id comes from a probe:
+    every load prompt through a scheduler without eos or prefix cache
+    (also (d)'s prefix-off arm), and ``pick_eos`` over its
+    continuations. The load: 24 requests from 12 threads (half share a
+    64-byte header), every other one a ``Generate`` RPC, the rest
+    submitted to the scheduler with per-request budgets of 16 to 255
+    tokens. Then 4 best_effort ``GenerateStream`` requests bind first,
+    the 12 longest other load requests fill the other slots, and 4
+    critical ``Generate`` requests are sent while the loop holds the
+    full house with the streams decoding, so preemption evicts the
+    streams (resumed by forced-token replay). Checks (a)-(g), each fatal (module
+    docstring, phase 3); the load's requests alone on the scheduler are
+    the reference of (a), (c), (e) and (g). Then the same 24 prompts
+    through the static arm (printed only)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from tpu_dist_nn_torch.models.generate import prefill_chunk_into_cache
+    from tpu_dist_nn_torch.models.transformer import forward, init_transformer, num_params
+    from tpu_dist_nn_torch.obs.registry import REGISTRY
+    from tpu_dist_nn_torch.serving.continuous import ContinuousScheduler
+    from tpu_dist_nn_torch.serving.server import GrpcClient, serve_lm_generate
+
+    import grpc
+
+    t_phase = time.monotonic()
+    S, T, N, Q = SERVE["slots"], SERVE["prompt"], SERVE["new"], SERVE["min_budget"]
+    R, C, ST = SERVE["requests"], SERVE["critical"], SERVE["streams"]
+    rng = np.random.default_rng(SERVE["seed"])
+    rows = np.asarray(eval_rows)
+    starts = rng.integers(0, rows.shape[1] - T, R)
+    picks = rng.integers(0, len(rows), R)
+    reqs = np.stack([rows[r, o:o + T] for r, o in zip(picks, starts)]).astype(np.int32)
+    reqs[1:R // 2, :SERVE["shared"]] = reqs[0, :SERVE["shared"]]
+    # Every other request rides the RPC (the endpoint's budget, N); the
+    # rest go to the scheduler with their own budgets.
+    budget = [N if i % 2 == 0 else int(b) for i, b in
+              enumerate(rng.integers(SERVE["min_budget"], N, R))]
+    on_wire = [i for i in range(R) if i % 2 == 0]
+    # The served params: seeded init, the query and key projections at
+    # twice their scale (attention logits four times sharper). At the
+    # init scale attention averages the context and each prompt goes on
+    # with one repeated byte; the LM path's 30-step params emit spaces
+    # whatever the prompt. On either, a slot that reads a wrong position
+    # or another slot's cache can pass every check below.
+    params = init_transformer(torch.Generator().manual_seed(SERVE["seed"]), cfg, device=dev)
+    params["blocks"]["w_qkv"][..., :2 * cfg.d_model] *= SERVE["qk_scale"]
+
+    # The probe: every prompt through a scheduler with no eos and no
+    # prefix cache, all N tokens, in one submit (check (d)'s off arm).
+    probe = ContinuousScheduler(params, cfg, slots=S, prompt_len=T, max_new_tokens=N,
+                                prefill_chunk=SERVE["chunk"], device=dev)
+    t0 = time.monotonic()
+    out_off = probe.submit(reqs)
+    off_s = time.monotonic() - t0
+    probe.close()
+    del probe
+    tails = np.asarray(out_off[:, T:])
+    eos, n_late, n_early, n_left = pick_eos(tails, budget, Q)
+    distinct = len({t[:Q].tobytes() for t in tails})
+    print(f"serving probe ({R} prompts, no eos, no prefix cache, one submit, {off_s:.3f} s): "
+          f"{distinct} distinct first-{Q}-token continuations of {R}; eos {eos} ends {n_late} "
+          f"requests after {Q} tokens and {n_early} sooner, leaves {n_left} to their budgets; "
+          f"first continuation {bytes(tails[0, :40].astype(np.uint8).tolist())!r}")
+    if distinct <= R // 2 or n_late < 1 or n_left < 1:
+        fail(f"serving: the served params' greedy text does not depend on the prompt ({distinct}"
+             f" distinct of {R}) or no eos ends some requests and not others")
+
+    def generated(row, b=N):
+        """A reply row's generated tokens: through the first eos, at most
+        ``b``."""
+        tail = np.asarray(row[T:T + b])
+        hit = np.flatnonzero(tail == eos)
+        return tail[:hit[0] + 1] if hit.size else tail
+
+    t0 = time.monotonic()
+    server, port = serve_lm_generate(
+        params, cfg, 0, host="127.0.0.1", scheduler="continuous", gen_slots=S, prompt_len=T,
+        max_new_tokens=N, prefill_chunk=SERVE["chunk"], prefix_cache_blocks=SERVE["blocks"],
+        eos_id=eos, temperature=0.0, warm_rows=1, max_workers=SERVE["rpc_workers"])
+    warm_s = time.monotonic() - t0
+    sched = server.scheduler
+    target = f"127.0.0.1:{port}"
+    print(f"LM serving 85M bf16 on {smi_line}: continuous scheduler, {S} slots, prompt {T}, "
+          f"{N} new tokens (eos {eos}), prefill chunk {SERVE['chunk']}, {SERVE['blocks']} "
+          f"prefix blocks; {num_params(params):,} params (seeded init, seed {SERVE['seed']}, "
+          f"q and k x {SERVE['qk_scale']:g}); "
+          f"endpoint up and warm (chunk lengths "
+          f"{sched._chunk_lengths()}, step captured) in {warm_s:.2f} s")
+
+    errors = []
+
+    def call(out, key, i, cls="standard", stream=False):
+        """Load request ``i`` as it rode the load (its RPC, or the
+        scheduler with its budget), as class ``cls``: a reply row, or a
+        stream's (tokens, terminal)."""
+        try:
+            if i in on_wire or cls != "standard" or stream:
+                c = GrpcClient(target, timeout=300.0, slo_class=cls, retry=None)
+                try:
+                    if stream:
+                        reply = c.generate_stream(reqs[i])
+                        out[key] = (list(reply), reply.finish)
+                    else:
+                        out[key] = c.generate(reqs[i][None])[0]
+                finally:
+                    c.close()
+            else:
+                out[key] = sched.submit(reqs[i][None], max_new_tokens=budget[i],
+                                        timeout=300.0)[0]
+        except grpc.RpcError as e:
+            out[key] = e.code().name
+        except Exception as e:  # noqa: BLE001 — failed after the join
+            errors.append(f"{cls}{' stream' if stream else ''}: {type(e).__name__}: {e}")
+
+    def run_threads(threads):
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+
+    # 1. The load: each of 12 threads sends its next request when its
+    # reply lands.
+    replies = [None] * R
+    queue_idx = iter(range(R))
+    qlock = threading.Lock()
+
+    def load_worker():
+        while True:
+            with qlock:
+                i = next(queue_idx, None)
+            if i is None:
+                return
+            call(replies, i, i)
+
+    sched.ttft_recent.clear()
+    by_eos = REGISTRY.get("tdn_gen_requests_retired_total").labels(reason="eos")
+    eos0 = by_eos.value
+    steps0, slot_steps0 = sched.steps_total, sched.slot_steps_total
+    chunks0 = sched.prefill_chunks_total
+    t0 = time.monotonic()
+    run_threads([threading.Thread(target=load_worker) for _ in range(SERVE["threads"])])
+    load_s = time.monotonic() - t0
+    if errors or any(isinstance(r, str) for r in replies):
+        fail(f"serving: load requests failed: {errors[:2]}, "
+             f"{[r for r in replies if isinstance(r, str)]}")
+    steps = sched.steps_total - steps0
+    occupancy = (sched.slot_steps_total - slot_steps0) / max(steps * S, 1)
+    lens = [len(generated(replies[i], budget[i])) for i in range(R)]
+    ended_eos = sum(eos in np.asarray(replies[i][T:T + budget[i]]) for i in range(R))
+    retired_eos = int(by_eos.value - eos0)
+    ttft = np.asarray(sched.ttft_recent) * 1e3
+    print(f"serving load on {smi_line}: {R} requests ({len(on_wire)} Generate RPCs, "
+          f"{R - len(on_wire)} with budgets {min(budget[1::2])}-{max(budget[1::2])}) from "
+          f"{SERVE['threads']} threads: {load_s:.3f} s wall, {sum(lens)} tokens ({min(lens)}-"
+          f"{max(lens)} a request), {sum(lens) / load_s:.1f} tokens/s; TTFT p50 "
+          f"{np.percentile(ttft, 50):.2f} ms, p99 {np.percentile(ttft, 99):.2f} ms ({len(ttft)} "
+          f"rows); {steps} steps, slot occupancy {occupancy:.3f}; "
+          f"{sched.prefill_chunks_total - chunks0} prefill chunks; prefix hits "
+          f"{sched.prefix_hits_total}, misses {sched.prefix_misses_total}, evictions "
+          f"{sched.prefix_evictions_total}; first reply {bytes(replies[0][T:T + 40].tolist())!r}")
+    ok_eos = retired_eos == ended_eos and 1 <= ended_eos < R
+    print(f"check load retirement: {ended_eos} replies end on eos within their budgets, "
+          f"{R - ended_eos} at their budgets; the scheduler retired {retired_eos} rows on eos | "
+          f"{'ok' if ok_eos else 'FAIL'}")
+    if not ok_eos:
+        fail("serving: the load did not retire rows both on eos and on their budgets")
+
+    # The reference of every check: each load request alone on the
+    # scheduler, with its budget.
+    alone = [sched.submit(reqs[i][None], max_new_tokens=budget[i])[0] for i in range(R)]
+    longest = sorted(on_wire, key=lambda i: -lens[i])
+
+    # 2. Preemption: the 4 streams (best_effort; the longest RPC
+    # requests) bind first, then 12 load requests fill the other slots;
+    # once the streams decode with >= 2 tokens, every slot busy, the loop
+    # holds at the top of a step until 4 critical requests have queued,
+    # so preemption evicts the streams, which resume by re-prefill and
+    # forced-token replay.
+    victims, victim_tokens = [], []
+    real_preempt = sched._preempt_slot
+
+    def spy(slot):
+        occ = sched._occupant[slot]
+        victims.append(occ["item"]["x"][occ["row"]].tobytes())
+        victim_tokens.append(len(occ["tokens"]) + len(occ.get("replay") or ()))
+        real_preempt(slot)
+
+    full, release = threading.Event(), threading.Event()
+
+    def hold(_tok):
+        occ = sched._occupant
+        if full.is_set() or not all(o is not None for o in occ):
+            return
+        decoding = sum(1 for s_, o in enumerate(occ)
+                       if sched._active[s_] and len(o["tokens"]) >= 2
+                       and o["item"]["slo_class"] == "best_effort")
+        if decoding == ST:
+            full.set()
+            release.wait(60.0)
+
+    def wait_for(cond, what):
+        t1 = time.monotonic()
+        while not cond():
+            if time.monotonic() - t1 > 60.0:
+                fail(f"serving: {what} (occupied {sched.slots_active}, errors {errors[:2]})")
+            time.sleep(1e-3)
+
+    stream_idx = longest[:ST]
+    # The longest others fill the house: a row that retires on eos
+    # before the last one binds leaves a slot free.
+    burst_idx = sorted((i for i in range(R) if i not in stream_idx), key=lambda i: -lens[i])
+    burst_idx = burst_idx[:S - ST]
+    crit_idx = longest[ST:ST + C]
+    sched._preempt_slot = spy
+    sched.launch_hook = hold
+    stream_out, burst, crit_replies = [None] * ST, [None] * (S - ST), [None] * C
+    bound0 = sched.rows_total
+    streams = [threading.Thread(target=call, args=(stream_out, j, i, "best_effort", True))
+               for j, i in enumerate(stream_idx)]
+    for th in streams:
+        th.start()
+    wait_for(lambda: sched.rows_total - bound0 >= ST, "the streams never bound")
+    others = [threading.Thread(target=call, args=(burst, k, i)) for k, i in enumerate(burst_idx)]
+    for th in others:
+        th.start()
+    if not full.wait(60.0):
+        fail(f"serving: the streams never decoded in a full house (occupied "
+             f"{sched.slots_active}, errors {errors[:2]})")
+    crits = [threading.Thread(target=call, args=(crit_replies, j, i, "critical"))
+             for j, i in enumerate(crit_idx)]
+    for th in crits:
+        th.start()
+    wait_for(lambda: sched.pending_rows >= C, "the critical requests never queued")
+    release.set()
+    for th in streams + others + crits:
+        th.join()
+    sched.launch_hook = None
+    sched._preempt_slot = real_preempt
+    if errors:
+        fail(f"serving: {len(errors)} requests failed, first: {errors[0]}")
+    preempted = sched.preempted_total
+    print(f"serving preemption: {ST} best_effort streams + {S - ST} load requests (of "
+          f"{min(lens[i] for i in burst_idx)}-{max(lens[i] for i in burst_idx)} tokens) in {S} "
+          f"slots, {C} critical Generate RPCs sent while every slot was busy: preemptions "
+          f"{preempted}, generated tokens at eviction {victim_tokens}")
+
+    # (a) every reply bit-equal to its prompt's run alone; (c) the
+    # preempted streams; (e) the streams against the unary reply.
+    diff_a = [f"load {i}" for i in range(R) if not np.array_equal(replies[i], alone[i])]
+    diff_a += [f"burst {i}" for k, i in enumerate(burst_idx) if not np.array_equal(burst[k],
+                                                                                  alone[i])]
+    diff_a += [f"critical {i}" for j, i in enumerate(crit_idx)
+               if not np.array_equal(crit_replies[j], alone[i])]
+    n_a = R + S - ST + C
+    ok_a = not diff_a
+    print(f"check (a) {n_a} greedy replies bit-equal to the scheduler's output for each prompt "
+          f"alone: {n_a - len(diff_a)} equal | {'ok' if ok_a else 'FAIL'}")
+    streamed = {reqs[i].tobytes(): (stream_out[j][0], alone[i]) for j, i in enumerate(stream_idx)}
+    ok_c = (preempted >= 1 and len(victims) == preempted
+            and all(v in streamed and streamed[v][0] == generated(streamed[v][1]).tolist()
+                    for v in victims))
+    print(f"check (c) {len(victims)} preempted rows (the best_effort streams, generated tokens "
+          f"at eviction {victim_tokens}) equal to their unpreempted runs | "
+          f"{'ok' if ok_c else 'FAIL'}")
+    diff_e = [j for j, i in enumerate(stream_idx)
+              if stream_out[j][0] != generated(replies[i]).tolist()
+              or stream_out[j][1]["reason"] not in ("eos", "max_tokens")]
+    ok_e = not diff_e
+    print(f"check (e) {ST} GenerateStream token lists equal to the unary reply, each token once: "
+          f"{ST - len(diff_e)} equal ({[len(t) for t, _ in stream_out]} tokens, terminals "
+          f"{[f['reason'] for _, f in stream_out]}) | {'ok' if ok_e else 'FAIL'}")
+    if not (ok_a and ok_c and ok_e):
+        fail(f"serving: (a) {diff_a}, (c) {ok_c}, (e) {diff_e}")
+
+    # (b) each emitted token against the argmax of the full forward over
+    # the prompt and the tokens before it (materialised attention, bf16).
+    seqs = torch.as_tensor(np.stack(replies), device=dev).long()
+    with torch.no_grad():
+        logits = forward(params, seqs[:, :-1], cfg).float()
+    worst, n_off, n_checked = 0.0, 0, 0
+    for i in range(R):
+        gen = generated(replies[i], budget[i])
+        lg = logits[i, T - 1:T - 1 + len(gen)]
+        picked = lg.gather(1, torch.as_tensor(gen, device=dev).long()[:, None])[:, 0]
+        gaps = (lg.max(dim=1).values - picked).cpu().numpy()
+        worst = max(worst, float(gaps.max()))
+        n_off += int((gaps > 0).sum())
+        n_checked += len(gen)
+    ok_b = worst <= SERVE["logit_tol"]
+    print(f"check (b) {n_checked} emitted tokens vs the argmax of the full forward (bf16): "
+          f"{n_off} not its argmax, largest logit gap {worst:.4f} | tol gap <= "
+          f"{SERVE['logit_tol']} (bf16 rounding of logits up to 32 is 0.125, two paths) | "
+          f"{'ok' if ok_b else 'FAIL'}")
+    if not ok_b:
+        fail("serving: an emitted token is not the full forward's argmax within bf16 tolerance")
+    del logits
+
+    # (g) a NaN forced into one slot's logits through the fetch_hook seam
+    # (its cache's key at position 0 of layer 0, once the row decodes):
+    # that request alone fails DATA_LOSS, its 3 neighbours as alone.
+    guard_idx = longest[:4]  # the victim first: it must decode >= 2 tokens
+    victim = reqs[guard_idx[0]].tobytes()
+    poisoned = []
+
+    def poison(_toks):
+        if poisoned:
+            return
+        for s_, occ in enumerate(sched._occupant):
+            if (occ is not None and sched._active[s_] and len(occ["tokens"]) >= 2
+                    and occ["item"]["x"][occ["row"]].tobytes() == victim):
+                sched._cache["k"][0, s_, 0].fill_(float("nan"))
+                poisoned.append(s_)
+
+    sched.fetch_hook = poison
+    got_g = [None] * 4
+    run_threads([threading.Thread(target=call, args=(got_g, j, i))
+                 for j, i in enumerate(guard_idx)])
+    sched.fetch_hook = None
+    same_g = all(np.array_equal(got_g[j], alone[i]) for j, i in enumerate(guard_idx) if j)
+    ok_g = bool(poisoned) and got_g[0] == "DATA_LOSS" and same_g and not errors
+    print(f"check (g) NaN forced into slot {poisoned} through fetch_hook: the victim "
+          f"{got_g[0] if isinstance(got_g[0], str) else 'served'}, its 3 neighbours bit-equal "
+          f"to their alone runs {same_g} | {'ok' if ok_g else 'FAIL'}")
+    if not ok_g:
+        fail("serving: the decode-step guard did not fail the poisoned slot alone")
+    server.stop(0)
+    if not server.join_closed(30.0):
+        fail("serving: the scheduler's loop did not stop")
+
+    # (d) prefix cache off (the probe: no eos either, cut at eos here),
+    # everything else equal: the same tokens.
+    diff_d = sum(not np.array_equal(generated(out_off[i], budget[i]),
+                                    generated(replies[i], budget[i])) for i in range(R))
+    print(f"check (d) prefix cache off (the probe's {R} rows, cut at eos {eos}) bit-equal to on: "
+          f"{R - diff_d} equal | {'ok' if diff_d == 0 else 'FAIL'}")
+    if diff_d:
+        fail("serving: prefix-cache-on replies differ from prefix-cache-off")
+    # (f) the captured step against the eager step on one slot state:
+    # staggered positions, slot 3 inactive (the loop has stopped).
+    st = sched._st
+    for k in st.cache:  # (g)'s NaN stays out of the comparison
+        for s_ in poisoned:
+            st.cache[k][:, s_].zero_()
+    h = sched._inp_host.numpy()
+    h[0] = T + 7 * np.arange(S)
+    h[1] = 1
+    h[1, 3] = 0
+    h[2] = rng.integers(0, cfg.vocab_size, S)
+    st.inp.copy_(sched._inp_host)
+    saved = {k: v.clone() for k, v in st.cache.items()}
+    sched._run_step(graphed=False)
+    res_e = st.res.clone()
+    cache_e = {k: v.clone() for k, v in st.cache.items()}
+    for k in st.cache:
+        st.cache[k].copy_(saved[k])
+    sched._run_step(graphed=True)
+    ok_f = torch.equal(st.res, res_e) and all(torch.equal(st.cache[k], cache_e[k])
+                                              for k in st.cache)
+    print(f"check (f) the captured step bit-equal to the eager step (tokens, ok and the "
+          f"({cfg.n_layers}, {S + SERVE['blocks']}, {T + N - 1}, {cfg.n_heads}, "
+          f"{cfg.head_dim}) cache; staggered positions, slot 3 inactive) | "
+          f"{'ok' if ok_f else 'FAIL'}")
+    if not ok_f:
+        fail("serving: the captured scheduler step differs from the eager step")
+    del saved, cache_e
+
+    # Decode ms/step, graphed and eager in turns; a prefill chunk's time.
+    ms = {"eager": [], "graphed": []}
+    for arm in ("eager", "graphed", "graphed", "eager"):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(SERVE["step_runs"]):
+            sched._run_step(graphed=arm == "graphed")
+        b.record()
+        b.synchronize()
+        ms[arm].append(a.elapsed_time(b) / SERVE["step_runs"])
+    chunk = torch.as_tensor(reqs[:1, :SERVE["chunk"]], device=dev)
+    with torch.no_grad():
+        prefill_chunk_into_cache(sched._params, cfg, st.cache, 0, chunk, 0)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(SERVE["chunk_runs"]):
+            prefill_chunk_into_cache(sched._params, cfg, st.cache, 0, chunk, 0)
+        b.record()
+        b.synchronize()
+    chunk_ms = a.elapsed_time(b) / SERVE["chunk_runs"]
+    g, e = float(np.median(ms["graphed"])), float(np.median(ms["eager"]))
+    print(f"serving decode step ({S} slots, cache {T + N - 1}) on {smi_line}: graphed "
+          f"{g:.4f} ms/step, eager {e:.4f} ms/step (runs of {SERVE['step_runs']}: graphed "
+          f"{json.dumps([round(x, 4) for x in ms['graphed']])}, eager "
+          f"{json.dumps([round(x, 4) for x in ms['eager']])}), {e / g:.2f}x; "
+          f"{S / g * 1e3:.1f} tokens/s at full occupancy; prefill chunk of {SERVE['chunk']} "
+          f"tokens (all {T + N - 1} rows of its slot) {chunk_ms:.3f} ms")
+    st = None
+    sched = None
+    torch.cuda.empty_cache()
+
+    # The static arm on the same 24 prompts (printed only: JAX bench.py
+    # --gen-ab's A/B).
+    sserver, sport = serve_lm_generate(params, cfg, 0, host="127.0.0.1", scheduler="static",
+                                       prompt_len=T, max_new_tokens=N, eos_id=eos,
+                                       temperature=0.0, warm_rows=16,
+                                       max_workers=SERVE["rpc_workers"])
+    lat = [0.0] * R
+    sreplies = [None] * R
+    queue_idx = iter(range(R))
+
+    def static_worker():
+        c = GrpcClient(f"127.0.0.1:{sport}", timeout=300.0)
+        try:
+            while True:
+                with qlock:
+                    i = next(queue_idx, None)
+                if i is None:
+                    return
+                t1 = time.monotonic()
+                sreplies[i] = c.generate(reqs[i:i + 1])[0]
+                lat[i] = time.monotonic() - t1
+        except Exception as e:  # noqa: BLE001
+            errors.append(f"static: {type(e).__name__}: {e}")
+        finally:
+            c.close()
+
+    t0 = time.monotonic()
+    ths = [threading.Thread(target=static_worker) for _ in range(SERVE["threads"])]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    static_s = time.monotonic() - t0
+    sserver.stop(0)
+    sserver.join_closed(30.0)
+    if errors:
+        fail(f"serving static arm: {errors[0]}")
+    # Its useful tokens: each request's own budget (the run-to-completion
+    # batch decodes all N for everyone).
+    s_tok = sum(len(generated(r, b)) for r, b in zip(sreplies, budget))
+    same = sum(np.array_equal(generated(sreplies[i], budget[i]), generated(replies[i], budget[i]))
+               for i in range(R))
+    lat_ms = np.asarray(lat) * 1e3
+    print(f"static arm (run to completion, same {R} requests, {SERVE['threads']} threads) on "
+          f"{smi_line}: {static_s:.3f} s wall, {s_tok} tokens within the budgets, "
+          f"{s_tok / static_s:.1f} tokens/s; "
+          f"TTFT (= latency) p50 {np.percentile(lat_ms, 50):.2f} ms, p99 "
+          f"{np.percentile(lat_ms, 99):.2f} ms; replies equal to the continuous ones {same} of "
+          f"{R} (bf16, other GEMM shapes: printed only)")
+    torch.cuda.empty_cache()
+    print(f"serving phase took {time.monotonic() - t_phase:.1f} s")
+
+
+GUARD_ARMS = ("on", "off", "off", "on", "on", "off")  # the guard's cost, Process rows/s in turns
+POISON_REQS = 8  # Process requests of 7 rows beside the poisoned one (F8)
+
+
+def guard_phase(dev, model, poison_model, data, out_dir, smi_line) -> None:
+    """The numeric guard on the Process path (F8's repair): a poisoned
+    request among coalesced neighbours fails DATA_LOSS alone, the
+    neighbours bit-equal to their solo replies, through the chain
+    kernel; then the guard's cost on Process rows/s, armed and disarmed
+    in turns on the MNIST engine."""
+    import threading
+
+    import numpy as np
+
+    from tpu_dist_nn_torch.api.engine import Engine
+    from tpu_dist_nn_torch.core.schema import save_model
+    from tpu_dist_nn_torch.kernels import fcnn_fused_forward, reset_launch_counts
+    from tpu_dist_nn_torch.serving import integrity
+    from tpu_dist_nn_torch.serving.server import Batcher, RpcAbort, make_process_handler
+    from tpu_dist_nn_torch.serving.wire import decode_matrix, encode_matrix
+
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=out_dir) as tmp:
+        path = Path(tmp) / "poison.json"
+        save_model(poison_model, path)
+        eng = Engine.up(path, device=dev)
+        mnist_path = Path(tmp) / "mnist.json"
+        save_model(model, mnist_path)
+        eng_mnist = Engine.up(mnist_path, device=dev)
+    rng = np.random.default_rng(7)
+    rows = [rng.uniform(0.0, 1.0, (7, MNIST[0])).astype(np.float32) for _ in range(POISON_REQS)]
+    victim = POISON_REQS // 2
+    rows[victim][3] = np.nan
+    solo = [eng.infer(r) if i != victim else None for i, r in enumerate(rows)]
+    # A large clean request first holds the dispatch thread, so the
+    # others queue behind it and coalesce into ONE launch: the engine's
+    # first launch waits at a gate until all of them are queued.
+    head = rng.uniform(0.0, 1.0, (BATCH, MNIST[0])).astype(np.float32)
+
+    class Gated:
+        model, numpy_dtype, fetch = eng.model, eng.numpy_dtype, eng.fetch
+        gate = threading.Event()
+
+        def infer_async(self, x):
+            self.gate.wait(60.0)
+            return eng.infer_async(x)
+
+    gated = Gated()
+    batcher = Batcher(gated, pipeline_depth=1)
+    handler = make_process_handler(gated, batcher)
+    replies = [None] * POISON_REQS
+    reset_launch_counts()
+
+    def send(i):
+        try:
+            replies[i] = decode_matrix(handler(encode_matrix(rows[i]))[0])
+        except RpcAbort as e:
+            replies[i] = e
+
+    def wait_for(cond):
+        t0 = time.monotonic()
+        while not cond():
+            if time.monotonic() - t0 > 60.0:
+                fail("F8 check: the Process requests never queued")
+            time.sleep(1e-4)
+
+    first = threading.Thread(target=lambda: handler(encode_matrix(head)))
+    first.start()
+    wait_for(lambda: batcher.requests_total == 1 and batcher.pending_rows == 0)
+    pool = [threading.Thread(target=send, args=(i,)) for i in range(POISON_REQS)]
+    for th in pool:
+        th.start()
+    wait_for(lambda: batcher.pending_rows == 7 * POISON_REQS)
+    Gated.gate.set()
+    for th in pool + [first]:
+        th.join()
+    launches = fcnn_fused_forward.launches
+    batches = batcher.batches_total
+    batcher.close()
+    bad = replies[victim]
+    clean = [i for i in range(POISON_REQS) if i != victim]
+    diff = sum(int((replies[i] != solo[i].astype(np.float64)).sum()) for i in clean
+               if not isinstance(replies[i], RpcAbort))
+    aborted = [i for i in clean if isinstance(replies[i], RpcAbort)]
+    ok = (isinstance(bad, RpcAbort) and bad.code == "DATA_LOSS" and not aborted and diff == 0
+          and batches == 2 and launches == batches)
+    print(f"check F8 Process guard: {POISON_REQS} requests of 7 rows behind one of {BATCH} in "
+          f"{batches} launches (chain launches {launches}), row 3 of request {victim} NaN: "
+          f"{getattr(bad, 'code', 'not aborted')} {getattr(bad, 'message', '')!r}; its "
+          f"neighbours aborted {len(aborted)}, not-bit-equal to their solo replies {diff} | "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the numeric guard did not fail the poisoned Process request alone")
+    try:
+        eng.infer(rows[victim])
+        direct = "returned"
+    except Exception as e:  # noqa: BLE001 — printed, then checked
+        direct = type(e).__name__
+    print(f"check F8 Engine.infer on the poisoned rows raises IntegrityError: {direct} | "
+          f"{'ok' if direct == 'IntegrityError' else 'FAIL'}")
+    if direct != "IntegrityError":
+        fail("Engine.infer shipped non-finite rows")
+    # A NaN input through the MNIST engine's relu layers: the kernel's
+    # relu is fmaxf, which returns 0 for NaN (printed, not held).
+    out = eng_mnist.fetch(eng_mnist.infer_async(rows[victim]))
+    print(f"F8 note: a NaN input row through the relu MNIST chain kernel comes out "
+          f"{'finite' if np.isfinite(out[3]).all() else 'non-finite'} (fmaxf(NaN, 0) = 0)")
+
+    # The guard's cost: the Process path's 60,000 rows (sizes in turn,
+    # 10 threads, depth 2) with the guard armed and disarmed in turns.
+    # In the armed passes the guard's own work (``bad_rows`` on each
+    # fetched array, where Engine.fetch calls it) is timed directly: the
+    # rates alone spread more than the guard could cost.
+    reqs = process_requests(len(data))
+    payloads = [encode_matrix(data[a:b]) for a, b in reqs]
+    rates = {"on": [], "off": []}
+    guard = integrity.GUARD
+    plain_bad_rows = guard.bad_rows
+    spent = []  # (seconds, rows) of each bad_rows call in the armed passes
+    shares = []  # (the guard's seconds, calls, the pass's wall) of each armed pass
+
+    def timed_bad_rows(out):
+        t1 = time.perf_counter()
+        bad = plain_bad_rows(out)
+        spent.append((time.perf_counter() - t1, len(out)))
+        return bad
+
+    guard.bad_rows = timed_bad_rows
+    try:
+        for arm in GUARD_ARMS:
+            guard.enabled = arm == "on"
+            spent.clear()
+            b = Batcher(eng_mnist, pipeline_depth=2)
+            h = make_process_handler(eng_mnist, b)
+            t0 = time.perf_counter()
+            got, _ = drive_handler(h, payloads)
+            wall = time.perf_counter() - t0
+            b.close()
+            if any(isinstance(r, RpcAbort) for r in got):
+                fail(f"a Process request aborted in the guard-cost arm {arm}")
+            rates[arm].append(len(data) / wall)
+            if arm == "on":
+                if sum(n for _, n in spent) < len(data):
+                    fail(f"the armed guard screened {sum(n for _, n in spent)} of "
+                         f"{len(data)} rows")
+                shares.append((sum(t for t, _ in spent), len(spent), wall))
+    finally:
+        del guard.bad_rows  # the method again
+        guard.enabled = True
+    on, off = np.median(rates["on"]), np.median(rates["off"])
+    rel_spread = max((max(v) - min(v)) / np.median(v) for v in rates.values())
+    share = max(t / w for t, _, w in shares)
+    print(f"guard cost on Process f32 ({len(data)} rows, {len(reqs)} requests, 10 threads, "
+          f"depth 2) on {smi_line}: armed {on:.1f} rows/s (runs "
+          f"{json.dumps([round(r, 1) for r in rates['on']])}), disarmed {off:.1f} rows/s (runs "
+          f"{json.dumps([round(r, 1) for r in rates['off']])}); median difference "
+          f"{(off - on) / off * 100:+.2f}% of disarmed, run-to-run spread within an arm up to "
+          f"{rel_spread * 100:.2f}% of its median")
+    print(f"guard cost, timed directly: bad_rows took "
+          f"{json.dumps([round(t * 1e3, 4) for t, _, _ in shares])} ms over "
+          f"{json.dumps([n for _, n, _ in shares])} fetched arrays in the armed passes of "
+          f"{json.dumps([round(w * 1e3, 1) for _, _, w in shares])} ms wall: at most "
+          f"{share * 100:.4f}% of the Process time (host clock), "
+          f"{'inside' if share < rel_spread else 'NOT inside'} the run-to-run spread "
+          f"({rel_spread * 100:.2f}%)")
+    print(f"guard phase took {time.monotonic() - t_phase:.1f} s")
+
+
 PIPE_DEVICES = 3  # [1, 1, 1]: three stage slots (streams) on one card
 PIPE_MICROBATCHES = 4
 PIPE_CHURN_RUNS = 20
@@ -2673,6 +3370,8 @@ def main() -> None:
     # ------------------------------------------------ the Process path
     process_phase(dev, model, conv_model, data, rng, params, q, out_dir, smi[0], compare,
                   failures)
+    guard_phase(dev, model, he_model(MNIST, ["sigmoid", "sigmoid", "softmax"], seed=3), data,
+                out_dir, smi[0])
 
     # --------------------------------------------- the conv train path
     conv_train_phase(dev, out_dir, smi[0], compare, failures)
@@ -2915,6 +3614,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     # Generation from the trained params.
     generate_phase(dev, cfg, lm_params, eval_rows, out_dir, smi[0], (mem_rate, bf16_rate))
+    serving_phase(dev, cfg, eval_rows, out_dir, smi[0])
     del lm_params
     torch.cuda.empty_cache()
 

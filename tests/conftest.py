@@ -351,6 +351,16 @@ QUICK_TESTS = {
     "test_torch_flash_order": [
         "test_ordered_sum_is_the_same_bits_under_any_dispatch_order[sm90-causal]",
         "test_block_index_without_tickets_can_deadlock"],
+    "test_torch_continuous": ["test_greedy_tokens_equal_jax_scheduler_and_jax_generate",
+                              "test_preempted_greedy_bit_equal_to_the_unpreempted_generate[2]"],
+    "test_torch_stream": ["test_token_frames_byte_equal_to_jax_and_cross_decode[tokens1]",
+                          "test_streamed_greedy_equal_to_unary_over_loopback_eos_included"],
+    "test_torch_integrity": ["test_checksums_and_fingerprints_equal_jax",
+                             "test_batcher_fails_the_poisoned_request_alone_with_data_loss"],
+    "test_torch_goodput": ["test_record_snapshots_equal_jax",
+                           "test_continuous_scheduler_conservation_and_prefix_savings"],
+    "test_torch_lm_serving": ["test_loopback_parity_with_the_jax_server_both_ways[continuous]",
+                              "test_cli_serving_flags_refused_before_training_with_jax_texts[eos]"],
     # ISSUE 10: the codec fast lane's correctness anchor (byte-exact
     # scalar/vectorized equivalence + fuzz agreement), the decode-into-
     # staging path through a real batcher, the codec A/B perf smoke,

@@ -19,7 +19,8 @@ ragged 128-row tiles); and the float32 LM, 3 steps with the kernels
 against the materialised attention on the card; the Process handler and batcher
 in front of the card's engines (coalesced replies bit-equal to each
 request alone), and uint8 rows through the dense engine; training's
-eval through the chain kernel, and the int8 warm-up gate's launches.
+eval through the chain kernel, and the int8 warm-up gate's launches;
+the continuous scheduler's captured step against its eager step.
 ``chip_smoke.py`` covers the main path's shapes.
 """
 
@@ -1046,6 +1047,48 @@ def test_hetero_forward_launches_the_kernels_and_overlaps_dispatch(cuda):
     # the two convs) above the host's time to issue it.
     m = measure_dispatch_overlap(hp, np.tile(x[:512], (64, 1)), microbatch_size=4096)
     assert m["num_chunks"] == 8 and m["dispatch_ratio"] < 0.7, m
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_captured_scheduler_step_equals_the_eager_step_on_the_card(cuda, dtype):
+    # The continuous scheduler's step, captured (its warm) and eager, on
+    # one slot state: staggered positions, slot 2 inactive, a prefix
+    # block past the request region; tokens, the ok mask and the whole
+    # cache (the block untouched) bit-equal.
+    from tpu_dist_nn_torch.serving.continuous import ContinuousScheduler
+
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=2, n_layers=2, d_ff=512,
+                            max_seq_len=64, compute_dtype=dtype)
+    params = init_transformer(torch.Generator().manual_seed(3), cfg, device=cuda)
+    prompts = np.random.default_rng(3).integers(0, 256, (5, 12))
+    sched = ContinuousScheduler(params, cfg, slots=4, prompt_len=12, max_new_tokens=20,
+                                prefill_chunk=5, prefix_cache_blocks=1, device=cuda)
+    try:
+        assert sched.warm() == ["prefill_chunk_into_cache", "copy_cache_slot",
+                                "decode_step_slots"]
+        out = sched.submit(prompts)
+        assert sched._graph is not None and sched._graph.replays == sched.steps_total
+    finally:
+        sched.close()
+    st = sched._st
+    h = sched._inp_host.numpy()
+    h[0] = [12, 17, 25, 30]
+    h[1] = [1, 1, 0, 1]
+    h[2] = [3, 250, 7, 99]
+    st.inp.copy_(sched._inp_host)
+    saved = {k: v.clone() for k, v in st.cache.items()}
+    sched._run_step(graphed=False)
+    res_eager = st.res.clone()
+    cache_eager = {k: v.clone() for k, v in st.cache.items()}
+    for k in st.cache:
+        st.cache[k].copy_(saved[k])
+    sched._run_step(graphed=True)
+    assert torch.equal(st.res, res_eager)
+    for k in st.cache:
+        assert torch.equal(st.cache[k], cache_eager[k])
+        assert torch.equal(st.cache[k][:, 4], saved[k][:, 4])  # the prefix block
+        assert torch.equal(st.cache[k][:, 2], saved[k][:, 2])  # the inactive slot
+    assert out.shape == (5, 32) and (out[:, 12:] >= 0).all() and (out[:, 12:] < 256).all()
 
 
 def test_hetero_pipeline_across_cards(cuda):

@@ -267,6 +267,31 @@ open(corpus, "w").write(synthetic_wikitext(20000))
 assert main(["lm", "--device", "cpu", "--corpus", corpus, "--d-model", "16", "--heads", "2",
              "--layers", "1", "--seq-len", "16", "--steps", "2", "--batch-size", "2",
              "--eval-batches", "1"]) == 0
+# LM serving: the continuous scheduler (prefix cache, chunks, a stream)
+# and the guarded Process path.
+from tpu_dist_nn_torch.serving import ContinuousScheduler
+from tpu_dist_nn_torch.utils.errors import IntegrityError
+sched = ContinuousScheduler(lm, cfg, slots=2, prompt_len=6, max_new_tokens=4, prefill_chunk=3,
+                            prefix_cache_blocks=1, device="cpu")
+assert sched.warm()[-1] == "decode_step_slots"
+out = sched.submit(np.tile(rows[:1, :6], (3, 1)))
+assert out.shape == (3, 10) and (out[0] == out[2]).all() and sched.prefix_hits_total >= 1
+stream = sched.submit_stream(rows[:1, :6])
+got = []
+while True:
+    kind, data = stream.next_event(30.0)
+    if kind == "end":
+        break
+    got += data
+assert got == out[0, 6:].tolist() and data["reason"] == "max_tokens"
+sched.close()
+poisoned = np.random.default_rng(0).uniform(size=(2, 12))
+poisoned[1, 0] = np.nan
+try:
+    Engine.up(sys.argv[1], device="cpu").infer(poisoned)
+    raise AssertionError("the numeric guard let a non-finite row through")
+except IntegrityError:
+    pass
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist_nn")]
 assert not bad, bad
 print("imported", len(mods), "modules without jax")

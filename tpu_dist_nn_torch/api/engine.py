@@ -107,9 +107,11 @@ from tpu_dist_nn_torch.parallel.pipeline import (
     place_pipeline_quantized,
     run_placed,
 )
+from tpu_dist_nn_torch.serving.integrity import GUARD
 from tpu_dist_nn_torch.train.metrics import classification_metrics
 from tpu_dist_nn_torch.utils.device import resolve_device
 from tpu_dist_nn_torch.utils.errors import (
+    IntegrityError,
     InvalidArgumentError,
     UnavailableError,
     check_input_dim,
@@ -143,10 +145,13 @@ class PendingInference:
     result is still being computed and copied back. ``value`` is the
     host tensor the result lands in (pinned memory on the card);
     ``done`` the CUDA event recorded after that copy (None on the CPU).
-    :meth:`Engine.fetch` waits for it — the one host sync."""
+    :meth:`Engine.fetch` waits for it — the one host sync, where the
+    numeric guard leaves its ``(N,)`` mask of corrupt rows in
+    ``bad_rows`` (None when every row is clean or the guard is off)."""
 
     value: torch.Tensor
     done: object
+    bad_rows: object = None
 
 
 @dataclasses.dataclass
@@ -392,8 +397,22 @@ class Engine:
         Raises :class:`InvalidArgumentError` on a feature-dim mismatch
         (the reference's per-forward check, grpc_node.py:83-84) and
         :class:`UnavailableError` after :meth:`down`.
+
+        A direct call is ONE request, so the numeric guard's per-row
+        failover collapses to request granularity here: any corrupt row
+        raises :class:`IntegrityError` rather than handing back a batch
+        with non-finite rows inside (the batcher keeps row granularity
+        through ``PendingInference.bad_rows``).
         """
-        return self.fetch(self.infer_async(x))
+        pending = self.infer_async(x)
+        out = self.fetch(pending)
+        bad = pending.bad_rows
+        if bad is not None and bad.any():
+            raise IntegrityError(
+                f"numeric guard: {int(bad.sum())}/{len(out)} rows of "
+                f"the result are non-finite or out of magnitude bounds"
+            )
+        return out
 
     def infer_async(self, x) -> PendingInference:
         """Validate, stage and LAUNCH a batch without waiting for it.
@@ -433,10 +452,26 @@ class Engine:
         return PendingInference(result, done)
 
     def fetch(self, pending: PendingInference) -> np.ndarray:
-        """Wait for an :meth:`infer_async` handle; returns host numpy."""
+        """Wait for an :meth:`infer_async` handle; returns host numpy.
+
+        The numeric guard screens the host result here, one vectorized
+        pass over the array just copied back: a partly corrupt launch
+        leaves its row mask in ``pending.bad_rows`` for the batcher's
+        per-row failover (clean rows ship bit-identical); a launch whose
+        rows are ALL bad has nothing to salvage and raises
+        :class:`IntegrityError`."""
         if pending.done is not None:
             pending.done.synchronize()
-        return pending.value.numpy()
+        out = pending.value.numpy()
+        bad = GUARD.bad_rows(out) if GUARD.enabled else None
+        if bad is not None and bad.any():
+            pending.bad_rows = bad
+            if bad.all():
+                raise IntegrityError(
+                    f"numeric guard: all {len(out)} rows of the launch are "
+                    f"non-finite or out of magnitude — refusing to ship the batch"
+                )
+        return out
 
     @property
     def _serves_int8(self) -> bool:

@@ -35,9 +35,17 @@ printed lines:
   corpus tiers, 95/5 split, per-step log lines and final JSON report;
   step checkpoints and resume (``--checkpoint-dir``), and a sample from
   the trained model (``--sample-bytes``, greedy or top-k / top-p
-  sampling, ``--eos-id``). Its serving and parallel flags
-  (``--serve-*``, ``--sample-tensor-parallel``,
-  ``--sample-pipeline-stages``) wait for their slices.
+  sampling, ``--eos-id``). ``--serve-generate PORT`` then serves
+  generation from the trained params (``Generate`` and
+  ``GenerateStream``; the continuous scheduler by default, ``--scheduler
+  static`` the run-to-completion arm), prints the report with its
+  ``serving`` block before it blocks, and drains on SIGTERM; every
+  serving flag is checked before training. ``lm --stream --target
+  HOST:PORT`` is a client only: it streams one generation of
+  ``--prompt`` from a running endpoint. Left for later slices:
+  ``--serve-stages > 1`` (the pipelined decoder),
+  ``--sample-tensor-parallel``, ``--sample-pipeline-stages`` and
+  ``--metrics-port``.
 
 Every engine-side verb runs on the card unless ``--device cpu`` is
 given.
@@ -524,10 +532,184 @@ def _validate_sampling(args, cfg, generator) -> None:
                            args.top_p, generator, args.eos_id)
 
 
+def _validate_serving(args, cfg, generator) -> None:
+    """``tdn lm --serve-generate``'s flags, refused before training with
+    the JAX package's texts (its CLI checks, then the endpoint's decode
+    contract), so a bad combination cannot discard a run."""
+    from tpu_dist_nn_torch.models.generate import validate_generate_args
+
+    if args.gen_slots < 1:
+        raise ValueError(f"--gen-slots must be >= 1, got {args.gen_slots}")
+    if args.prefill_chunk is not None and args.prefill_chunk < 1:
+        raise ValueError(f"--prefill-chunk must be >= 1, got {args.prefill_chunk}")
+    if args.prefix_cache_blocks < 0:
+        raise ValueError(
+            f"--prefix-cache-blocks must be >= 0, got {args.prefix_cache_blocks}"
+        )
+    _parse_class_watermarks(args.class_watermarks)
+    if args.serve_generate is None:
+        return
+    if args.scheduler == "continuous" and args.serve_stages > 1:
+        raise ValueError(
+            "--scheduler continuous is single-chip; --serve-stages "
+            "> 1 serves the pipelined overlapped decoder (use "
+            "--scheduler static or auto)"
+        )
+    if args.eos_id is not None and args.serve_stages > 1:
+        raise ValueError(
+            "--eos-id is not supported by the pipelined overlapped "
+            "decoder; serve --serve-stages 1 for stop-token "
+            "semantics"
+        )
+    if (args.prefix_cache_blocks or args.prefill_chunk is not None) \
+            and (args.scheduler == "static" or args.serve_stages > 1):
+        raise ValueError(
+            "--prefix-cache-blocks / --prefill-chunk are continuous-"
+            "scheduler features; drop --scheduler static / "
+            "--serve-stages > 1 (or drop the prefix/chunk flags)"
+        )
+    if (args.prefix_cache_blocks and args.prefill_chunk is not None
+            and args.prefill_chunk > args.serve_prompt_len - 1):
+        raise ValueError(
+            f"--prefix-cache-blocks needs a cacheable tier: "
+            f"--prefill-chunk {args.prefill_chunk} must be <= "
+            f"--serve-prompt-len - 1 = {args.serve_prompt_len - 1}"
+        )
+    if args.layers % max(args.serve_stages, 1):
+        raise ValueError(
+            f"--layers {args.layers} must be divisible by "
+            f"--serve-stages {args.serve_stages}"
+        )
+    if args.serve_prompt_len + args.serve_new_tokens - 1 > args.seq_len:
+        raise ValueError(
+            f"--serve-prompt-len {args.serve_prompt_len} + "
+            f"--serve-new-tokens {args.serve_new_tokens} - 1 must fit "
+            f"--seq-len {args.seq_len} (the positional table)"
+        )
+    if args.serve_groups is not None and args.serve_groups < args.serve_stages:
+        raise ValueError(
+            f"--serve-groups {args.serve_groups} must be >= "
+            f"--serve-stages {args.serve_stages} (the round-robin "
+            "grants each group G ticks before its next decode)"
+        )
+    if args.serve_stages > 1:
+        raise ValueError(
+            f"--serve-stages {args.serve_stages}: the pipelined overlapped decoder "
+            "(parallel/pp_generate.py) is not ported yet; serve --serve-stages 1"
+        )
+    validate_generate_args(cfg, args.serve_prompt_len, args.serve_new_tokens,
+                           args.temperature, args.top_k, args.top_p, generator, args.eos_id)
+
+
+def _lm_stream_demo(args) -> int:
+    """Client-only streaming (``lm --stream --target HOST:PORT``): no
+    training, no model — stream ONE generation of ``--prompt`` from a
+    running ``--serve-generate`` endpoint over ``GenerateStream``,
+    printing bytes as each token frame lands, then a JSON latency
+    summary (TTFT, inter-token gaps, the terminal)."""
+    from tpu_dist_nn_torch.data.text import decode, encode
+    from tpu_dist_nn_torch.serving.server import GrpcClient
+
+    if not args.target:
+        raise ValueError(
+            "tdn lm --stream is client-only: pass --target HOST:PORT of "
+            "a running --serve-generate endpoint (continuous scheduler; "
+            "a router front door works too)"
+        )
+    T = args.serve_prompt_len
+    ids = encode(args.prompt).tolist()
+    # The endpoint decodes ONE static prompt shape: pad on the LEFT with
+    # spaces so the text stays next to its continuation; keep the tail.
+    row = ([32] * max(0, T - len(ids)) + ids)[-T:]
+    client = GrpcClient(args.target, session_key=args.session_key)
+    t0 = time.monotonic()
+    first = last = None
+    gaps: list[float] = []
+    n = 0
+    try:
+        reply = client.generate_stream(np.asarray([row], np.int64))
+        for tok in reply:
+            now = time.monotonic()
+            if first is None:
+                first = now - t0
+            else:
+                gaps.append(now - last)
+            last = now
+            n += 1
+            sys.stdout.write(decode([tok]))
+            sys.stdout.flush()
+        sys.stdout.write("\n")
+        print(json.dumps({
+            "tokens": n,
+            "ttft_s": round(first, 6) if first is not None else None,
+            "intertoken_p50_ms": (round(sorted(gaps)[len(gaps) // 2] * 1000, 3)
+                                  if gaps else None),
+            "intertoken_max_ms": round(max(gaps) * 1000, 3) if gaps else None,
+            "finish": reply.finish,
+            "trace_id": reply.trace_id,
+        }), flush=True)
+        return 0
+    finally:
+        client.close()
+
+
+def _serve_generation(args, params, cfg, device, report) -> None:
+    """Serve generation from the trained params until
+    ``--serve-seconds`` pass, SIGINT, or SIGTERM (a graceful drain); the
+    report, with its ``serving`` block, is printed before blocking."""
+    from tpu_dist_nn_torch.serving.resilience import GracefulDrain
+    from tpu_dist_nn_torch.serving.server import serve_lm_generate
+
+    drain = GracefulDrain(grace_seconds=args.drain_grace_seconds)
+    server, bound = serve_lm_generate(
+        params, cfg, args.serve_generate, max_new_tokens=args.serve_new_tokens,
+        prompt_len=args.serve_prompt_len, num_stages=args.serve_stages,
+        num_groups=args.serve_groups, temperature=args.temperature, top_k=args.top_k,
+        top_p=args.top_p, seed=args.seed, max_pending_rows=args.max_pending_rows,
+        class_watermarks=_parse_class_watermarks(args.class_watermarks),
+        scheduler=args.scheduler, gen_slots=args.gen_slots, eos_id=args.eos_id,
+        prefix_cache_blocks=args.prefix_cache_blocks, prefill_chunk=args.prefill_chunk,
+        # The continuous endpoint opens hot (its chunk lengths run and
+        # its step is captured); the static arm's ladder stays opt-in.
+        warm_rows=1 if args.scheduler in ("continuous", "auto") else 0,
+        device=device,
+    )
+    # SIGTERM -> drain: stop accepting, finish in-flight decodes within
+    # --drain-grace-seconds, then exit.
+    drain.add_server(server)
+    drain.install_signal_handler()
+    report["serving"] = {
+        "port": bound,
+        "prompt_len": args.serve_prompt_len,
+        "max_new_tokens": args.serve_new_tokens,
+        "stages": args.serve_stages,
+        "scheduler": "continuous" if server.scheduler is not None else "static",
+    }
+    if server.scheduler is not None:
+        report["serving"]["gen_slots"] = args.gen_slots
+        report["serving"]["prefix_cache_blocks"] = args.prefix_cache_blocks
+        report["serving"]["prefill_chunk"] = args.prefill_chunk
+    print(json.dumps(report), flush=True)
+    try:
+        # A SIGTERM-initiated drain ends the wait early.
+        drain.wait(args.serve_seconds)
+    except KeyboardInterrupt:
+        pass
+    drain.begin()
+    drain.wait(args.drain_grace_seconds + 10.0)
+    # Every serving thread ends before the process lets go of the card.
+    if not server.join_closed(args.drain_grace_seconds + 10.0):
+        log.warning("serving threads still alive after the drain")
+
+
 def cmd_lm(args) -> int:
     """Train + evaluate the byte-level Transformer LM (``tdn lm``'s
     single-device path), resuming from and saving to ``--checkpoint-dir``,
-    then sample ``--sample-bytes`` from it."""
+    then sample ``--sample-bytes`` from it and serve generation
+    (``--serve-generate``); ``--stream`` is the streaming client."""
+    if args.stream:
+        # Client only: nothing below (training, the model) applies.
+        return _lm_stream_demo(args)
     import torch
 
     from tpu_dist_nn_torch.data.text import (
@@ -554,6 +736,7 @@ def cmd_lm(args) -> int:
         compute_dtype="bfloat16" if args.bf16 else "float32", remat=args.remat)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     _validate_sampling(args, cfg, generator)
+    _validate_serving(args, cfg, generator)
     text, source = load_corpus(args.corpus)
     rows = lm_sequences(encode(text), args.seq_len)
     split = max(1, int(len(rows) * 0.95))
@@ -615,6 +798,9 @@ def cmd_lm(args) -> int:
         # Raw bytes decode as UTF-8 with replacement: the string may be
         # shorter than the bytes.
         report["sample"] = decode(sample_row)
+    if args.serve_generate is not None:
+        _serve_generation(args, params, cfg, device, report)
+        return 0
     print(json.dumps(report))
     return 0
 
@@ -803,7 +989,60 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--temperature", type=float, default=0.8, help="0 = greedy")
     p.add_argument("--eos-id", type=int, default=None,
                    help="stop token: a generated row freezes at this byte id and pads "
-                        "the remainder with it")
+                        "the remainder with it (--sample-bytes, and both "
+                        "--serve-generate schedulers identically)")
+    p.add_argument("--serve-generate", type=int, default=None, metavar="PORT",
+                   help="after training, serve GENERATION on this port (0 = ephemeral; "
+                        "the reference wire's Matrix of token ids on "
+                        "LayerService/Generate, and GenerateStream). Sampling follows "
+                        "--temperature/--top-k/--top-p")
+    p.add_argument("--serve-stages", type=int, default=1,
+                   help="decode stages (1 only: the pipelined decoder is not ported)")
+    p.add_argument("--serve-groups", type=int, default=None,
+                   help="round-robin request groups of the pipelined decoder "
+                        "(refused with --serve-stages above 1)")
+    p.add_argument("--serve-prompt-len", type=int, default=16,
+                   help="the endpoint's static prompt length")
+    p.add_argument("--serve-new-tokens", type=int, default=32,
+                   help="tokens generated per request")
+    p.add_argument("--scheduler", choices=["auto", "static", "continuous"], default="auto",
+                   help="decode scheduling for --serve-generate: continuous = the "
+                        "iteration-level slot scheduler (admit at step granularity, "
+                        "retire on EOS/budget); static = the run-to-completion batch "
+                        "(the A/B control arm); auto (default) = continuous")
+    p.add_argument("--gen-slots", type=int, default=8,
+                   help="KV-cache slots of the continuous scheduler (sequences "
+                        "decoding a step)")
+    p.add_argument("--prefix-cache-blocks", type=int, default=0,
+                   help="shared-prefix KV pool blocks in the continuous scheduler's "
+                        "slot cache: prompts sharing a cached prefix admit by block "
+                        "copy + suffix-only prefill (ref-counted, LRU; 0 = off)")
+    p.add_argument("--prefill-chunk", type=int, default=None, metavar="TOKENS",
+                   help="prefill prompts in chunks of at most this many tokens, one "
+                        "chunk a scheduler iteration; also the prefix-cache tier "
+                        "grain (default: the whole prompt in one launch)")
+    p.add_argument("--serve-seconds", type=float, default=None,
+                   help="serve for N seconds then exit (default: until interrupted)")
+    p.add_argument("--max-pending-rows", type=int, default=None,
+                   help="admission-control watermark for --serve-generate: requests "
+                        "that would queue past this many pending rows are shed "
+                        "RESOURCE_EXHAUSTED (default: unbounded)")
+    p.add_argument("--class-watermarks", default=None, metavar="SPEC",
+                   help="per-SLO-class shed fractions of --max-pending-rows, e.g. "
+                        "'critical=1.0,standard=1.0,best_effort=0.5' (the default)")
+    p.add_argument("--drain-grace-seconds", type=float, default=5.0,
+                   help="graceful-drain window on SIGTERM while serving: finish "
+                        "in-flight decodes within this long before exit")
+    p.add_argument("--stream", action="store_true",
+                   help="client only: stream ONE generation of --prompt from a running "
+                        "--serve-generate endpoint (--target HOST:PORT) over "
+                        "LayerService/GenerateStream, printing bytes as each token "
+                        "frame lands, then a JSON latency summary. The prompt "
+                        "pads/truncates to --serve-prompt-len")
+    p.add_argument("--target", default=None, metavar="HOST:PORT",
+                   help="the --serve-generate endpoint for --stream")
+    p.add_argument("--session-key", default=None,
+                   help="x-tdn-session affinity key for --stream behind a router")
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu' for the plain PyTorch path")
     p.set_defaults(fn=cmd_lm)

@@ -275,6 +275,10 @@ class Registry:
                   buckets=None) -> Metric:
         return self._get_or_create(name, help, "histogram", labels, buckets)
 
+    def get(self, name: str) -> Metric | None:
+        with self._lock:
+            return self._metrics.get(name)
+
     def collect(self) -> list[Metric]:
         with self._lock:
             return list(self._metrics.values())

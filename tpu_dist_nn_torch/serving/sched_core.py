@@ -2,8 +2,8 @@
 serving batcher.
 
 Port of :class:`tpu_dist_nn.serving.sched_core.SchedCore` and its class
-table (the burn-rate governor and the continuous scheduler's row pop
-come with the LM serving planes):
+table, with the continuous scheduler's row pop and the stream-aware
+deadline slide (the burn-rate governor waits for the fleet planes):
 
 * **SLO classes.** Every entry carries a class (``critical`` /
   ``standard`` / ``best_effort``, the ``x-tdn-class`` header end to
@@ -105,6 +105,25 @@ def normalize_class(value) -> str:
         if v in CLASS_RANK:
             return v
     return "standard"
+
+
+def slide_stream_deadline(item: dict, gap: float | None) -> None:
+    """Stream-aware deadline semantics.
+
+    A unary entry's ``deadline`` bounds submit-to-RETIREMENT: the caller
+    is blocked until the whole result exists. A STREAMING entry delivers
+    incrementally, so the same absolute deadline would expire a healthy
+    long generation mid-stream; what the client needs bounded is the
+    NEXT-TOKEN gap. The scheduler calls this after every published
+    token: the deadline slides forward by ``gap`` (the caller's budget),
+    so expiry and the preemption victim picker only ever kill a stream
+    that has STALLED for a full budget.
+
+    Plain dict write, GIL-atomic: the scheduler loop is the only writer
+    after admission, and readers tolerate either value.
+    """
+    if gap is not None:
+        item["deadline"] = time.monotonic() + gap
 
 
 def validate_class_watermarks(fractions: dict) -> dict:
@@ -329,6 +348,12 @@ class SchedCore:
                 return cls
         return None
 
+    def peek_rank(self) -> int | None:  # caller-holds: cond
+        """Rank of the first non-empty class queue (liveness of the
+        head entry is only known at pop time)."""
+        cls = self._head_class()
+        return None if cls is None else CLASS_RANK[cls]
+
     def pop_group(self, max_rows: int) -> tuple[list, int]:  # caller-holds: cond
         """Batcher-style pop: whole entries up to ``max_rows`` rows in
         class-priority order (the first entry is always taken even if
@@ -354,6 +379,30 @@ class SchedCore:
             rows += n
             batch.append(head)
         return batch, rows
+
+    def pop_row(self, max_rank: int | None = None):  # caller-holds: cond
+        """Row-granular pop (the continuous scheduler's admission
+        unit): the next ``(item, row_index)`` in class-priority order,
+        or None. ``max_rank`` restricts to classes at least that good
+        (0 = critical only, the preemption path's pop)."""
+        now = time.monotonic()
+        while True:
+            cls = self._head_class()
+            if cls is None or (
+                max_rank is not None and CLASS_RANK[cls] > max_rank
+            ):
+                return None
+            item = self._queues[cls][0]
+            if self._dead(item, now):
+                self._queues[cls].popleft()
+                self.pending_rows -= len(item["x"]) - item.get("next_row", 0)
+                continue
+            row = item.get("next_row", 0)
+            item["next_row"] = row + 1
+            self.pending_rows -= 1
+            if item["next_row"] >= len(item["x"]):
+                self._queues[cls].popleft()
+            return item, row
 
     def drain_deferred(self) -> None:
         """Emit the expiry evidence accumulated under the lock (called
@@ -386,7 +435,9 @@ class SchedCore:
                 q = self._queues[cls]
                 while q:
                     item = q.popleft()
-                    self.pending_rows -= len(item["x"])
+                    self.pending_rows -= (
+                        len(item["x"]) - item.get("next_row", 0)
+                    )
                     if not item["abandoned"] and item["err"] is None:
                         leftovers.append(item)
         for item in leftovers:

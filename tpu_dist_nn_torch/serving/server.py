@@ -1,6 +1,8 @@
-"""The reference's ``Process`` RPC in front of the port's Engine.
+"""The reference's ``Process`` RPC in front of the port's Engine, and LM
+generation (``Generate``, ``GenerateStream``).
 
-Port of the ``Process`` half of :mod:`tpu_dist_nn.serving.server`:
+Port of :mod:`tpu_dist_nn.serving.server` (the pipelined decoder behind
+``num_stages > 1`` waits for its slice):
 ``LayerService.Process(Matrix) -> Matrix`` (``src/proto/dist_nn.proto:13-15``)
 with raw-bytes (de)serialisers and the float64 wire codec of
 :mod:`~tpu_dist_nn_torch.serving.wire`, so the reference's own client
@@ -28,7 +30,17 @@ got ...`` (checked per request BEFORE coalescing, so one bad client
 cannot poison a shared batch), a shed ``RESOURCE_EXHAUSTED`` with the
 ``x-tdn-retry-after-ms`` trailing header, an expired budget
 ``DEADLINE_EXCEEDED``, the engine going down ``UNAVAILABLE``, a
-numeric-guard failure ``DATA_LOSS``, anything else ``INTERNAL``.
+numeric-guard failure ``DATA_LOSS`` (only the requests whose rows are
+non-finite: ``Engine.fetch`` leaves the launch's row mask on its
+handle), anything else ``INTERNAL``.
+
+Generation (:func:`serve_lm_generate`): the continuous scheduler
+(:mod:`~tpu_dist_nn_torch.serving.continuous`) or the run-to-completion
+:class:`Batcher` over ``generate`` behind ``Generate`` (prompts ``(N,
+T)`` of token ids as doubles in, ``(N, T + max_new_tokens)`` out) and,
+on the continuous scheduler, ``GenerateStream`` (one prompt in, TOKENS /
+END frames out as the scheduler produces tokens). Their handler bodies,
+like ``Process``'s, need no grpcio.
 """
 
 from __future__ import annotations
@@ -50,16 +62,24 @@ from tpu_dist_nn_torch.serving.resilience import (
     _code_name,
 )
 from tpu_dist_nn_torch.serving.sched_core import SchedCore, normalize_class
+from tpu_dist_nn_torch.serving.stream import note_stream_resumed
 from tpu_dist_nn_torch.serving.wire import (
     CLASS_HEADER,
+    GENERATE_METHOD,
+    GENERATE_STREAM_METHOD,
     PROCESS_METHOD,
     RETRY_AFTER_HEADER,
     SERVICE_NAME,
     SESSION_HEADER,
+    STREAM_RESUME_HEADER,
+    STREAM_RESUME_MAX_TOKENS,
     WireMatrix,
+    decode_frame,
     decode_matrix,
     decode_matrix_lazy,
+    encode_end_frame,
     encode_matrix,
+    encode_token_frame,
 )
 from tpu_dist_nn_torch.utils.errors import (
     DeadlineExceededError,
@@ -114,6 +134,12 @@ def _import_grpc():
     return grpc
 
 
+def _to_host(out) -> np.ndarray:
+    """A run function's result as host numpy: a (device) tensor is
+    copied back, the one host sync of its launch."""
+    return out.cpu().numpy() if hasattr(out, "cpu") else np.asarray(out)
+
+
 class Batcher:
     """Two-stage (double-buffered) micro-batching pipeline in front of
     one engine (the JAX package's ``_Batcher``).
@@ -135,17 +161,36 @@ class Batcher:
 
     So batch N+1 is assembled and launched while batch N is still
     computing and copying back. ``pipeline_depth=1`` collapses to a
-    strictly serial loop (dispatch fetches inline).
+    strictly serial loop (dispatch fetches inline). ``run_fn`` replaces
+    the engine by any ``rows -> rows`` launch (the static Generate arm),
+    ``method`` names the RPC in the metrics, ``account_fn`` books each
+    drained launch (goodput).
     Arrival during an in-flight batch is the coalescing window: no
     delay is ever added.
     """
 
     def __init__(self, engine, submit_timeout: float | None = 120.0,
                  pipeline_depth: int = 2, max_pending_rows: int | None = None,
-                 class_watermarks: dict | None = None):
-        self._engine = engine
+                 class_watermarks: dict | None = None, *, run_fn=None,
+                 method: str = "Process", account_fn=None):
+        # The device launch the batcher owns, split into a dispatch half
+        # (launch, ideally without a host sync) and a fetch half (the
+        # sync): engine.infer_async / engine.fetch, or any ``rows (n,
+        # ...) -> rows (n, ...)`` closure (the static Generate endpoint
+        # passes its decode runner; a device tensor it returns is
+        # fetched by the drain stage). Coalescing, bucketing,
+        # abandonment and error fan-out are the same either way.
+        if run_fn is not None:
+            self._dispatch_fn, self._fetch_fn = run_fn, _to_host
+        else:
+            self._dispatch_fn, self._fetch_fn = engine.infer_async, engine.fetch
+        # Post-fetch accounting seam: (materialized output, useful_rows,
+        # launched_rows, dead_rows=) after each drain — the static
+        # Generate path's goodput record. Never fails a request.
+        self._account_fn = account_fn
+        self.method = method
         self._core = SchedCore(
-            "Process", max_pending_rows=max_pending_rows,
+            method, max_pending_rows=max_pending_rows,
             submit_timeout=submit_timeout,
             class_watermarks=class_watermarks,
         )
@@ -164,10 +209,10 @@ class Batcher:
         # batches < requests under load is the evidence of coalescing.
         self.batches_total = 0
         self.rows_total = 0
-        self._m_submits = _SUBMITS.labels(method="Process")
-        self._m_abandoned = _ABANDONED.labels(method="Process")
-        self._m_launches = _LAUNCHES.labels(method="Process")
-        self._m_rows = _BATCH_ROWS.labels(method="Process")
+        self._m_submits = _SUBMITS.labels(method=method)
+        self._m_abandoned = _ABANDONED.labels(method=method)
+        self._m_launches = _LAUNCHES.labels(method=method)
+        self._m_rows = _BATCH_ROWS.labels(method=method)
         self._dispatch_thread = threading.Thread(
             target=self._dispatch_loop, name="tdn-serve-dispatch", daemon=True
         )
@@ -276,14 +321,35 @@ class Batcher:
         try:
             if traced:
                 with _trace.annotation_sink() as notes:
-                    out = self._engine.fetch(handle)
+                    out = self._fetch_fn(handle)
             else:
-                out = self._engine.fetch(handle)
+                out = self._fetch_fn(handle)
+            # Per-row integrity verdict (Engine.fetch leaves a bad-row
+            # mask on the handle when the numeric guard tripped): only
+            # the requests with a corrupt row fail, with INTEGRITY, and
+            # every other request of the launch ships its slice as is.
+            bad = getattr(handle, "bad_rows", None)
             ofs = 0
             for it in group:
                 k = len(it["x"])
-                it["out"] = out[ofs:ofs + k]
+                if bad is not None and bad[ofs:ofs + k].any():
+                    it["err"] = IntegrityError(
+                        f"numeric guard: {int(bad[ofs:ofs + k].sum())} "
+                        f"of this request's {k} rows carried non-finite "
+                        f"or out-of-magnitude activations"
+                    )
+                else:
+                    it["out"] = out[ofs:ofs + k]
                 ofs += k
+            if self._account_fn is not None:
+                # Best effort: accounting never fails a request that
+                # already has its result. Rows whose waiter abandoned
+                # after dispatch are booked as pad (dead_waiter).
+                try:
+                    dead = sum(len(it["x"]) for it in group if it["abandoned"])
+                    self._account_fn(out, ofs, launched_rows, dead_rows=dead)
+                except Exception:  # noqa: BLE001 — accounting only
+                    slog.exception("batcher.account_failed", method=self.method)
         except Exception as e:  # noqa: BLE001 — fanned out per request
             err = e
             for it in group:
@@ -356,9 +422,9 @@ class Batcher:
                     t_launch = time.monotonic()
                     if traced:
                         with _trace.annotation_sink() as notes:
-                            handle = self._engine.infer_async(xs)
+                            handle = self._dispatch_fn(xs)
                     else:
-                        handle = self._engine.infer_async(xs)
+                        handle = self._dispatch_fn(xs)
                     t_launched = time.monotonic()
                     for it in traced:
                         _trace.TRACER.record_span(
@@ -544,9 +610,10 @@ def make_process_handler(engine, batcher: Batcher | None):
     return process
 
 
-def _grpc_service(grpc, process):
-    """The socket adapter: invocation metadata and deadline in,
-    trailing metadata and ``grpc.StatusCode`` out."""
+def _grpc_service(grpc, process, method: str = "Process"):
+    """The socket adapter of a unary body (``process`` or
+    ``generate``): invocation metadata and deadline in, trailing
+    metadata and ``grpc.StatusCode`` out."""
 
     def handler(request_bytes: bytes, context) -> bytes:
         md = dict(context.invocation_metadata() or ())
@@ -563,16 +630,16 @@ def _grpc_service(grpc, process):
         request_deserializer=bytes,   # raw bytes in, our codec decodes
         response_serializer=bytes,
     )
-    return grpc.method_handlers_generic_handler(SERVICE_NAME, {"Process": rpc})
+    return grpc.method_handlers_generic_handler(SERVICE_NAME, {method: rpc})
 
 
-def _new_grpc_server(grpc):
+def _new_grpc_server(grpc, max_workers: int = 10):
     """The reference's server shape: a 10-thread pool + unlimited
     messages (grpc_node.py:169, run_grpc_inference.py:124-127)."""
     from concurrent import futures
 
     return grpc.server(
-        futures.ThreadPoolExecutor(max_workers=10),
+        futures.ThreadPoolExecutor(max_workers=max_workers),
         options=[
             ("grpc.max_send_message_length", -1),
             ("grpc.max_receive_message_length", -1),
@@ -678,6 +745,420 @@ def serve_engine(engine, port: int, *, host: str = "0.0.0.0",
     return server, bound
 
 
+# ------------------------------------------------------------ generation
+
+
+def _check_prompts(x, shape_ok: bool, shape_msg: str, vocab_size: int, method: str,
+                   span, trailing) -> np.ndarray:
+    """The Generate methods' request checks, in the JAX server's order
+    and texts: the prompt shape, then integer token ids in range."""
+    if not shape_ok:
+        span.annotate("abort INVALID_ARGUMENT: prompt shape")
+        _abort(method, "INVALID_ARGUMENT", shape_msg, trailing)
+    ids = x.astype(np.int64)
+    if (ids != x).any() or (ids < 0).any() or (ids >= vocab_size).any():
+        span.annotate("abort INVALID_ARGUMENT: token id range")
+        _abort(method, "INVALID_ARGUMENT",
+               f"prompts must be integer token ids in [0, {vocab_size})", trailing)
+    return ids
+
+
+def _annotate_request(span, md: dict, slo_class: str, budget, *, prompt_len=None,
+                      max_new_tokens=None, stream: bool = False) -> None:
+    """The handler root span's request attributes (class, session,
+    prompt length, budget), as the JAX server records them."""
+    span.set("slo_class", slo_class)
+    if md.get(SESSION_HEADER):
+        span.set("session", md[SESSION_HEADER])
+    if prompt_len is not None:
+        span.set("prompt_len", int(prompt_len))
+    if max_new_tokens is not None:
+        span.set("max_new_tokens", int(max_new_tokens))
+    if budget is not None:
+        span.set("budget_ms", int(budget * 1000))
+    if stream:
+        span.set("stream", True)
+
+
+def make_generate_handler(run_submit, prompt_len: int, vocab_size: int,
+                          max_new_tokens: int | None = None):
+    """The ``Generate`` handler's body: a Matrix of token ids ``(N,
+    prompt_len)`` -> a Matrix ``(N, prompt_len + max_new_tokens)``, with
+    the Process RPC's wire format and status taxonomy.
+    ``generate(request_bytes, metadata=None, time_remaining=None) ->
+    (reply_bytes, trailing)``, raising :class:`RpcAbort`. ``run_submit(ids,
+    budget, ctx, slo_class)`` serves the int32 prompts. Needs no
+    grpcio."""
+
+    def generate(request_bytes: bytes, metadata: dict | None = None,
+                 time_remaining: float | None = None):
+        _RPC_REQUESTS.labels(method="Generate").inc()
+        md = metadata or {}
+        span, budget = _request_span(md, time_remaining, "Generate")
+        trailing = ((_trace.TRACE_ID_HEADER, span.ctx.trace_id),)
+        slo_class = normalize_class(md.get(CLASS_HEADER))
+        _annotate_request(span, md, slo_class, budget, prompt_len=prompt_len,
+                          max_new_tokens=max_new_tokens)
+        try:
+            try:
+                with _trace.TRACER.span("decode", span.ctx):
+                    x = decode_matrix(request_bytes)
+            except ValueError as e:
+                span.annotate(f"abort INVALID_ARGUMENT: bad Matrix: {e}")
+                _abort("Generate", "INVALID_ARGUMENT", f"bad Matrix: {e}", trailing)
+            span.set("rows", len(x))
+            # One static prompt length per endpoint; clients pad to it.
+            ids = _check_prompts(
+                x, x.ndim == 2 and x.shape[1] == prompt_len,
+                f"expected prompts of shape (N, {prompt_len}), got {tuple(x.shape)}",
+                vocab_size, "Generate", span, trailing)
+            try:
+                out = run_submit(ids.astype(np.int32), budget, span.ctx, slo_class)
+            except Exception as e:  # noqa: BLE001 — mapped to status codes
+                span.annotate(f"error: {type(e).__name__}: {e}")
+                _abort_for_exception(e, "generation", "Generate", trailing)
+            with _trace.TRACER.span("encode", span.ctx):
+                return encode_matrix(out), trailing
+        finally:
+            span.end()
+
+    return generate
+
+
+# The gRPC status code names a stream's END frame may carry.
+_STATUS_NAMES = frozenset((
+    "CANCELLED", "UNKNOWN", "INVALID_ARGUMENT", "DEADLINE_EXCEEDED", "NOT_FOUND",
+    "ALREADY_EXISTS", "PERMISSION_DENIED", "RESOURCE_EXHAUSTED", "FAILED_PRECONDITION",
+    "ABORTED", "OUT_OF_RANGE", "UNIMPLEMENTED", "INTERNAL", "UNAVAILABLE", "DATA_LOSS",
+    "UNAUTHENTICATED",
+))
+
+
+def _status_from_code(name: str) -> str:
+    """A stream terminal's error code name -> the gRPC status name it
+    ends with: the framework's ``INTEGRITY`` is ``DATA_LOSS`` on the
+    wire (as :func:`_abort_for_exception` maps it), an unknown name
+    ``INTERNAL``."""
+    if name == "INTEGRITY":
+        return "DATA_LOSS"
+    return name if name in _STATUS_NAMES else "INTERNAL"
+
+
+def make_generate_stream_handler(run_submit_stream, prompt_len: int, vocab_size: int,
+                                 max_new_tokens: int | None = None):
+    """The ``GenerateStream`` handler's body: ONE prompt row in, wire
+    frames out — TOKENS deltas as the continuous scheduler publishes
+    them, then exactly one END frame naming the terminal (eos /
+    max_tokens). ``generate_stream(request_bytes, metadata=None,
+    time_remaining=None, send_initial=None, on_cancel=None)`` is a
+    generator of frame bytes that raises :class:`RpcAbort`;
+    ``send_initial(pairs)`` sends initial metadata (the server's trace
+    id, so a stream wedged mid-flight can be traced before it ends) and
+    ``on_cancel(fn)`` registers the client-gone callback (it frees the
+    decode slot). A ``x-tdn-stream-resume`` header of already-delivered
+    token ids rides the scheduler's replay path; more than
+    ``STREAM_RESUME_MAX_TOKENS`` of them is ``OUT_OF_RANGE``.
+    ``run_submit_stream(ids, budget, ctx, slo_class, resume)`` returns
+    the :class:`~tpu_dist_nn_torch.serving.stream.TokenStream`. Needs no
+    grpcio."""
+    method = "GenerateStream"
+
+    def generate_stream(request_bytes: bytes, metadata: dict | None = None,
+                        time_remaining: float | None = None, send_initial=None,
+                        on_cancel=None):
+        _RPC_REQUESTS.labels(method=method).inc()
+        md = metadata or {}
+        span, budget = _request_span(md, time_remaining, method)
+        trailing = ((_trace.TRACE_ID_HEADER, span.ctx.trace_id),)
+        slo_class = normalize_class(md.get(CLASS_HEADER))
+        _annotate_request(span, md, slo_class, budget, prompt_len=prompt_len,
+                          max_new_tokens=max_new_tokens, stream=True)
+        stream = None
+        try:
+            try:
+                with _trace.TRACER.span("decode", span.ctx):
+                    x = decode_matrix(request_bytes)
+            except ValueError as e:
+                span.annotate(f"abort INVALID_ARGUMENT: bad Matrix: {e}")
+                _abort(method, "INVALID_ARGUMENT", f"bad Matrix: {e}", trailing)
+            # One stream = one sequence; a client streams N prompts over
+            # N concurrent RPCs.
+            _check_prompts(
+                x, x.ndim == 2 and x.shape == (1, prompt_len),
+                f"GenerateStream takes ONE prompt of shape (1, {prompt_len}), "
+                f"got {tuple(x.shape)}", vocab_size, method, span, trailing)
+            resume = None
+            raw = md.get(STREAM_RESUME_HEADER)
+            if raw:
+                try:
+                    resume = [int(t) for t in raw.split(",")]
+                except ValueError:
+                    span.annotate("abort INVALID_ARGUMENT: resume header")
+                    _abort(method, "INVALID_ARGUMENT",
+                           f"bad {STREAM_RESUME_HEADER}: expected comma-separated token ids",
+                           trailing)
+                if len(resume) > STREAM_RESUME_MAX_TOKENS:
+                    # Bit-exact resume needs EVERY delivered token; a
+                    # clamped suffix would replay against K/V state this
+                    # replica does not have.
+                    span.annotate("abort OUT_OF_RANGE: resume too long")
+                    _abort(method, "OUT_OF_RANGE",
+                           f"{STREAM_RESUME_HEADER} carries {len(resume)} tokens; the "
+                           f"metadata-borne resume path is bounded at "
+                           f"{STREAM_RESUME_MAX_TOKENS}", trailing)
+            if send_initial is not None:
+                send_initial(trailing)
+            try:
+                stream = run_submit_stream(x.astype(np.int32), budget, span.ctx, slo_class,
+                                           resume)
+            except Exception as e:  # noqa: BLE001 — mapped to status codes
+                span.annotate(f"error: {type(e).__name__}: {e}")
+                _abort_for_exception(e, "stream admission", method, trailing)
+            if resume:
+                note_stream_resumed()
+                span.set("resume_tokens", len(resume))
+            if on_cancel is not None:
+                on_cancel(stream.cancel)
+            ntok = 0
+            while True:
+                # The budget bounds each next-token gap (admission +
+                # prefill before the first frame, decode cadence after),
+                # not the stream's whole duration.
+                ev = stream.next_event(budget)
+                if ev is None:
+                    stream.cancel()
+                    span.annotate("abort DEADLINE_EXCEEDED: token gap")
+                    _abort(method, "DEADLINE_EXCEEDED",
+                           f"no token within the {budget:.3f}s stream gap budget", trailing)
+                kind, data = ev
+                if kind == "tokens":
+                    ntok += len(data)
+                    yield encode_token_frame(data)
+                    continue
+                if data["reason"] == "error":
+                    span.annotate(f"stream error {data['code']}: {data['message']}")
+                    _abort(method, _status_from_code(data["code"]),
+                           data["message"] or "stream failed", trailing)
+                span.set("tokens", ntok)
+                yield encode_end_frame(data["reason"], data["code"], data["message"])
+                return
+        finally:
+            if stream is not None:
+                stream.cancel()  # a no-op after a clean terminal
+            span.end()
+
+    return generate_stream
+
+
+def _grpc_stream_service(grpc, generate_stream):
+    """The socket adapter of the stream body: initial metadata and the
+    cancel callback through the context, ``RpcAbort`` to a status."""
+
+    def handler(request_bytes: bytes, context):
+        md = dict(context.invocation_metadata() or ())
+        frames = generate_stream(request_bytes, md, context.time_remaining(),
+                                 send_initial=context.send_initial_metadata,
+                                 on_cancel=context.add_callback)
+        try:
+            yield from frames
+        except RpcAbort as e:
+            context.set_trailing_metadata(e.trailing)
+            context.abort(grpc.StatusCode[e.code], e.message)
+
+    rpc = grpc.unary_stream_rpc_method_handler(
+        handler, request_deserializer=bytes, response_serializer=bytes)
+    return grpc.method_handlers_generic_handler(SERVICE_NAME, {"GenerateStream": rpc})
+
+
+def serve_lm_generate(params, cfg, port: int, *, max_new_tokens: int, prompt_len: int,
+                      num_stages: int = 1, num_groups: int | None = None,
+                      temperature: float = 0.0, top_k: int | None = None,
+                      top_p: float | None = None, seed: int = 0, host: str = "0.0.0.0",
+                      max_workers: int = 10, coalesce: bool = True, warm_rows: int = 0,
+                      submit_timeout: float | None = 120.0, pipeline_depth: int = 2,
+                      max_pending_rows: int | None = None, scheduler: str = "auto",
+                      gen_slots: int = 8, eos_id: int | None = None,
+                      prefix_cache_blocks: int = 0, prefill_chunk: int | None = None,
+                      class_watermarks: dict | None = None, device=None):
+    """Serve LM GENERATION over the reference wire (``Generate``, and
+    ``GenerateStream`` on the continuous scheduler). Needs grpcio.
+
+    ``scheduler`` picks the decode scheduling policy:
+
+    * ``"continuous"`` — iteration-level continuous batching
+      (:class:`~tpu_dist_nn_torch.serving.continuous.ContinuousScheduler`):
+      ``gen_slots`` KV-cache slots, requests admitted at decode-STEP
+      granularity and retired early on ``eos_id`` or their budget, with
+      ``prefix_cache_blocks`` / ``prefill_chunk`` and preemption. One
+      device.
+    * ``"static"`` — the run-to-completion coalescing :class:`Batcher`
+      in front of :func:`~tpu_dist_nn_torch.models.generate.generate`
+      (the A/B control arm). It has no step-granular tokens to stream:
+      ``GenerateStream`` stays unregistered (UNIMPLEMENTED).
+    * ``"auto"`` (default) — continuous when ``coalesce`` is on, else
+      static (``coalesce=False`` is the lock-serialized legacy arm,
+      ``server.batcher is None``).
+
+    ``num_stages > 1`` (the pipelined overlapped decoder) is refused:
+    the port has no pipelined decoder yet. One endpoint = one decode
+    configuration (prompt length, budget, sampling knobs), validated
+    whole at construction with the JAX package's texts. ``eos_id``
+    gives both schedulers the same freeze/pad rule, so their greedy
+    outputs are identical. ``device``: where generation runs (None =
+    the card). Returns ``(server, bound_port)``; ``server.batcher``
+    exposes the scheduling counters and ``server.scheduler`` names the
+    continuous scheduler (None on the static path). ``warm_rows > 0``
+    runs the continuous kernels once (:meth:`ContinuousScheduler.warm`),
+    or the static bucket ladder, before the port opens.
+    """
+    import torch
+
+    from tpu_dist_nn_torch.models.generate import generate, validate_generate_args
+    from tpu_dist_nn_torch.models.transformer import tree_map
+    from tpu_dist_nn_torch.obs.goodput import GOODPUT, LMFlopModel
+    from tpu_dist_nn_torch.utils.device import resolve_device
+
+    if scheduler not in ("auto", "static", "continuous"):
+        raise ValueError(
+            f"scheduler must be 'auto', 'static' or 'continuous', got {scheduler!r}"
+        )
+    if scheduler == "continuous" and num_stages > 1:
+        raise ValueError(
+            "scheduler='continuous' is single-chip (its slot cache "
+            "lives on one device); the pipelined placement's overlapped "
+            "round-robin decoder already schedules groups — use "
+            "scheduler='static' (or 'auto') with num_stages > 1"
+        )
+    if scheduler == "continuous" and not coalesce:
+        raise ValueError(
+            "coalesce=False is the lock-serialized legacy arm of the "
+            "STATIC scheduler; the continuous scheduler owns the device "
+            "by construction — drop coalesce=False or use "
+            "scheduler='static'"
+        )
+    if scheduler == "auto":
+        scheduler = "static" if num_stages > 1 or not coalesce else "continuous"
+    if scheduler != "continuous" and (prefix_cache_blocks or prefill_chunk is not None):
+        raise ValueError(
+            "prefix_cache_blocks / prefill_chunk are continuous-"
+            "scheduler features (the static run-to-completion decode "
+            "has no slot cache to reuse or chunk into); drop them or "
+            "serve scheduler='continuous'"
+        )
+    dev = resolve_device(device)
+    N, T = int(max_new_tokens), int(prompt_len)
+    generator = torch.Generator(device=dev).manual_seed(int(seed))
+    # The WHOLE decode contract, once, at construction: a bad
+    # combination fails here, not as a per-RPC INTERNAL.
+    validate_generate_args(cfg, T, N, temperature, top_k, top_p,
+                           generator if temperature > 0 else None, eos_id)
+    if num_stages > 1:
+        if eos_id is not None:
+            raise ValueError(
+                "eos_id is not supported by the pipelined overlapped "
+                "decoder (its round-robin loop has no done-mask); "
+                "serve num_stages == 1 for stop-token semantics"
+            )
+        raise ValueError(
+            f"num_stages={num_stages}: the pipelined overlapped decoder "
+            "(parallel/pp_generate.py) is not ported yet; serve num_stages=1"
+        )
+    grpc = _import_grpc()
+
+    if scheduler == "continuous":
+        from tpu_dist_nn_torch.serving.continuous import ContinuousScheduler
+
+        sched = ContinuousScheduler(
+            params, cfg, slots=gen_slots, prompt_len=T, max_new_tokens=N,
+            temperature=temperature, top_k=top_k, top_p=top_p, eos_id=eos_id, seed=seed,
+            submit_timeout=submit_timeout, max_pending_rows=max_pending_rows,
+            prefix_cache_blocks=prefix_cache_blocks, prefill_chunk=prefill_chunk,
+            class_watermarks=class_watermarks, device=dev,
+        )
+        if warm_rows > 0:
+            sched.warm()
+
+        def run_submit(ids, time_remaining, ctx=None, slo_class="standard"):
+            return sched.submit(ids, timeout=time_remaining, ctx=ctx, slo_class=slo_class)
+
+        def run_submit_stream(ids, time_remaining, ctx=None, slo_class="standard",
+                              resume=None):
+            return sched.submit_stream(ids, timeout=time_remaining, ctx=ctx,
+                                       slo_class=slo_class, resume_tokens=resume)
+
+        server = _new_grpc_server(grpc, max_workers)
+        server.add_generic_rpc_handlers((
+            _grpc_service(grpc, make_generate_handler(run_submit, T, cfg.vocab_size,
+                                                      max_new_tokens=N), "Generate"),
+            _grpc_stream_service(grpc, make_generate_stream_handler(
+                run_submit_stream, T, cfg.vocab_size, max_new_tokens=N)),
+        ))
+        bound = _bind_or_close(server, host, port, sched)
+        # The scheduler fulfils the batcher's counter and close
+        # contract: stop-wrapping and GracefulDrain work unchanged.
+        server.batcher = sched
+        server.scheduler = sched
+        _wrap_server_stop(server, sched)
+        server.start()
+        slog.info("server.start", method="Generate", scheduler="continuous", port=bound,
+                  gen_slots=gen_slots, prompt_len=T, max_new_tokens=N, eos_id=eos_id,
+                  prefix_cache_blocks=prefix_cache_blocks, prefill_chunk=prefill_chunk)
+        return server, bound
+
+    params_served = tree_map(lambda a: a.detach().to(dev), params)
+
+    def run(rows: np.ndarray):
+        prompts = torch.as_tensor(np.asarray(rows), device=dev).long()
+        out = generate(params_served, cfg, prompts, N, temperature=temperature, top_k=top_k,
+                       top_p=top_p, generator=generator if temperature > 0 else None,
+                       eos_id=eos_id)
+        # A device tensor: the batcher's drain stage pays the one host
+        # sync, so dispatch can launch the next batch meanwhile.
+        return torch.cat([prompts, out], dim=1)
+
+    # Goodput for the run-to-completion decode: one record a coalesced
+    # launch, at drain (EOS-frozen positions exist only in the fetched
+    # sequences). The coalesce=False lock path stays unaccounted.
+    gp_model = LMFlopModel.from_config(cfg, T + N - 1 if N > 1 else T)
+    GOODPUT.ensure_peak(device_count=1, dtype=cfg.compute_dtype)
+
+    def account(out, useful_rows, launched_rows, dead_rows=0):
+        GOODPUT.record_static_generate(gp_model, out, useful_rows, launched_rows, T, eos_id,
+                                       dead_rows=dead_rows)
+
+    batcher = (
+        Batcher(None, submit_timeout, pipeline_depth, max_pending_rows, class_watermarks,
+                run_fn=run, method="Generate", account_fn=account)
+        if coalesce else None
+    )
+    lock = threading.Lock()
+
+    def run_submit(ids, time_remaining, ctx=None, slo_class="standard"):
+        if batcher is not None:
+            return batcher.submit(ids, timeout=time_remaining, ctx=ctx, slo_class=slo_class)
+        with lock:
+            return _to_host(run(ids))
+
+    if warm_rows > 0:
+        n = 1
+        while n <= warm_rows:
+            _to_host(run(np.zeros((n, T), np.int32)))
+            n *= 2
+    server = _new_grpc_server(grpc, max_workers)
+    server.add_generic_rpc_handlers((
+        _grpc_service(grpc, make_generate_handler(run_submit, T, cfg.vocab_size,
+                                                  max_new_tokens=N), "Generate"),
+    ))
+    bound = _bind_or_close(server, host, port, batcher)
+    server.batcher = batcher
+    server.scheduler = None
+    _wrap_server_stop(server, batcher)
+    server.start()
+    slog.info("server.start", method="Generate", scheduler="static", port=bound,
+              num_stages=num_stages, prompt_len=T, max_new_tokens=N, coalesce=coalesce)
+    return server, bound
+
+
 _CLIENT_DEFAULT = object()  # "use the built-in default" sentinel
 
 
@@ -738,6 +1219,10 @@ class GrpcClient:
             request_serializer=bytes,
             response_deserializer=bytes,
         )
+        self._call_generate = self._channel.unary_unary(
+            GENERATE_METHOD, request_serializer=bytes, response_deserializer=bytes)
+        self._call_generate_stream = self._channel.unary_stream(
+            GENERATE_STREAM_METHOD, request_serializer=bytes, response_deserializer=bytes)
 
     @staticmethod
     def _enrich(e, span) -> tuple:
@@ -765,12 +1250,11 @@ class GrpcClient:
             pass
         return code, trace_id
 
-    def _traced_call(self, payload: bytes, session_key=_CLIENT_DEFAULT,
+    def _traced_call(self, call, method: str, payload: bytes, session_key=_CLIENT_DEFAULT,
                      slo_class=_CLIENT_DEFAULT) -> bytes:
-        """One LOGICAL call (original attempt + bounded retries) under
-        one client span; a final failure names the server-side trace
-        (``e.server_trace_id``)."""
-        method = "Process"
+        """One LOGICAL call of ``method`` (original attempt + bounded
+        retries) under one client span; a final failure names the
+        server-side trace (``e.server_trace_id``)."""
         policy, breaker = self._retry, self._breaker
         session = (
             self.session_key if session_key is _CLIENT_DEFAULT
@@ -813,8 +1297,7 @@ class GrpcClient:
                          str(max(0, int(remaining * 1000)))),
                     )
                 try:
-                    reply = self._call(payload, timeout=remaining,
-                                       metadata=metadata)
+                    reply = call(payload, timeout=remaining, metadata=metadata)
                     if breaker is not None:
                         breaker.record_success()
                     if attempt > 1:
@@ -880,9 +1363,107 @@ class GrpcClient:
     def process(self, x, session_key=_CLIENT_DEFAULT,
                 slo_class=_CLIENT_DEFAULT) -> np.ndarray:
         """``(N, D)`` rows -> ``(N, out_dim)`` float64 outputs."""
-        reply = self._traced_call(encode_matrix(x), session_key=session_key,
-                                  slo_class=slo_class)
+        reply = self._traced_call(self._call, "Process", encode_matrix(x),
+                                  session_key=session_key, slo_class=slo_class)
         return decode_matrix(reply)
+
+    def generate(self, prompts, session_key=_CLIENT_DEFAULT,
+                 slo_class=_CLIENT_DEFAULT) -> np.ndarray:
+        """Token-id prompts ``(N, prompt_len)`` -> full sequences ``(N,
+        prompt_len + max_new_tokens)`` int64 (ids ride the Matrix wire as
+        exact doubles), with the Process call's retries and breaker."""
+        reply = self._traced_call(self._call_generate, "Generate", encode_matrix(prompts),
+                                  session_key=session_key, slo_class=slo_class)
+        return decode_matrix(reply, dtype=np.int64)
+
+    def generate_stream(self, prompt, *, session_key=_CLIENT_DEFAULT,
+                        slo_class=_CLIENT_DEFAULT, timeout: float | None = None,
+                        gap_timeout: float | None = None,
+                        resume_tokens=None) -> "StreamReply":
+        """Stream ONE prompt's tokens as the server produces them.
+
+        ``prompt`` is one sequence of token ids, ``(prompt_len,)`` or
+        ``(1, prompt_len)``. Iterate the returned :class:`StreamReply`
+        for token ids at decode-step granularity. ``timeout`` bounds the
+        WHOLE stream (gRPC deadline; None = unbounded); ``gap_timeout``
+        is the stream-aware budget: the server bounds the wait for the
+        first token and then every next-token gap by it.
+        ``resume_tokens``: ids already received (the resume header); the
+        server replays them and streams only what follows. A stream is
+        not retried: tokens already delivered make it non-idempotent."""
+        x = np.asarray(prompt)
+        if x.ndim == 1:
+            x = x[None, :]
+        session = self.session_key if session_key is _CLIENT_DEFAULT else session_key
+        cls = self.slo_class if slo_class is _CLIENT_DEFAULT else slo_class
+        span = _trace.TRACER.start("client.GenerateStream")
+        metadata = ((_trace.TRACE_HEADER, span.ctx.header()),)
+        if session is not None:
+            metadata += ((SESSION_HEADER, session),)
+        if cls is not None:
+            metadata += ((CLASS_HEADER, cls),)
+        if gap_timeout is not None:
+            metadata += ((_trace.TIMEOUT_HEADER, str(max(0, int(gap_timeout * 1000)))),)
+        if resume_tokens:
+            metadata += ((STREAM_RESUME_HEADER, ",".join(str(int(t)) for t in resume_tokens)),)
+        call = self._call_generate_stream(encode_matrix(x), timeout=timeout, metadata=metadata)
+        return StreamReply(call, span, self._grpc)
 
     def close(self) -> None:
         self._channel.close()
+
+
+class StreamReply:
+    """One streamed generation (:meth:`GrpcClient.generate_stream`).
+
+    Iterate to receive token ids as the server publishes them; when
+    iteration ends normally, ``finish`` holds the terminal frame
+    (``{"reason": "eos" | "max_tokens", ...}``). ``trace_id`` carries the
+    server's trace id from INITIAL metadata, available as soon as the
+    stream opens. ``cancel()`` tears the RPC down; the server frees the
+    decode slot on its next scheduler iteration. A broken stream raises
+    ``grpc.RpcError`` (with ``server_trace_id``) from the iterator."""
+
+    def __init__(self, call, span, grpc):
+        self._call = call
+        self._span = span
+        self._grpc = grpc
+        self._ended = False
+        self.finish: dict | None = None
+        self.trace_id: str | None = None
+
+    def cancel(self) -> None:
+        self._call.cancel()
+
+    def _end_span(self) -> None:
+        if not self._ended:
+            self._ended = True
+            self._span.end()
+
+    def __iter__(self):
+        try:
+            try:
+                for k, v in self._call.initial_metadata() or ():
+                    if k == _trace.TRACE_ID_HEADER:
+                        self.trace_id = v
+            except Exception:  # noqa: BLE001 — metadata is best-effort
+                pass
+            for frame in self._call:
+                kind, data = decode_frame(frame)
+                if kind == "tokens":
+                    yield from data
+                else:
+                    self.finish = data
+                    self._span.annotate(f"end: {data['reason']}")
+                    return
+            # Closed OK without an END frame: a server that died between
+            # its last TOKENS flush and the terminal.
+            raise self._grpc.RpcError("stream closed without a terminal END frame")
+        except self._grpc.RpcError as e:
+            code, trace_id = GrpcClient._enrich(e, self._span)
+            if trace_id is not None:
+                self.trace_id = trace_id
+            self._span.annotate(f"stream failed {code}: server trace {trace_id}")
+            raise
+        finally:
+            self._end_span()

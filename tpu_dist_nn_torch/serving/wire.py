@@ -1,6 +1,7 @@
 """Wire codec for the reference's gRPC protocol, vectorized with numpy.
 
-Port of the ``Process`` half of :mod:`tpu_dist_nn.serving.wire`. The
+Port of :mod:`tpu_dist_nn.serving.wire` (the Matrix codec, the
+GenerateStream frames and the method and header names). The
 reference's only message types are ``Row { repeated double values }``
 and ``Matrix { repeated Row rows }`` (``src/proto/dist_nn.proto:5-11``),
 proto3. This module speaks that exact wire format without protobuf
@@ -466,10 +467,86 @@ def decode_matrix_lazy(data: bytes, dtype=np.float64):
     return out
 
 
+# ----------------------------------------------------- stream frames
+#
+# GenerateStream speaks a tiny frame codec ON TOP of gRPC
+# server-streaming: each gRPC stream message is exactly ONE frame (gRPC
+# already length-delimits messages). Byte 0 is the frame type; varints
+# reuse the protobuf encoder above.
+#
+#   TOKENS frame: 0x01 varint(count) varint(token_id) * count
+#     — a delta of newly produced token ids, in order.
+#   END frame:    0x02 varint(len) reason_utf8 varint(len) code_utf8
+#                 varint(len) message_utf8
+#     — the terminal status: ``reason`` is "eos" / "max_tokens" for a
+#       normal finish (code/message empty), else "error" with the
+#       canonical error code name + message. Exactly one END frame
+#       closes every well-formed stream.
+
+FRAME_TOKENS = 1
+FRAME_END = 2
+
+
+def encode_token_frame(tokens) -> bytes:
+    """``[token ids] -> TOKENS frame`` bytes (a non-empty delta)."""
+    out = bytearray((FRAME_TOKENS,))
+    out += _varint(len(tokens))
+    for t in tokens:
+        out += _varint(int(t))
+    return bytes(out)
+
+
+def encode_end_frame(reason: str, code: str = "", message: str = "") -> bytes:
+    """Terminal frame: ``reason`` ("eos" / "max_tokens" / "error"), plus
+    the canonical error code name + message when reason is "error"."""
+    out = bytearray((FRAME_END,))
+    for s in (reason, code, message):
+        b = s.encode("utf-8")
+        out += _varint(len(b))
+        out += b
+    return bytes(out)
+
+
+def decode_frame(data: bytes):
+    """One stream frame -> ``("tokens", [ids])`` or ``("end", {"reason",
+    "code", "message"})``. Raises ``ValueError`` on malformed bytes
+    (unknown type, truncation, trailing bytes)."""
+    if not data:
+        raise ValueError("empty stream frame")
+    kind = data[0]
+    if kind == FRAME_TOKENS:
+        count, pos = _read_varint(data, 1)
+        toks = []
+        for _ in range(count):
+            t, pos = _read_varint(data, pos)
+            toks.append(t)
+        if pos != len(data):
+            raise ValueError("trailing bytes after TOKENS frame")
+        return "tokens", toks
+    if kind == FRAME_END:
+        fields = []
+        pos = 1
+        for _ in range(3):
+            ln, pos = _read_varint(data, pos)
+            end = _bounded(data, pos, ln)
+            fields.append(bytes(data[pos:end]).decode("utf-8"))
+            pos = end
+        if pos != len(data):
+            raise ValueError("trailing bytes after END frame")
+        return "end", {"reason": fields[0], "code": fields[1], "message": fields[2]}
+    raise ValueError(f"unknown stream frame type {kind}")
+
+
 #: The fully-qualified method the reference's stubs call — the proto
 #: package is ``grpc_dist_nn`` (``src/proto/dist_nn.proto:3``), so
 #: LayerServiceStub targets exactly this path.
 PROCESS_METHOD = "/grpc_dist_nn.LayerService/Process"
+# Generation rides the SAME Matrix wire format (token ids as doubles,
+# exact for ids < 2^53): prompts (N, T) in, (N, T + max_new_tokens) out.
+GENERATE_METHOD = "/grpc_dist_nn.LayerService/Generate"
+# Server-streaming generation: the same prompt Matrix in (exactly one
+# row), a stream of TOKENS / END frames out (codec above).
+GENERATE_STREAM_METHOD = "/grpc_dist_nn.LayerService/GenerateStream"
 SERVICE_NAME = "grpc_dist_nn.LayerService"
 # Client -> server session key: a multi-replica router pins a session to
 # one replica by it; an engine server ignores it.
@@ -482,3 +559,15 @@ CLASS_HEADER = "x-tdn-class"
 # drain-rate-derived backoff floor in milliseconds (RetryPolicy honors
 # it so a shed storm cannot re-synchronize into a hot-retry storm).
 RETRY_AFTER_HEADER = "x-tdn-retry-after-ms"
+# Router -> replica request metadata on a GenerateStream failover
+# re-placement: the comma-separated token ids the client ALREADY
+# received. The replica replays them as forced tokens (the continuous
+# scheduler's resume path) and streams only what follows: exactly-once
+# delivery across the replica switch.
+STREAM_RESUME_HEADER = "x-tdn-stream-resume"
+# Hard cap on the delivered tokens the resume header may carry:
+# bit-exact resume needs EVERY delivered token, so past this bound the
+# stream fails OUT_OF_RANGE instead of an opaque gRPC metadata error.
+# 1024 ids x ~6 chars comma-separated is ~7 KB, under gRPC's ~8 KB
+# default metadata budget.
+STREAM_RESUME_MAX_TOKENS = 1024
