@@ -26,7 +26,14 @@ package. Phases, each fatal on failure (exit 1, no result line):
    two shapes a band planner refused ((1, 64, 64, 256) x 3x3x256x256 and
    (1, 3, 32, 1024) x 3x3x1024x1). Each flash backward twice on one
    input at the 85M shape (B 16, H 12, T 1024, Dh 64) and at Dh 32 and
-   128: dq, dk and dv bit-equal.
+   128: dq, dk and dv bit-equal; the sm90 pair also at the
+   model-parallel shard's shape (B 4, H 6). F9: NaN in three input rows
+   of the relu dense layer, the f32 chains, the int8 chains and four
+   relu conv stages (pooled in registers, from the tile, unpooled):
+   those rows non-finite in the kernel's output as in the plain
+   version's, every other row bit-equal to the clean input's and within
+   tolerance of the plain version (the relu/linear int8 chain
+   bit-equal).
 3. Drive each main path with every kernel's launch count set to 0
    just before it and read just after:
 
@@ -109,8 +116,10 @@ package. Phases, each fatal on failure (exit 1, no result line):
      (``python3 -m tpu_dist_nn_torch.bench``).
    * the numeric guard on the Process path (``guard_phase``, F8's
      repair): 8 requests of 7 rows, one with a NaN row, queued behind
-     an 8,192-row request and coalesced into one chain launch of a
-     784-128-64-10 sigmoid model: the poisoned request fails
+     an 8,192-row request and coalesced into one chain launch of the
+     relu MNIST model (its NaN kept by the kernel since F9's repair;
+     the chain kernel alone gives that row non-finite, the others
+     finite): the poisoned request fails
      ``DATA_LOSS`` alone, its neighbours bit-equal to their solo
      replies, two chain launches; ``Engine.infer`` on the poisoned rows
      raises ``IntegrityError``; then the Process path's 60,000 rows
@@ -226,6 +235,30 @@ package. Phases, each fatal on failure (exit 1, no result line):
      hits / misses / evictions, preemptions, the step graphed and eager
      (ms/step), a prefill chunk's ms, and the static arm's tokens/s
      (within the budgets) and latency on the same 24 prompts.
+   * the model-parallel LM (``model_parallel_phase``, after LM
+     serving): BASELINE ``configs[4]``'s per-block pipeline with the
+     Megatron split, the 85M LM in bf16 with remat on stage x model
+     slots of the card (cut from a multi-chip mesh). The first step's
+     loss and gradients of gpipe and 1f1b at stage 4 x model 2 and of
+     interleaved at 2 stages x 3 virtual x 2 model (4 microbatches each)
+     against the single bf16 program run over the same 4 microbatches
+     (gradients summed, as the pipeline sums them), within 4 times that
+     reference's own spread a leaf (flash against the materialised
+     attention; at least 2**-8; the loss at least within 1e-3), and
+     gpipe against 1f1b at tests/test_pipeline_1f1b.py's tolerance; 6
+     steps each of the three schedules: finite, falling losses, each
+     step's loss within that loss tolerance of the single program's at
+     the same step, step p50 by CUDA events beside the eager single
+     program's, and one step's launches exactly 192 sm90 flash
+     forwards and 96 backwards (12 blocks x 4 microbatches x 2 model
+     slots, remat) and nothing else. Decode on seeded init params with
+     q and k x 2: the overlapped pipelined decoder at 4 stages x 4
+     groups of 4 rows (128-byte prompts, 64 greedy tokens) equal to
+     ``generate`` of each group; ``tp_generate`` at model 2 equal, or
+     first differing at a near tie of the reference (top-2 logit gap
+     under 0.25, each printed); ``serve_lm_generate(num_stages=4)``
+     answering 8 ``Generate`` requests from 4 threads with the
+     overlapped decoder's tokens; the tokens/s of each decoder.
 
    * the float32 LM path, ``tdn lm``'s default recipe
      (``artifacts/real_text_r04/RECORD.json``): d 128, 4 heads, 4
@@ -2316,19 +2349,393 @@ def serving_phase(dev, cfg, eval_rows, out_dir, smi_line) -> None:
     print(f"serving phase took {time.monotonic() - t_phase:.1f} s")
 
 
+# The model-parallel LM (BASELINE configs[4]'s deployment shape): the
+# per-block pipeline and the Megatron split over stage and model slots of
+# one card, in training and in decode. The steps' constant lr is small
+# enough that Adam's first sign-like updates lower the loss from this
+# init (at 3e-4 without warm-up it first rises to ~9.5 nats).
+MP = dict(stages=4, model=2, micro=4, il_stages=2, il_virtual=3, steps=6, lr=5e-5, seed=11,
+          groups=4, group_rows=4, prompt=128, new=64, near_tie=0.25, requests=8, threads=4,
+          spread_factor=4.0, qk_scale=2.0)
+
+
+def model_parallel_phase(dev, cfg, train_rows, eval_rows, out_dir, smi_line) -> None:
+    """The 85M LM (``cfg``: bf16, remat) through the model-parallel paths
+    on stage x model slots of one card (cut from a multi-chip mesh):
+
+    * training: the first step's loss and gradients of gpipe and 1f1b at
+      stage 4 x model 2 (3 blocks a stage) and of interleaved at 2 stages
+      x 3 virtual x 2 model (2 blocks a chunk), 4 microbatches of 4 rows,
+      against the reference: the single bf16 program from the same
+      weights run over the same 4 microbatches, each loss / 4 and the
+      gradients summed in the float32 leaves, as the pipeline sums them.
+      The tolerance is ``MP["spread_factor"]`` times that reference's own
+      bf16 spread, a leaf (its distance from the same microbatched step
+      with the materialised attention; at least 2**-8); the loss's at
+      least the bf16 parity check's first-step rtol. gpipe against 1f1b
+      at tests/test_pipeline_1f1b.py's tolerance. Then ``MP["steps"]``
+      steps of each schedule through ``make_pipeline_lm_train_step``:
+      finite, falling losses, each step's loss within the loss
+      tolerance of the single program's at the same step (the same
+      batches and optimizer), each step timed with CUDA events (p50
+      beside the eager single program's), and the sm90 flash pair the
+      only attention launched, counted a step: blocks x microbatches x
+      model slots backward launches and twice that forward (remat);
+    * decode, on seeded init params with q and k x ``MP["qk_scale"]`` (so
+      the greedy text depends on the prompt, as the serving phase's):
+      ``make_pipeline_generate_overlapped`` at 4 stages and 4 groups of 4
+      rows (128-byte held-out prompts, 64 greedy tokens) token for token
+      the single program's ``generate`` of each group; ``tp_generate`` at
+      model 2 on the 16 prompts the same, or, where a row differs, the
+      reference's top-2 logit gap at its first differing step under
+      ``MP["near_tie"]``; ``serve_lm_generate(num_stages=4)`` over
+      loopback gRPC answering 8 ``Generate`` requests from 4 threads,
+      each reply the overlapped decoder's tokens for that prompt; the
+      tokens/s of each decoder. Every check is fatal."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from tpu_dist_nn_torch.data.text import lm_batches
+    from tpu_dist_nn_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from tpu_dist_nn_torch.kernels.flash_attention import flash_attention
+    from tpu_dist_nn_torch.models.generate import generate
+    from tpu_dist_nn_torch.models.transformer import (
+        dot_product_attention,
+        forward,
+        init_transformer,
+        lm_loss,
+        param_leaves,
+        tree_map,
+    )
+    from tpu_dist_nn_torch.parallel import transformer_pipeline as tpl
+    from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+    from tpu_dist_nn_torch.parallel.pp_generate import make_pipeline_generate_overlapped
+    from tpu_dist_nn_torch.parallel.tensor_parallel import tp_shard_blocks
+    from tpu_dist_nn_torch.parallel.tp_generate import tp_generate
+    from tpu_dist_nn_torch.serving.server import GrpcClient, serve_lm_generate
+    from tpu_dist_nn_torch.train.lm_trainer import (
+        lm_block_layout,
+        make_lm_train_step,
+        make_pipeline_lm_train_step,
+    )
+    from tpu_dist_nn_torch.train.optimizers import build_optimizer
+
+    t_phase = time.monotonic()
+    S, NT, M, L, B = MP["stages"], MP["model"], MP["micro"], cfg.n_layers, LM["batch"]
+
+    def mesh(stage=1, model=1):
+        return build_mesh(MeshSpec(stage=stage, model=model), [dev] * (stage * model))
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+    params = init_transformer(torch.Generator().manual_seed(MP["seed"]), cfg, device=dev)
+    stream = lm_batches(train_rows, B, seed=MP["seed"], epochs=None)
+    batches = [torch.as_tensor(next(stream), device=dev).long() for _ in range(MP["steps"])]
+    tokens = batches[0]
+
+    # (a) the reference: the single bf16 program over the pipeline's
+    # microbatches, its loss / M each and its gradients summed in the
+    # float32 leaves, with the flash pair and with the materialised
+    # attention (its own bf16 spread). The full-batch step in bf16 and in
+    # float32 is printed beside it: its tok_embed gradient, rounded to bf16
+    # once for the whole batch and not once a microbatch, reads ~8e-2
+    # relative L2 from the microbatched one on the card, its other leaves
+    # ~2e-3.
+    def first_step(c, attn, parts):
+        p = tree_map(lambda a: a.clone().requires_grad_(True), params)
+        loss = 0.0
+        for mb in tokens.chunk(parts):
+            part = lm_loss(p, mb, c, attn) / parts
+            part.backward()
+            loss += float(part.detach())
+        return loss, [a.grad for a in param_leaves(p)]
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    ref = {"flash": first_step(cfg, flash_attention, M),
+           "dot_product": first_step(cfg, dot_product_attention, M),
+           "full batch": first_step(cfg, flash_attention, 1),
+           "float32": first_step(cfg32, flash_attention, 1)}
+    torch.cuda.empty_cache()
+    names = [name for name, _ in _named_leaves(params)]
+    loss_ref, g_ref = ref["flash"]
+    g_full, g32 = ref["full batch"][1], ref["float32"][1]
+    spread_loss = abs(ref["dot_product"][0] - loss_ref) / abs(loss_ref)
+    spread = {n: rel(a, b) for n, a, b in zip(names, ref["dot_product"][1], g_ref)}
+    tol_loss = max(MP["spread_factor"] * spread_loss, BF16_PARITY_RTOL[0])
+    # each leaf's: floored at one bf16 rounding (2**-8); a wrong shard or
+    # hand-off moves a gradient by its own size
+    tol_g = {n: max(MP["spread_factor"] * e, 2.0**-8) for n, e in spread.items()}
+    print(f"model parallel: 85M bf16 remat on {smi_line}; reference step 1 (single program "
+          f"over {M} microbatches): loss {loss_ref!r} (materialised attention "
+          f"{ref['dot_product'][0]!r}: rel {spread_loss:.3e}; full batch "
+          f"{ref['full batch'][0]!r}, float32 {ref['float32'][0]!r}); gradient spread flash "
+          f"vs materialised, relative L2 a leaf: "
+          f"{json.dumps({n: float(f'{e:.3e}') for n, e in spread.items()})} -> tolerances: "
+          f"loss rtol {tol_loss:.3e}, each leaf's relative L2 {MP['spread_factor']:g} x its "
+          f"spread (at least 2**-8); the full-batch bf16 step's distance from the reference: "
+          f"{json.dumps({n: float(f'{rel(a, b):.3e}') for n, a, b in zip(names, g_full, g_ref)})}")
+    del ref
+
+    # (b) each schedule's first step against the reference
+    SCHEDULES = (("gpipe", S, 1, tpl.make_pipeline_tp_lm_gpipe_grad),
+                 ("1f1b", S, 1, tpl.make_pipeline_tp_lm_1f1b_grad),
+                 ("interleaved", MP["il_stages"], MP["il_virtual"],
+                  tpl.make_pipeline_tp_lm_interleaved_grad))
+    got = {}
+    want_fwd, want_bwd = 2 * L * M * NT, L * M * NT
+    for sched, stages, v, make in SCHEDULES:
+        shard, unshard = lm_block_layout(sched, stages, v, cfg=cfg, tp=NT)
+        staged = dict(params, blocks=shard(params["blocks"]))
+        vag = make(mesh(stages, NT), cfg, v if sched == "interleaved" else stages, M)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        loss, grads = vag(staged, tokens)
+        torch.cuda.synchronize()
+        launched = counts()
+        flat = param_leaves(dict(grads, blocks=unshard(grads["blocks"])))
+        got[sched] = (float(loss), flat)
+        errs = {n: rel(a, b) for n, a, b in zip(names, flat, g_ref)}
+        share = {n: errs[n] / tol_g[n] for n in names}
+        lrel = abs(float(loss) - loss_ref) / abs(loss_ref)
+        only_sm90 = (launched["flash_fwd_sm90"] == want_fwd
+                     and launched["flash_bwd_sm90"] == want_bwd
+                     and sum(n for k, n in launched.items() if not k.endswith("_sm90")) == 0)
+        ok = lrel <= tol_loss and max(share.values()) <= 1.0 and only_sm90
+        worst = max(share, key=share.get)
+        label = (f"{sched} stage {stages}" + (f" x virtual {v}" if v > 1 else "")
+                 + f" x model {NT}, {M} microbatches")
+        print(f"  model parallel {sched} gradients' relative L2 from the float32 full-batch "
+              f"step (the reference's in brackets): " + ", ".join(
+                  f"{n} {rel(a, f):.3e} ({rel(b, f):.3e})"
+                  for n, a, b, f in zip(names, flat, g_ref, g32)))
+        print(f"check model parallel {label}, step 1 vs the reference: loss {float(loss)!r} "
+              f"(rel {lrel:.3e}); gradients' relative L2 "
+              f"{json.dumps({n: float(f'{e:.3e}') for n, e in errs.items()})}, largest share "
+              f"of its tolerance {share[worst]:.3f} ({worst}); launches "
+              f"{json.dumps({k: n for k, n in launched.items() if n})}, expected flash_fwd_sm90 "
+              f"{want_fwd} flash_bwd_sm90 {want_bwd} and nothing else | "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"model parallel {sched}: the first step departs from the single program or "
+                 f"launched other attention")
+        del grads, staged
+    g_close = all(torch.allclose(a, b, rtol=2e-4, atol=1e-6)
+                  for a, b in zip(got["gpipe"][1], got["1f1b"][1]))
+    same = sum(int((a != b).sum()) for a, b in zip(got["gpipe"][1], got["1f1b"][1]))
+    l_close = abs(got["gpipe"][0] - got["1f1b"][0]) <= 1e-5 * abs(got["gpipe"][0])
+    print(f"check model parallel 1f1b vs gpipe (step 1): loss {got['1f1b'][0]!r} vs "
+          f"{got['gpipe'][0]!r}; gradient elements not bit-equal {same} | tol loss rtol 1e-5, "
+          f"gradients rtol 2e-4 atol 1e-6 | {'ok' if g_close and l_close else 'FAIL'}")
+    if not (g_close and l_close):
+        fail("model parallel: 1f1b and gpipe disagree")
+    del got, g_ref, g_full, g32
+    torch.cuda.empty_cache()
+
+    # (c) steps of each schedule, timed with CUDA events
+    def timed_steps(step, state, label):
+        losses, ms, per_step = [], [], None
+        for i, toks in enumerate(batches):
+            if i == 1:
+                torch.cuda.synchronize()
+                reset_launch_counts()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            loss = step(*state, toks)[2]
+            e1.record()
+            torch.cuda.synchronize()
+            if i == 1:
+                per_step = counts()
+            ms.append(e0.elapsed_time(e1))
+            losses.append(float(loss))
+        p50 = float(np.median(ms[1:]))
+        print(f"model parallel {label}: losses {losses}; step ms {[round(t, 3) for t in ms]} "
+              f"(the first includes warm-up); p50 of steps 2-{len(ms)} {p50:.3f} ms, "
+              f"{B * LM['seq_len'] / p50 * 1e3:.1f} tokens/s")
+        return losses, p50, per_step
+
+    single = tree_map(lambda a: a.clone().requires_grad_(True), params)
+    opt = build_optimizer(MP["lr"])
+    single_losses, single_p50, _ = timed_steps(make_lm_train_step(cfg, opt),
+                                               (single, opt.init(param_leaves(single))),
+                                               "single program eager (one stream)")
+    del single
+    torch.cuda.empty_cache()
+    for sched, stages, v, _ in SCHEDULES:
+        shard, _ = lm_block_layout(sched, stages, v, cfg=cfg, tp=NT)
+        st = tree_map(lambda a: a.detach().clone(), dict(params, blocks=shard(params["blocks"])))
+        opt = build_optimizer(MP["lr"])
+        step = make_pipeline_lm_train_step(mesh(stages, NT), cfg, stages, M, opt, schedule=sched,
+                                           num_virtual=v, tensor_parallel=NT)
+        label = (f"{sched} stage {stages}" + (f" x virtual {v}" if v > 1 else "")
+                 + f" x model {NT}, {M} microbatches")
+        losses, p50, per_step = timed_steps(step, (st, opt.init(param_leaves(st))), label)
+        steps_rel = [abs(a - b) / abs(b) for a, b in zip(losses, single_losses)]
+        only_sm90 = (per_step["flash_fwd_sm90"] == want_fwd
+                     and per_step["flash_bwd_sm90"] == want_bwd
+                     and sum(n for k, n in per_step.items() if not k.endswith("_sm90")) == 0)
+        ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+              and max(steps_rel) <= tol_loss and only_sm90)
+        print(f"check model parallel {sched}: finite, falling losses; each step's loss vs the "
+              f"single program's, rel {json.dumps([float(f'{e:.3e}') for e in steps_rel])} "
+              f"(tol rtol {tol_loss:.3e}); one step's launches "
+              f"{json.dumps({k: n for k, n in per_step.items() if n})} (expected "
+              f"flash_fwd_sm90 {want_fwd}, flash_bwd_sm90 {want_bwd}); p50 {p50:.3f} ms vs the "
+              f"single program's eager {single_p50:.3f} ms ({p50 / single_p50:.2f}x) | "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"model parallel {sched}: losses not finite and falling, away from the single "
+                 f"program's, or other attention launched")
+        del st, step
+        torch.cuda.empty_cache()
+
+    # (d) decode, on sharper-attention params
+    dparams = init_transformer(torch.Generator().manual_seed(MP["seed"]), cfg, device=dev)
+    dparams["blocks"]["w_qkv"][..., :2 * cfg.d_model] *= MP["qk_scale"]
+    G, Bg, T, N = MP["groups"], MP["group_rows"], MP["prompt"], MP["new"]
+    rng = np.random.default_rng(MP["seed"])
+    rows = np.asarray(eval_rows)
+    starts, picks = rng.integers(0, rows.shape[1] - T, G * Bg), rng.integers(0, len(rows), G * Bg)
+    prompts = torch.as_tensor(np.stack([rows[r, o:o + T] for r, o in zip(picks, starts)]),
+                              device=dev).long()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.monotonic() - t0
+
+    generate(dparams, cfg, prompts, N)  # the graph's capture
+    ref16, single_s = timed(lambda: generate(dparams, cfg, prompts, N))
+    m4 = mesh(S)
+    staged4 = dict(dparams, blocks=tpl.shard_blocks(dparams["blocks"], S))
+    over = make_pipeline_generate_overlapped(m4, cfg, S, N, G)
+    grouped = prompts.reshape(G, Bg, T)
+    over(staged4, grouped)  # warm
+    out_o, over_s = timed(lambda: over(staged4, grouped))
+    refs = [generate(dparams, cfg, grouped[g], N) for g in range(G)]
+    diff_o = sum(int((out_o[g, :, T:] != refs[g]).sum()) for g in range(G))
+    distinct = len({bytes(r[:16].tolist()) for r in ref16.cpu().numpy().astype(np.uint8)})
+    ok = diff_o == 0 and bool((out_o[:, :, :T] == grouped).all()) and distinct > G * Bg // 2
+    print(f"check model parallel decode: make_pipeline_generate_overlapped {S} stages x {G} "
+          f"groups of {Bg} rows, prompt {T}, {N} greedy tokens vs generate of each group: "
+          f"tokens not equal {diff_o}; {distinct} distinct first-16-token continuations of "
+          f"{G * Bg} | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("model parallel: the overlapped pipelined decode differs from the single program")
+    print(f"model parallel decode tokens/s ({G * Bg} rows x {N} tokens): overlapped pipeline "
+          f"{G * Bg * N / over_s:.1f} ({over_s:.3f} s), single program generate (graphed) "
+          f"{G * Bg * N / single_s:.1f} ({single_s:.3f} s)")
+
+    mtp = mesh(model=NT)
+    ptp = dict(dparams, blocks=tp_shard_blocks(dparams["blocks"], cfg, NT))
+    tp_generate(mtp, ptp, cfg, prompts, N)  # warm
+    out_t, tp_s = timed(lambda: tp_generate(mtp, ptp, cfg, prompts, N))
+    print(f"model parallel decode tokens/s: tp_generate model {NT} "
+          f"{G * Bg * N / tp_s:.1f} ({tp_s:.3f} s)")
+    worst = 0.0
+    bad_rows = []
+    for r in range(G * Bg):
+        where = torch.nonzero(out_t[r] != ref16[r])
+        if not len(where):
+            continue
+        j = int(where[0])
+        seq = torch.cat([prompts[r], ref16[r, :j]])[None]
+        with torch.no_grad():
+            top2 = forward(dparams, seq, cfg)[0, -1].float().topk(2).values
+        gap = float(top2[0] - top2[1])
+        worst = max(worst, gap)
+        print(f"  tp_generate row {r} first differs at step {j}: reference top-2 logit gap "
+              f"{gap:.4f} (near-tie bound {MP['near_tie']})")
+        if gap >= MP["near_tie"]:
+            bad_rows.append(r)
+    n_diff = sum(bool((out_t[r] != ref16[r]).any()) for r in range(G * Bg))
+    ok = not bad_rows
+    print(f"check model parallel tp_generate model {NT} vs generate: {n_diff} of {G * Bg} rows "
+          f"differ, every first difference at a near tie (largest gap {worst:.4f} < "
+          f"{MP['near_tie']}) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"model parallel: tp_generate rows {bad_rows} differ from generate away from a tie")
+
+    # the pipelined overlapped decoder behind Generate
+    import grpc  # noqa: F401 — the serving phase needs it too
+
+    reqs = prompts[:MP["requests"]]
+    ref_one = []
+    for k in range(0, MP["requests"], G):  # 4 prompts at a time, a group of one row each
+        ref_one.append(over(staged4, reqs[k:k + G][:, None, :])[:, 0, T:])
+    ref_one = torch.cat(ref_one).cpu().numpy()
+    server, port = serve_lm_generate(dparams, cfg, 0, host="127.0.0.1", max_new_tokens=N,
+                                     prompt_len=T, num_stages=S, num_groups=G, temperature=0.0,
+                                     device=dev)
+    replies = [None] * MP["requests"]
+    errors = []
+    host_reqs = reqs.cpu().numpy()
+
+    def worker(w):
+        client = GrpcClient(f"127.0.0.1:{port}", timeout=300.0)
+        try:
+            for i in range(w, MP["requests"], MP["threads"]):
+                replies[i] = client.generate(host_reqs[i:i + 1])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        finally:
+            client.close()
+
+    t0 = time.monotonic()
+    pool = [threading.Thread(target=worker, args=(w,)) for w in range(MP["threads"])]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join()
+    serve_s = time.monotonic() - t0
+    batches_total = server.batcher.batches_total
+    server.stop(0)
+    diff_s = sum(int((np.asarray(rep)[0, T:] != ref_one[i]).sum()) if rep is not None else N
+                 for i, rep in enumerate(replies))
+    ok = not errors and diff_s == 0
+    print(f"check model parallel serving: serve_lm_generate(num_stages={S}, num_groups={G}) "
+          f"over loopback gRPC, {MP['requests']} Generate requests of 1 row from "
+          f"{MP['threads']} threads in {batches_total} launches, {serve_s:.3f} s "
+          f"({MP['requests'] * N / serve_s:.1f} tokens/s); replies' tokens not equal to the "
+          f"overlapped decoder's {diff_s}; errors {errors} | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("model parallel: the pipelined Generate endpoint's replies differ")
+    del dparams, staged4, ptp
+    torch.cuda.empty_cache()
+    print(f"model parallel phase: {time.monotonic() - t_phase:.1f} s")
+
+
+def _named_leaves(tree, prefix=""):
+    """``(path, tensor)`` in ``param_leaves`` order."""
+    out = []
+    for key in sorted(tree):
+        v = tree[key]
+        out.extend(_named_leaves(v, f"{prefix}{key}/") if isinstance(v, dict)
+                   else [(prefix + key, v)])
+    return out
+
+
 GUARD_ARMS = ("on", "off", "off", "on", "on", "off")  # the guard's cost, Process rows/s in turns
 POISON_REQS = 8  # Process requests of 7 rows beside the poisoned one (F8)
 
 
-def guard_phase(dev, model, poison_model, data, out_dir, smi_line) -> None:
-    """The numeric guard on the Process path (F8's repair): a poisoned
-    request among coalesced neighbours fails DATA_LOSS alone, the
-    neighbours bit-equal to their solo replies, through the chain
-    kernel; then the guard's cost on Process rows/s, armed and disarmed
-    in turns on the MNIST engine."""
+def guard_phase(dev, model, data, out_dir, smi_line) -> None:
+    """The numeric guard on the Process path (F8's repair) on the relu
+    MNIST engine, whose kernels keep a NaN since F9's: a poisoned request
+    among coalesced neighbours fails DATA_LOSS alone, the neighbours
+    bit-equal to their solo replies, through the chain kernel; then the
+    guard's cost on Process rows/s, armed and disarmed in turns."""
     import threading
 
     import numpy as np
+    import torch
 
     from tpu_dist_nn_torch.api.engine import Engine
     from tpu_dist_nn_torch.core.schema import save_model
@@ -2339,12 +2746,9 @@ def guard_phase(dev, model, poison_model, data, out_dir, smi_line) -> None:
 
     t_phase = time.monotonic()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=out_dir) as tmp:
-        path = Path(tmp) / "poison.json"
-        save_model(poison_model, path)
-        eng = Engine.up(path, device=dev)
         mnist_path = Path(tmp) / "mnist.json"
         save_model(model, mnist_path)
-        eng_mnist = Engine.up(mnist_path, device=dev)
+        eng = eng_mnist = Engine.up(mnist_path, device=dev)
     rng = np.random.default_rng(7)
     rows = [rng.uniform(0.0, 1.0, (7, MNIST[0])).astype(np.float32) for _ in range(POISON_REQS)]
     victim = POISON_REQS // 2
@@ -2418,11 +2822,18 @@ def guard_phase(dev, model, poison_model, data, out_dir, smi_line) -> None:
           f"{'ok' if direct == 'IntegrityError' else 'FAIL'}")
     if direct != "IntegrityError":
         fail("Engine.infer shipped non-finite rows")
-    # A NaN input through the MNIST engine's relu layers: the kernel's
-    # relu is fmaxf, which returns 0 for NaN (printed, not held).
-    out = eng_mnist.fetch(eng_mnist.infer_async(rows[victim]))
-    print(f"F8 note: a NaN input row through the relu MNIST chain kernel comes out "
-          f"{'finite' if np.isfinite(out[3]).all() else 'non-finite'} (fmaxf(NaN, 0) = 0)")
+    # F9: the chain kernel itself on the poisoned rows (no guard): the
+    # NaN row comes out non-finite, the others finite.
+    from tpu_dist_nn_torch.models.fcnn import params_from_spec
+
+    raw = fcnn_fused_forward(params_from_spec(model, device=dev),
+                             torch.from_numpy(rows[victim]).to(dev)).cpu().numpy()
+    finite = np.isfinite(raw).all(axis=1)
+    f9_ok = finite.tolist() == [i != 3 for i in range(len(raw))]
+    print(f"check F9 relu MNIST chain kernel on the poisoned rows: finite rows "
+          f"{finite.astype(int).tolist()} (row 3 NaN in) | {'ok' if f9_ok else 'FAIL'}")
+    if not f9_ok:
+        fail("the chain kernel's relu dropped a NaN (F9)")
 
     # The guard's cost: the Process path's 60,000 rows (sizes in turn,
     # 10 threads, depth 2) with the guard armed and disarmed in turns.
@@ -3166,6 +3577,67 @@ def main() -> None:
     repeat_check(f"fused_conv2d conv2+pool x{CIFAR_BATCH}",
                  lambda: fused_conv2d(img2, cw2, cb2, activation="relu", **pool2))
 
+    # F9: a NaN in some input rows of each kernel whose relu, pool max or
+    # int8 row maximum keeps NaN since the repair. The poisoned rows come
+    # out non-finite where the plain version's do; every other row is
+    # bit-equal to the kernel's output on the clean input and within the
+    # check's tolerance of the plain version (bit-equal for the int8
+    # chain with relu / linear layers).
+    def nan_row_check(label, kernel, plain, clean, atol, rtol, bit_equal=False):
+        bad = [3, clean.shape[0] // 2, clean.shape[0] - 1]
+        poisoned = clean.clone()
+        poisoned.reshape(poisoned.shape[0], -1)[bad, 5] = float("nan")
+        got, want, base = kernel(poisoned), plain(poisoned), kernel(clean)
+        torch.cuda.synchronize()
+
+        def nonfinite(a):
+            return (~torch.isfinite(a.reshape(a.shape[0], -1))).any(dim=1)
+
+        expect = torch.zeros(clean.shape[0], dtype=torch.bool, device=dev)
+        expect[bad] = True
+        keep = ~expect
+        rows_ok = torch.equal(nonfinite(got), expect) and torch.equal(nonfinite(want), expect)
+        same = torch.equal(got[keep], base[keep])
+        close = bool(torch.allclose(got[keep], want[keep], atol=atol, rtol=rtol))
+        if bit_equal:
+            close = close and torch.equal(got[keep], want[keep])
+        ok = rows_ok and same and close
+        print(f"check F9 {label}: NaN in rows {bad}: non-finite rows kernel "
+              f"{torch.nonzero(nonfinite(got)).flatten().tolist()}, plain "
+              f"{torch.nonzero(nonfinite(want)).flatten().tolist()}; other rows bit-equal to the "
+              f"clean input's {same}, {'bit-equal to' if bit_equal else 'within tol of'} the "
+              f"plain version {close} | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"F9 {label}")
+
+    nan_row_check("fused_dense 8192x784->128 relu", lambda h: fused_dense(h, w1, b1,
+                                                                          activation="relu"),
+                  lambda h: fused_dense_plain(h, w1, b1, "relu"), x, 1e-5, 1e-5)
+    nan_row_check("fcnn_fused_forward 784-128-64-10 relu,relu,softmax x8192",
+                  lambda h: fcnn_fused_forward(params, h),
+                  lambda h: fcnn_fused_forward_plain(params, h), x, 2e-5, 1e-4)
+    nan_row_check(f"fcnn_fused_forward conv tail {tail_tag} x{CIFAR_BATCH} (split-K)",
+                  lambda h: fcnn_fused_forward(tail, h),
+                  lambda h: fcnn_fused_forward_plain(tail, h), x_tail, 2e-5, 1e-4)
+    nan_row_check("fcnn_quantized_forward 784-128-64-10 relu,relu,softmax x8192",
+                  lambda h: fcnn_quantized_forward(q, h), lambda h: forward_quantized(q, h), x,
+                  1e-7, 1e-6)
+    nan_row_check("fcnn_quantized_forward 784-128-64-10 relu,linear,linear x8192",
+                  lambda h: fcnn_quantized_forward(q_lin, h),
+                  lambda h: forward_quantized(q_lin, h), x, 0.0, 0.0, bit_equal=True)
+    for label, img, cw, cb, kw in (
+            ("conv1+pool 32x32x3->16 relu (pool in registers)", img1, cw1, cb1, pool2),
+            ("conv2+pool 16x16x16->32 relu (pool in registers)", img2, cw2, cb2, pool2),
+            ("conv1 32x32x3->16 SAME relu + 3x3/2 pool (pool from the tile)", img1, cw1, cb1,
+             dict(padding="same", pool_window=(3, 3), pool_stride=(2, 2))),
+            ("conv2 16x16x16->32 VALID relu, no pool", img2, cw2, cb2, dict(padding="valid"))):
+        nan_row_check(f"fused_conv2d {label} x{img.shape[0]}",
+                      lambda h, cw=cw, cb=cb, kw=kw: fused_conv2d(h, cw, cb, activation="relu",
+                                                                  **kw),
+                      lambda h, cw=cw, cb=cb, kw=kw: fused_conv2d_plain(h, cw, cb,
+                                                                        activation="relu", **kw),
+                      img, *CONV_TOL)
+
     # Flash attention, both routes, against the plain versions, q, k and
     # v read as the three strided views of one fused projection as the
     # transformer passes them, lse and delta from the plain forward:
@@ -3249,6 +3721,10 @@ def main() -> None:
         "main shape", B_LM, T_LM, H_LM, DH_LM, True, torch.float32, "f32")
     err["flash_fwd_sm90"], err["flash_bwd_sm90"] = flash_check(
         "main shape", B_LM, T_LM, H_LM, DH_LM, True, torch.bfloat16, "sm90")
+    # The model-parallel LM's shape: a microbatch of 4 rows, the 6 heads of
+    # a tensor-parallel shard (MP, model 2).
+    flash_check("model-parallel shard shape", B_LM // MP["micro"], T_LM, H_LM // MP["model"],
+                DH_LM, True, torch.bfloat16, "sm90")
     for i, (T, Dh, causal) in enumerate([(1000, 64, False), (40, 64, True), (1000, 32, True),
                                          (40, 32, False), (1000, 128, True), (40, 128, False),
                                          (129, 64, True)]):
@@ -3370,8 +3846,7 @@ def main() -> None:
     # ------------------------------------------------ the Process path
     process_phase(dev, model, conv_model, data, rng, params, q, out_dir, smi[0], compare,
                   failures)
-    guard_phase(dev, model, he_model(MNIST, ["sigmoid", "sigmoid", "softmax"], seed=3), data,
-                out_dir, smi[0])
+    guard_phase(dev, model, data, out_dir, smi[0])
 
     # --------------------------------------------- the conv train path
     conv_train_phase(dev, out_dir, smi[0], compare, failures)
@@ -3616,6 +4091,8 @@ def main() -> None:
     generate_phase(dev, cfg, lm_params, eval_rows, out_dir, smi[0], (mem_rate, bf16_rate))
     serving_phase(dev, cfg, eval_rows, out_dir, smi[0])
     del lm_params
+    torch.cuda.empty_cache()
+    model_parallel_phase(dev, cfg, train_rows, eval_rows, out_dir, smi[0])
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=out_dir) as tmp:
@@ -4100,6 +4577,15 @@ def main() -> None:
     print(f"time flash_bwd_sm90's workspace alone (zero a float32 (B, T, H, Dh) and cast it "
           f"to bf16): {workspace_ms:.4f} ms of its {sm90_bwd_ms:.4f} ms")
     print(f"SDPA forward vs flash_fwd_sm90 at the LM shape: max_abs {lib_err:.3e}")
+    del sets
+    torch.cuda.empty_cache()
+    # The model-parallel steps' shape (printed; the kernels line keeps the
+    # 85M single program's).
+    shape_mp = (B_LM // MP["micro"], T_LM, H_LM // MP["model"], DH_LM)
+    sets = flash_sets(shape_mp, torch.bfloat16, 3, 50)
+    sdpa_mp = sdpa_times(sets, shape_mp, "bfloat16")
+    for k in ("flash_fwd_sm90", "flash_bwd_sm90"):
+        time_flash(k, sets, shape_mp, torch.bfloat16, sdpa_mp, graph=True)
     del sets
     torch.cuda.empty_cache()
     # The f32 pair on its own route, float32, at the 85M shape (the

@@ -361,6 +361,14 @@ QUICK_TESTS = {
                            "test_continuous_scheduler_conservation_and_prefix_savings"],
     "test_torch_lm_serving": ["test_loopback_parity_with_the_jax_server_both_ways[continuous]",
                               "test_cli_serving_flags_refused_before_training_with_jax_texts[eos]"],
+    "test_torch_f9": ["test_plain_versions_keep_a_nan_row_as_jax_does[chain]",
+                      "test_relu_of_nan_is_nan_in_both_packages"],
+    "test_torch_tensor_parallel": ["test_forward_matches_jax_and_the_single_program[2-2]",
+                                   "test_indivisible_heads_and_ffn_raise_like_jax"],
+    "test_torch_lm_pipeline": ["test_pp_tp_1f1b_gradients_match_jax",
+                               "test_schedule_refusals"],
+    "test_torch_pp_generate": ["test_overlapped_equals_jax_and_each_group_alone[4-1]",
+                               "test_tp_generate_refuses_what_jax_refuses"],
     # ISSUE 10: the codec fast lane's correctness anchor (byte-exact
     # scalar/vectorized equivalence + fuzz agreement), the decode-into-
     # staging path through a real batcher, the codec A/B perf smoke,

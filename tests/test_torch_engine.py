@@ -292,6 +292,26 @@ try:
     raise AssertionError("the numeric guard let a non-finite row through")
 except IntegrityError:
     pass
+# The model-parallel LM: the PP x TP loss and its gradients on (stage 2,
+# model 2) CPU slots, and the pipelined decoder, against the single program.
+from tpu_dist_nn_torch.models.generate import generate
+from tpu_dist_nn_torch.models.transformer import lm_loss
+from tpu_dist_nn_torch.parallel import collectives, tensor_parallel, tp_generate
+from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+from tpu_dist_nn_torch.parallel.pp_generate import make_pipeline_generate
+from tpu_dist_nn_torch.parallel.transformer_pipeline import (
+    make_pipeline_tp_lm_loss, shard_blocks, shard_blocks_pp_tp)
+cfg4 = TransformerConfig(vocab_size=256, d_model=16, n_heads=2, n_layers=2, d_ff=32,
+                         max_seq_len=16)
+lm4 = init_transformer(torch.Generator().manual_seed(2), cfg4, device="cpu")
+toks = torch.as_tensor(rows[:4]).long()
+pptp = dict(lm4, blocks=shard_blocks_pp_tp(lm4["blocks"], cfg4, 2, 2))
+loss = make_pipeline_tp_lm_loss(build_mesh(MeshSpec(stage=2, model=2), ["cpu"] * 4), cfg4, 2, 2)(
+    pptp, toks)
+assert abs(float(loss) - float(lm_loss(lm4, toks, cfg4))) < 1e-4
+gen = make_pipeline_generate(build_mesh(MeshSpec(stage=2), ["cpu"] * 2), cfg4, 2, 4)
+out = gen(dict(lm4, blocks=shard_blocks(lm4["blocks"], 2)), toks[:, :6])
+assert torch.equal(out[:, 6:], generate(lm4, cfg4, toks[:, :6], 4))
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist_nn")]
 assert not bad, bad
 print("imported", len(mods), "modules without jax")

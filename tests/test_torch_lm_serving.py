@@ -5,8 +5,9 @@ JAX's, on the same weights (``transformer_params_from_jax``) and
 prompts, over loopback gRPC: each package's client gets JAX's greedy
 ``generate`` tokens from the other package's server, and a bad request
 gets the same status and message from both; construction refusals
-carry JAX's texts (``num_stages > 1`` is refused: the pipelined decoder
-is not ported). ``tdn lm --device cpu --serve-generate 0`` trains a tiny
+carry JAX's texts; ``num_stages > 1`` serves the pipelined overlapped
+decoder (``tests/test_torch_pp_generate.py`` holds it to both decoders
+over the wire). ``tdn lm --device cpu --serve-generate 0`` trains a tiny
 recipe in a subprocess, prints its report with the ``serving`` block
 before it blocks, answers both clients and the ``--stream`` client, and
 drains on SIGTERM; its serving flags are refused before training with
@@ -116,8 +117,20 @@ def test_construction_refusals_carry_jax_texts(kw):
 
 
 def test_pipelined_serving_is_refused_as_not_ported_and_lock_path_serves():
-    with pytest.raises(ValueError, match="pp_generate.py\\) is not ported yet"):
-        _port(max_new_tokens=4, num_stages=2)
+    """Holds that ``num_stages=2`` serves the single program's greedy
+    tokens (the pipelined overlapped decoder on the static arm), that the
+    24-position boundary boots, and that the lock path serves. The name
+    is kept from when ``num_stages > 1`` was refused."""
+    prompts = np.random.default_rng(3).integers(0, 64, (3, T))
+    srv, port = _port(max_new_tokens=4, num_stages=2)
+    try:
+        assert srv.scheduler is None and srv.batcher is not None
+        c = ps.GrpcClient(f"127.0.0.1:{port}")
+        np.testing.assert_array_equal(c.generate(prompts)[:, T:],
+                                      np.asarray(jg.generate(JPARAMS, JCFG, prompts, 4)))
+        c.close()
+    finally:
+        srv.stop(0)
     srv, port = _port(max_new_tokens=17)  # the boundary: 8 + 17 - 1 = 24 positions
     srv.stop(0)
     srv, port = _port(max_new_tokens=4, coalesce=False)
@@ -177,13 +190,17 @@ def test_cli_serving_flags_refused_before_training_with_jax_texts(flags):
     assert texts[0] == texts[1]
 
 
-def test_cli_pipelined_serving_refused_as_not_ported():
-    err = io.StringIO()
-    with redirect_stderr(err):
-        assert port_main(LM + ["--serve-generate", "0", "--serve-stages", "2",
-                               "--serve-prompt-len", "8", "--serve-new-tokens", "4",
-                               "--device", "cpu"]) == 2
-    assert "is not ported yet" in err.getvalue()
+def test_cli_pipelined_serving_refused_as_not_ported(capsys):
+    """Holds that ``tdn lm --serve-stages 2`` serves (for 0 seconds here)
+    and reports ``serving.stages == 2``, and that ``--stream`` without
+    ``--target`` is refused. The name is kept from when ``--serve-stages``
+    above 1 was refused."""
+    assert port_main(LM + ["--serve-generate", "0", "--serve-stages", "2",
+                           "--serve-prompt-len", "8", "--serve-new-tokens", "4",
+                           "--serve-seconds", "0", "--drain-grace-seconds", "0",
+                           "--device", "cpu"]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["serving"]["stages"] == 2 and report["serving"]["scheduler"] == "static"
     err = io.StringIO()
     with redirect_stderr(err):
         assert port_main(["lm", "--stream"]) == 2

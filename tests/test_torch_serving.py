@@ -390,12 +390,19 @@ def test_pipeline_depth_bounds_outstanding_launches():
         outs = [None] * 8
         threads = []
         try:
+            # One request at a time: each of the first `depth` launches
+            # alone, the rest are taken in or queued behind the full
+            # pipeline, whatever the threads' timing.
             for i in range(8):
                 def go(i=i):
                     outs[i] = b.submit(np.full((1, 8), float(i)))
+                before = b.requests_total
                 threads.append(threading.Thread(target=go))
                 threads[-1].start()
-            _wait_for(lambda: len(eng.launched) == depth and b.requests_total == 8)
+                _wait_for(lambda: b.requests_total > before)
+                if i < depth:
+                    _wait_for(lambda: len(eng.launched) == i + 1)
+            assert b.requests_total == 8
             time.sleep(0.2)
             assert len(eng.launched) == depth  # the next launch waits on a slot
         finally:

@@ -38,14 +38,22 @@ printed lines:
   sampling, ``--eos-id``). ``--serve-generate PORT`` then serves
   generation from the trained params (``Generate`` and
   ``GenerateStream``; the continuous scheduler by default, ``--scheduler
-  static`` the run-to-completion arm), prints the report with its
-  ``serving`` block before it blocks, and drains on SIGTERM; every
-  serving flag is checked before training. ``lm --stream --target
-  HOST:PORT`` is a client only: it streams one generation of
-  ``--prompt`` from a running endpoint. Left for later slices:
-  ``--serve-stages > 1`` (the pipelined decoder),
-  ``--sample-tensor-parallel``, ``--sample-pipeline-stages`` and
-  ``--metrics-port``.
+  static`` the run-to-completion arm, ``--serve-stages N`` the pipelined
+  overlapped decoder over N stage slots with ``--serve-groups``), prints
+  the report with its ``serving`` block before it blocks, and drains on
+  SIGTERM; every serving flag is checked before training. ``--stages``
+  trains the per-block pipeline (``--schedule`` gpipe, 1f1b or
+  interleaved with ``--virtual-stages``, ``--microbatches``,
+  ``--data-parallel`` replicas), Megatron-sharded with
+  ``--tensor-parallel``; a slot count above the visible cards places the
+  slots on one card. ``--sample-pipeline-stages`` and
+  ``--sample-tensor-parallel`` decode the sample in those placements.
+  ``lm --stream --target HOST:PORT`` is a client only: it streams one
+  generation of ``--prompt`` from a running endpoint. Left for later
+  slices, refused before training by what is missing: ``--experts`` /
+  ``--expert-parallel``, ``--seq-parallel`` / ``--sp-mode``, ``--zero1``,
+  ``--fsdp``, ``--schedule zb|zb-v|zb-stash``, ``--data-parallel``
+  without ``--stages``; and ``--metrics-port``.
 
 Every engine-side verb runs on the card unless ``--device cpu`` is
 given.
@@ -508,6 +516,18 @@ def _validate_sampling(args, cfg, generator) -> None:
     from tpu_dist_nn_torch.data.text import encode
     from tpu_dist_nn_torch.models.generate import validate_generate_args
 
+    if args.sample_tensor_parallel > 1 and args.sample_bytes <= 0:
+        raise ValueError(
+            "--sample-tensor-parallel requires --sample-bytes > 0 "
+            "(it shards the decode; without sampling it would be "
+            "silently ignored)"
+        )
+    if args.sample_pipeline_stages > 1 and args.sample_bytes <= 0:
+        raise ValueError(
+            "--sample-pipeline-stages requires --sample-bytes > 0 "
+            "(it places the decode; without sampling it would be "
+            "silently ignored)"
+        )
     if args.eos_id is not None and not 0 <= args.eos_id < 256:
         raise ValueError(f"--eos-id must be a byte id in [0, 256), got {args.eos_id}")
     if args.sample_bytes <= 0:
@@ -528,8 +548,116 @@ def _validate_sampling(args, cfg, generator) -> None:
             f"{prompt_len}-byte prompt leaves {args.seq_len - prompt_len} "
             f"positions within --seq-len {args.seq_len}"
         )
+    if args.eos_id is not None and (args.sample_pipeline_stages > 1
+                                    or args.sample_tensor_parallel > 1):
+        raise ValueError(
+            "--eos-id applies to the single-chip decode only (the "
+            "pipelined/tensor-parallel decoders have no done-mask); "
+            "drop the placement flag to sample with a stop token"
+        )
+    spp, stp = args.sample_pipeline_stages, args.sample_tensor_parallel
+    if spp > 1:
+        if stp > 1:
+            raise ValueError(
+                "--sample-pipeline-stages and --sample-tensor-parallel "
+                "are different decode placements: pick one"
+            )
+        if args.layers % spp:
+            raise ValueError(
+                f"--sample-pipeline-stages {spp} must divide "
+                f"--layers ({args.layers})"
+            )
+    if stp > 1 and (args.heads % stp or (4 * args.d_model) % stp):
+        raise ValueError(
+            f"--sample-tensor-parallel {stp} must divide --heads "
+            f"({args.heads}) and d_ff (4*--d-model = {4 * args.d_model})"
+        )
     validate_generate_args(cfg, prompt_len, args.sample_bytes, args.temperature, args.top_k,
                            args.top_p, generator, args.eos_id)
+
+
+def _refuse_unported(args) -> None:
+    """``tdn lm``'s parallel flags that this port does not carry yet,
+    refused before any work, each naming what is missing."""
+    if args.experts > 0:
+        raise ValueError(
+            "--experts: the mixture-of-experts LM (parallel/expert_parallel.py) is "
+            "not ported yet"
+        )
+    if args.expert_parallel > 1:
+        raise ValueError("--expert-parallel requires --experts > 0")
+    if args.seq_parallel > 1:
+        raise ValueError(
+            "--seq-parallel: sequence parallelism (parallel/ring_attention.py, ring "
+            "and Ulysses attention) is not ported yet"
+        )
+    if args.sp_mode != "ring":
+        raise ValueError(
+            "--sp-mode requires --seq-parallel > 1 (it picks the "
+            "sequence-parallel decomposition)"
+        )
+    if args.zero1 or args.fsdp:
+        raise ValueError(
+            ("--fsdp" if args.fsdp else "--zero1")
+            + ": sharded optimizer state (parallel/zero.py) is not ported yet"
+        )
+    from tpu_dist_nn_torch.parallel.one_f_one_b import validate_schedule
+
+    validate_schedule(args.schedule, lm=True)
+
+
+def _validate_parallel(args) -> None:
+    """``tdn lm``'s pipeline and tensor-parallel flags, with the JAX
+    package's texts, before any work."""
+    _refuse_unported(args)
+    if args.tensor_parallel > 1:
+        if args.stages <= 1:
+            raise ValueError(
+                "--tensor-parallel shards each pipeline stage's "
+                "blocks: it requires --stages > 1 (use "
+                "--sample-tensor-parallel for sharded decode)"
+            )
+        if args.heads % args.tensor_parallel:
+            raise ValueError(
+                f"--heads {args.heads} must be divisible by "
+                f"--tensor-parallel {args.tensor_parallel} "
+                "(Megatron shards attention head-wise)"
+            )
+    if args.schedule != "gpipe" and args.stages <= 1:
+        raise ValueError(
+            f"--schedule {args.schedule} applies to the pipelined dense LM "
+            "only (--stages > 1, without --experts/--seq-parallel/"
+            "--zero1/--fsdp)"
+        )
+    if args.stages > 1:
+        if args.batch_size % (args.microbatches * args.data_parallel):
+            raise ValueError(
+                f"--batch-size {args.batch_size} must be divisible "
+                f"by microbatches*data_parallel="
+                f"{args.microbatches * args.data_parallel}"
+            )
+    elif args.data_parallel > 1:
+        raise ValueError(
+            "--data-parallel without --stages: the data-sharded single program is "
+            "not ported yet (use --stages > 1 for data replicas of the pipeline)"
+        )
+
+
+def _default_virtual(args) -> int:
+    """--virtual-stages' default: 2 for interleaved (it IS the v > 1
+    placement), else 1."""
+    if args.virtual_stages is not None:
+        return args.virtual_stages
+    return 2 if args.schedule == "interleaved" else 1
+
+
+def _slot_devices(device, n: int) -> list:
+    """``n`` slots: the visible cards when there are enough, else ``n``
+    slots (streams) of ``device``'s one card (or the CPU)."""
+    from tpu_dist_nn_torch.parallel.mesh import visible_devices
+
+    cards = visible_devices(device)
+    return cards[:n] if len(cards) >= n else [device] * n
 
 
 def _validate_serving(args, cfg, generator) -> None:
@@ -591,11 +719,6 @@ def _validate_serving(args, cfg, generator) -> None:
             f"--serve-groups {args.serve_groups} must be >= "
             f"--serve-stages {args.serve_stages} (the round-robin "
             "grants each group G ticks before its next decode)"
-        )
-    if args.serve_stages > 1:
-        raise ValueError(
-            f"--serve-stages {args.serve_stages}: the pipelined overlapped decoder "
-            "(parallel/pp_generate.py) is not ported yet; serve --serve-stages 1"
         )
     validate_generate_args(cfg, args.serve_prompt_len, args.serve_new_tokens,
                            args.temperature, args.top_k, args.top_p, generator, args.eos_id)
@@ -702,6 +825,39 @@ def _serve_generation(args, params, cfg, device, report) -> None:
         log.warning("serving threads still alive after the drain")
 
 
+def _sample(args, params, cfg, prompt, generator, device):
+    """``--sample-bytes`` new tokens: single-program, in the pipeline
+    placement (``--sample-pipeline-stages``) or Megatron-sharded
+    (``--sample-tensor-parallel``)."""
+    import torch
+
+    from tpu_dist_nn_torch.models.generate import generate
+    from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+
+    n = args.sample_bytes
+    kw = dict(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p)
+    spp, stp = args.sample_pipeline_stages, args.sample_tensor_parallel
+    if spp > 1:
+        from tpu_dist_nn_torch.parallel.pp_generate import make_pipeline_generate
+        from tpu_dist_nn_torch.parallel.transformer_pipeline import shard_blocks
+
+        mesh = build_mesh(MeshSpec(stage=spp), _slot_devices(device, spp))
+        fn = make_pipeline_generate(mesh, cfg, spp, n, **kw)
+        full = fn(dict(params, blocks=shard_blocks(params["blocks"], spp)),
+                  torch.as_tensor(prompt, device=device),
+                  generator if args.temperature != 0 else None)
+        return full[:, prompt.shape[1]:]
+    if stp > 1:
+        from tpu_dist_nn_torch.parallel.tensor_parallel import tp_shard_blocks
+        from tpu_dist_nn_torch.parallel.tp_generate import tp_generate
+
+        mesh = build_mesh(MeshSpec(model=stp), _slot_devices(device, stp))
+        return tp_generate(mesh, dict(params, blocks=tp_shard_blocks(params["blocks"], cfg, stp)),
+                           cfg, torch.as_tensor(prompt, device=device), n,
+                           generator=generator if args.temperature != 0 else None, **kw)
+    return generate(params, cfg, prompt, n, generator=generator, eos_id=args.eos_id, **kw)
+
+
 def cmd_lm(args) -> int:
     """Train + evaluate the byte-level Transformer LM (``tdn lm``'s
     single-device path), resuming from and saving to ``--checkpoint-dir``,
@@ -719,7 +875,6 @@ def cmd_lm(args) -> int:
         lm_sequences,
         load_corpus,
     )
-    from tpu_dist_nn_torch.models.generate import generate
     from tpu_dist_nn_torch.models.transformer import (
         TransformerConfig,
         init_transformer,
@@ -735,6 +890,7 @@ def cmd_lm(args) -> int:
         d_ff=4 * args.d_model, max_seq_len=args.seq_len,
         compute_dtype="bfloat16" if args.bf16 else "float32", remat=args.remat)
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    _validate_parallel(args)
     _validate_sampling(args, cfg, generator)
     _validate_serving(args, cfg, generator)
     text, source = load_corpus(args.corpus)
@@ -752,9 +908,19 @@ def cmd_lm(args) -> int:
         steps_per_call=args.steps_per_call)
     batches = lm_batches(train_rows, args.batch_size, seed=args.seed, epochs=None)
     checkpoints = _checkpoint_manager(args)
+    pipeline = {}
+    if args.stages > 1:
+        from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+
+        spec = MeshSpec(stage=args.stages, data=args.data_parallel, model=args.tensor_parallel)
+        pipeline = dict(mesh=build_mesh(spec, _slot_devices(device, spec.num_devices)),
+                        num_stages=args.stages, num_microbatches=args.microbatches,
+                        schedule=args.schedule, num_virtual=_default_virtual(args),
+                        tensor_parallel=args.tensor_parallel)
     t0 = time.monotonic()
     try:
-        params, history = train_lm(params, cfg, batches, train_cfg, checkpoints=checkpoints)
+        params, history = train_lm(params, cfg, batches, train_cfg, checkpoints=checkpoints,
+                                   **pipeline)
     finally:
         if hasattr(checkpoints, "close"):
             checkpoints.close()
@@ -786,9 +952,7 @@ def cmd_lm(args) -> int:
         _write_metrics_jsonl(args.metrics_out, history + [{"final_report": report}])
     if args.sample_bytes > 0:
         # Sizes and flags were validated before training.
-        out = generate(params, cfg, encode(args.prompt)[None, :], args.sample_bytes,
-                       temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
-                       generator=generator, eos_id=args.eos_id)
+        out = _sample(args, params, cfg, encode(args.prompt)[None, :], generator, device)
         sample_row = out[0].cpu().numpy()
         if args.eos_id is not None:
             # Trim at the stop token: everything after it is pad.
@@ -962,6 +1126,37 @@ def build_parser() -> argparse.ArgumentParser:
                         "per-step Python dispatch + host sync on the "
                         "single-chip path; losses fetch once per call")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--stages", type=int, default=1,
+                   help="pipeline stages (per-block pipeline over stage slots) when > 1")
+    p.add_argument("--schedule", choices=["gpipe", "1f1b", "interleaved", "zb", "zb-v",
+                                          "zb-stash"], default="gpipe",
+                   help="pipeline training schedule when --stages > 1 (interleaved = "
+                        "Megatron virtual stages, see --virtual-stages; the zero-bubble "
+                        "zb / zb-v / zb-stash are not ported)")
+    p.add_argument("--virtual-stages", type=int, default=None,
+                   help="model chunks per stage for --schedule interleaved (default 2)")
+    p.add_argument("--data-parallel", type=int, default=1,
+                   help="data replicas of the pipeline (with --stages > 1)")
+    p.add_argument("--seq-parallel", type=int, default=1,
+                   help="sequence parallelism (not ported: refused above 1)")
+    p.add_argument("--tensor-parallel", type=int, default=1,
+                   help="Megatron-shard each stage's blocks over N model slots "
+                        "(requires --stages > 1)")
+    p.add_argument("--sample-tensor-parallel", type=int, default=1,
+                   help="decode --sample-bytes with heads + KV cache Megatron-sharded "
+                        "over N model slots")
+    p.add_argument("--sample-pipeline-stages", type=int, default=1,
+                   help="decode --sample-bytes IN the pipeline placement: blocks + "
+                        "per-stage KV caches over N stage slots")
+    p.add_argument("--sp-mode", choices=["ring", "ulysses"], default="ring",
+                   help="sequence-parallel decomposition (not ported)")
+    p.add_argument("--microbatches", type=int, default=4)
+    p.add_argument("--zero1", action="store_true", help="ZeRO-1 (not ported)")
+    p.add_argument("--fsdp", action="store_true", help="FSDP (not ported)")
+    p.add_argument("--experts", type=int, default=0,
+                   help="mixture-of-experts FFN (not ported: refused above 0)")
+    p.add_argument("--expert-parallel", type=int, default=1,
+                   help="expert parallelism (not ported)")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (f32 master params + CE)")
     p.add_argument("--remat", action="store_true",
@@ -997,10 +1192,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "LayerService/Generate, and GenerateStream). Sampling follows "
                         "--temperature/--top-k/--top-p")
     p.add_argument("--serve-stages", type=int, default=1,
-                   help="decode stages (1 only: the pipelined decoder is not ported)")
+                   help="serve decode in the pipelined placement with the OVERLAPPED "
+                        "round-robin decoder (requests coalesce into its group slots)")
     p.add_argument("--serve-groups", type=int, default=None,
-                   help="round-robin request groups of the pipelined decoder "
-                        "(refused with --serve-stages above 1)")
+                   help="round-robin request groups for --serve-stages "
+                        "(default max(stages, 2))")
     p.add_argument("--serve-prompt-len", type=int, default=16,
                    help="the endpoint's static prompt length")
     p.add_argument("--serve-new-tokens", type=int, default=32,

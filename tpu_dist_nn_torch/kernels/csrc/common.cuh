@@ -15,12 +15,26 @@ namespace tdn {
 // Activation ids: the order of tpu_dist_nn_torch/core/activations.py.
 enum Act : int { LINEAR = 0, RELU = 1, SIGMOID = 2, SOFTMAX = 3, TANH = 4, GELU = 5 };
 
+// NaN-keeping max and relu. fmaxf(NaN, y) returns y, where jnp.maximum,
+// torch.maximum and torch.relu return the NaN: a NaN input must come out
+// non-finite, or the serving path's numeric guard cannot see it. PTX's
+// max.NaN.f32 (sm_80 and up) returns NaN when either input is NaN and is
+// otherwise max.f32, fmaxf's own instruction: the same bits for every
+// other input (signed zeros included) at the same cost.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+__device__ __forceinline__ float relu_nan(float z) { return max_nan(z, 0.0f); }
+
 // Element-wise activations. Softmax is a row operation: callers store
 // the pre-activation and run softmax_row_warp over the finished row.
 __device__ __forceinline__ float act_elem(float z, int act) {
   switch (act) {
     case RELU:
-      return fmaxf(z, 0.0f);
+      return relu_nan(z);
     case SIGMOID:
       return 1.0f / (1.0f + expf(-z));
     case TANH:
@@ -38,7 +52,7 @@ __device__ __forceinline__ float act_elem(float z, int act) {
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 

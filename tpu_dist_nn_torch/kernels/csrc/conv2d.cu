@@ -44,8 +44,9 @@
 // over each pixel's channels first (the CTA then holds every channel).
 // The main path's 2x2 stride-2 pool of relu skips the conv tile: a
 // window's two rows are in one thread's registers and its two columns
-// in neighbour lanes, and max, bias and relu commute exactly
-// (pool_regs_store). With overlapping windows (window > stride) the
+// in neighbour lanes, and max, bias and relu commute exactly for finite
+// values; a NaN in a window comes out NaN in either order (the max and
+// the relu keep NaN, common.cuh) (pool_regs_store). With overlapping windows (window > stride) the
 // conv pixels two tiles share are computed by both. Tile, slice and
 // shared-memory layout are chosen by the Python wrapper
 // (kernels/conv2d.py::conv_plan), which passes the offsets; this file
@@ -220,7 +221,7 @@ __device__ __forceinline__ void pool_store(const float* tile, float* __restrict_
     for (int n = lane; n < nc; n += 32) {
       float m = -INFINITY;
       for (int i = 0; i < a.pwh; ++i)
-        for (int j = 0; j < a.pww; ++j) m = fmaxf(m, f(base[(i * a.ccw + j) * a.ldt + n]));
+        for (int j = 0; j < a.pww; ++j) m = tdn::max_nan(m, f(base[(i * a.ccw + j) * a.ldt + n]));
       o[n] = m;
     }
   }
@@ -230,7 +231,8 @@ __device__ __forceinline__ void pool_store(const float* tile, float* __restrict_
 // thread holds both rows of its windows (its pixels p and p + 1, see
 // pixel_slot), lanes l and l ^ 1 the two columns. The window max of the
 // sums is taken first: adding the bias and relu are monotonic, so they
-// commute with max exactly. The lane holding the window's top-left pixel
+// commute with max exactly for finite values; a NaN in the window gives
+// NaN either way, since max_nan and relu_nan keep it. The lane holding the window's top-left pixel
 // stores its 16 channels.
 __device__ __forceinline__ void pool_regs_store(float (&acc)[kPix][kChan], const float (&bv)[kChan],
                                                 float* __restrict__ out, const ConvArgs& a, int b0,
@@ -243,9 +245,9 @@ __device__ __forceinline__ void pool_regs_store(float (&acc)[kPix][kChan], const
     float y[kChan];
 #pragma unroll
     for (int jj = 0; jj < kChan; ++jj) {
-      const float v = fmaxf(acc[p][jj], acc[p + 1][jj]);
-      y[jj] = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1)) + bv[jj];
-      if (a.act == tdn::RELU) y[jj] = fmaxf(y[jj], 0.0f);
+      const float v = tdn::max_nan(acc[p][jj], acc[p + 1][jj]);
+      y[jj] = tdn::max_nan(v, __shfl_xor_sync(0xffffffffu, v, 1)) + bv[jj];
+      if (a.act == tdn::RELU) y[jj] = tdn::relu_nan(y[jj]);
     }
     const int m = pixel_slot(a, pwi, lane, p);
     const int img = m / per_img;
@@ -297,7 +299,7 @@ __device__ __forceinline__ void epilogue(float (&acc)[kPix][kChan], float* smem,
 
   switch (a.act) {
     case tdn::RELU:
-      pool_store(tile, out, a, b0, py0, px0, c0, nct, [](float z) { return fmaxf(z, 0.0f); });
+      pool_store(tile, out, a, b0, py0, px0, c0, nct, [](float z) { return tdn::relu_nan(z); });
       break;
     case tdn::SIGMOID:
       pool_store(tile, out, a, b0, py0, px0, c0, nct,

@@ -478,7 +478,7 @@ __device__ __forceinline__ void bias_act(float (&acc)[R][TN], const float* __res
     for (int j = 0; j < TN; ++j) acc[i][j] += bv[j];
   switch (act) {
     case RELU:
-      each(acc, [](float z) { return fmaxf(z, 0.0f); });
+      each(acc, [](float z) { return relu_nan(z); });
       break;
     case SIGMOID:
       each(acc, [](float z) { return act_elem(z, SIGMOID); });

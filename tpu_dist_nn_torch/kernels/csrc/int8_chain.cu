@@ -83,15 +83,18 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2, int 
 }
 
 __device__ __forceinline__ float row_scale(float amax) {
-  return fmaxf(amax, 1e-8f) / 127.0f;
+  return tdn::max_nan(amax, 1e-8f) / 127.0f;
 }
 
 // clip(rint(v / s), -127, 127) with the IEEE division. A zero dividend
 // (a relu's zeros) is answered without dividing: it would send the
-// division to its slow path, and its quotient is 0 either way.
+// division to its slow path, and its quotient is 0 either way. A row
+// holding a NaN has a NaN scale (row_scale): its codes are 0 and its
+// outputs NaN through the rescale, as the plain version's are.
 __device__ __forceinline__ int8_t quantize(float v, float s) {
   const float q = (v == 0.0f ? s : v) / s;
-  return static_cast<int8_t>(v == 0.0f ? 0.0f : fminf(fmaxf(rintf(q), -127.0f), 127.0f));
+  return static_cast<int8_t>(v == 0.0f || q != q ? 0.0f
+                                                 : fminf(fmaxf(rintf(q), -127.0f), 127.0f));
 }
 
 // Layer 0 of a row of up to kRegCols floats: one read into registers
@@ -104,7 +107,7 @@ __device__ __forceinline__ void quantize_row_regs(const float* __restrict__ xr, 
   for (int j = 0; j < kRegCols / 32; ++j) {
     const int c = lane + 32 * j;
     v[j] = c < din ? __ldg(xr + c) : 0.0f;
-    amax = fmaxf(amax, fabsf(v[j]));
+    amax = tdn::max_nan(amax, fabsf(v[j]));
   }
   const float s = row_scale(tdn::warp_max(amax));
 #pragma unroll
@@ -127,7 +130,8 @@ __device__ __forceinline__ void quantize_rows_shared(const float* h, int ldh, in
   for (int c = lane; c < din; c += 32)
 #pragma unroll
     for (int i = 0; i < RPW; ++i)
-      if (r + i * kWarps < rows) amax[i] = fmaxf(amax[i], fabsf(h[(r + i * kWarps) * ldh + c]));
+      if (r + i * kWarps < rows)
+        amax[i] = tdn::max_nan(amax[i], fabsf(h[(r + i * kWarps) * ldh + c]));
   float s[RPW];
 #pragma unroll
   for (int i = 0; i < RPW; ++i) s[i] = row_scale(tdn::warp_max(amax[i]));
@@ -263,7 +267,7 @@ int8_chain_kernel(const float* __restrict__ x, float* __restrict__ out, int M, i
           const float* xr = xt + (size_t)r * din;
           float amax = 0.0f;
 #pragma unroll 4
-          for (int c = lane; c < din; c += 32) amax = fmaxf(amax, fabsf(xr[c]));
+          for (int c = lane; c < din; c += 32) amax = tdn::max_nan(amax, fabsf(xr[c]));
           const float s = row_scale(tdn::warp_max(amax));
           if (!chunked)
             for (int c = lane; c < din; c += 32) codes[r * ldq + c] = quantize(xr[c], s);
@@ -300,7 +304,7 @@ int8_chain_kernel(const float* __restrict__ x, float* __restrict__ out, int M, i
         const int cb = 8 * j0;
         switch (act) {
           case tdn::RELU:
-            store_pass(acc, [](float y) { return fmaxf(y, 0.0f); }, dst, ld, rscale, wscale,
+            store_pass(acc, [](float y) { return tdn::relu_nan(y); }, dst, ld, rscale, wscale,
                        bias, cb, dout, rows, m0, wn);
             break;
           case tdn::SIGMOID:

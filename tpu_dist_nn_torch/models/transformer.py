@@ -181,17 +181,17 @@ def block_apply(block: dict, x, cfg: TransformerConfig, attn_fn=dot_product_atte
     return ffn_sublayer(block, attn_sublayer(block, x, cfg, attn_fn))
 
 
-def maybe_remat(cfg: TransformerConfig):
-    """:func:`block_apply` under per-block rematerialisation when ``cfg.remat``:
-    the block keeps only its inputs after the forward and runs again in
-    the backward (``torch.utils.checkpoint``, non-reentrant). The block
-    draws no random numbers, so the RNG state is not saved and restored
-    around the recompute (reading it is refused inside a CUDA graph
-    capture)."""
+def maybe_remat(cfg: TransformerConfig, fn=None):
+    """``fn`` (default :func:`block_apply`) under per-block
+    rematerialisation when ``cfg.remat``: the block keeps only its inputs
+    after the forward and runs again in the backward
+    (``torch.utils.checkpoint``, non-reentrant). The block draws no random
+    numbers, so the RNG state is not saved and restored around the
+    recompute (reading it is refused inside a CUDA graph capture)."""
+    fn = block_apply if fn is None else fn
     if not cfg.remat:
-        return block_apply
-    return functools.partial(checkpoint, block_apply, use_reentrant=False,
-                             preserve_rng_state=False)
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
 
 
 def unstack_blocks(blocks: dict) -> list[dict]:

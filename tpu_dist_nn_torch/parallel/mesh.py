@@ -1,6 +1,7 @@
 """Stage slots: the port's counterpart of the JAX device mesh.
 
-Port of :mod:`tpu_dist_nn.parallel.mesh` for the dense pipeline. The
+Port of :mod:`tpu_dist_nn.parallel.mesh` for the pipelines and the
+Megatron split. The
 JAX package runs every stage as one SPMD program over a
 ``jax.sharding.Mesh``; the port runs one process that drives a grid of
 **stage slots**. A slot is a device plus its own CUDA stream: each
@@ -11,13 +12,18 @@ one slot (one stream) per mention, so one H100 can run a multi-stage
 schedule, as the JAX tests run one on eight virtual host devices. CPU
 slots have no stream: their ops run in issue order.
 
-Slots sit on the ``(stage, data)`` axes of the JAX mesh, in its device
-order: data outermost, so slot ``(s, d)`` is ``devices[d * stage + s]``.
+Slots sit on the ``(stage, data, model)`` axes of the JAX mesh, in its
+device order: data outermost, model innermost, so slot ``(s, d, m)`` is
+``devices[(d * stage + s) * model + m]``. ``slots[s][d]`` is a cell's
+model slot 0 (its lead), and ``model_slots[s][d]`` all of its model
+slots: with ``model == 1`` (the default) the grid is the ``(stage,
+data)`` one of the dense pipelines.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -25,18 +31,21 @@ from tpu_dist_nn_torch.utils.device import resolve_device
 
 AXIS_STAGE = "stage"
 AXIS_DATA = "data"
+AXIS_MODEL = "model"
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """Pipeline stages x data replicas; the product must fit the slots."""
+    """Pipeline stages x data replicas x model (tensor-parallel) shards;
+    the product must fit the slots."""
 
     stage: int = 1
     data: int = 1
+    model: int = 1
 
     @property
     def num_devices(self) -> int:
-        return self.stage * self.data
+        return self.stage * self.data * self.model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,20 +58,27 @@ class StageSlot:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A ``(stage, data)`` grid of :class:`StageSlot`: ``slots[s][d]``."""
+    """A ``(stage, data, model)`` grid of :class:`StageSlot`:
+    ``model_slots[s][d][m]``; ``slots[s][d]`` is ``model_slots[s][d][0]``."""
 
     spec: MeshSpec
-    slots: tuple[tuple[StageSlot, ...], ...]
+    model_slots: tuple[tuple[tuple[StageSlot, ...], ...], ...]
+
+    @functools.cached_property
+    def slots(self) -> tuple[tuple[StageSlot, ...], ...]:
+        """Each ``(stage, data)`` cell's lead slot (model shard 0)."""
+        return tuple(tuple(cell[0] for cell in row) for row in self.model_slots)
 
     @property
     def shape(self) -> dict[str, int]:
         """Axis sizes by name, as ``jax.sharding.Mesh.shape`` gives them."""
-        return {AXIS_STAGE: self.spec.stage, AXIS_DATA: self.spec.data}
+        return {AXIS_STAGE: self.spec.stage, AXIS_DATA: self.spec.data,
+                AXIS_MODEL: self.spec.model}
 
     @property
     def devices(self) -> set[torch.device]:
         """The distinct devices of the slots."""
-        return {slot.device for row in self.slots for slot in row}
+        return {slot.device for row in self.model_slots for cell in row for slot in cell}
 
     @property
     def on_one_card(self) -> bool:
@@ -83,15 +99,19 @@ def visible_devices(device=None) -> list[torch.device]:
 
 
 def build_mesh(spec: MeshSpec, devices=None) -> Mesh:
-    """Build the ``(stage, data)`` slot grid from ``devices`` (default:
-    :func:`visible_devices`). Each CUDA slot gets a new stream, so a
-    card listed k times carries k streams. Raises when fewer devices are
-    given than ``stage x data``, as the JAX ``build_mesh`` does."""
+    """Build the ``(stage, data, model)`` slot grid from ``devices``
+    (default: :func:`visible_devices`). Each CUDA slot gets a new
+    stream, so a card listed k times carries k streams. Raises when
+    fewer devices are given than ``stage x data x model``, as the JAX
+    ``build_mesh`` does."""
     devices = visible_devices() if devices is None else [resolve_device(d) for d in devices]
     if spec.num_devices > len(devices):
+        axes = f"{spec.stage} stage x {spec.data} data"
+        if spec.model != 1:
+            axes += f" x {spec.model} model"
         raise ValueError(
-            f"mesh spec needs {spec.num_devices} devices ({spec.stage} stage x "
-            f"{spec.data} data) but only {len(devices)} are available"
+            f"mesh spec needs {spec.num_devices} devices ({axes}) but only "
+            f"{len(devices)} are available"
         )
 
     def slot(dev: torch.device) -> StageSlot:
@@ -102,6 +122,7 @@ def build_mesh(spec: MeshSpec, devices=None) -> Mesh:
         return StageSlot(dev, torch.cuda.Stream(device=dev))
 
     flat = [slot(d) for d in devices[: spec.num_devices]]
-    grid = tuple(tuple(flat[d * spec.stage + s] for d in range(spec.data))
-                 for s in range(spec.stage))
+    S, D, N = spec.stage, spec.data, spec.model
+    grid = tuple(tuple(tuple(flat[(d * S + s) * N + m] for m in range(N)) for d in range(D))
+                 for s in range(S))
     return Mesh(spec, grid)

@@ -43,14 +43,24 @@ from tpu_dist_nn_torch.parallel.schedule_table import BWD, FWD
 #: The pipeline training schedules the JAX package names; the port's
 #: dense pipeline trains the first three.
 SCHEDULES = ("gpipe", "1f1b", "interleaved", "zb", "zb-v", "zb-stash")
+ZERO_BUBBLE = ("zb", "zb-v", "zb-stash")
 
 
-def validate_schedule(schedule: str) -> str:
-    """The single validation point for schedule names."""
+def validate_schedule(schedule: str, *, lm: bool = False) -> str:
+    """The single validation point for schedule names. ``lm=True``: the
+    LM pipeline's, which refuses the zero-bubble schedules by what they
+    need."""
     if schedule not in SCHEDULES:
         raise ValueError(
             f"unknown pipeline schedule {schedule!r}: use "
             + " or ".join(repr(s) for s in SCHEDULES)
+        )
+    if lm and schedule in ZERO_BUBBLE:
+        raise ValueError(
+            f"schedule={schedule!r} is not ported for the LM pipeline: the zero-bubble "
+            "schedules need the split backward (split_backward.py) and its tables "
+            "(schedule_table.build_zero_bubble / build_zb_v); use 'gpipe', '1f1b' or "
+            "'interleaved'"
         )
     return schedule
 
@@ -106,23 +116,25 @@ def _use_here(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def run_schedule(mesh: Mesh, chunk_fns, order, xs, labels, masks) -> list:
+def run_schedule(mesh: Mesh, chunk_fns, order, xs, labels, masks, tail=masked_ce_tail) -> list:
     """Play a training ``order`` over every data replica.
 
     ``chunk_fns[d][c](x) -> logits-or-activation`` with autograd on
-    (chunk ``c`` on slot ``(c % S, d)``); ``xs[m][d]`` the input rows on
-    the replica's first slot; ``labels[m][d]`` and ``masks[m][d]``
-    (pre-scaled) on its last chunk's slot. Weight gradients are summed
-    into the chunks' leaves' ``.grad``. Returns ``[(loss, event)]``, one
-    per (microbatch, replica): each a detached scalar with the event
-    after it. Before the first op every slot stream waits for its card's
-    current stream (the inputs' copies and the last optimizer update);
-    after the last, every card's current stream waits for its slots, so
-    the caller may read ``.grad`` there.
+    (chunk ``c`` on slot ``(c % S, d)``; a chunk may also enqueue work on
+    that cell's other model slots); ``xs[m][d]`` the input rows on the
+    replica's first slot; ``labels[m][d]`` and ``masks[m][d]``
+    (pre-scaled) on its last chunk's slot, where ``tail(y, labels,
+    masks)`` gives a microbatch's share of the loss (default: the masked
+    CE). Weight gradients are summed into the chunks' leaves' ``.grad``.
+    Returns ``[(loss, event)]``, one per (microbatch, replica): each a
+    detached scalar with the event after it. Before the first op every
+    slot stream waits for its card's current stream (the inputs' copies
+    and the last optimizer update); after the last, every card's current
+    stream waits for its slots, so the caller may read ``.grad`` there.
     """
     S, D = mesh.spec.stage, mesh.spec.data
     V = len(chunk_fns[0])
-    slots = [mesh.slots[s][d] for s in range(S) for d in range(D)]
+    slots = [slot for s in range(S) for d in range(D) for slot in mesh.model_slots[s][d]]
     for slot in slots:
         if slot.stream is not None:
             slot.stream.wait_stream(torch.cuda.current_stream(slot.device))
@@ -143,12 +155,12 @@ def run_schedule(mesh: Mesh, chunk_fns, order, xs, labels, masks) -> list:
                 continue
             x_in, y = stash.pop((c, m, d))
             if c == V - 1:
-                def tail(_, y=y, x_in=x_in, lab=labels[m][d], msk=masks[m][d]):
-                    loss = masked_ce_tail(y, _use_here(lab), _use_here(msk))
+                def last(_, y=y, x_in=x_in, lab=labels[m][d], msk=masks[m][d]):
+                    loss = tail(y, _use_here(lab), None if msk is None else _use_here(msk))
                     torch.autograd.backward(loss)
                     return x_in.grad, loss.detach()
 
-                (dx, loss), ev = launch(slot, tail, None)
+                (dx, loss), ev = launch(slot, last, None)
                 losses.append((loss, ev))
             else:
                 def bwd(dy, y=y, x_in=x_in):

@@ -1,0 +1,404 @@
+"""Per-block transformer pipeline over stage slots, and its Megatron composition.
+
+Port of :mod:`tpu_dist_nn.parallel.transformer_pipeline` without the
+sequence-parallel and zero-bubble layouts. BASELINE configs[4]: "Tiny-
+Transformer encoder ... per-block pipeline stage". The block stack's
+leading layer axis is regrouped per stage (:func:`shard_blocks`), per
+virtual-stage chunk (:func:`shard_blocks_interleaved`) or per stage and
+model shard (:func:`shard_blocks_pp_tp`,
+:func:`shard_blocks_interleaved_tp`), the JAX package's layouts.
+
+A chunk (a stage's block group, or an interleaved chunk) runs on its
+slot ``(c % S, d)``; with tensor parallelism it also enqueues its shards'
+work on the cell's other model slots
+(:func:`~tpu_dist_nn_torch.parallel.tensor_parallel.tp_block_apply`).
+The embedding rides the first chunk and the tied unembedding + next-token
+CE the last one's tail. Forwards play the GPipe order
+(:func:`~tpu_dist_nn_torch.parallel.gpipe.gpipe_forward`); the
+loss-and-grad executors play a training order through
+:func:`~tpu_dist_nn_torch.parallel.one_f_one_b.run_schedule` (eager
+autograd, op by op on each slot's stream), where the JAX package
+differentiates a ``shard_map``-ed scan.
+
+Gradients: each chunk reads its leaves as separate autograd leaves (views
+of the staged tensors, so nothing is copied and no other chunk's slice
+receives a zero gradient); data replicas share them, so their
+contributions add up, and the loss is the per-microbatch mean CE over
+``M * data``, which makes the sum the global mean. Grads come back in the
+params' layout.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_dist_nn_torch.kernels.flash_attention import default_attn_fn
+from tpu_dist_nn_torch.models.transformer import (
+    embed,
+    maybe_remat,
+    next_token_ce,
+    tree_map,
+    unembed,
+    unstack_blocks,
+)
+from tpu_dist_nn_torch.parallel.collectives import on_slot
+from tpu_dist_nn_torch.parallel.gpipe import caller_event, gather, gpipe_forward
+from tpu_dist_nn_torch.parallel.mesh import AXIS_DATA, AXIS_MODEL, AXIS_STAGE, Mesh
+from tpu_dist_nn_torch.parallel.one_f_one_b import run_schedule, training_order
+from tpu_dist_nn_torch.parallel.tensor_parallel import (
+    TP_REPLICATED,
+    tp_scan,
+    tp_shard_blocks,
+    tp_unshard_blocks,
+)
+
+_TOP = ("tok_embed", "pos_embed", "lnf_g", "lnf_b")
+
+
+def shard_blocks(blocks: dict, num_stages: int) -> dict:
+    """Regroup stacked block leaves ``(L, ...) -> (S, L/S, ...)``."""
+    L = blocks["w_qkv"].shape[0]
+    if L % num_stages:
+        raise ValueError(f"n_layers={L} not divisible by num_stages={num_stages}")
+    return tree_map(lambda a: a.reshape(num_stages, L // num_stages, *a.shape[1:]), blocks)
+
+
+def unshard_blocks(staged: dict) -> dict:
+    """Inverse of :func:`shard_blocks`: ``(S, L/S, ...) -> (L, ...)``."""
+    return tree_map(lambda a: a.reshape(-1, *a.shape[2:]), staged)
+
+
+def _chunk_regroup(a, num_stages: int, num_virtual: int):
+    """``(L, ...) -> (S, v, L/V, ...)``: global chunk ``c`` (blocks
+    ``[c*L/V, (c+1)*L/V)``) to stage ``c % S``, local slot ``c // S``."""
+    S, v = num_stages, num_virtual
+    L = a.shape[0]
+    chunks = a.reshape(S * v, L // (S * v), *a.shape[1:])
+    return chunks.reshape(v, S, L // (S * v), *a.shape[1:]).transpose(0, 1)
+
+
+def _chunk_ungroup(a):
+    """Inverse of :func:`_chunk_regroup`: ``(S, v, Lc, ...) -> (L, ...)``."""
+    return a.transpose(0, 1).reshape(-1, *a.shape[3:])
+
+
+def shard_blocks_interleaved(blocks: dict, num_stages: int, num_virtual: int) -> dict:
+    """Stacked blocks ``(L, ...)`` -> the interleaved chunk layout
+    ``(S, v, L/V, ...)``."""
+    V = num_stages * num_virtual
+    L = blocks["w_qkv"].shape[0]
+    if L % V:
+        raise ValueError(f"n_layers={L} not divisible by S*v={V}")
+    return tree_map(lambda a: _chunk_regroup(a, num_stages, num_virtual), blocks)
+
+
+def unshard_blocks_interleaved(staged: dict) -> dict:
+    """Inverse of :func:`shard_blocks_interleaved`."""
+    return tree_map(_chunk_ungroup, staged)
+
+
+def shard_blocks_pp_tp(blocks: dict, cfg, num_stages: int, n_tp: int) -> dict:
+    """Stacked blocks ``(L, ...)`` -> the pipeline + Megatron layout:
+    sharded leaves ``(S, N, L/S, ...)``, replicated leaves ``(S, L/S, ...)``."""
+    L = blocks["w_qkv"].shape[0]
+    if L % num_stages:
+        raise ValueError(f"n_layers={L} not divisible by num_stages={num_stages}")
+    out = {}
+    for k, v in tp_shard_blocks(blocks, cfg, n_tp).items():
+        if k in TP_REPLICATED:
+            out[k] = v.reshape(num_stages, L // num_stages, *v.shape[1:])
+        else:
+            out[k] = v.reshape(n_tp, num_stages, L // num_stages, *v.shape[2:]).transpose(0, 1)
+    return out
+
+
+def unshard_blocks_pp_tp(staged: dict, cfg) -> dict:
+    """Inverse of :func:`shard_blocks_pp_tp`."""
+    tp = {}
+    for k, v in staged.items():
+        if k in TP_REPLICATED:
+            tp[k] = v.reshape(-1, *v.shape[2:])
+        else:
+            r = v.transpose(0, 1)
+            tp[k] = r.reshape(r.shape[0], -1, *r.shape[3:])
+    return tp_unshard_blocks(tp, cfg)
+
+
+def shard_blocks_interleaved_tp(blocks: dict, cfg, num_stages: int, num_virtual: int,
+                                n_tp: int) -> dict:
+    """Stacked blocks ``(L, ...)`` -> the interleaved chunk layout with the
+    Megatron split: sharded leaves ``(S, v, N, L/V, ...)``, replicated
+    leaves ``(S, v, L/V, ...)``."""
+    S, v = num_stages, num_virtual
+    L = blocks["w_qkv"].shape[0]
+    if L % (S * v):
+        raise ValueError(f"n_layers={L} not divisible by S*v={S * v}")
+    out = {}
+    for k, val in tp_shard_blocks(blocks, cfg, n_tp).items():
+        if k in TP_REPLICATED:
+            out[k] = _chunk_regroup(val, S, v)
+        else:  # (N, L, ...) -> (N, S, v, L/V, ...) -> (S, v, N, L/V, ...)
+            out[k] = torch.movedim(torch.stack([_chunk_regroup(a, S, v) for a in val]), 0, 2)
+    return out
+
+
+def unshard_blocks_interleaved_tp(staged: dict, cfg) -> dict:
+    """Inverse of :func:`shard_blocks_interleaved_tp`."""
+    tp = {}
+    for k, val in staged.items():
+        if k in TP_REPLICATED:
+            tp[k] = _chunk_ungroup(val)
+        else:  # (S, v, N, Lc, ...) -> (N, L, ...)
+            tp[k] = torch.stack([_chunk_ungroup(a) for a in torch.movedim(val, 2, 0)])
+    return tp_unshard_blocks(tp, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Chunks over slots
+# ---------------------------------------------------------------------------
+
+
+class _Layout:
+    """Where chunk ``c``'s model shard ``m`` sits in a staged block dict:
+    ``interleaved`` layouts lead with ``(S, v)``, the others with ``S``;
+    ``tp`` layouts put a model axis after those on the sharded leaves."""
+
+    def __init__(self, num_stages: int, num_virtual: int, interleaved: bool, n_tp: int):
+        self.S, self.v, self.interleaved, self.n = num_stages, num_virtual, interleaved, n_tp
+        self.tp = n_tp > 0
+
+    @property
+    def num_chunks(self) -> int:
+        return self.S * self.v
+
+    def index(self, key: str, c: int, m: int) -> tuple:
+        idx = (c % self.S, c // self.S) if self.interleaved else (c,)
+        if self.tp and key not in TP_REPLICATED:
+            idx += (m,)
+        return idx
+
+    def shards(self) -> int:
+        return max(self.n, 1)
+
+
+def _chunk_views(blocks: dict, layout: _Layout, leaf):
+    """``views[c][m]``: chunk ``c``'s stacked leaves for shard ``m``,
+    each through ``leaf(key, index)`` (a view, or a detached leaf)."""
+    return [[{k: leaf(k, layout.index(k, c, m)) for k in blocks}
+             for m in range(layout.shards())] for c in range(layout.num_chunks)]
+
+
+def _chunk_fn(cfg, shards, cell, attn_fn, tp: bool, top=None):
+    """Chunk body over a cell's model slots: the embedding when ``top``
+    (the first chunk; its input is token ids), then the block group,
+    dense (:func:`models.transformer.block_apply`, bit for bit the single
+    program's) or Megatron-sharded."""
+
+    def fn(x):
+        # Each shard's leaves cast on its own slot's stream (after the
+        # lead's: the caller's last update), where they are read: a
+        # tensor one stream allocates and another reads could be reused
+        # early by the caching allocator.
+        here = []
+        for slot, sh in zip(cell, shards):
+            if slot is not cell[0] and slot.stream is not None:
+                slot.stream.wait_stream(cell[0].stream)
+            with on_slot(slot):
+                here.append(cfg.cast_params({k: a.to(slot.device) for k, a in sh.items()}))
+        if top is not None:
+            x = embed(cfg.cast_params({k: top[k].to(cell[0].device)
+                                       for k in ("tok_embed", "pos_embed")}), x)
+        if tp:
+            return tp_scan(here, x, cfg, cell, attn_fn)
+        apply = maybe_remat(cfg)
+        for block in unstack_blocks(here[0]):
+            x = apply(block, x, cfg, attn_fn)
+        return x
+
+    return fn
+
+
+def _resolve_attn(attn_fn):
+    return attn_fn or default_attn_fn()
+
+
+def _microbatches(rows, M: int, D: int):
+    """``rows (B, ...)`` -> ``[m][d]``: microbatch ``m``, data shard ``d``
+    (the JAX layout: ``(M, B/M)`` then the rows of a microbatch over
+    ``data``)."""
+    B = rows.shape[0]
+    if B % M:
+        raise ValueError(f"batch {B} not divisible by microbatches {M}")
+    if (B // M) % D:
+        raise ValueError(f"microbatch {B // M} not divisible by data axis {D}")
+    return [list(mb.chunk(D, dim=0)) for mb in rows.chunk(M, dim=0)]
+
+
+def _tp_size(mesh: Mesh, tp: bool) -> int:
+    return mesh.shape[AXIS_MODEL] if tp else 0
+
+
+def _pipeline_logits(mesh: Mesh, cfg, num_stages: int, num_microbatches: int, attn_fn, tp: bool):
+    _check_stages(mesh, num_stages)
+    layout = _Layout(num_stages, 1, False, _tp_size(mesh, tp))
+    D, M = mesh.shape[AXIS_DATA], num_microbatches
+
+    def fn(params, tokens):
+        attn = _resolve_attn(attn_fn)
+        home = params["tok_embed"].device
+        views = _chunk_views(params["blocks"], layout, lambda k, i: params["blocks"][k][i])
+        fns = [[_chunk_fn(cfg, views[s], mesh.model_slots[s][d], attn, tp,
+                          top=params if s == 0 else None)
+                for s in range(num_stages)] for d in range(D)]
+        xs = _microbatches(tokens, M, D)
+        outs = gpipe_forward(mesh, fns, xs, caller_event(tokens))
+        ys = torch.cat(gather([o for row in outs for o in row], home), dim=0)
+        return unembed(cfg.cast_params({k: params[k] for k in _TOP}), ys)
+
+    return fn
+
+
+def make_pipeline_lm_forward(mesh: Mesh, cfg, num_stages: int, num_microbatches: int,
+                             attn_fn=None):
+    """-> ``fn(params, tokens) -> logits`` with the blocks pipelined (GPipe).
+
+    ``params["blocks"]`` regrouped by :func:`shard_blocks`; ``tokens (B,
+    T)`` with ``B`` divisible by ``num_microbatches * data``. The logits
+    come back on the params' device; autograd flows through it."""
+    return _pipeline_logits(mesh, cfg, num_stages, num_microbatches, attn_fn, tp=False)
+
+
+def make_pipeline_lm_loss(mesh: Mesh, cfg, num_stages: int, num_microbatches: int,
+                          attn_fn=None):
+    """-> ``loss_fn(params, tokens) -> scalar`` next-token CE through the
+    pipeline (``tokens (B, T + 1)``)."""
+    fwd = make_pipeline_lm_forward(mesh, cfg, num_stages, num_microbatches, attn_fn)
+    return lambda params, tokens: next_token_ce(fwd(params, tokens[:, :-1]), tokens[:, 1:])
+
+
+def make_pipeline_tp_lm_forward(mesh: Mesh, cfg, num_stages: int, num_microbatches: int,
+                                attn_fn=None):
+    """-> ``fn(params, tokens) -> logits``: blocks pipelined over ``stage``
+    and Megatron-sharded over ``model`` (the batch over ``data``).
+    ``params["blocks"]`` from :func:`shard_blocks_pp_tp`."""
+    return _pipeline_logits(mesh, cfg, num_stages, num_microbatches, attn_fn, tp=True)
+
+
+def make_pipeline_tp_lm_loss(mesh: Mesh, cfg, num_stages: int, num_microbatches: int,
+                             attn_fn=None):
+    """-> ``loss_fn(params, tokens) -> scalar`` CE through the PP x TP pipeline."""
+    fwd = make_pipeline_tp_lm_forward(mesh, cfg, num_stages, num_microbatches, attn_fn)
+    return lambda params, tokens: next_token_ce(fwd(params, tokens[:, :-1]), tokens[:, 1:])
+
+
+def _scheduled_grad(mesh: Mesh, cfg, schedule: str, num_virtual: int, num_microbatches: int,
+                    attn_fn, *, interleaved: bool, tp: bool):
+    """``f(params, tokens) -> (loss, grads)`` through ``run_schedule`` in
+    ``schedule``'s op order; ``tokens (B, T + 1)``."""
+    S, D, M = mesh.shape[AXIS_STAGE], mesh.shape[AXIS_DATA], num_microbatches
+    layout = _Layout(S, num_virtual, interleaved, _tp_size(mesh, tp))
+    V = layout.num_chunks
+    order = training_order(schedule, S, num_virtual, M)
+
+    def value_and_grad(params, tokens):
+        attn = _resolve_attn(attn_fn)
+        blocks = params["blocks"]
+        leaves: dict = {}
+
+        def leaf(k, idx):
+            if (k, idx) not in leaves:
+                leaves[(k, idx)] = blocks[k][idx].detach().requires_grad_()
+            return leaves[(k, idx)]
+
+        views = _chunk_views(blocks, layout, leaf)
+        top = {k: params[k].detach().requires_grad_() for k in _TOP}
+        fns = [[_chunk_fn(cfg, views[c], mesh.model_slots[c % S][d], attn, tp,
+                          top=top if c == 0 else None)
+                for c in range(V)] for d in range(D)]
+        last = mesh.slots[(V - 1) % S]
+
+        def tail(y, targets, _mask):
+            head = cfg.cast_params({k: top[k].to(y.device) for k in ("tok_embed", "lnf_g",
+                                                                      "lnf_b")})
+            return next_token_ce(unembed(head, y), targets) / (M * D)
+
+        xs = _microbatches(tokens[:, :-1], M, D)
+        targets = [[t.to(last[d].device) for d, t in enumerate(row)]
+                   for row in _microbatches(tokens[:, 1:], M, D)]
+        losses = run_schedule(mesh, fns, order, xs, targets, [[None] * D] * M, tail=tail)
+        home = params["tok_embed"].device
+        loss = torch.stack(gather(losses, home)).sum()
+        g_blocks = {k: torch.zeros_like(v) for k, v in blocks.items()}
+        with torch.no_grad():
+            for (k, idx), t in leaves.items():
+                if t.grad is not None:
+                    g_blocks[k][idx].copy_(t.grad)
+        grads = {k: (top[k].grad if top[k].grad is not None else torch.zeros_like(params[k]))
+                 for k in _TOP}
+        grads["blocks"] = g_blocks
+        return loss, grads
+
+    return value_and_grad
+
+
+def make_pipeline_lm_1f1b_grad(mesh: Mesh, cfg, num_stages: int, num_microbatches: int,
+                               attn_fn=None):
+    """-> ``f(params, tokens) -> (loss, grads)`` via the 1F1B schedule;
+    ``params["blocks"]`` in :func:`shard_blocks` layout, grads in it too."""
+    _check_stages(mesh, num_stages)
+    return _scheduled_grad(mesh, cfg, "1f1b", 1, num_microbatches, attn_fn,
+                           interleaved=False, tp=False)
+
+
+def make_pipeline_lm_gpipe_grad(mesh: Mesh, cfg, num_stages: int, num_microbatches: int,
+                                attn_fn=None):
+    """-> ``f(params, tokens) -> (loss, grads)`` in the GPipe order (every
+    forward, then every backward): the gradient of
+    :func:`make_pipeline_lm_loss`, played op by op."""
+    _check_stages(mesh, num_stages)
+    return _scheduled_grad(mesh, cfg, "gpipe", 1, num_microbatches, attn_fn,
+                           interleaved=False, tp=False)
+
+
+def make_pipeline_lm_interleaved_grad(mesh: Mesh, cfg, num_virtual: int, num_microbatches: int,
+                                      attn_fn=None):
+    """-> ``f(params, tokens) -> (loss, grads)`` via the interleaved
+    (virtual-stage) 1F1B table; ``params["blocks"]`` in
+    :func:`shard_blocks_interleaved` layout, grads in it too."""
+    return _scheduled_grad(mesh, cfg, "interleaved", num_virtual, num_microbatches, attn_fn,
+                           interleaved=True, tp=False)
+
+
+def make_pipeline_tp_lm_1f1b_grad(mesh: Mesh, cfg, num_stages: int, num_microbatches: int,
+                                  attn_fn=None):
+    """-> ``f(params, tokens) -> (loss, grads)``: 1F1B x Megatron TP;
+    ``params["blocks"]`` in :func:`shard_blocks_pp_tp` layout (sharded
+    leaves carry their shard's gradient, replicated leaves the full one)."""
+    _check_stages(mesh, num_stages)
+    return _scheduled_grad(mesh, cfg, "1f1b", 1, num_microbatches, attn_fn,
+                           interleaved=False, tp=True)
+
+
+def make_pipeline_tp_lm_gpipe_grad(mesh: Mesh, cfg, num_stages: int, num_microbatches: int,
+                                   attn_fn=None):
+    """-> ``f(params, tokens) -> (loss, grads)``: GPipe order x Megatron
+    TP, the gradient of :func:`make_pipeline_tp_lm_loss`;
+    ``params["blocks"]`` in :func:`shard_blocks_pp_tp` layout."""
+    _check_stages(mesh, num_stages)
+    return _scheduled_grad(mesh, cfg, "gpipe", 1, num_microbatches, attn_fn,
+                           interleaved=False, tp=True)
+
+
+def make_pipeline_tp_lm_interleaved_grad(mesh: Mesh, cfg, num_virtual: int,
+                                         num_microbatches: int, attn_fn=None):
+    """-> ``f(params, tokens) -> (loss, grads)``: interleaved 1F1B x
+    Megatron TP; ``params["blocks"]`` in :func:`shard_blocks_interleaved_tp`
+    layout."""
+    return _scheduled_grad(mesh, cfg, "interleaved", num_virtual, num_microbatches, attn_fn,
+                           interleaved=True, tp=True)
+
+
+def _check_stages(mesh: Mesh, num_stages: int) -> None:
+    if mesh.shape[AXIS_STAGE] != num_stages:
+        raise ValueError(f"num_stages={num_stages} but the mesh '{AXIS_STAGE}' axis has size "
+                         f"{mesh.shape[AXIS_STAGE]}")

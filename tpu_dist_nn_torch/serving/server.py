@@ -999,8 +999,13 @@ def serve_lm_generate(params, cfg, port: int, *, max_new_tokens: int, prompt_len
       static (``coalesce=False`` is the lock-serialized legacy arm,
       ``server.batcher is None``).
 
-    ``num_stages > 1`` (the pipelined overlapped decoder) is refused:
-    the port has no pipelined decoder yet. One endpoint = one decode
+    ``num_stages > 1`` serves the static arm through the pipelined
+    overlapped decoder
+    (:func:`~tpu_dist_nn_torch.parallel.pp_generate.make_pipeline_generate_overlapped`):
+    the blocks over ``num_stages`` stage slots of the serving device,
+    ``num_groups`` (default ``max(num_stages, 2)``) request groups into
+    which a launch's rows coalesce; no continuous scheduler and no
+    ``eos_id`` there, as in the JAX server. One endpoint = one decode
     configuration (prompt length, budget, sampling knobs), validated
     whole at construction with the JAX package's texts. ``eos_id``
     gives both schedulers the same freeze/pad rule, so their greedy
@@ -1059,10 +1064,6 @@ def serve_lm_generate(params, cfg, port: int, *, max_new_tokens: int, prompt_len
                 "decoder (its round-robin loop has no done-mask); "
                 "serve num_stages == 1 for stop-token semantics"
             )
-        raise ValueError(
-            f"num_stages={num_stages}: the pipelined overlapped decoder "
-            "(parallel/pp_generate.py) is not ported yet; serve num_stages=1"
-        )
     grpc = _import_grpc()
 
     if scheduler == "continuous":
@@ -1106,21 +1107,49 @@ def serve_lm_generate(params, cfg, port: int, *, max_new_tokens: int, prompt_len
         return server, bound
 
     params_served = tree_map(lambda a: a.detach().to(dev), params)
+    n_devices = 1
+    if num_stages > 1:
+        from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+        from tpu_dist_nn_torch.parallel.pp_generate import make_pipeline_generate_overlapped
+        from tpu_dist_nn_torch.parallel.transformer_pipeline import shard_blocks
 
-    def run(rows: np.ndarray):
-        prompts = torch.as_tensor(np.asarray(rows), device=dev).long()
-        out = generate(params_served, cfg, prompts, N, temperature=temperature, top_k=top_k,
-                       top_p=top_p, generator=generator if temperature > 0 else None,
-                       eos_id=eos_id)
-        # A device tensor: the batcher's drain stage pays the one host
-        # sync, so dispatch can launch the next batch meanwhile.
-        return torch.cat([prompts, out], dim=1)
+        S = int(num_stages)
+        G = int(num_groups) if num_groups is not None else max(S, 2)
+        # The stage slots: every stage on the serving device (one card's
+        # streams), as the pipelined trainer places them on one card.
+        mesh = build_mesh(MeshSpec(stage=S), [dev] * S)
+        n_devices = len(mesh.devices)
+        params_served = dict(params_served, blocks=shard_blocks(params_served["blocks"], S))
+        fn = make_pipeline_generate_overlapped(mesh, cfg, S, N, G, temperature=temperature,
+                                               top_k=top_k, top_p=top_p)
+
+        def run(rows: np.ndarray):
+            n = len(rows)
+            bg = -(-n // G)  # ceil: the batcher's bucket already padded
+            grid = bg * G
+            if grid != n:
+                rows = np.concatenate([rows, np.zeros((grid - n, T), rows.dtype)])
+            prompts = torch.as_tensor(np.asarray(rows), device=dev).long().reshape(G, -1, T)
+            out = fn(params_served, prompts, generator if temperature > 0 else None)
+            # A device tensor: the drain stage pays the one host sync.
+            return out.reshape(-1, T + N)[:n]
+    else:
+        def run(rows: np.ndarray):
+            prompts = torch.as_tensor(np.asarray(rows), device=dev).long()
+            out = generate(params_served, cfg, prompts, N, temperature=temperature, top_k=top_k,
+                           top_p=top_p, generator=generator if temperature > 0 else None,
+                           eos_id=eos_id)
+            # A device tensor: the batcher's drain stage pays the one host
+            # sync, so dispatch can launch the next batch meanwhile.
+            return torch.cat([prompts, out], dim=1)
 
     # Goodput for the run-to-completion decode: one record a coalesced
     # launch, at drain (EOS-frozen positions exist only in the fetched
     # sequences). The coalesce=False lock path stays unaccounted.
     gp_model = LMFlopModel.from_config(cfg, T + N - 1 if N > 1 else T)
-    GOODPUT.ensure_peak(device_count=1, dtype=cfg.compute_dtype)
+    # The peak counts the distinct devices decoded on: the pipelined
+    # placement's stage slots share the serving device.
+    GOODPUT.ensure_peak(device_count=n_devices, dtype=cfg.compute_dtype)
 
     def account(out, useful_rows, launched_rows, dead_rows=0):
         GOODPUT.record_static_generate(gp_model, out, useful_rows, launched_rows, T, eos_id,

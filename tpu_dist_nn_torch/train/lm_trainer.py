@@ -1,6 +1,7 @@
-"""Language-model training on one device: the byte-level Transformer.
+"""Language-model training: the byte-level Transformer, on one device or pipelined.
 
-Port of the single-chip half of :mod:`tpu_dist_nn.train.lm_trainer`:
+Port of :mod:`tpu_dist_nn.train.lm_trainer`'s single-chip and pipelined
+trainers:
 next-token cross-entropy, the optax-matched Adam of
 :mod:`tpu_dist_nn_torch.train.optimizers`, one optimizer step per
 batch. Attention defaults to
@@ -19,8 +20,17 @@ runs the K eager steps in one call.
 
 Checkpoints (``train_lm(checkpoints=)``, the store of
 :mod:`tpu_dist_nn_torch.checkpoint.store`) save and resume the params
-and the Adam state at step granularity, as the JAX package's do. Left
-for later slices: the mesh and pipeline trainers.
+and the Adam state at step granularity, as the JAX package's do.
+
+The pipelined trainer (:func:`make_pipeline_lm_train_step`, and
+:func:`train_lm` with a ``mesh`` and ``num_stages > 1``) runs the per-block
+pipeline over stage slots (GPipe, 1F1B or interleaved), optionally
+Megatron-sharded over the mesh's model slots, with the batch over its
+data slots (:mod:`~tpu_dist_nn_torch.parallel.transformer_pipeline`).
+Its step runs eager (a Python loop of per-slot ops); its params live in
+the staged layout (:func:`lm_block_layout`), so a checkpoint records the
+layout and a resume into another is refused. Left for later slices: the
+mixture-of-experts, sequence-parallel, ZeRO and multi-host trainers.
 """
 
 from __future__ import annotations
@@ -40,10 +50,12 @@ from tpu_dist_nn_torch.models.transformer import (
     param_leaves,
     tree_map,
 )
+from tpu_dist_nn_torch.parallel import transformer_pipeline as tpl
+from tpu_dist_nn_torch.parallel.mesh import AXIS_MODEL
+from tpu_dist_nn_torch.parallel.one_f_one_b import validate_schedule
 from tpu_dist_nn_torch.train.graphs import CompiledStep
 from tpu_dist_nn_torch.train.optimizers import Optimizer, apply_updates, build_optimizer
 from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
-
 
 @dataclasses.dataclass(frozen=True)
 class LMTrainConfig:
@@ -101,15 +113,84 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer: Optimizer, attn_fn=Non
     return superstep
 
 
+def make_pipeline_lm_train_step(mesh, cfg: TransformerConfig, num_stages: int,
+                                num_microbatches: int, optimizer: Optimizer, attn_fn=None,
+                                schedule: str = "gpipe", num_virtual: int = 1,
+                                tensor_parallel: int = 1):
+    """The pipelined step ``(params, opt_state, tokens) -> (params,
+    opt_state, loss)``, params updated in place.
+
+    ``schedule``: "gpipe" or "1f1b" (blocks in :func:`~tpu_dist_nn_torch.
+    parallel.transformer_pipeline.shard_blocks` layout) or "interleaved"
+    (``num_virtual`` chunks a stage, :func:`~tpu_dist_nn_torch.parallel.
+    transformer_pipeline.shard_blocks_interleaved`). ``tensor_parallel >
+    1`` Megatron-shards each chunk over the mesh's model slots, with every
+    schedule (the ``_pp_tp`` / ``_interleaved_tp`` layouts). The zero-
+    bubble schedules are refused by what they need."""
+    validate_schedule(schedule, lm=True)
+    if tensor_parallel > 1 and mesh.shape.get(AXIS_MODEL, 1) != tensor_parallel:
+        raise ValueError(
+            f"tensor_parallel={tensor_parallel} but the mesh '{AXIS_MODEL}' "
+            f"axis has size {mesh.shape.get(AXIS_MODEL, 1)}"
+        )
+    interleaved = schedule == "interleaved"
+    if not interleaved:
+        tpl._check_stages(mesh, num_stages)
+    vag = tpl._scheduled_grad(mesh, cfg, schedule, num_virtual if interleaved else 1,
+                              num_microbatches, attn_fn, interleaved=interleaved,
+                              tp=tensor_parallel > 1)
+
+    def step(params, opt_state, tokens):
+        loss, grads = vag(params, tokens)
+        leaves = param_leaves(params)
+        updates = optimizer.update(param_leaves(grads), opt_state, leaves)
+        if updates is not None:
+            apply_updates(leaves, updates)
+        return params, opt_state, loss.detach()
+
+    return step
+
+
+def lm_block_layout(sched: str, stages: int, num_virtual: int, *, cfg=None, tp: int = 1,
+                    ep: int = 0):
+    """-> ``(shard_blocks_fn, unshard_blocks_fn)`` for the pipelined LM's
+    param layout under (schedule, sharding): ``tp > 1`` the Megatron
+    family (needs ``cfg``), else the dense one. The expert-sharded family
+    (``ep``) and the zero-bubble layouts are refused by what they need."""
+    if ep:
+        raise ValueError(
+            "the expert-sharded block layouts (expert_parallel.py) are not ported yet"
+        )
+    validate_schedule(sched, lm=True)
+    if tp > 1:
+        if sched == "interleaved":
+            return (lambda b: tpl.shard_blocks_interleaved_tp(b, cfg, stages, num_virtual, tp),
+                    lambda b: tpl.unshard_blocks_interleaved_tp(b, cfg))
+        return (lambda b: tpl.shard_blocks_pp_tp(b, cfg, stages, tp),
+                lambda b: tpl.unshard_blocks_pp_tp(b, cfg))
+    if sched == "interleaved":
+        return (lambda b: tpl.shard_blocks_interleaved(b, stages, num_virtual),
+                tpl.unshard_blocks_interleaved)
+    return (lambda b: tpl.shard_blocks(b, stages), tpl.unshard_blocks)
+
+
 def _device_of(params: dict) -> torch.device:
     return param_leaves(params)[0].device
 
 
 def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray],
              train_cfg: LMTrainConfig, *, attn_fn=None, step_fn=None, checkpoints=None,
-             checkpoint_every: int | None = None):
+             checkpoint_every: int | None = None, mesh=None, num_stages: int = 1,
+             num_microbatches: int = 1, schedule: str = "gpipe", num_virtual: int = 1,
+             tensor_parallel: int = 1):
     """Train for ``train_cfg.steps`` batches of ``(batch, seq_len + 1)``
     token rows on the params' device; returns ``(params, history)``.
+
+    Pipelined when ``mesh`` and ``num_stages > 1`` (and no ``step_fn``):
+    the params are regrouped into ``schedule``'s staged layout
+    (:func:`lm_block_layout`, Megatron-sharded when ``tensor_parallel >
+    1``) for the run, and come back in the standard layout. The staged
+    step runs eager.
 
     The caller's tensors are not modified (the loop trains a copy).
     ``history`` holds ``{"step", "loss", "seconds"}`` every
@@ -163,15 +244,32 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
             f"of steps_per_call ({k}): checkpoints inside one grouped "
             "device call can only capture group-end state"
         )
-    if k > 1 and step_fn is not None:
+    validate_schedule(schedule)
+    pipelined = step_fn is None and mesh is not None and num_stages > 1
+    if schedule != "gpipe" and not pipelined:
+        raise ValueError(
+            f"schedule={schedule!r} requires the pipelined dense LM path "
+            "(mesh + num_stages > 1, no custom step_fn)"
+        )
+    if k > 1 and (step_fn is not None or pipelined):
         raise ValueError(
             "steps_per_call > 1 is the built-in single-chip path only "
             "(custom step_fn and pipelined schedules run one step per "
             "call)"
         )
-    step = step_fn(optimizer) if step_fn is not None else make_lm_train_step(
-        cfg, optimizer, attn_fn)
-    params = tree_map(lambda a: a.detach().clone().requires_grad_(True), params)
+    unshard = None
+    if pipelined:
+        shard, unshard = lm_block_layout(schedule, num_stages, num_virtual, cfg=cfg,
+                                         tp=tensor_parallel)
+        params = dict(params, blocks=shard(params["blocks"]))
+        step = make_pipeline_lm_train_step(mesh, cfg, num_stages, num_microbatches, optimizer,
+                                           attn_fn, schedule=schedule, num_virtual=num_virtual,
+                                           tensor_parallel=tensor_parallel)
+        params = tree_map(lambda a: a.detach().clone(), params)
+    else:
+        step = step_fn(optimizer) if step_fn is not None else make_lm_train_step(
+            cfg, optimizer, attn_fn)
+        params = tree_map(lambda a: a.detach().clone().requires_grad_(True), params)
     device = _device_of(params)
     start_step, state = resume_or_init(
         checkpoints, {"params": params, "opt_state": optimizer.init(param_leaves(params))})
@@ -184,7 +282,7 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
         """Run one group (one step, or one superstep), log and save it."""
         nonlocal compiled
         stack = np.stack([np.asarray(b) for _, b in group])
-        if device.type == "cuda":
+        if device.type == "cuda" and not pipelined:
             # One captured step over a static token buffer, replayed for
             # every step of the group with no host sync between them.
             if compiled is None:
@@ -232,7 +330,10 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
         raise
     else:
         flush(checkpoints)
-    return tree_map(lambda a: a.detach(), params), history
+    params = tree_map(lambda a: a.detach(), params)
+    if unshard is not None:
+        params = dict(params, blocks=unshard(params["blocks"]))
+    return params, history
 
 
 @torch.no_grad()
