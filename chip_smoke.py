@@ -239,26 +239,33 @@ package. Phases, each fatal on failure (exit 1, no result line):
      serving): BASELINE ``configs[4]``'s per-block pipeline with the
      Megatron split, the 85M LM in bf16 with remat on stage x model
      slots of the card (cut from a multi-chip mesh). The first step's
-     loss and gradients of gpipe and 1f1b at stage 4 x model 2 and of
-     interleaved at 2 stages x 3 virtual x 2 model (4 microbatches each)
-     against the single bf16 program run over the same 4 microbatches
+     loss and gradients of gpipe, 1f1b and zb at stage 4 x model 2, of
+     interleaved at 2 stages x 3 virtual x 2 model, of zb-v at 3 stages
+     x 2 model and of zb-stash at stage 4 (4 microbatches each) against
+     the single bf16 program run over the same 4 microbatches
      (gradients summed, as the pipeline sums them), within 4 times that
      reference's own spread a leaf (flash against the materialised
      attention; at least 2**-8; the loss at least within 1e-3), and
      gpipe against 1f1b at tests/test_pipeline_1f1b.py's tolerance; 6
-     steps each of the three schedules: finite, falling losses, each
+     steps each of the six schedules: finite, falling losses, each
      step's loss within that loss tolerance of the single program's at
      the same step, step p50 by CUDA events beside the eager single
-     program's, and one step's launches exactly 192 sm90 flash
-     forwards and 96 backwards (12 blocks x 4 microbatches x 2 model
-     slots, remat) and nothing else. Decode on seeded init params with
-     q and k x 2: the overlapped pipelined decoder at 4 stages x 4
-     groups of 4 rows (128-byte prompts, 64 greedy tokens) equal to
-     ``generate`` of each group; ``tp_generate`` at model 2 equal, or
-     first differing at a near tie of the reference (top-2 logit gap
-     under 0.25, each printed); ``serve_lm_generate(num_stages=4)``
-     answering 8 ``Generate`` requests from 4 threads with the
-     overlapped decoder's tokens; the tokens/s of each decoder.
+     program's, and one step's launches exactly the sm90 flash pair at
+     the counts its backward implies (192 forwards and 96 backwards for
+     the combined backward: 12 blocks x 4 microbatches x 2 model slots,
+     remat; 264 and 168 for zb, 272 and 176 for zb-v, 96 and 48 for
+     zb-stash, none inside its W ops); the same 6 steps graphed through
+     ``train_lm`` (the step captured on the card's slots) bit-equal to
+     the eager ones, losses and trained params, step p50 graphed and
+     eager beside the graphed single program's. Decode on seeded init
+     params with q and k x 2: the overlapped pipelined decoder at 4
+     stages x 4 groups of 4 rows (128-byte prompts, 64 greedy tokens)
+     equal to ``generate`` of each group; ``tp_generate`` at model 2
+     equal, or first differing at a near tie of the reference (top-2
+     logit gap under 0.25, each printed);
+     ``serve_lm_generate(num_stages=4)`` answering 8 ``Generate``
+     requests from 4 threads with the overlapped decoder's tokens; the
+     tokens/s of each decoder.
 
    * the float32 LM path, ``tdn lm``'s default recipe
      (``artifacts/real_text_r04/RECORD.json``): d 128, 4 heads, 4
@@ -304,6 +311,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -2354,7 +2362,8 @@ def serving_phase(dev, cfg, eval_rows, out_dir, smi_line) -> None:
 # one card, in training and in decode. The steps' constant lr is small
 # enough that Adam's first sign-like updates lower the loss from this
 # init (at 3e-4 without warm-up it first rises to ~9.5 nats).
-MP = dict(stages=4, model=2, micro=4, il_stages=2, il_virtual=3, steps=6, lr=5e-5, seed=11,
+MP = dict(stages=4, model=2, micro=4, il_stages=2, il_virtual=3, zbv_stages=3, steps=6, lr=5e-5,
+          seed=11,
           groups=4, group_rows=4, prompt=128, new=64, near_tie=0.25, requests=8, threads=4,
           spread_factor=4.0, qk_scale=2.0)
 
@@ -2363,24 +2372,34 @@ def model_parallel_phase(dev, cfg, train_rows, eval_rows, out_dir, smi_line) -> 
     """The 85M LM (``cfg``: bf16, remat) through the model-parallel paths
     on stage x model slots of one card (cut from a multi-chip mesh):
 
-    * training: the first step's loss and gradients of gpipe and 1f1b at
-      stage 4 x model 2 (3 blocks a stage) and of interleaved at 2 stages
-      x 3 virtual x 2 model (2 blocks a chunk), 4 microbatches of 4 rows,
-      against the reference: the single bf16 program from the same
-      weights run over the same 4 microbatches, each loss / 4 and the
-      gradients summed in the float32 leaves, as the pipeline sums them.
-      The tolerance is ``MP["spread_factor"]`` times that reference's own
-      bf16 spread, a leaf (its distance from the same microbatched step
-      with the materialised attention; at least 2**-8); the loss's at
-      least the bf16 parity check's first-step rtol. gpipe against 1f1b
-      at tests/test_pipeline_1f1b.py's tolerance. Then ``MP["steps"]``
-      steps of each schedule through ``make_pipeline_lm_train_step``:
-      finite, falling losses, each step's loss within the loss
-      tolerance of the single program's at the same step (the same
-      batches and optimizer), each step timed with CUDA events (p50
-      beside the eager single program's), and the sm90 flash pair the
-      only attention launched, counted a step: blocks x microbatches x
-      model slots backward launches and twice that forward (remat);
+    * training: the first step's loss and gradients of gpipe, 1f1b and zb
+      at stage 4 x model 2 (3 blocks a stage), of interleaved at 2 stages
+      x 3 virtual x 2 model (2 blocks a chunk), of zb-v at 3 stages x 2
+      model (the V's 6 chunks of 2 blocks: 12 layers need ``n_layers %
+      2S == 0``) and of zb-stash at stage 4 x model 1 (dense only), 4
+      microbatches of 4 rows, against the reference: the single bf16
+      program from the same weights run over the same 4 microbatches,
+      each loss / 4 and the gradients summed in the float32 leaves, as
+      the pipeline sums them. The tolerance is ``MP["spread_factor"]``
+      times that reference's own bf16 spread, a leaf (its distance from
+      the same microbatched step with the materialised attention; at
+      least 2**-8); the loss's at least the bf16 parity check's
+      first-step rtol. gpipe against 1f1b at
+      tests/test_pipeline_1f1b.py's tolerance; each other schedule's
+      distance from 1f1b printed, and each table's ``bubble_ticks``.
+      Then ``MP["steps"]`` steps of each schedule eager, through
+      ``make_pipeline_lm_train_step``: finite, falling losses, each
+      step's loss within the loss tolerance of the single program's at
+      the same step (the same batches and optimizer), each step timed
+      with CUDA events (p50 beside the eager single program's), and the
+      sm90 flash pair the only attention launched, counted a step: a
+      (block, microbatch, model slot) costs 2 forwards and 1 backward
+      under remat (3 and 2 for zb and zb-v, but chunk 0's blocks 2 and
+      1: see (b)), and no flash kernel runs inside a zb-stash W op; and
+      the same steps graphed through ``train_lm`` (the step captured on
+      the card's slots), losses and trained params bit-equal to the
+      eager steps', with the launches of every replay, step p50 beside
+      the eager one and the graphed single program's;
     * decode, on seeded init params with q and k x ``MP["qk_scale"]`` (so
       the greedy text depends on the prompt, as the serving phase's):
       ``make_pipeline_generate_overlapped`` at 4 stages and 4 groups of 4
@@ -2409,16 +2428,20 @@ def model_parallel_phase(dev, cfg, train_rows, eval_rows, out_dir, smi_line) -> 
         param_leaves,
         tree_map,
     )
+    from tpu_dist_nn_torch.kernels import flash_bwd_sm90, flash_fwd_sm90
     from tpu_dist_nn_torch.parallel import transformer_pipeline as tpl
     from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+    from tpu_dist_nn_torch.parallel.one_f_one_b import schedule_tables
     from tpu_dist_nn_torch.parallel.pp_generate import make_pipeline_generate_overlapped
     from tpu_dist_nn_torch.parallel.tensor_parallel import tp_shard_blocks
     from tpu_dist_nn_torch.parallel.tp_generate import tp_generate
     from tpu_dist_nn_torch.serving.server import GrpcClient, serve_lm_generate
     from tpu_dist_nn_torch.train.lm_trainer import (
+        LMTrainConfig,
         lm_block_layout,
         make_lm_train_step,
         make_pipeline_lm_train_step,
+        train_lm,
     )
     from tpu_dist_nn_torch.train.optimizers import build_optimizer
 
@@ -2482,19 +2505,60 @@ def model_parallel_phase(dev, cfg, train_rows, eval_rows, out_dir, smi_line) -> 
           f"{json.dumps({n: float(f'{rel(a, b):.3e}') for n, a, b in zip(names, g_full, g_ref)})}")
     del ref
 
-    # (b) each schedule's first step against the reference
-    SCHEDULES = (("gpipe", S, 1, tpl.make_pipeline_tp_lm_gpipe_grad),
-                 ("1f1b", S, 1, tpl.make_pipeline_tp_lm_1f1b_grad),
-                 ("interleaved", MP["il_stages"], MP["il_virtual"],
-                  tpl.make_pipeline_tp_lm_interleaved_grad))
+    # (b) each schedule's first step against the reference. Flash
+    # launches a step (remat, bf16), a (block, microbatch, model shard)
+    # each: the combined backward and zb-stash 2 forwards and 1 backward
+    # (zb-stash: the FWD op without a graph, then B's one forward keeping
+    # the sub-op vjps and its backward; W none); zb and zb-v 3 and 2 (B
+    # and W each recompute the checkpointed block and run its backward),
+    # but chunk 0, which has no input cotangent and so no backward in B:
+    # 2 and 1.
+    SCHEDULES = (("gpipe", S, 1, NT), ("1f1b", S, 1, NT),
+                 ("interleaved", MP["il_stages"], MP["il_virtual"], NT),
+                 ("zb", S, 1, NT), ("zb-v", MP["zbv_stages"], 2, NT), ("zb-stash", S, 1, 1))
+
+    def make_vag(sched, stages, v, nt):
+        m = mesh(stages, nt)
+        return {"gpipe": lambda: tpl.make_pipeline_tp_lm_gpipe_grad(m, cfg, stages, M),
+                "1f1b": lambda: tpl.make_pipeline_tp_lm_1f1b_grad(m, cfg, stages, M),
+                "interleaved": lambda: tpl.make_pipeline_tp_lm_interleaved_grad(m, cfg, v, M),
+                "zb": lambda: tpl.make_pipeline_tp_lm_zb_grad(m, cfg, v, M),
+                "zb-v": lambda: tpl.make_pipeline_tp_lm_zb_v_grad(m, cfg, M),
+                "zb-stash": lambda: tpl.make_pipeline_lm_zb_stash_grad(m, cfg, v, M)}[sched]()
+
+    def want_launches(sched, stages, v, nt):
+        if sched in ("zb", "zb-v"):
+            first = L // (stages * v)  # chunk 0's blocks
+            return (3 * L - first) * M * nt, (2 * L - first) * M * nt
+        return 2 * L * M * nt, L * M * nt
+
+    def label_of(sched, stages, v, nt):
+        return (f"{sched} stage {stages}" + (f" x virtual {v}" if v > 1 else "")
+                + f" x model {nt}, {M} microbatches")
+
+    def only_sm90(launched, want):
+        return ((launched["flash_fwd_sm90"], launched["flash_bwd_sm90"]) == want
+                and sum(n for k, n in launched.items() if not k.endswith("_sm90")) == 0)
+
+    # zb-stash's W ops: the flash launches inside each (none allowed)
+    w_flash = []
+    stash_w = tpl.StashSplit.backward_w
+
+    def counted_w(self, d, c, wstash):
+        before = flash_fwd_sm90.launches + flash_bwd_sm90.launches
+        stash_w(self, d, c, wstash)
+        w_flash.append(flash_fwd_sm90.launches + flash_bwd_sm90.launches - before)
+
+    tpl.StashSplit.backward_w = counted_w
     got = {}
-    want_fwd, want_bwd = 2 * L * M * NT, L * M * NT
-    for sched, stages, v, make in SCHEDULES:
-        shard, unshard = lm_block_layout(sched, stages, v, cfg=cfg, tp=NT)
+    for sched, stages, v, nt in SCHEDULES:
+        shard, unshard = lm_block_layout(sched, stages, v, cfg=cfg, tp=nt)
         staged = dict(params, blocks=shard(params["blocks"]))
-        vag = make(mesh(stages, NT), cfg, v if sched == "interleaved" else stages, M)
+        vag = make_vag(sched, stages, v, nt)
+        tables = schedule_tables(sched, stages, v, M)
         torch.cuda.synchronize()
         reset_launch_counts()
+        w_flash.clear()
         loss, grads = vag(staged, tokens)
         torch.cuda.synchronize()
         launched = counts()
@@ -2503,27 +2567,30 @@ def model_parallel_phase(dev, cfg, train_rows, eval_rows, out_dir, smi_line) -> 
         errs = {n: rel(a, b) for n, a, b in zip(names, flat, g_ref)}
         share = {n: errs[n] / tol_g[n] for n in names}
         lrel = abs(float(loss) - loss_ref) / abs(loss_ref)
-        only_sm90 = (launched["flash_fwd_sm90"] == want_fwd
-                     and launched["flash_bwd_sm90"] == want_bwd
-                     and sum(n for k, n in launched.items() if not k.endswith("_sm90")) == 0)
-        ok = lrel <= tol_loss and max(share.values()) <= 1.0 and only_sm90
+        want = want_launches(sched, stages, v, nt)
+        w_ok = sched != "zb-stash" or (len(w_flash) == tables.num_chunks * M
+                                       and not any(w_flash))
+        ok = lrel <= tol_loss and max(share.values()) <= 1.0 and only_sm90(launched, want) and w_ok
         worst = max(share, key=share.get)
-        label = (f"{sched} stage {stages}" + (f" x virtual {v}" if v > 1 else "")
-                 + f" x model {NT}, {M} microbatches")
+        label = label_of(sched, stages, v, nt)
         print(f"  model parallel {sched} gradients' relative L2 from the float32 full-batch "
               f"step (the reference's in brackets): " + ", ".join(
                   f"{n} {rel(a, f):.3e} ({rel(b, f):.3e})"
                   for n, a, b, f in zip(names, flat, g_ref, g32)))
+        tick = ("" if tables is None else
+                f"; tables: {tables.ticks} ticks, bubble_ticks {tables.bubble_ticks}")
+        w_note = ("" if sched != "zb-stash" else
+                  f"; W ops {len(w_flash)}, flash launches inside them {sum(w_flash)}")
         print(f"check model parallel {label}, step 1 vs the reference: loss {float(loss)!r} "
               f"(rel {lrel:.3e}); gradients' relative L2 "
               f"{json.dumps({n: float(f'{e:.3e}') for n, e in errs.items()})}, largest share "
               f"of its tolerance {share[worst]:.3f} ({worst}); launches "
               f"{json.dumps({k: n for k, n in launched.items() if n})}, expected flash_fwd_sm90 "
-              f"{want_fwd} flash_bwd_sm90 {want_bwd} and nothing else | "
+              f"{want[0]} flash_bwd_sm90 {want[1]} and nothing else{w_note}{tick} | "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            fail(f"model parallel {sched}: the first step departs from the single program or "
-                 f"launched other attention")
+            fail(f"model parallel {sched}: the first step departs from the single program, "
+                 f"launched other attention or flash inside a W op")
         del grads, staged
     g_close = all(torch.allclose(a, b, rtol=2e-4, atol=1e-6)
                   for a, b in zip(got["gpipe"][1], got["1f1b"][1]))
@@ -2534,10 +2601,17 @@ def model_parallel_phase(dev, cfg, train_rows, eval_rows, out_dir, smi_line) -> 
           f"gradients rtol 2e-4 atol 1e-6 | {'ok' if g_close and l_close else 'FAIL'}")
     if not (g_close and l_close):
         fail("model parallel: 1f1b and gpipe disagree")
+    for sched in ("interleaved", "zb", "zb-v", "zb-stash"):
+        print(f"model parallel {sched} vs 1f1b (step 1): loss {got[sched][0]!r} vs "
+              f"{got['1f1b'][0]!r}; gradients' relative L2 " + json.dumps(
+                  {n: float(f"{rel(a, b):.3e}")
+                   for n, a, b in zip(names, got[sched][1], got["1f1b"][1])}))
     del got, g_ref, g_full, g32
     torch.cuda.empty_cache()
 
-    # (c) steps of each schedule, timed with CUDA events
+    # (c) steps of each schedule, eager (timed with CUDA events) and
+    # graphed (``train_lm`` captures the step on one card's slots; a
+    # step's host time from its history), bit-equal to each other
     def timed_steps(step, state, label):
         losses, ms, per_step = [], [], None
         for i, toks in enumerate(batches):
@@ -2559,40 +2633,86 @@ def model_parallel_phase(dev, cfg, train_rows, eval_rows, out_dir, smi_line) -> 
               f"{B * LM['seq_len'] / p50 * 1e3:.1f} tokens/s")
         return losses, p50, per_step
 
+    host_batches = [b.cpu().numpy() for b in batches]
+    n_steps = len(host_batches)
+    train_cfg = LMTrainConfig(learning_rate=MP["lr"], steps=n_steps, batch_size=B,
+                              seq_len=LM["seq_len"], log_every=1)
+
+    def graphed_run(label, **pipeline):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        trained, hist = train_lm(params, cfg, host_batches, train_cfg, **pipeline)
+        torch.cuda.synchronize()
+        launched = counts()
+        ms = [1e3 * (b["seconds"] - a["seconds"]) for a, b in zip(hist, hist[1:])]
+        p50 = float(np.median(ms))
+        print(f"model parallel {label} graphed (train_lm): losses {[h['loss'] for h in hist]}; "
+              f"step ms (host clock, a float(loss) a step) {[round(t, 3) for t in ms]} after "
+              f"the first (warm-up and capture, {1e3 * hist[0]['seconds']:.1f} ms); p50 "
+              f"{p50:.3f} ms, {B * LM['seq_len'] / p50 * 1e3:.1f} tokens/s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return trained, [h["loss"] for h in hist], p50, launched
+
     single = tree_map(lambda a: a.clone().requires_grad_(True), params)
-    opt = build_optimizer(MP["lr"])
+    opt = build_optimizer(MP["lr"], total_steps=n_steps)
     single_losses, single_p50, _ = timed_steps(make_lm_train_step(cfg, opt),
                                                (single, opt.init(param_leaves(single))),
                                                "single program eager (one stream)")
     del single
     torch.cuda.empty_cache()
-    for sched, stages, v, _ in SCHEDULES:
-        shard, _ = lm_block_layout(sched, stages, v, cfg=cfg, tp=NT)
+    _, _, single_graphed_p50, _ = graphed_run("single program")
+    p50s = {}
+    for sched, stages, v, nt in SCHEDULES:
+        shard, unshard = lm_block_layout(sched, stages, v, cfg=cfg, tp=nt)
         st = tree_map(lambda a: a.detach().clone(), dict(params, blocks=shard(params["blocks"])))
-        opt = build_optimizer(MP["lr"])
-        step = make_pipeline_lm_train_step(mesh(stages, NT), cfg, stages, M, opt, schedule=sched,
-                                           num_virtual=v, tensor_parallel=NT)
-        label = (f"{sched} stage {stages}" + (f" x virtual {v}" if v > 1 else "")
-                 + f" x model {NT}, {M} microbatches")
+        opt = build_optimizer(MP["lr"], total_steps=n_steps)
+        m = mesh(stages, nt)
+        step = make_pipeline_lm_train_step(m, cfg, stages, M, opt, schedule=sched,
+                                           num_virtual=v, tensor_parallel=nt)
+        label = label_of(sched, stages, v, nt)
+        w_flash.clear()
         losses, p50, per_step = timed_steps(step, (st, opt.init(param_leaves(st))), label)
+        eager_params = param_leaves(dict(st, blocks=unshard(st["blocks"])))
+        del st, step
+        torch.cuda.empty_cache()
         steps_rel = [abs(a - b) / abs(b) for a, b in zip(losses, single_losses)]
-        only_sm90 = (per_step["flash_fwd_sm90"] == want_fwd
-                     and per_step["flash_bwd_sm90"] == want_bwd
-                     and sum(n for k, n in per_step.items() if not k.endswith("_sm90")) == 0)
+        want = want_launches(sched, stages, v, nt)
         ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
-              and max(steps_rel) <= tol_loss and only_sm90)
+              and max(steps_rel) <= tol_loss and only_sm90(per_step, want))
         print(f"check model parallel {sched}: finite, falling losses; each step's loss vs the "
               f"single program's, rel {json.dumps([float(f'{e:.3e}') for e in steps_rel])} "
               f"(tol rtol {tol_loss:.3e}); one step's launches "
               f"{json.dumps({k: n for k, n in per_step.items() if n})} (expected "
-              f"flash_fwd_sm90 {want_fwd}, flash_bwd_sm90 {want_bwd}); p50 {p50:.3f} ms vs the "
+              f"flash_fwd_sm90 {want[0]}, flash_bwd_sm90 {want[1]}); p50 {p50:.3f} ms vs the "
               f"single program's eager {single_p50:.3f} ms ({p50 / single_p50:.2f}x) | "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"model parallel {sched}: losses not finite and falling, away from the single "
                  f"program's, or other attention launched")
-        del st, step
+        trained, g_losses, g_p50, g_launched = graphed_run(
+            label, mesh=m, num_stages=stages, num_microbatches=M, schedule=sched,
+            num_virtual=v, tensor_parallel=nt)
+        differ = sum(int((a != b).sum()) for a, b in zip(param_leaves(trained), eager_params))
+        total = (want[0] * n_steps, want[1] * n_steps)
+        ok = (g_losses == losses and differ == 0 and only_sm90(g_launched, total)
+              and not any(w_flash))
+        p50s[sched] = (p50, g_p50)
+        print(f"check model parallel {sched} graphed vs eager over {n_steps} steps: losses "
+              f"bit-equal {g_losses == losses}; trained parameter elements not bit-equal "
+              f"{differ}; launches {json.dumps({k: n for k, n in g_launched.items() if n})} "
+              f"(expected {total[0]} + {total[1]}); step p50 graphed {g_p50:.3f} ms, eager "
+              f"{p50:.3f} ms ({p50 / g_p50:.2f}x), the graphed single program "
+              f"{single_graphed_p50:.3f} ms ({g_p50 / single_graphed_p50:.2f}x it) | "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"model parallel {sched}: the graphed step departs from the eager one")
+        del trained, eager_params
         torch.cuda.empty_cache()
+    tpl.StashSplit.backward_w = stash_w
+    print("model parallel step p50 ms, eager / graphed (graphed single program "
+          f"{single_graphed_p50:.3f}): " + json.dumps(
+              {k: [round(e, 3), round(g, 3)] for k, (e, g) in p50s.items()}))
 
     # (d) decode, on sharper-attention params
     dparams = init_transformer(torch.Generator().manual_seed(MP["seed"]), cfg, device=dev)

@@ -369,6 +369,13 @@ QUICK_TESTS = {
                                "test_schedule_refusals"],
     "test_torch_pp_generate": ["test_overlapped_equals_jax_and_each_group_alone[4-1]",
                                "test_tp_generate_refuses_what_jax_refuses"],
+    "test_torch_zb_tables": ["test_zb_halves_the_1f1b_bubble",
+                             "test_zb_v_tables_equal_jax[4-4]"],
+    "test_torch_split_backward": [
+        "test_block_split_matches_jax_and_autograd[flash]",
+        "test_w_tick_dispatches_only_matmuls_transposes_and_reshapes[materialised]"],
+    "test_torch_zero_bubble": ["test_loss_and_gradients_match_jax[zb-stash-2x1x4]",
+                               "test_cli_refusals_in_jax_texts[zb-v-virtual-3]"],
     # ISSUE 10: the codec fast lane's correctness anchor (byte-exact
     # scalar/vectorized equivalence + fuzz agreement), the decode-into-
     # staging path through a real batcher, the codec A/B perf smoke,

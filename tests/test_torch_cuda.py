@@ -842,6 +842,46 @@ def test_graphed_lm_step_holds_to_the_eager_step(cuda, dtype, remat, k):
     assert all(torch.isfinite(t).all() for t in param_leaves(got_params))
 
 
+@pytest.mark.parametrize("schedule", ["1f1b", "zb"])
+def test_graphed_pipelined_lm_step_equals_the_eager_step(cuda, schedule):
+    """``train_lm`` on stage 2 x model 2 slots of the card captures the
+    pipelined step; its losses, its trained params and its flash
+    launches equal the eager step's over 4 steps, bit for bit."""
+    from tpu_dist_nn_torch.models.transformer import param_leaves
+    from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+    from tpu_dist_nn_torch.train.lm_trainer import lm_block_layout, make_pipeline_lm_train_step
+    from tpu_dist_nn_torch.train.optimizers import build_optimizer
+
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=4, n_layers=4, d_ff=512,
+                            max_seq_len=128, compute_dtype="bfloat16", remat=True)
+    params = init_transformer(torch.Generator().manual_seed(0), cfg, device=cuda)
+    batches = [np.random.default_rng(i).integers(0, 256, (8, 129)) for i in range(4)]
+
+    def mesh():
+        return build_mesh(MeshSpec(stage=2, model=2), ["cuda:0"] * 4)
+
+    reset_launch_counts()
+    got, hist = train_lm(params, cfg, batches,
+                         LMTrainConfig(learning_rate=1e-3, steps=4, batch_size=8, seq_len=128,
+                                       log_every=1),
+                         mesh=mesh(), num_stages=2, num_microbatches=2, schedule=schedule,
+                         tensor_parallel=2)
+    graphed = (flash_fwd_sm90.launches, flash_bwd_sm90.launches)
+    shard, unshard = lm_block_layout(schedule, 2, 1, cfg=cfg, tp=2)
+    st = tree_map(lambda a: a.detach().clone(), dict(params, blocks=shard(params["blocks"])))
+    opt = build_optimizer(1e-3, total_steps=4)
+    state = opt.init(param_leaves(st))
+    step = make_pipeline_lm_train_step(mesh(), cfg, 2, 2, opt, schedule=schedule,
+                                       tensor_parallel=2)
+    reset_launch_counts()
+    losses = [float(step(st, state, torch.from_numpy(b).to(cuda))[2]) for b in batches]
+    assert [h["loss"] for h in hist] == losses
+    want = dict(st, blocks=unshard(st["blocks"]))
+    for a, b in zip(param_leaves(got), param_leaves(want)):
+        assert torch.equal(a, b)
+    assert graphed == (flash_fwd_sm90.launches, flash_bwd_sm90.launches) != (0, 0)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kw", [{}, dict(temperature=0.8, top_k=40, top_p=0.9, eos_id=7)],
                          ids=["greedy", "sampled-eos"])

@@ -312,6 +312,24 @@ assert abs(float(loss) - float(lm_loss(lm4, toks, cfg4))) < 1e-4
 gen = make_pipeline_generate(build_mesh(MeshSpec(stage=2), ["cpu"] * 2), cfg4, 2, 4)
 out = gen(dict(lm4, blocks=shard_blocks(lm4["blocks"], 2)), toks[:, :6])
 assert torch.equal(out[:, 6:], generate(lm4, cfg4, toks[:, :6], 4))
+# The zero-bubble schedules: a zb step (the recompute split) and the
+# cotangent-stash split's B and W of one block, on CPU slots.
+import tpu_dist_nn_torch.parallel.split_backward as split_backward
+from tpu_dist_nn_torch.models.transformer import param_leaves, tree_map, unstack_blocks
+from tpu_dist_nn_torch.parallel.transformer_pipeline import shard_blocks_interleaved
+from tpu_dist_nn_torch.train.lm_trainer import make_pipeline_lm_train_step
+from tpu_dist_nn_torch.train.optimizers import build_optimizer
+zopt = build_optimizer(1e-2)
+zb = make_pipeline_lm_train_step(build_mesh(MeshSpec(stage=2), ["cpu"] * 2), cfg4, 2, 2, zopt,
+                                 schedule="zb")
+zst = tree_map(lambda a: a.clone(), dict(lm4, blocks=shard_blocks_interleaved(lm4["blocks"], 2,
+                                                                              1)))
+zloss = zb(zst, zopt.init(param_leaves(zst)), toks)[2]
+assert abs(float(zloss) - float(lm_loss(lm4, toks, cfg4))) < 1e-4
+x0 = torch.rand(2, 5, 16)
+_, _, wst = split_backward.block_backward_split(unstack_blocks(lm4["blocks"])[0], x0,
+                                                torch.rand(2, 5, 16), cfg4)
+assert split_backward.block_weight_grads(wst)["w_up"].shape == (16, 32)
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist_nn")]
 assert not bad, bad
 print("imported", len(mods), "modules without jax")

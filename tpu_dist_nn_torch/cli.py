@@ -42,18 +42,19 @@ printed lines:
   overlapped decoder over N stage slots with ``--serve-groups``), prints
   the report with its ``serving`` block before it blocks, and drains on
   SIGTERM; every serving flag is checked before training. ``--stages``
-  trains the per-block pipeline (``--schedule`` gpipe, 1f1b or
-  interleaved with ``--virtual-stages``, ``--microbatches``,
-  ``--data-parallel`` replicas), Megatron-sharded with
-  ``--tensor-parallel``; a slot count above the visible cards places the
-  slots on one card. ``--sample-pipeline-stages`` and
+  trains the per-block pipeline (``--schedule`` gpipe, 1f1b,
+  interleaved with ``--virtual-stages``, or the zero-bubble zb, zb-v and
+  zb-stash; ``--microbatches``, ``--data-parallel`` replicas),
+  Megatron-sharded with ``--tensor-parallel`` (but zb-stash); a slot
+  count above the visible cards places the slots on one card, where the
+  step runs as one CUDA graph. ``--sample-pipeline-stages`` and
   ``--sample-tensor-parallel`` decode the sample in those placements.
   ``lm --stream --target HOST:PORT`` is a client only: it streams one
   generation of ``--prompt`` from a running endpoint. Left for later
   slices, refused before training by what is missing: ``--experts`` /
   ``--expert-parallel``, ``--seq-parallel`` / ``--sp-mode``, ``--zero1``,
-  ``--fsdp``, ``--schedule zb|zb-v|zb-stash``, ``--data-parallel``
-  without ``--stages``; and ``--metrics-port``.
+  ``--fsdp``, ``--data-parallel`` without ``--stages``; and
+  ``--metrics-port``.
 
 Every engine-side verb runs on the card unless ``--device cpu`` is
 given.
@@ -601,15 +602,18 @@ def _refuse_unported(args) -> None:
             ("--fsdp" if args.fsdp else "--zero1")
             + ": sharded optimizer state (parallel/zero.py) is not ported yet"
         )
-    from tpu_dist_nn_torch.parallel.one_f_one_b import validate_schedule
-
-    validate_schedule(args.schedule, lm=True)
 
 
 def _validate_parallel(args) -> None:
     """``tdn lm``'s pipeline and tensor-parallel flags, with the JAX
     package's texts, before any work."""
     _refuse_unported(args)
+    if args.schedule == "zb-v" and args.virtual_stages not in (None, 2):
+        raise ValueError(
+            "--schedule zb-v fixes the chunk count at 2 per device (the "
+            "V placement's two legs); drop --virtual-stages or use "
+            "--schedule zb for a free chunk count"
+        )
     if args.tensor_parallel > 1:
         if args.stages <= 1:
             raise ValueError(
@@ -645,7 +649,9 @@ def _validate_parallel(args) -> None:
 
 def _default_virtual(args) -> int:
     """--virtual-stages' default: 2 for interleaved (it IS the v > 1
-    placement), else 1."""
+    placement), else 1 (zb's contiguous placement); zb-v's V fixes 2."""
+    if args.schedule == "zb-v":
+        return 2
     if args.virtual_stages is not None:
         return args.virtual_stages
     return 2 if args.schedule == "interleaved" else 1
@@ -1130,11 +1136,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="pipeline stages (per-block pipeline over stage slots) when > 1")
     p.add_argument("--schedule", choices=["gpipe", "1f1b", "interleaved", "zb", "zb-v",
                                           "zb-stash"], default="gpipe",
-                   help="pipeline training schedule when --stages > 1 (interleaved = "
-                        "Megatron virtual stages, see --virtual-stages; the zero-bubble "
-                        "zb / zb-v / zb-stash are not ported)")
+                   help="pipeline training schedule when --stages > 1 "
+                        "(interleaved = Megatron virtual stages, see "
+                        "--virtual-stages; zb = zero-bubble ZB-H1 split "
+                        "backward, half the 1F1B bubble; zb-v = zero "
+                        "bubble on the V-shape placement — bubble S-1 "
+                        "chunk-ticks independent of M (zb needs larger "
+                        "M to match), embedding+loss co-located; "
+                        "zb-stash = ZB-H1 with the cotangent-stash "
+                        "split: W ticks are pure dW GEMMs, no "
+                        "recompute — the measured-cost zero bubble, "
+                        "dense LM only, ~16x bridge memory)")
     p.add_argument("--virtual-stages", type=int, default=None,
-                   help="model chunks per stage for --schedule interleaved (default 2)")
+                   help="model chunks per device for --schedule "
+                        "interleaved/zb (bubble shrinks ~v-fold under "
+                        "interleaved); default 2 for interleaved, 1 "
+                        "(classic contiguous placement) for zb")
     p.add_argument("--data-parallel", type=int, default=1,
                    help="data replicas of the pipeline (with --stages > 1)")
     p.add_argument("--seq-parallel", type=int, default=1,

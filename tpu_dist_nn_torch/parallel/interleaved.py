@@ -6,8 +6,11 @@ holds ``v`` chunks of a ``V = S*v``-chunk pipeline, chunk ``c`` on slot
 ``c % S`` (:func:`~tpu_dist_nn_torch.parallel.pipeline.regroup_chunks`'
 placement). The tables of
 :mod:`~tpu_dist_nn_torch.parallel.schedule_table` fix each slot's op
-order; this module plays that order back, issuing every op on its
-slot's stream. The JAX executor moves activations through ring buffers
+order; this module plays the forward-only table back, issuing every op
+on its slot's stream, and hands a training table's op order, split
+backward ops included, to
+:func:`~tpu_dist_nn_torch.parallel.one_f_one_b.run_schedule`
+(:func:`table_order`). The JAX executor moves activations through ring buffers
 whose slots the tables allocate; here an activation is a tensor keyed by
 (chunk, microbatch) and handed over with an event (:func:`gpipe.launch`),
 so the buffer columns of the tables are not read.
@@ -17,12 +20,7 @@ from __future__ import annotations
 
 from tpu_dist_nn_torch.parallel.gpipe import launch
 from tpu_dist_nn_torch.parallel.mesh import Mesh
-from tpu_dist_nn_torch.parallel.schedule_table import (
-    BWD,
-    FWD,
-    build_interleaved_1f1b,
-    build_interleaved_forward,
-)
+from tpu_dist_nn_torch.parallel.schedule_table import ScheduleTables, build_interleaved_forward
 
 
 def interleaved_forward(mesh: Mesh, chunk_fns, num_virtual: int, xs, ready=None) -> list[list]:
@@ -45,8 +43,9 @@ def interleaved_forward(mesh: Mesh, chunk_fns, num_virtual: int, xs, ready=None)
     return [[act.get((V - 1, m, d)) for d in range(D)] for m in range(M)]
 
 
-def interleaved_1f1b_order(num_stages: int, num_virtual: int, num_microbatches: int):
-    """The training op order of :func:`build_interleaved_1f1b`: a list
-    of ``(slot, op, chunk, microbatch)`` with ``op`` FWD or BWD."""
-    tables = build_interleaved_1f1b(num_stages, num_virtual, num_microbatches)
-    return [(s, op, c, m) for _t, s, op, c, m in tables.op_order() if op in (FWD, BWD)]
+def table_order(tables: ScheduleTables):
+    """A training table's op order: a list of ``(slot, op, global
+    chunk, microbatch)``, every op of it (FWD, BWD, and the split
+    backward's BWD_B and BWD_W), in tick order."""
+    return [(s, op, c, m) for _t, s, op, c, m in tables.op_order()]
+

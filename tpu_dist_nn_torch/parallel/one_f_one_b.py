@@ -1,18 +1,32 @@
-"""Pipelined training schedules (dense chains): GPipe, 1F1B, interleaved.
+"""Pipelined training schedules: GPipe, 1F1B, interleaved and zero bubble.
 
-Port of the dense half of :mod:`tpu_dist_nn.parallel.one_f_one_b`:
-``validate_schedule``, the 1F1B loss-and-grad (``compiled_1f1b_grad``),
-the interleaved one (``compiled_interleaved_dense_grad``) and the
-masked softmax-CE tail. The JAX package plays each schedule as one
-``lax.scan`` with ``jax.vjp`` ticks; the port is eager autograd played
-in the schedule's op order by :func:`run_schedule`:
+Port of :mod:`tpu_dist_nn.parallel.one_f_one_b` (``validate_schedule``,
+the 1F1B loss-and-grad, the masked softmax-CE tail) and of the table
+executor of :mod:`tpu_dist_nn.parallel.interleaved`, split backward
+included. The JAX package plays each schedule as one ``lax.scan`` with
+``jax.vjp`` ticks; the port is eager autograd played in the schedule's
+op order by :func:`run_schedule`:
 
 * a FWD op runs a chunk on a detached copy of its input that requires
   grad, and stashes ``(input, output)``;
 * a BWD op calls ``torch.autograd.backward(output, grad_from_next)`` (or
   backward of the tail's loss at the last chunk), which sums the
   chunk's weight gradients into their ``.grad`` and leaves the input's
-  gradient for the chunk before.
+  gradient for the chunk before;
+* the zero-bubble schedules split BWD into BWD_B (the input gradient,
+  sent upstream at once) and BWD_W (the weight gradient, parked in a
+  bubble tick). The recompute split (``zb``, ``zb-v``): B runs the
+  backward to the chunk's input only and keeps the autograd graph; W
+  runs it again to the chunk's weights, from the parked ``(output,
+  dy)``, and frees it. Under ``cfg.remat`` each backward recomputes the
+  checkpointed blocks, so a block costs 3 attention forwards and 2
+  backwards a microbatch (chunk 0, which has no input cotangent, skips
+  B's: 2 and 1). The cotangent-stash split (``zb-stash``) hands B and W
+  to a split object (:class:`~tpu_dist_nn_torch.parallel.
+  transformer_pipeline.StashSplit`): the FWD op runs without a graph,
+  B runs the chunk forward once more keeping each sub-op's vjp, then the
+  backward with the dW GEMMs left out, and W runs those GEMMs only: 2
+  forwards and 1 backward a block, whatever ``cfg.remat``.
 
 Each op is issued on its slot's stream (:func:`gpipe.launch`); autograd
 runs a backward op on its forward op's stream, and the hand-offs carry
@@ -23,8 +37,9 @@ events both ways. The orders:
 * ``1f1b``: forward of microbatch ``f`` on stage ``s`` at tick
   ``s + 2f``, its backward at ``2S - 1 - s + 2f`` — at most ``S - s``
   microbatches in flight on stage ``s``, so activation memory is O(S);
-* ``interleaved``: the table of
-  :func:`~tpu_dist_nn_torch.parallel.schedule_table.build_interleaved_1f1b`.
+* ``interleaved``, ``zb``, ``zb-v``, ``zb-stash``: the tables of
+  :mod:`~tpu_dist_nn_torch.parallel.schedule_table`
+  (:func:`schedule_tables`).
 
 The loss is the masked mean CE over real rows: the tail's mask arrives
 pre-scaled by the global row count, so each microbatch's contribution
@@ -36,31 +51,28 @@ from __future__ import annotations
 import torch
 
 from tpu_dist_nn_torch.parallel.gpipe import launch
-from tpu_dist_nn_torch.parallel.interleaved import interleaved_1f1b_order
+from tpu_dist_nn_torch.parallel.interleaved import table_order
 from tpu_dist_nn_torch.parallel.mesh import Mesh
-from tpu_dist_nn_torch.parallel.schedule_table import BWD, FWD
+from tpu_dist_nn_torch.parallel.schedule_table import (
+    BWD,
+    BWD_W,
+    FWD,
+    build_interleaved_1f1b,
+    build_zb_v,
+    build_zero_bubble,
+)
 
-#: The pipeline training schedules the JAX package names; the port's
-#: dense pipeline trains the first three.
+#: The pipeline training schedules the JAX package names; the dense
+#: pipeline trains the first three, the LM pipeline all six.
 SCHEDULES = ("gpipe", "1f1b", "interleaved", "zb", "zb-v", "zb-stash")
-ZERO_BUBBLE = ("zb", "zb-v", "zb-stash")
 
 
-def validate_schedule(schedule: str, *, lm: bool = False) -> str:
-    """The single validation point for schedule names. ``lm=True``: the
-    LM pipeline's, which refuses the zero-bubble schedules by what they
-    need."""
+def validate_schedule(schedule: str) -> str:
+    """The single validation point for schedule names."""
     if schedule not in SCHEDULES:
         raise ValueError(
             f"unknown pipeline schedule {schedule!r}: use "
             + " or ".join(repr(s) for s in SCHEDULES)
-        )
-    if lm and schedule in ZERO_BUBBLE:
-        raise ValueError(
-            f"schedule={schedule!r} is not ported for the LM pipeline: the zero-bubble "
-            "schedules need the split backward (split_backward.py) and its tables "
-            "(schedule_table.build_zero_bubble / build_zb_v); use 'gpipe', '1f1b' or "
-            "'interleaved'"
         )
     return schedule
 
@@ -99,10 +111,26 @@ def one_f_one_b_order(num_stages: int, num_microbatches: int):
     return order
 
 
+def schedule_tables(schedule: str, num_stages: int, num_virtual: int, num_microbatches: int):
+    """The tables of a table-driven schedule: interleaved, zb and
+    zb-stash (ZB-H1 on ``num_virtual`` chunks a slot), zb-v (the V
+    shape: two chunks a slot). None for gpipe and 1f1b, whose orders
+    are closed-form, chunk ``c`` on slot ``c``."""
+    S, v, M = num_stages, num_virtual, num_microbatches
+    if schedule == "interleaved":
+        return build_interleaved_1f1b(S, v, M)
+    if schedule in ("zb", "zb-stash"):
+        return build_zero_bubble(S, v, M)
+    if schedule == "zb-v":
+        return build_zb_v(S, M)
+    return None
+
+
 def training_order(schedule: str, num_stages: int, num_virtual: int, num_microbatches: int):
     """``(slot, op, chunk, microbatch)`` in issue order for a schedule."""
-    if schedule == "interleaved":
-        return interleaved_1f1b_order(num_stages, num_virtual, num_microbatches)
+    tables = schedule_tables(schedule, num_stages, num_virtual, num_microbatches)
+    if tables is not None:
+        return table_order(tables)
     if num_virtual != 1:
         raise ValueError(f"num_virtual={num_virtual} only applies to schedule='interleaved'")
     if schedule == "1f1b":
@@ -110,22 +138,32 @@ def training_order(schedule: str, num_stages: int, num_virtual: int, num_microba
     return gpipe_order(num_stages, num_microbatches)
 
 
-def _use_here(t: torch.Tensor) -> torch.Tensor:
-    if t.is_cuda:
+def _use_here(t: torch.Tensor | None) -> torch.Tensor | None:
+    if t is not None and t.is_cuda:
         t.record_stream(torch.cuda.current_stream(t.device))
     return t
 
 
-def run_schedule(mesh: Mesh, chunk_fns, order, xs, labels, masks, tail=masked_ce_tail) -> list:
+def run_schedule(mesh: Mesh, chunk_fns, order, xs, labels, masks, tail=masked_ce_tail, *,
+                 weights=None, split=None) -> list:
     """Play a training ``order`` over every data replica.
 
     ``chunk_fns[d][c](x) -> logits-or-activation`` with autograd on
-    (chunk ``c`` on slot ``(c % S, d)``; a chunk may also enqueue work on
-    that cell's other model slots); ``xs[m][d]`` the input rows on the
-    replica's first slot; ``labels[m][d]`` and ``masks[m][d]``
-    (pre-scaled) on its last chunk's slot, where ``tail(y, labels,
-    masks)`` gives a microbatch's share of the loss (default: the masked
-    CE). Weight gradients are summed into the chunks' leaves' ``.grad``.
+    (chunk ``c`` on the slot ``order`` issues it on, data replica ``d``;
+    a chunk may also enqueue work on that cell's other model slots);
+    ``xs[m][d]`` the input rows on the replica's first slot;
+    ``labels[m][d]`` and ``masks[m][d]`` (pre-scaled) on its last
+    chunk's slot, where ``tail(y, labels, masks)`` gives a microbatch's
+    share of the loss (default: the masked CE). Weight gradients are
+    summed into the chunks' leaves' ``.grad``.
+
+    Split ops (BWD_B, BWD_W) take ``weights[d][c]``, the leaves chunk
+    ``c``'s W differentiates (the recompute split), or ``split``, the
+    cotangent-stash split (then every FWD runs without a graph and
+    ``split.backward_b(d, c, x, dy, labels, masks) -> (dx, loss,
+    parked)`` and ``split.backward_w(d, c, parked)`` do the backward;
+    see the module docstring).
+
     Returns ``[(loss, event)]``, one per (microbatch, replica): each a
     detached scalar with the event after it. Before the first op every
     slot stream waits for its card's current stream (the inputs' copies
@@ -139,38 +177,59 @@ def run_schedule(mesh: Mesh, chunk_fns, order, xs, labels, masks, tail=masked_ce
         if slot.stream is not None:
             slot.stream.wait_stream(torch.cuda.current_stream(slot.device))
     acts = {(-1, m, d): (x, None) for m, row in enumerate(xs) for d, x in enumerate(row)}
-    stash, grads, losses = {}, {}, []
+    stash, parked, grads, losses = {}, {}, {}, []
     for s, op, c, m in order:
         for d in range(D):
-            slot = mesh.slots[s][d]
+            slot, key = mesh.slots[s][d], (c, m, d)
             if op == FWD:
                 def fwd(x, fn=chunk_fns[d][c], c=c):
+                    if split is not None:
+                        with torch.no_grad():
+                            return x, fn(x)
                     x_in = x.detach().requires_grad_(c > 0)
                     return x_in, fn(x_in)
 
                 (x_in, y), ev = launch(slot, fwd, *acts.pop((c - 1, m, d)))
-                stash[(c, m, d)] = (x_in, y)
+                stash[key] = (x_in, y)
                 if c < V - 1:
-                    acts[(c, m, d)] = (y.detach(), ev)
+                    acts[key] = (y.detach(), ev)
                 continue
-            x_in, y = stash.pop((c, m, d))
-            if c == V - 1:
-                def last(_, y=y, x_in=x_in, lab=labels[m][d], msk=masks[m][d]):
-                    loss = tail(y, _use_here(lab), None if msk is None else _use_here(msk))
-                    torch.autograd.backward(loss)
-                    return x_in.grad, loss.detach()
+            if op == BWD_W:
+                def bwd_w(_, d=d, c=c, held=parked.pop(key)):
+                    if split is not None:
+                        split.backward_w(d, c, held)
+                    else:
+                        torch.autograd.backward(*held, inputs=weights[d][c])
 
-                (dx, loss), ev = launch(slot, last, None)
+                launch(slot, bwd_w, None)
+                continue
+            x_in, y = stash.pop(key)
+            last = c == V - 1
+            dy, ready = (None, None) if last else grads.pop((c + 1, m, d))
+
+            def bwd(dy, c=c, d=d, m=m, x_in=x_in, y=y, last=last, combined=op == BWD):
+                """-> (dx, loss, what W needs)."""
+                lab = msk = None
+                if last:
+                    lab, msk = _use_here(labels[m][d]), _use_here(masks[m][d])
+                if split is not None:
+                    return split.backward_b(d, c, x_in, dy, lab, msk)
+                loss = tail(y, lab, msk) if last else None
+                out = y if loss is None else loss
+                if combined:
+                    if out.requires_grad:
+                        torch.autograd.backward(out, dy)
+                elif c > 0:
+                    torch.autograd.backward(out, dy, inputs=[x_in], retain_graph=True)
+                return x_in.grad, None if loss is None else loss.detach(), (out, dy)
+
+            (dx, loss, held), ev = launch(slot, bwd, dy, ready)
+            if op != BWD:
+                parked[key] = held
+            if loss is not None:
                 losses.append((loss, ev))
-            else:
-                def bwd(dy, y=y, x_in=x_in):
-                    if y.requires_grad:
-                        torch.autograd.backward(y, dy)
-                    return x_in.grad, None
-
-                (dx, _), ev = launch(slot, bwd, *grads.pop((c + 1, m, d)))
             if c > 0:
-                grads[(c, m, d)] = (dx, ev)
+                grads[key] = (dx, ev)
     for slot in slots:
         if slot.stream is not None:
             torch.cuda.current_stream(slot.device).wait_stream(slot.stream)

@@ -1,23 +1,27 @@
 """Per-block transformer pipeline over stage slots, and its Megatron composition.
 
 Port of :mod:`tpu_dist_nn.parallel.transformer_pipeline` without the
-sequence-parallel and zero-bubble layouts. BASELINE configs[4]: "Tiny-
-Transformer encoder ... per-block pipeline stage". The block stack's
-leading layer axis is regrouped per stage (:func:`shard_blocks`), per
-virtual-stage chunk (:func:`shard_blocks_interleaved`) or per stage and
-model shard (:func:`shard_blocks_pp_tp`,
-:func:`shard_blocks_interleaved_tp`), the JAX package's layouts.
+sequence-parallel layouts. BASELINE configs[4]: "Tiny-Transformer
+encoder ... per-block pipeline stage". The block stack's leading layer
+axis is regrouped per stage (:func:`shard_blocks`), per virtual-stage
+chunk (:func:`shard_blocks_interleaved`, also the zb and zb-stash
+layout), per V-shape chunk (:func:`shard_blocks_vshape`, zb-v) or per
+stage and model shard (:func:`shard_blocks_pp_tp`,
+:func:`shard_blocks_interleaved_tp`, :func:`shard_blocks_vshape_tp`),
+the JAX package's layouts.
 
-A chunk (a stage's block group, or an interleaved chunk) runs on its
-slot ``(c % S, d)``; with tensor parallelism it also enqueues its shards'
-work on the cell's other model slots
-(:func:`~tpu_dist_nn_torch.parallel.tensor_parallel.tp_block_apply`).
-The embedding rides the first chunk and the tied unembedding + next-token
-CE the last one's tail. Forwards play the GPipe order
+A chunk (a stage's block group, or a virtual-stage chunk) runs on the
+slot its schedule's tables place it on (``dev_of_chunk``: ``c % S`` on
+the Megatron placement, the V on zb-v's), ``(slot, d)``; with tensor
+parallelism it also enqueues its shards' work on the cell's other model
+slots (:func:`~tpu_dist_nn_torch.parallel.tensor_parallel.tp_block_apply`).
+The embedding rides the first chunk and the tied unembedding +
+next-token CE the last one's tail. Forwards play the GPipe order
 (:func:`~tpu_dist_nn_torch.parallel.gpipe.gpipe_forward`); the
 loss-and-grad executors play a training order through
 :func:`~tpu_dist_nn_torch.parallel.one_f_one_b.run_schedule` (eager
-autograd, op by op on each slot's stream), where the JAX package
+autograd, op by op on each slot's stream; the zero-bubble schedules'
+split backward as its module docstring says), where the JAX package
 differentiates a ``shard_map``-ed scan.
 
 Gradients: each chunk reads its leaves as separate autograd leaves (views
@@ -41,10 +45,13 @@ from tpu_dist_nn_torch.models.transformer import (
     unembed,
     unstack_blocks,
 )
+from tpu_dist_nn_torch.parallel import split_backward
 from tpu_dist_nn_torch.parallel.collectives import on_slot
 from tpu_dist_nn_torch.parallel.gpipe import caller_event, gather, gpipe_forward
+from tpu_dist_nn_torch.parallel.interleaved import table_order
 from tpu_dist_nn_torch.parallel.mesh import AXIS_DATA, AXIS_MODEL, AXIS_STAGE, Mesh
-from tpu_dist_nn_torch.parallel.one_f_one_b import run_schedule, training_order
+from tpu_dist_nn_torch.parallel.one_f_one_b import run_schedule, schedule_tables, training_order
+from tpu_dist_nn_torch.parallel.schedule_table import build_zb_v, build_zero_bubble
 from tpu_dist_nn_torch.parallel.tensor_parallel import (
     TP_REPLICATED,
     tp_scan,
@@ -153,6 +160,61 @@ def unshard_blocks_interleaved_tp(staged: dict, cfg) -> dict:
     return tp_unshard_blocks(tp, cfg)
 
 
+def _vshape_regroup(a, num_stages: int):
+    """``(L, ...) -> (S, 2, L/(2S), ...)``: the V-shape placement, slot
+    ``s`` holding chunk ``s`` (local chunk 0, the descending leg) and
+    chunk ``2S-1-s`` (local chunk 1, the ascending leg)."""
+    S = num_stages
+    L = a.shape[0]
+    if L % (2 * S):
+        raise ValueError(f"n_layers={L} not divisible by 2*stages={2 * S}")
+    ch = a.reshape(2 * S, L // (2 * S), *a.shape[1:])
+    return torch.stack([ch[:S], ch[S:].flip(0)], dim=1)
+
+
+def _vshape_ungroup(a):
+    """Inverse of :func:`_vshape_regroup`."""
+    return torch.cat([a[:, 0], a[:, 1].flip(0)]).reshape(-1, *a.shape[3:])
+
+
+def shard_blocks_vshape(blocks: dict, num_stages: int) -> dict:
+    """Stacked blocks ``(L, ...)`` -> the zb-v layout ``(S, 2, L/(2S),
+    ...)``: the forward runs down the slots and back up, so the input
+    feed (chunk 0) and the loss tail (chunk ``2S-1``) share slot 0
+    (:func:`~tpu_dist_nn_torch.parallel.schedule_table.build_zb_v`)."""
+    return tree_map(lambda a: _vshape_regroup(a, num_stages), blocks)
+
+
+def unshard_blocks_vshape(staged: dict) -> dict:
+    """Inverse of :func:`shard_blocks_vshape`."""
+    return tree_map(_vshape_ungroup, staged)
+
+
+def shard_blocks_vshape_tp(blocks: dict, cfg, num_stages: int, n_tp: int) -> dict:
+    """The V-shape chunk layout with the Megatron split: sharded leaves
+    ``(S, 2, N, L/(2S), ...)``, replicated leaves ``(S, 2, L/(2S),
+    ...)``."""
+    out = {}
+    for k, val in tp_shard_blocks(blocks, cfg, n_tp).items():
+        if k in TP_REPLICATED:
+            out[k] = _vshape_regroup(val, num_stages)
+        else:  # (N, L, ...) -> (N, S, 2, Lc, ...) -> (S, 2, N, Lc, ...)
+            out[k] = torch.movedim(torch.stack([_vshape_regroup(a, num_stages) for a in val]),
+                                   0, 2)
+    return out
+
+
+def unshard_blocks_vshape_tp(staged: dict, cfg) -> dict:
+    """Inverse of :func:`shard_blocks_vshape_tp`."""
+    tp = {}
+    for k, val in staged.items():
+        if k in TP_REPLICATED:
+            tp[k] = _vshape_ungroup(val)
+        else:  # (S, 2, N, Lc, ...) -> (N, L, ...)
+            tp[k] = torch.stack([_vshape_ungroup(a) for a in torch.movedim(val, 2, 0)])
+    return tp_unshard_blocks(tp, cfg)
+
+
 # ---------------------------------------------------------------------------
 # Chunks over slots
 # ---------------------------------------------------------------------------
@@ -160,19 +222,22 @@ def unshard_blocks_interleaved_tp(staged: dict, cfg) -> dict:
 
 class _Layout:
     """Where chunk ``c``'s model shard ``m`` sits in a staged block dict:
-    ``interleaved`` layouts lead with ``(S, v)``, the others with ``S``;
-    ``tp`` layouts put a model axis after those on the sharded leaves."""
+    chunked layouts (interleaved, zb, zb-v) lead with ``(S, v)``, at
+    ``(dev(c), c // S)``, the others with ``S``; ``tp`` layouts put a
+    model axis after those on the sharded leaves."""
 
-    def __init__(self, num_stages: int, num_virtual: int, interleaved: bool, n_tp: int):
+    def __init__(self, num_stages: int, num_virtual: int, interleaved: bool, n_tp: int,
+                 dev=None):
         self.S, self.v, self.interleaved, self.n = num_stages, num_virtual, interleaved, n_tp
         self.tp = n_tp > 0
+        self.dev = dev or (lambda c: c % num_stages)
 
     @property
     def num_chunks(self) -> int:
         return self.S * self.v
 
     def index(self, key: str, c: int, m: int) -> tuple:
-        idx = (c % self.S, c // self.S) if self.interleaved else (c,)
+        idx = (self.dev(c), c // self.S) if self.interleaved else (c,)
         if self.tp and key not in TP_REPLICATED:
             idx += (m,)
         return idx
@@ -291,14 +356,91 @@ def make_pipeline_tp_lm_loss(mesh: Mesh, cfg, num_stages: int, num_microbatches:
     return lambda params, tokens: next_token_ce(fwd(params, tokens[:, :-1]), tokens[:, 1:])
 
 
+class StashSplit:
+    """The cotangent-stash split backward of the dense LM chunks
+    (``zb-stash``), the ``split`` of
+    :func:`~tpu_dist_nn_torch.parallel.one_f_one_b.run_schedule`: the JAX
+    executor's ``split_fns`` (``interleaved.py:81-99``).
+
+    ``backward_b`` runs the chunk forward once from the stashed input,
+    keeping each sub-op's vjp (:func:`~tpu_dist_nn_torch.parallel.
+    split_backward.chunk_forward_collect`; at chunk 0 the embedding
+    first, with its graph), takes the tail's loss and its cotangent at
+    the last chunk (the tail leaves' gradients and the loss are counted
+    here, once), then the backward with the dW GEMMs left out: the bias
+    and LayerNorm gradients go to the leaves, the (activation,
+    cotangent) pairs are parked, and at chunk 0 the input cotangent
+    flows on into the embedding. ``backward_w`` is the dW GEMMs of the
+    parked pairs (:func:`~tpu_dist_nn_torch.parallel.split_backward.
+    chunk_weight_grads`), nothing else. Gradients reach the float32
+    leaves as autograd's backward through ``cfg.cast_params`` brings
+    them: the compute-dtype result, cast, then summed into ``.grad``."""
+
+    def __init__(self, cfg, views, top: dict, cells, attn_fn, tail):
+        self.cfg, self.views, self.top, self.cells = cfg, views, top, cells
+        self.attn_fn, self.tail = attn_fn, tail
+
+    def _blocks(self, c: int, d: int) -> dict:
+        dev = self.cells[c][d][0].device
+        return self.cfg.cast_params({k: a.detach().to(dev) for k, a in self.views[c][0].items()})
+
+    def backward_b(self, d: int, c: int, x, dy, labels, _mask):
+        blocks = self._blocks(c, d)
+        x0 = None
+        if c == 0:
+            with torch.enable_grad():
+                x0 = embed(self.cfg.cast_params({k: self.top[k].to(x.device)
+                                                  for k in ("tok_embed", "pos_embed")}), x)
+            x = x0.detach()
+        y, inners = split_backward.chunk_forward_collect(blocks, x, self.cfg, self.attn_fn)
+        loss = None
+        if dy is None:  # the last chunk: the tail's loss and its cotangent
+            y = y.requires_grad_()
+            with torch.enable_grad():
+                loss = self.tail(y, labels, None)
+            torch.autograd.backward(loss, inputs=[y, *(self.top[k] for k in _TAIL)])
+            dy = y.grad
+        dx, d_small, wstash = split_backward.chunk_backward_from(blocks, inners, dy)
+        _accumulate(self.views[c][0], d_small)
+        if x0 is not None:
+            torch.autograd.backward(x0, dx)
+        return dx, None if loss is None else loss.detach(), wstash
+
+    def backward_w(self, d: int, c: int, wstash) -> None:
+        _accumulate(self.views[c][0], split_backward.chunk_weight_grads(wstash))
+
+
+def _accumulate(leaves: dict, grads: dict) -> None:
+    """Sum compute-dtype ``grads`` into the leaves' float32 ``.grad``."""
+    with torch.no_grad():
+        for k, g in grads.items():
+            leaf = leaves[k]
+            g = g.to(leaf.dtype)
+            if leaf.grad is None:
+                leaf.grad = g
+            else:
+                leaf.grad += g
+
+
+_TAIL = ("tok_embed", "lnf_g", "lnf_b")
+
+
 def _scheduled_grad(mesh: Mesh, cfg, schedule: str, num_virtual: int, num_microbatches: int,
-                    attn_fn, *, interleaved: bool, tp: bool):
+                    attn_fn, *, interleaved: bool, tp: bool, tables=None):
     """``f(params, tokens) -> (loss, grads)`` through ``run_schedule`` in
-    ``schedule``'s op order; ``tokens (B, T + 1)``."""
+    ``schedule``'s op order (``tables`` in place of its default ones);
+    ``tokens (B, T + 1)``."""
     S, D, M = mesh.shape[AXIS_STAGE], mesh.shape[AXIS_DATA], num_microbatches
-    layout = _Layout(S, num_virtual, interleaved, _tp_size(mesh, tp))
-    V = layout.num_chunks
-    order = training_order(schedule, S, num_virtual, M)
+    if tables is None:
+        tables = schedule_tables(schedule, S, num_virtual, M)
+    if tables is None:  # gpipe, 1f1b: chunk c on slot c
+        order, layout = training_order(schedule, S, num_virtual, M), _Layout(
+            S, num_virtual, interleaved, _tp_size(mesh, tp))
+    else:
+        order, layout = table_order(tables), _Layout(S, num_virtual, interleaved,
+                                                     _tp_size(mesh, tp), tables.dev_of_chunk)
+    V, dev = layout.num_chunks, layout.dev
+    stash_split = schedule == "zb-stash"
 
     def value_and_grad(params, tokens):
         attn = _resolve_attn(attn_fn)
@@ -312,20 +454,30 @@ def _scheduled_grad(mesh: Mesh, cfg, schedule: str, num_virtual: int, num_microb
 
         views = _chunk_views(blocks, layout, leaf)
         top = {k: params[k].detach().requires_grad_() for k in _TOP}
-        fns = [[_chunk_fn(cfg, views[c], mesh.model_slots[c % S][d], attn, tp,
-                          top=top if c == 0 else None)
+        cells = [[mesh.model_slots[dev(c)][d] for d in range(D)] for c in range(V)]
+        fns = [[_chunk_fn(cfg, views[c], cells[c][d], attn, tp, top=top if c == 0 else None)
                 for c in range(V)] for d in range(D)]
-        last = mesh.slots[(V - 1) % S]
+        last = mesh.slots[dev(V - 1)]
 
         def tail(y, targets, _mask):
-            head = cfg.cast_params({k: top[k].to(y.device) for k in ("tok_embed", "lnf_g",
-                                                                      "lnf_b")})
+            head = cfg.cast_params({k: top[k].to(y.device) for k in _TAIL})
             return next_token_ce(unembed(head, y), targets) / (M * D)
 
+        def weights_of(c):
+            """The leaves chunk ``c``'s W differentiates (the recompute
+            split), each once: a replicated TP leaf is in every shard's view."""
+            own = [t for shard in views[c] for t in shard.values()]
+            own += [top[k] for k in ("tok_embed", "pos_embed")] if c == 0 else []
+            own += [top[k] for k in _TAIL] if c == V - 1 else []
+            return list({id(t): t for t in own}.values())
+
+        weights = [weights_of(c) for c in range(V)]
+        split = StashSplit(cfg, views, top, cells, attn, tail) if stash_split else None
         xs = _microbatches(tokens[:, :-1], M, D)
         targets = [[t.to(last[d].device) for d, t in enumerate(row)]
                    for row in _microbatches(tokens[:, 1:], M, D)]
-        losses = run_schedule(mesh, fns, order, xs, targets, [[None] * D] * M, tail=tail)
+        losses = run_schedule(mesh, fns, order, xs, targets, [[None] * D] * M, tail=tail,
+                              weights=[weights] * D, split=split)
         home = params["tok_embed"].device
         loss = torch.stack(gather(losses, home)).sum()
         g_blocks = {k: torch.zeros_like(v) for k, v in blocks.items()}
@@ -361,12 +513,14 @@ def make_pipeline_lm_gpipe_grad(mesh: Mesh, cfg, num_stages: int, num_microbatch
 
 
 def make_pipeline_lm_interleaved_grad(mesh: Mesh, cfg, num_virtual: int, num_microbatches: int,
-                                      attn_fn=None):
+                                      attn_fn=None, tables=None):
     """-> ``f(params, tokens) -> (loss, grads)`` via the interleaved
-    (virtual-stage) 1F1B table; ``params["blocks"]`` in
-    :func:`shard_blocks_interleaved` layout, grads in it too."""
+    (virtual-stage) 1F1B table, or ``tables`` in its place (the
+    zero-bubble ones); ``params["blocks"]`` in
+    :func:`shard_blocks_interleaved` layout (:func:`shard_blocks_vshape`
+    for the V-shape tables), grads in it too."""
     return _scheduled_grad(mesh, cfg, "interleaved", num_virtual, num_microbatches, attn_fn,
-                           interleaved=True, tp=False)
+                           interleaved=True, tp=False, tables=tables)
 
 
 def make_pipeline_tp_lm_1f1b_grad(mesh: Mesh, cfg, num_stages: int, num_microbatches: int,
@@ -390,12 +544,65 @@ def make_pipeline_tp_lm_gpipe_grad(mesh: Mesh, cfg, num_stages: int, num_microba
 
 
 def make_pipeline_tp_lm_interleaved_grad(mesh: Mesh, cfg, num_virtual: int,
-                                         num_microbatches: int, attn_fn=None):
-    """-> ``f(params, tokens) -> (loss, grads)``: interleaved 1F1B x
-    Megatron TP; ``params["blocks"]`` in :func:`shard_blocks_interleaved_tp`
-    layout."""
+                                         num_microbatches: int, attn_fn=None, tables=None):
+    """-> ``f(params, tokens) -> (loss, grads)``: interleaved 1F1B (or
+    ``tables``) x Megatron TP; ``params["blocks"]`` in
+    :func:`shard_blocks_interleaved_tp` layout
+    (:func:`shard_blocks_vshape_tp` for the V-shape tables)."""
     return _scheduled_grad(mesh, cfg, "interleaved", num_virtual, num_microbatches, attn_fn,
-                           interleaved=True, tp=True)
+                           interleaved=True, tp=True, tables=tables)
+
+
+def make_pipeline_lm_zb_grad(mesh: Mesh, cfg, num_virtual: int, num_microbatches: int,
+                             attn_fn=None):
+    """-> ``f(params, tokens) -> (loss, grads)`` via the ZB-H1 zero-bubble
+    tables (:func:`~tpu_dist_nn_torch.parallel.schedule_table.build_zero_bubble`)
+    with the recompute split backward: half 1F1B's bubble at ``v = 1``
+    for one more backward a block (and, under remat, one more forward).
+    ``params["blocks"]`` in :func:`shard_blocks_interleaved` layout
+    (``num_virtual = 1``: the contiguous placement)."""
+    tables = build_zero_bubble(mesh.shape[AXIS_STAGE], num_virtual, num_microbatches)
+    return make_pipeline_lm_interleaved_grad(mesh, cfg, num_virtual, num_microbatches, attn_fn,
+                                             tables=tables)
+
+
+def make_pipeline_tp_lm_zb_grad(mesh: Mesh, cfg, num_virtual: int, num_microbatches: int,
+                                attn_fn=None):
+    """ZB-H1 x Megatron TP: the zero-bubble tables over chunks whose
+    blocks are sharded on the cell's model slots (W adds no hand-off).
+    ``params["blocks"]`` in :func:`shard_blocks_interleaved_tp` layout."""
+    tables = build_zero_bubble(mesh.shape[AXIS_STAGE], num_virtual, num_microbatches)
+    return make_pipeline_tp_lm_interleaved_grad(mesh, cfg, num_virtual, num_microbatches,
+                                                attn_fn, tables=tables)
+
+
+def make_pipeline_lm_zb_v_grad(mesh: Mesh, cfg, num_microbatches: int, attn_fn=None):
+    """-> ``f(params, tokens) -> (loss, grads)`` via the ZB-V tables
+    (:func:`~tpu_dist_nn_torch.parallel.schedule_table.build_zb_v`): the
+    recompute split on the V-shape placement, two chunks a slot, chunk 0
+    and the loss tail on slot 0, the apex hand-off local.
+    ``params["blocks"]`` in :func:`shard_blocks_vshape` layout."""
+    tables = build_zb_v(mesh.shape[AXIS_STAGE], num_microbatches)
+    return make_pipeline_lm_interleaved_grad(mesh, cfg, 2, num_microbatches, attn_fn,
+                                             tables=tables)
+
+
+def make_pipeline_tp_lm_zb_v_grad(mesh: Mesh, cfg, num_microbatches: int, attn_fn=None):
+    """ZB-V x Megatron TP; ``params["blocks"]`` in
+    :func:`shard_blocks_vshape_tp` layout."""
+    tables = build_zb_v(mesh.shape[AXIS_STAGE], num_microbatches)
+    return make_pipeline_tp_lm_interleaved_grad(mesh, cfg, 2, num_microbatches, attn_fn,
+                                                tables=tables)
+
+
+def make_pipeline_lm_zb_stash_grad(mesh: Mesh, cfg, num_virtual: int, num_microbatches: int,
+                                   attn_fn=None):
+    """-> ``f(params, tokens) -> (loss, grads)`` via the ZB-H1 tables with
+    the cotangent-stash split (:class:`StashSplit`): W is the dW GEMMs
+    alone. Dense LM only; ``params["blocks"]`` in
+    :func:`shard_blocks_interleaved` layout, as zb."""
+    return _scheduled_grad(mesh, cfg, "zb-stash", num_virtual, num_microbatches, attn_fn,
+                           interleaved=True, tp=False)
 
 
 def _check_stages(mesh: Mesh, num_stages: int) -> None:

@@ -24,11 +24,16 @@ and the Adam state at step granularity, as the JAX package's do.
 
 The pipelined trainer (:func:`make_pipeline_lm_train_step`, and
 :func:`train_lm` with a ``mesh`` and ``num_stages > 1``) runs the per-block
-pipeline over stage slots (GPipe, 1F1B or interleaved), optionally
-Megatron-sharded over the mesh's model slots, with the batch over its
-data slots (:mod:`~tpu_dist_nn_torch.parallel.transformer_pipeline`).
-Its step runs eager (a Python loop of per-slot ops); its params live in
-the staged layout (:func:`lm_block_layout`), so a checkpoint records the
+pipeline over stage slots (GPipe, 1F1B, interleaved, and the zero-bubble
+zb, zb-v and zb-stash), optionally Megatron-sharded over the mesh's model
+slots, with the batch over its data slots
+(:mod:`~tpu_dist_nn_torch.parallel.transformer_pipeline`). Its step is a
+Python loop of per-slot ops; when every slot is on the params' card,
+:func:`train_lm` captures it as one CUDA graph as it does the single
+program's (the slot streams fork from the capturing stream and join it
+again inside the capture), and slots on several cards run it eager (a
+graph and its memory pool belong to one card). Its params live in the
+staged layout (:func:`lm_block_layout`), so a checkpoint records the
 layout and a resume into another is refused. Left for later slices: the
 mixture-of-experts, sequence-parallel, ZeRO and multi-host trainers.
 """
@@ -117,33 +122,55 @@ def make_pipeline_lm_train_step(mesh, cfg: TransformerConfig, num_stages: int,
                                 num_microbatches: int, optimizer: Optimizer, attn_fn=None,
                                 schedule: str = "gpipe", num_virtual: int = 1,
                                 tensor_parallel: int = 1):
-    """The pipelined step ``(params, opt_state, tokens) -> (params,
-    opt_state, loss)``, params updated in place.
+    """The pipelined step ``(params, opt_state, tokens, *, micro_step=None)
+    -> (params, opt_state, loss)``, params updated in place.
 
     ``schedule``: "gpipe" or "1f1b" (blocks in :func:`~tpu_dist_nn_torch.
-    parallel.transformer_pipeline.shard_blocks` layout) or "interleaved"
-    (``num_virtual`` chunks a stage, :func:`~tpu_dist_nn_torch.parallel.
-    transformer_pipeline.shard_blocks_interleaved`). ``tensor_parallel >
-    1`` Megatron-shards each chunk over the mesh's model slots, with every
-    schedule (the ``_pp_tp`` / ``_interleaved_tp`` layouts). The zero-
-    bubble schedules are refused by what they need."""
-    validate_schedule(schedule, lm=True)
+    parallel.transformer_pipeline.shard_blocks` layout), "interleaved",
+    "zb" or "zb-stash" (``num_virtual`` chunks a stage, :func:`~tpu_dist_nn_torch.
+    parallel.transformer_pipeline.shard_blocks_interleaved`; zb's default
+    is the contiguous ``num_virtual = 1``) or "zb-v" (two chunks a stage
+    on the V shape, :func:`~tpu_dist_nn_torch.parallel.transformer_pipeline.
+    shard_blocks_vshape`). ``tensor_parallel > 1`` Megatron-shards each
+    chunk over the mesh's model slots, with every schedule but zb-stash
+    (the ``_pp_tp`` / ``_interleaved_tp`` / ``_vshape_tp`` layouts).
+    ``micro_step``: see :meth:`Optimizer.update`."""
+    validate_schedule(schedule)
     if tensor_parallel > 1 and mesh.shape.get(AXIS_MODEL, 1) != tensor_parallel:
         raise ValueError(
             f"tensor_parallel={tensor_parallel} but the mesh '{AXIS_MODEL}' "
             f"axis has size {mesh.shape.get(AXIS_MODEL, 1)}"
         )
-    interleaved = schedule == "interleaved"
-    if not interleaved:
+    tp = tensor_parallel > 1
+    if schedule == "zb-v":
+        make = tpl.make_pipeline_tp_lm_zb_v_grad if tp else tpl.make_pipeline_lm_zb_v_grad
+        vag = make(mesh, cfg, num_microbatches, attn_fn)
+    elif schedule == "zb-stash":
+        if tp:
+            raise ValueError(
+                "zb-stash is dense-LM only (the stash split knows the "
+                "dense block structure); use schedule='zb' with "
+                "tensor_parallel"
+            )
+        vag = tpl.make_pipeline_lm_zb_stash_grad(mesh, cfg, num_virtual, num_microbatches,
+                                                 attn_fn)
+    elif schedule in ("interleaved", "zb"):
+        make = {
+            ("interleaved", False): tpl.make_pipeline_lm_interleaved_grad,
+            ("interleaved", True): tpl.make_pipeline_tp_lm_interleaved_grad,
+            ("zb", False): tpl.make_pipeline_lm_zb_grad,
+            ("zb", True): tpl.make_pipeline_tp_lm_zb_grad,
+        }[(schedule, tp)]
+        vag = make(mesh, cfg, num_virtual, num_microbatches, attn_fn)
+    else:
         tpl._check_stages(mesh, num_stages)
-    vag = tpl._scheduled_grad(mesh, cfg, schedule, num_virtual if interleaved else 1,
-                              num_microbatches, attn_fn, interleaved=interleaved,
-                              tp=tensor_parallel > 1)
+        vag = tpl._scheduled_grad(mesh, cfg, schedule, 1, num_microbatches, attn_fn,
+                                  interleaved=False, tp=tp)
 
-    def step(params, opt_state, tokens):
+    def step(params, opt_state, tokens, *, micro_step=None):
         loss, grads = vag(params, tokens)
         leaves = param_leaves(params)
-        updates = optimizer.update(param_leaves(grads), opt_state, leaves)
+        updates = optimizer.update(param_leaves(grads), opt_state, leaves, micro_step=micro_step)
         if updates is not None:
             apply_updates(leaves, updates)
         return params, opt_state, loss.detach()
@@ -156,19 +183,24 @@ def lm_block_layout(sched: str, stages: int, num_virtual: int, *, cfg=None, tp: 
     """-> ``(shard_blocks_fn, unshard_blocks_fn)`` for the pipelined LM's
     param layout under (schedule, sharding): ``tp > 1`` the Megatron
     family (needs ``cfg``), else the dense one. The expert-sharded family
-    (``ep``) and the zero-bubble layouts are refused by what they need."""
+    (``ep``) is refused by what it needs."""
     if ep:
         raise ValueError(
             "the expert-sharded block layouts (expert_parallel.py) are not ported yet"
         )
-    validate_schedule(sched, lm=True)
+    validate_schedule(sched)
     if tp > 1:
-        if sched == "interleaved":
+        if sched == "zb-v":
+            return (lambda b: tpl.shard_blocks_vshape_tp(b, cfg, stages, tp),
+                    lambda b: tpl.unshard_blocks_vshape_tp(b, cfg))
+        if sched in ("interleaved", "zb"):
             return (lambda b: tpl.shard_blocks_interleaved_tp(b, cfg, stages, num_virtual, tp),
                     lambda b: tpl.unshard_blocks_interleaved_tp(b, cfg))
         return (lambda b: tpl.shard_blocks_pp_tp(b, cfg, stages, tp),
                 lambda b: tpl.unshard_blocks_pp_tp(b, cfg))
-    if sched == "interleaved":
+    if sched == "zb-v":
+        return lambda b: tpl.shard_blocks_vshape(b, stages), tpl.unshard_blocks_vshape
+    if sched in ("interleaved", "zb", "zb-stash"):
         return (lambda b: tpl.shard_blocks_interleaved(b, stages, num_virtual),
                 tpl.unshard_blocks_interleaved)
     return (lambda b: tpl.shard_blocks(b, stages), tpl.unshard_blocks)
@@ -190,7 +222,8 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
     the params are regrouped into ``schedule``'s staged layout
     (:func:`lm_block_layout`, Megatron-sharded when ``tensor_parallel >
     1``) for the run, and come back in the standard layout. The staged
-    step runs eager.
+    step is captured when every slot is on the params' card, and runs
+    eager otherwise.
 
     The caller's tensors are not modified (the loop trains a copy).
     ``history`` holds ``{"step", "loss", "seconds"}`` every
@@ -271,6 +304,8 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
             cfg, optimizer, attn_fn)
         params = tree_map(lambda a: a.detach().clone().requires_grad_(True), params)
     device = _device_of(params)
+    # A graph and its memory pool belong to one card: slots elsewhere run eager.
+    graphed = device.type == "cuda" and (not pipelined or mesh.devices == {device})
     start_step, state = resume_or_init(
         checkpoints, {"params": params, "opt_state": optimizer.init(param_leaves(params))})
     params, opt_state = state["params"], state["opt_state"]
@@ -282,7 +317,7 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
         """Run one group (one step, or one superstep), log and save it."""
         nonlocal compiled
         stack = np.stack([np.asarray(b) for _, b in group])
-        if device.type == "cuda" and not pipelined:
+        if graphed:
             # One captured step over a static token buffer, replayed for
             # every step of the group with no host sync between them.
             if compiled is None:
