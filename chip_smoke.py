@@ -27,7 +27,8 @@ package. Phases, each fatal on failure (exit 1, no result line):
    (1, 3, 32, 1024) x 3x3x1024x1). Each flash backward twice on one
    input at the 85M shape (B 16, H 12, T 1024, Dh 64) and at Dh 32 and
    128: dq, dk and dv bit-equal; the sm90 pair also at the
-   model-parallel shard's shape (B 4, H 6). F9: NaN in three input rows
+   model-parallel shard's shape (B 4, H 6) and at Ulysses' shapes (B 16
+   and B 4, H 3). F9: NaN in three input rows
    of the relu dense layer, the f32 chains, the int8 chains and four
    relu conv stages (pooled in registers, from the tile, unpooled):
    those rows non-finite in the kernel's output as in the plain
@@ -266,6 +267,26 @@ package. Phases, each fatal on failure (exit 1, no result line):
      ``serve_lm_generate(num_stages=4)`` answering 8 ``Generate``
      requests from 4 threads with the overlapped decoder's tokens; the
      tokens/s of each decoder.
+   * sequence parallelism (``seq_parallel_phase``, after the
+     model-parallel phase): the 85M LM on rows of 1,024 tokens, ring and
+     Ulysses attention over seq slots of the card. The first step's loss
+     and gradients of sp alone (seq 4 ring and ulysses, seq 2 x data 2
+     ring), pp x sp (stage 4 x seq 2 gpipe-ring, 1f1b-ring,
+     1f1b-ulysses, zb-ulysses; interleaved 2 x 3 x seq 2 ring; zb-v 3 x
+     seq 2 ulysses) and pp x tp x sp (stage 4 x model 2 x seq 2, 1f1b,
+     ring and ulysses) against the single bf16 program's masked CE on
+     the same rows run over the arm's partition (row groups, and seq
+     shards as position chunks, each embedded through its own bf16 copy
+     of the table) at the model-parallel phase's limits; each arm's
+     launches exactly the sm90
+     pair's count (Ulysses: 2 forwards and 1 backward a block,
+     microbatch, seq slot and model slot; zb 3 and 2) or none (the
+     ring), with SDPA replaced by a raise; the ring's two rotate modes
+     bit-equal; 6 steps of sp seq 4 ulysses and ring, pp x sp 1f1b-ring
+     and pp x tp x sp 1f1b-ulysses eager and graphed through
+     ``train_lm``: finite, falling losses, graphed bit-equal to eager,
+     step p50, tokens/s and peak memory beside the graphed single
+     program's.
 
    * the float32 LM path, ``tdn lm``'s default recipe
      (``artifacts/real_text_r04/RECORD.json``): d 128, 4 heads, 4
@@ -2832,6 +2853,363 @@ def model_parallel_phase(dev, cfg, train_rows, eval_rows, out_dir, smi_line) -> 
     print(f"model parallel phase: {time.monotonic() - t_phase:.1f} s")
 
 
+# Sequence parallelism (the long-context member of BASELINE configs[4]'s
+# parallelism family): ring and Ulysses attention over seq slots of one
+# card, alone, through the pipeline and with the Megatron split, on the
+# 85M LM. Rows of 1,024 tokens (a 1,023-token forward plus its target)
+# fit the 1,024-row position table, as sp's seq_len + 1 must.
+SP = dict(micro=4, steps=6, lr=5e-5, seed=13, seq=4, pp_seq=2, stages=4, model=2,
+          il_stages=2, il_virtual=3, zbv_stages=3)
+
+
+def seq_parallel_phase(dev, cfg, text, out_dir, smi_line) -> None:
+    """The 85M LM (``cfg``: bf16, remat) through sequence parallelism on
+    slots of one card (cut from a multi-chip mesh):
+
+    * step 1 of each arm against the single bf16 program on the same
+      rows under the masked CE (positions 0..T-2), by the model-parallel
+      phase's method: the reference runs over the arm's partition (its
+      microbatches or data replicas, and its seq shards as position
+      chunks, each embedded through its own bf16 copy of the table), and
+      the limit a leaf is ``MP["spread_factor"]`` x that reference's own
+      flash-vs-materialised spread (at least 2**-8), the loss's at least
+      ``BF16_PARITY_RTOL[0]``. The arms: sp alone (seq 4 ring and
+      ulysses, seq 2 x data 2 ring), pp x sp at 4 microbatches of 4 rows
+      (stage 4 x seq 2 gpipe-ring, 1f1b-ring, 1f1b-ulysses, zb-ulysses;
+      interleaved 2 x 3 x seq 2 ring; zb-v 3 x seq 2 ulysses) and pp x tp
+      x sp (stage 4 x model 2 x seq 2 1f1b, ring and ulysses); each
+      prints its tok_embed gradient's distance from the float32 program's
+      beside its reference's. Each arm's
+      flash launches: Ulysses 2 forwards and 1 backward a (block,
+      microbatch, seq slot, model slot) under remat (zb: 3 and 2, chunk
+      0's blocks 2 and 1), the ring none, no other kernel and no SDPA
+      call. The worst leaf and its share are printed;
+    * the ring's two rotate modes on the seq 4 arm: loss and gradients
+      bit-equal;
+    * ``SP["steps"]`` steps of sp seq 4 ulysses and ring, pp x sp 1f1b
+      ring (4 x 2) and pp x tp x sp 1f1b ulysses (4 x 2 x 2), eager (CUDA
+      events a step) and graphed through ``train_lm``: losses finite and
+      falling, graphed losses and trained params bit-equal to eager,
+      launches a step, step p50, peak memory and tokens/s beside the
+      graphed single program's. Every check is fatal."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_dist_nn_torch.data.text import encode, lm_batches, lm_sequences
+    from tpu_dist_nn_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from tpu_dist_nn_torch.kernels.flash_attention import flash_attention
+    from tpu_dist_nn_torch.models.transformer import (
+        dot_product_attention,
+        init_transformer,
+        maybe_remat,
+        param_leaves,
+        tree_map,
+        unembed,
+        unstack_blocks,
+    )
+    from tpu_dist_nn_torch.parallel import ring_attention as ra
+    from tpu_dist_nn_torch.parallel.ring_attention import embed_at
+    from tpu_dist_nn_torch.parallel import transformer_pipeline as tpl
+    from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+    from tpu_dist_nn_torch.train.lm_trainer import (
+        LMTrainConfig,
+        lm_block_layout,
+        make_pipeline_sp_lm_train_step,
+        make_seq_parallel_lm_train_step,
+        train_lm,
+    )
+    from tpu_dist_nn_torch.train.optimizers import build_optimizer
+
+    t_phase = time.monotonic()
+    T, B, M, L = cfg.max_seq_len, LM["batch"], SP["micro"], cfg.n_layers
+    rows = lm_sequences(encode(text), T - 1)
+    train_rows = rows[:max(1, int(len(rows) * 0.95))]
+    params = init_transformer(torch.Generator().manual_seed(SP["seed"]), cfg, device=dev)
+    stream = lm_batches(train_rows, B, seed=SP["seed"], epochs=None)
+    batches = [torch.as_tensor(next(stream), device=dev).long() for _ in range(SP["steps"])]
+    tokens = batches[0]
+    names = [n for n, _ in _named_leaves(params)]
+
+    def mesh(stage=1, model=1, seq=1, data=1):
+        spec = MeshSpec(stage=stage, model=model, seq=seq, data=data)
+        return build_mesh(spec, [dev] * spec.num_devices)
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+    def no_sdpa(*a, **kw):
+        raise RuntimeError("scaled_dot_product_attention called on the sequence-parallel path")
+
+    sdpa = F.scaled_dot_product_attention
+    F.scaled_dot_product_attention = no_sdpa
+
+    # (a) the references: the single program's masked CE on the same rows
+    # over the arm's partition (row groups: its microbatches or data
+    # replicas; position chunks: its seq shards), with the flash pair and
+    # with the materialised attention (its own bf16 spread). Each
+    # (row group, position chunk) embeds through its own bf16 copy of the
+    # table, as each seq slot does: the embedding's backward sums a
+    # token's rows in bf16, so the tied tok_embed gradient depends on how
+    # the positions are split (on an H100 with this phase's rows: 21% of
+    # its embedding part, 13% of the whole, from float32 for one copy of
+    # the whole batch; 10% and 6.6% for four), far past the spread.
+    tgt = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    mask = torch.cat([torch.ones((B, T - 1), device=dev), torch.zeros((B, 1), device=dev)],
+                     dim=1) / (B * (T - 1))
+
+    def masked_step(c, attn, rows_, chunks):
+        p = tree_map(lambda a: a.clone().requires_grad_(True), params)
+        loss = 0.0
+        for mb, tg, mk in zip(tokens.chunk(rows_), tgt.chunk(rows_), mask.chunk(rows_)):
+            pc = c.cast_params(p)
+            Tq = T // chunks
+            x = torch.cat([embed_at(c.cast_params({k: p[k] for k in ("tok_embed", "pos_embed")}),
+                                    t, q * Tq) for q, t in enumerate(mb.chunk(chunks, dim=1))],
+                          dim=1)
+            apply = maybe_remat(c)
+            for block in unstack_blocks(pc["blocks"]):
+                x = apply(block, x, c, attn)
+            logp = torch.log_softmax(unembed(pc, x).float(), dim=-1)
+            part = -(logp.gather(-1, tg[..., None])[..., 0] * mk).sum()
+            part.backward()
+            loss += float(part.detach())
+        return loss, [a.grad for a in param_leaves(p)]
+
+    g32 = masked_step(dataclasses.replace(cfg, compute_dtype="float32"), flash_attention, 1, 1)[1]
+    i_tok = names.index("tok_embed")
+    refs = {}
+    for rows_, chunks in ((1, SP["seq"]), (2, 2), (M, SP["pp_seq"])):
+        flash_ref = masked_step(cfg, flash_attention, rows_, chunks)
+        dot_ref = masked_step(cfg, dot_product_attention, rows_, chunks)
+        spread_loss = abs(dot_ref[0] - flash_ref[0]) / abs(flash_ref[0])
+        spread = {n: rel(a, b) for n, a, b in zip(names, dot_ref[1], flash_ref[1])}
+        refs[rows_, chunks] = (flash_ref,
+                               max(MP["spread_factor"] * spread_loss, BF16_PARITY_RTOL[0]),
+                               {n: max(MP["spread_factor"] * e, 2.0**-8)
+                                for n, e in spread.items()}, dot_ref)
+        print(f"seq parallel: 85M bf16 remat on {smi_line}; reference step 1 (single program, "
+              f"masked CE, {rows_} row group(s) x {chunks} position chunks of {B // rows_} x "
+              f"{T // chunks} tokens): loss {flash_ref[0]!r} (materialised {dot_ref[0]!r}: rel "
+              f"{spread_loss:.3e}); spread a leaf "
+              f"{json.dumps({n: float(f'{e:.3e}') for n, e in spread.items()})}; tok_embed "
+              f"from float32 {rel(flash_ref[1][i_tok], g32[i_tok]):.3e}")
+    torch.cuda.empty_cache()
+
+    # (label, stage, virtual, model, seq, data, mode, schedule)
+    ARMS = [("sp seq 4 ring", 1, 1, 1, SP["seq"], 1, "ring", None),
+            ("sp seq 4 ulysses", 1, 1, 1, SP["seq"], 1, "ulysses", None),
+            ("sp seq 2 x data 2 ring", 1, 1, 1, 2, 2, "ring", None)]
+    S, Q, N = SP["stages"], SP["pp_seq"], SP["model"]
+    for sched, mode in (("gpipe", "ring"), ("1f1b", "ring"), ("1f1b", "ulysses"),
+                        ("zb", "ulysses")):
+        ARMS.append((f"pp x sp {sched}-{mode} stage {S} x seq {Q}", S, 1, 1, Q, 1, mode, sched))
+    ARMS.append((f"pp x sp interleaved-ring stage {SP['il_stages']} x virtual "
+                 f"{SP['il_virtual']} x seq {Q}", SP["il_stages"], SP["il_virtual"], 1, Q, 1,
+                 "ring", "interleaved"))
+    ARMS.append((f"pp x sp zb-v-ulysses stage {SP['zbv_stages']} x seq {Q}", SP["zbv_stages"],
+                 2, 1, Q, 1, "ulysses", "zb-v"))
+    for mode in ("ring", "ulysses"):
+        ARMS.append((f"pp x tp x sp 1f1b-{mode} stage {S} x model {N} x seq {Q}", S, 1, N, Q, 1,
+                     mode, "1f1b"))
+
+    def want_launches(stage, v, model, seq, data, mode, sched):
+        if mode == "ring":
+            return 0, 0
+        if sched is None:  # one pass a data replica
+            return 2 * L * data * seq, L * data * seq
+        per = M * seq * model
+        if sched in ("zb", "zb-v"):
+            first = L // (stage * v)  # chunk 0's blocks
+            return (3 * L - first) * per, (2 * L - first) * per
+        return 2 * L * per, L * per
+
+    def only_flash(launched, want):
+        return ({k: n for k, n in launched.items() if n}
+                == {k: n for k, n in zip(("flash_fwd_sm90", "flash_bwd_sm90"), want) if n})
+
+    def first_step(stage, v, model, seq, data, mode, sched):
+        m = mesh(stage, model, seq, data)
+        if sched is None:
+            p = tree_map(lambda a: a.clone().requires_grad_(True), params)
+            loss = ra.make_seq_parallel_lm_loss(m, cfg, mode)(p, tokens)
+            loss.backward()
+            return float(loss.detach()), [a.grad for a in param_leaves(p)]
+        shard, unshard = lm_block_layout(sched, stage, v, cfg=cfg, tp=model)
+        T_ = "_tp" if model > 1 else ""
+        if sched == "zb-v":
+            vag = getattr(tpl, f"make_pipeline{T_}_sp_lm_zb_v_grad")(m, cfg, M, mode)
+        elif sched in ("interleaved", "zb"):
+            vag = getattr(tpl, f"make_pipeline{T_}_sp_lm_{sched}_grad")(m, cfg, v, M, mode)
+        else:
+            vag = getattr(tpl, f"make_pipeline{T_}_sp_lm_{sched}_grad")(m, cfg, stage, M, mode)
+        loss, grads = vag(dict(params, blocks=shard(params["blocks"])), tokens)
+        return float(loss), param_leaves(dict(grads, blocks=unshard(grads["blocks"])))
+
+    worst_share = 0.0
+    for label, stage, v, model, seq, data, mode, sched in ARMS:
+        (loss_ref, g_ref), tol_loss, tol_g, (loss_dot, g_dot) = refs[
+            (data, seq) if sched is None else (M, seq)]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        loss, flat = first_step(stage, v, model, seq, data, mode, sched)
+        torch.cuda.synchronize()
+        launched = counts()
+        errs = {n: rel(a, b) for n, a, b in zip(names, flat, g_ref)}
+        share = {n: errs[n] / tol_g[n] for n in names}
+        worst = max(share, key=share.get)
+        worst_share = max(worst_share, share[worst])
+        lrel = abs(loss - loss_ref) / abs(loss_ref)
+        want = want_launches(stage, v, model, seq, data, mode, sched)
+        ok = lrel <= tol_loss and share[worst] <= 1.0 and only_flash(launched, want)
+        print(f"check seq parallel {label}, step 1 vs the reference: loss {loss!r} (rel "
+              f"{lrel:.3e}, tol {tol_loss:.3e}); gradients' relative L2 "
+              f"{json.dumps({n: float(f'{e:.3e}') for n, e in errs.items()})}; largest share of "
+              f"its tolerance {share[worst]:.3f} ({worst}: {errs[worst]:.3e} of {tol_g[worst]:.3e})"
+              f"; tok_embed from float32 {rel(flat[i_tok], g32[i_tok]):.3e} (the reference's "
+              f"{rel(g_ref[i_tok], g32[i_tok]):.3e}); from the materialised reference: loss "
+              f"rel {abs(loss - loss_dot) / abs(loss_dot):.3e}, leaves' median relative L2 "
+              f"{float(np.median([rel(a, b) for a, b in zip(flat, g_dot)])):.3e} (the flash "
+              f"reference's {float(np.median([rel(a, b) for a, b in zip(g_ref, g_dot)])):.3e})"
+              f"; launches "
+              f"{json.dumps({k: n for k, n in launched.items() if n})}, expected "
+              f"flash_fwd_sm90 {want[0]} flash_bwd_sm90 {want[1]} and nothing else | "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"seq parallel {label}: the first step departs from the single program or "
+                 f"launched other attention")
+        del flat
+        torch.cuda.empty_cache()
+    print(f"seq parallel step 1: largest share of a limit over {len(ARMS)} arms {worst_share:.3f}")
+    del refs, g32
+    torch.cuda.empty_cache()
+
+    # (b) both rotate modes on the seq 4 ring arm: the same bits
+    ring = ra.ring_attention
+    got = {}
+    for r in ra.ROTATE_MODES:
+        ra.ring_attention = lambda *a, rotate=None, _r=r, **kw: ring(*a, rotate=_r, **kw)
+        try:
+            got[r] = first_step(1, 1, 1, SP["seq"], 1, "ring", None)
+        finally:
+            ra.ring_attention = ring
+    same = got["ppermute"][0] == got["collective"][0] and all(
+        torch.equal(a, b) for a, b in zip(got["ppermute"][1], got["collective"][1]))
+    print(f"check seq parallel rotate modes {ra.ROTATE_MODES} on sp seq {SP['seq']} ring, step "
+          f"1: loss and every gradient bit-equal {same} | {'ok' if same else 'FAIL'}")
+    if not same:
+        fail("seq parallel: the two rotate modes give different bits")
+    del got
+    torch.cuda.empty_cache()
+
+    # (c) steps eager (CUDA events) and graphed (train_lm), bit-equal
+    host_batches = [b.cpu().numpy() for b in batches]
+    n_steps = len(host_batches)
+    train_cfg = LMTrainConfig(learning_rate=SP["lr"], steps=n_steps, batch_size=B, seq_len=T - 1,
+                              log_every=1)
+
+    def graphed_run(label, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        trained, hist = train_lm(params, cfg, host_batches, train_cfg, **kw)
+        torch.cuda.synchronize()
+        launched, peak = counts(), torch.cuda.max_memory_allocated() / 1e9
+        ms = [1e3 * (b["seconds"] - a["seconds"]) for a, b in zip(hist, hist[1:])]
+        p50 = float(np.median(ms))
+        print(f"seq parallel {label} graphed (train_lm): losses {[h['loss'] for h in hist]}; "
+              f"step ms (host clock) {[round(t, 3) for t in ms]} after the first (warm-up and "
+              f"capture, {1e3 * hist[0]['seconds']:.1f} ms); p50 {p50:.3f} ms, "
+              f"{B * T / p50 * 1e3:.1f} tokens/s; peak memory {peak:.3f} GB")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return trained, [h["loss"] for h in hist], p50, launched, peak
+
+    _, _, single_p50, _, single_peak = graphed_run("single program")
+    STEP_ARMS = [("sp seq 4 ulysses", 1, 1, SP["seq"], "ulysses", "gpipe"),
+                 ("sp seq 4 ring", 1, 1, SP["seq"], "ring", "gpipe"),
+                 (f"pp x sp 1f1b-ring stage {S} x seq {Q}", S, 1, Q, "ring", "1f1b"),
+                 (f"pp x tp x sp 1f1b-ulysses stage {S} x model {N} x seq {Q}", S, N, Q,
+                  "ulysses", "1f1b")]
+    summary = {}
+    for label, stage, model, seq, mode, sched in STEP_ARMS:
+        opt = build_optimizer(SP["lr"], total_steps=n_steps)
+        if stage > 1:
+            shard, unshard = lm_block_layout(sched, stage, 1, cfg=cfg, tp=model)
+            st = tree_map(lambda a: a.detach().clone(),
+                          dict(params, blocks=shard(params["blocks"])))
+            step = make_pipeline_sp_lm_train_step(mesh(stage, model, seq), cfg, stage, M, opt,
+                                                  mode, schedule=sched, tensor_parallel=model)
+        else:
+            unshard = None
+            st = tree_map(lambda a: a.detach().clone().requires_grad_(True), params)
+            step = make_seq_parallel_lm_train_step(mesh(seq=seq), cfg, opt, mode)
+        state = opt.init(param_leaves(st))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, per_step = [], [], None
+        for i, toks in enumerate(batches):
+            if i == 1:
+                torch.cuda.synchronize()
+                reset_launch_counts()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            loss = step(st, state, toks)[2]
+            e1.record()
+            torch.cuda.synchronize()
+            if i == 1:
+                per_step = counts()
+            ms.append(e0.elapsed_time(e1))
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        p50 = float(np.median(ms[1:]))
+        eager = param_leaves(st if unshard is None else dict(st, blocks=unshard(st["blocks"])))
+        del st, step, state
+        torch.cuda.empty_cache()
+        want = want_launches(stage, 1, model, seq, 1, mode, None if stage == 1 else sched)
+        ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+              and only_flash(per_step, want))
+        print(f"check seq parallel {label} eager: losses {losses}; step ms "
+              f"{[round(t, 3) for t in ms]} (the first includes warm-up); p50 of steps "
+              f"2-{len(ms)} {p50:.3f} ms, {B * T / p50 * 1e3:.1f} tokens/s; peak memory "
+              f"{peak:.3f} GB; one step's launches "
+              f"{json.dumps({k: n for k, n in per_step.items() if n})} (expected flash_fwd_sm90 "
+              f"{want[0]}, flash_bwd_sm90 {want[1]}) | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"seq parallel {label}: losses not finite and falling, or other launches")
+        kw = dict(mesh=mesh(stage, model, seq), num_stages=stage, num_microbatches=M,
+                  schedule=sched, tensor_parallel=model, sp_mode=mode)
+        trained, g_losses, g_p50, g_launched, g_peak = graphed_run(label, **kw)
+        differ = sum(int((a != b).sum()) for a, b in zip(param_leaves(trained), eager))
+        total = (want[0] * n_steps, want[1] * n_steps)
+        ok = g_losses == losses and differ == 0 and only_flash(g_launched, total)
+        print(f"check seq parallel {label} graphed vs eager over {n_steps} steps: losses "
+              f"bit-equal {g_losses == losses}; trained parameter elements not bit-equal "
+              f"{differ}; launches {json.dumps({k: n for k, n in g_launched.items() if n})} "
+              f"(expected {total[0]} + {total[1]}); step p50 graphed {g_p50:.3f} ms, eager "
+              f"{p50:.3f} ms ({p50 / g_p50:.2f}x), the graphed single program "
+              f"{single_p50:.3f} ms ({g_p50 / single_p50:.2f}x it); peak memory graphed "
+              f"{g_peak:.3f} GB, eager {peak:.3f}, the graphed single program "
+              f"{single_peak:.3f} | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"seq parallel {label}: the graphed step departs from the eager one")
+        summary[label] = dict(eager_ms=round(p50, 3), graphed_ms=round(g_p50, 3),
+                              tokens_per_s=round(B * T / g_p50 * 1e3, 1),
+                              peak_gb_eager=round(peak, 3), peak_gb_graphed=round(g_peak, 3),
+                              flash_launches_a_step=list(want))
+        del trained, eager
+        torch.cuda.empty_cache()
+    F.scaled_dot_product_attention = sdpa
+    print("seq parallel steps (graphed single program "
+          f"{single_p50:.3f} ms, {single_peak:.3f} GB): " + json.dumps(summary))
+    del params
+    torch.cuda.empty_cache()
+    print(f"seq parallel phase: {time.monotonic() - t_phase:.1f} s")
+
+
 def _named_leaves(tree, prefix=""):
     """``(path, tensor)`` in ``param_leaves`` order."""
     out = []
@@ -3845,6 +4223,12 @@ def main() -> None:
     # a tensor-parallel shard (MP, model 2).
     flash_check("model-parallel shard shape", B_LM // MP["micro"], T_LM, H_LM // MP["model"],
                 DH_LM, True, torch.bfloat16, "sm90")
+    # Ulysses' local attention: sp alone at seq 4 (3 heads a slot), and
+    # pp x tp x sp's microbatch on a model shard's 6 heads over seq 2.
+    flash_check("Ulysses shape (sp alone)", B_LM, T_LM, H_LM // SP["seq"], DH_LM, True,
+                torch.bfloat16, "sm90")
+    flash_check("Ulysses shape (pp x tp x sp)", B_LM // SP["micro"], T_LM,
+                H_LM // SP["model"] // SP["pp_seq"], DH_LM, True, torch.bfloat16, "sm90")
     for i, (T, Dh, causal) in enumerate([(1000, 64, False), (40, 64, True), (1000, 32, True),
                                          (40, 32, False), (1000, 128, True), (40, 128, False),
                                          (129, 64, True)]):
@@ -4213,6 +4597,8 @@ def main() -> None:
     del lm_params
     torch.cuda.empty_cache()
     model_parallel_phase(dev, cfg, train_rows, eval_rows, out_dir, smi[0])
+    torch.cuda.empty_cache()
+    seq_parallel_phase(dev, cfg, text, out_dir, smi[0])
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=out_dir) as tmp:
@@ -4706,6 +5092,15 @@ def main() -> None:
     sdpa_mp = sdpa_times(sets, shape_mp, "bfloat16")
     for k in ("flash_fwd_sm90", "flash_bwd_sm90"):
         time_flash(k, sets, shape_mp, torch.bfloat16, sdpa_mp, graph=True)
+    del sets
+    torch.cuda.empty_cache()
+    # Ulysses' shape in the sequence-parallel phase (sp alone, seq 4: the
+    # full sequence on 3 heads a slot).
+    shape_sp = (B_LM, T_LM, H_LM // SP["seq"], DH_LM)
+    sets = flash_sets(shape_sp, torch.bfloat16, 3, 60)
+    sdpa_sp = sdpa_times(sets, shape_sp, "bfloat16")
+    for k in ("flash_fwd_sm90", "flash_bwd_sm90"):
+        time_flash(k, sets, shape_sp, torch.bfloat16, sdpa_sp, graph=True)
     del sets
     torch.cuda.empty_cache()
     # The f32 pair on its own route, float32, at the 85M shape (the

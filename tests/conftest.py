@@ -376,6 +376,10 @@ QUICK_TESTS = {
         "test_w_tick_dispatches_only_matmuls_transposes_and_reshapes[materialised]"],
     "test_torch_zero_bubble": ["test_loss_and_gradients_match_jax[zb-stash-2x1x4]",
                                "test_cli_refusals_in_jax_texts[zb-v-virtual-3]"],
+    "test_torch_ring_attention": ["test_ring_matches_jax_ring_and_full_attention[4-True]",
+                                  "test_sp_loss_gradients_match_jax[ulysses]"],
+    "test_torch_pipeline_sp": ["test_pp_sp_1f1b_gradients_match_jax[2-2-ring]"],
+    "test_torch_pipeline_tp_sp": ["test_pp_tp_sp_1f1b_gradients_match_jax[ulysses]"],
     # ISSUE 10: the codec fast lane's correctness anchor (byte-exact
     # scalar/vectorized equivalence + fuzz agreement), the decode-into-
     # staging path through a real batcher, the codec A/B perf smoke,

@@ -20,7 +20,9 @@ against the materialised attention on the card; the Process handler and batcher
 in front of the card's engines (coalesced replies bit-equal to each
 request alone), and uint8 rows through the dense engine; training's
 eval through the chain kernel, and the int8 warm-up gate's launches;
-the continuous scheduler's captured step against its eager step.
+the continuous scheduler's captured step against its eager step; the
+sequence-parallel steps (ring and Ulysses, alone, pipelined and with
+Megatron TP) graphed against eager, with their flash launches.
 ``chip_smoke.py`` covers the main path's shapes.
 """
 
@@ -880,6 +882,127 @@ def test_graphed_pipelined_lm_step_equals_the_eager_step(cuda, schedule):
     for a, b in zip(param_leaves(got), param_leaves(want)):
         assert torch.equal(a, b)
     assert graphed == (flash_fwd_sm90.launches, flash_bwd_sm90.launches) != (0, 0)
+
+
+SP_CASES = {  # (stage, data, model, seq, mode, schedule)
+    "sp-ring": (1, 1, 1, 4, "ring", "gpipe"),
+    "sp-ulysses-data2": (1, 2, 1, 2, "ulysses", "gpipe"),
+    "pp-sp-1f1b-ring": (2, 1, 1, 2, "ring", "1f1b"),
+    "pp-tp-sp-1f1b-ulysses": (2, 1, 2, 2, "ulysses", "1f1b"),
+}
+
+
+def _sp_setup(cuda, case):
+    from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+
+    stage, data, model, seq, mode, schedule = SP_CASES[case]
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=4, n_layers=4, d_ff=512,
+                            max_seq_len=128, compute_dtype="bfloat16", remat=True)
+    params = init_transformer(torch.Generator().manual_seed(0), cfg, device=cuda)
+    batches = [np.random.default_rng(i).integers(0, 256, (8, 128)) for i in range(3)]
+    spec = MeshSpec(stage=stage, data=data, model=model, seq=seq)
+
+    def mesh():
+        return build_mesh(spec, ["cuda:0"] * spec.num_devices)
+
+    return cfg, params, batches, mesh, (stage, model, mode, schedule)
+
+
+@pytest.mark.parametrize("case", list(SP_CASES))
+def test_graphed_sp_step_equals_the_eager_step(cuda, case):
+    """``train_lm`` on seq slots of the card (alone, through the pipeline,
+    with Megatron TP) captures the sequence-parallel step; its losses,
+    trained params and flash launches equal the eager step's over 3
+    steps, bit for bit."""
+    from tpu_dist_nn_torch.models.transformer import param_leaves
+    from tpu_dist_nn_torch.train.lm_trainer import (
+        lm_block_layout,
+        make_pipeline_sp_lm_train_step,
+        make_seq_parallel_lm_train_step,
+    )
+    from tpu_dist_nn_torch.train.optimizers import build_optimizer
+
+    cfg, params, batches, mesh, (stage, model, mode, schedule) = _sp_setup(cuda, case)
+    reset_launch_counts()
+    got, hist = train_lm(params, cfg, batches,
+                         LMTrainConfig(learning_rate=1e-3, steps=3, batch_size=8, seq_len=127,
+                                       log_every=1),
+                         mesh=mesh(), num_stages=stage, num_microbatches=2, schedule=schedule,
+                         tensor_parallel=model, sp_mode=mode)
+    graphed = (flash_fwd_sm90.launches, flash_bwd_sm90.launches)
+    opt = build_optimizer(1e-3, total_steps=3)
+    if stage > 1:
+        shard, unshard = lm_block_layout(schedule, stage, 1, cfg=cfg, tp=model)
+        st = tree_map(lambda a: a.detach().clone(), dict(params, blocks=shard(params["blocks"])))
+        step = make_pipeline_sp_lm_train_step(mesh(), cfg, stage, 2, opt, mode,
+                                              schedule=schedule, tensor_parallel=model)
+    else:
+        unshard = None
+        st = tree_map(lambda a: a.detach().clone().requires_grad_(), params)
+        step = make_seq_parallel_lm_train_step(mesh(), cfg, opt, mode)
+    state = opt.init(param_leaves(st))
+    reset_launch_counts()
+    losses = [float(step(st, state, torch.from_numpy(b).to(cuda))[2]) for b in batches]
+    assert [h["loss"] for h in hist] == losses and all(np.isfinite(losses))
+    want = st if unshard is None else dict(st, blocks=unshard(st["blocks"]))
+    for a, b in zip(param_leaves(got), param_leaves(want)):
+        assert torch.equal(a, b)
+    assert graphed == (flash_fwd_sm90.launches, flash_bwd_sm90.launches)
+
+
+@pytest.mark.parametrize("case", list(SP_CASES))
+def test_ulysses_launches_the_sm90_pair_and_the_ring_none(cuda, case, monkeypatch):
+    """One eager step: Ulysses runs 2 flash forwards and 1 backward a
+    (block, microbatch, seq slot, model slot) under remat, the ring none;
+    no other attention kernel and no SDPA call."""
+    import torch.nn.functional as F
+
+    from tpu_dist_nn_torch.models.transformer import param_leaves
+    from tpu_dist_nn_torch.train.lm_trainer import (
+        lm_block_layout,
+        make_pipeline_sp_lm_train_step,
+        make_seq_parallel_lm_train_step,
+    )
+    from tpu_dist_nn_torch.train.optimizers import build_optimizer
+
+    def no_sdpa(*a, **kw):
+        raise AssertionError("scaled_dot_product_attention called")
+
+    monkeypatch.setattr(F, "scaled_dot_product_attention", no_sdpa)
+    cfg, params, batches, mesh, (stage, model, mode, schedule) = _sp_setup(cuda, case)
+    opt = build_optimizer(1e-3)
+    if stage > 1:
+        shard, _ = lm_block_layout(schedule, stage, 1, cfg=cfg, tp=model)
+        st = tree_map(lambda a: a.detach().clone(), dict(params, blocks=shard(params["blocks"])))
+        step = make_pipeline_sp_lm_train_step(mesh(), cfg, stage, 2, opt, mode,
+                                              schedule=schedule, tensor_parallel=model)
+        micro = 2
+    else:
+        st = tree_map(lambda a: a.detach().clone().requires_grad_(), params)
+        step = make_seq_parallel_lm_train_step(mesh(), cfg, opt, mode)
+        micro = mesh().shape["data"]  # each data replica is one pass
+    reset_launch_counts()
+    loss = step(st, opt.init(param_leaves(st)), torch.from_numpy(batches[0]).to(cuda))[2]
+    torch.cuda.synchronize()
+    assert np.isfinite(float(loss))
+    seq = mesh().shape["seq"]
+    per = cfg.n_layers * micro * seq * model if mode == "ulysses" else 0
+    launched = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS if fn.launches}
+    want = {"flash_fwd_sm90": 2 * per, "flash_bwd_sm90": per} if per else {}
+    assert launched == want
+
+
+def test_cli_lm_stages_seq_parallel_ulysses_on_the_card(cuda, capsys):
+    from tpu_dist_nn_torch.cli import main
+
+    assert main(["lm", "--d-model", "128", "--heads", "4", "--layers", "4", "--seq-len", "127",
+                 "--steps", "3", "--batch-size", "8", "--bf16", "--remat", "--eval-batches",
+                 "2", "--log-every", "1", "--stages", "2", "--seq-parallel", "2",
+                 "--sp-mode", "ulysses", "--schedule", "1f1b", "--microbatches", "2"]) == 0
+    import json
+
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert np.isfinite(report["final_train_loss"]) and np.isfinite(report["perplexity"])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -330,6 +330,23 @@ x0 = torch.rand(2, 5, 16)
 _, _, wst = split_backward.block_backward_split(unstack_blocks(lm4["blocks"])[0], x0,
                                                 torch.rand(2, 5, 16), cfg4)
 assert split_backward.block_weight_grads(wst)["w_up"].shape == (16, 32)
+# Sequence parallelism: a step on (seq 2, data 2) CPU slots in each mode,
+# and a pp x sp 1f1b step, against the single program's masked CE.
+from tpu_dist_nn_torch.models.transformer import forward as lm_forward, masked_next_token_ce
+from tpu_dist_nn_torch.train.lm_trainer import (
+    make_pipeline_sp_lm_train_step, make_seq_parallel_lm_train_step)
+full = torch.as_tensor(rows[:4, :16]).long()
+want = float(masked_next_token_ce(lm_forward(lm4, full, cfg4), full))
+for mode in ("ring", "ulysses"):
+    sp_step = make_seq_parallel_lm_train_step(
+        build_mesh(MeshSpec(seq=2, data=2), ["cpu"] * 4), cfg4, zopt, mode)
+    sst = tree_map(lambda a: a.clone().requires_grad_(), lm4)
+    assert abs(float(sp_step(sst, zopt.init(param_leaves(sst)), full)[2]) - want) < 1e-4
+    pp_sp = make_pipeline_sp_lm_train_step(
+        build_mesh(MeshSpec(stage=2, seq=2), ["cpu"] * 4), cfg4, 2, 2, zopt, mode,
+        schedule="1f1b")
+    pst = tree_map(lambda a: a.clone(), dict(lm4, blocks=shard_blocks(lm4["blocks"], 2)))
+    assert abs(float(pp_sp(pst, zopt.init(param_leaves(pst)), full)[2]) - want) < 1e-4
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist_nn")]
 assert not bad, bad
 print("imported", len(mods), "modules without jax")

@@ -410,10 +410,10 @@ def test_cli_parallel_flags_refused_with_jax_texts(flags):
 
 @pytest.mark.parametrize("flags,missing", [
     (["--experts", "4"], "expert_parallel.py"),
-    (["--seq-parallel", "2"], "ring_attention.py"),
+    (["--seq-parallel", "2", "--experts", "4"], "expert_parallel.py"),
     (["--zero1", "--data-parallel", "2"], "zero.py"),
     (["--fsdp", "--data-parallel", "2"], "zero.py"),
-    (["--stages", "2", "--schedule", "zb", "--seq-parallel", "2"], "ring_attention.py"),
+    (["--stages", "2", "--schedule", "zb", "--seq-parallel", "2", "--zero1"], "zero.py"),
     (["--stages", "2", "--schedule", "zb-v", "--experts", "4"], "expert_parallel.py"),
     (["--stages", "2", "--schedule", "zb-stash", "--zero1"], "zero.py"),
     (["--data-parallel", "2"], "data-sharded single program"),

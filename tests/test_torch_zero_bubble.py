@@ -267,8 +267,8 @@ def test_the_fcnn_pipeline_refuses_zero_bubble_with_jax_texts():
 
 
 @pytest.mark.parametrize("flags,missing", [
-    (["--schedule", "zb", "--seq-parallel", "2"], "ring_attention.py"),
-    (["--schedule", "zb-v", "--seq-parallel", "2"], "ring_attention.py"),
+    (["--schedule", "zb", "--seq-parallel", "2", "--fsdp"], "zero.py"),
+    (["--schedule", "zb-v", "--seq-parallel", "2", "--experts", "4"], "expert_parallel.py"),
     (["--schedule", "zb", "--experts", "4"], "expert_parallel.py"),
     (["--schedule", "zb-stash", "--experts", "4"], "expert_parallel.py"),
 ], ids=["zb-sp", "zb-v-sp", "zb-ep", "zb-stash-ep"])

@@ -47,14 +47,18 @@ printed lines:
   zb-stash; ``--microbatches``, ``--data-parallel`` replicas),
   Megatron-sharded with ``--tensor-parallel`` (but zb-stash); a slot
   count above the visible cards places the slots on one card, where the
-  step runs as one CUDA graph. ``--sample-pipeline-stages`` and
+  step runs as one CUDA graph. ``--seq-parallel N`` splits each row over
+  N seq slots with ``--sp-mode`` ring or ulysses attention: alone (with
+  ``--data-parallel`` replicas) or through the pipeline, on every
+  schedule but zb-stash and with ``--tensor-parallel``; its rows carry
+  ``seq_len + 1`` tokens, so the position table has one more row.
+  ``--sample-pipeline-stages`` and
   ``--sample-tensor-parallel`` decode the sample in those placements.
   ``lm --stream --target HOST:PORT`` is a client only: it streams one
   generation of ``--prompt`` from a running endpoint. Left for later
   slices, refused before training by what is missing: ``--experts`` /
-  ``--expert-parallel``, ``--seq-parallel`` / ``--sp-mode``, ``--zero1``,
-  ``--fsdp``, ``--data-parallel`` without ``--stages``; and
-  ``--metrics-port``.
+  ``--expert-parallel``, ``--zero1``, ``--fsdp``, ``--data-parallel``
+  without ``--stages`` or ``--seq-parallel``; and ``--metrics-port``.
 
 Every engine-side verb runs on the card unless ``--device cpu`` is
 given.
@@ -587,16 +591,6 @@ def _refuse_unported(args) -> None:
         )
     if args.expert_parallel > 1:
         raise ValueError("--expert-parallel requires --experts > 0")
-    if args.seq_parallel > 1:
-        raise ValueError(
-            "--seq-parallel: sequence parallelism (parallel/ring_attention.py, ring "
-            "and Ulysses attention) is not ported yet"
-        )
-    if args.sp_mode != "ring":
-        raise ValueError(
-            "--sp-mode requires --seq-parallel > 1 (it picks the "
-            "sequence-parallel decomposition)"
-        )
     if args.zero1 or args.fsdp:
         raise ValueError(
             ("--fsdp" if args.fsdp else "--zero1")
@@ -633,6 +627,13 @@ def _validate_parallel(args) -> None:
             "only (--stages > 1, without --experts/--seq-parallel/"
             "--zero1/--fsdp)"
         )
+    if args.sp_mode != "ring" and args.seq_parallel <= 1:
+        raise ValueError(
+            "--sp-mode requires --seq-parallel > 1 (it picks the "
+            "sequence-parallel decomposition)"
+        )
+    if args.seq_parallel > 1:
+        _validate_seq_parallel(args)
     if args.stages > 1:
         if args.batch_size % (args.microbatches * args.data_parallel):
             raise ValueError(
@@ -640,11 +641,43 @@ def _validate_parallel(args) -> None:
                 f"by microbatches*data_parallel="
                 f"{args.microbatches * args.data_parallel}"
             )
-    elif args.data_parallel > 1:
+    elif args.data_parallel > 1 and args.seq_parallel <= 1:
         raise ValueError(
-            "--data-parallel without --stages: the data-sharded single program is "
-            "not ported yet (use --stages > 1 for data replicas of the pipeline)"
+            "--data-parallel without --stages or --seq-parallel: the data-sharded single "
+            "program is not ported yet (use --stages > 1 or --seq-parallel > 1 for data "
+            "replicas)"
         )
+
+
+def _validate_seq_parallel(args) -> None:
+    """``--seq-parallel``'s sizes, with the JAX package's texts (the
+    ulysses head split and zb-stash are refused there when the step is
+    built; here before any work)."""
+    n = args.seq_parallel
+    if (args.seq_len + 1) % n:
+        raise ValueError(
+            f"--seq-len+1 ({args.seq_len + 1}) must be divisible by --seq-parallel {n} "
+            "(rows carry the next-token target)"
+        )
+    if args.stages <= 1 and args.batch_size % args.data_parallel:
+        raise ValueError(
+            f"--batch-size {args.batch_size} must be divisible by "
+            f"--data-parallel {args.data_parallel}"
+        )
+    if args.stages > 1 and args.schedule == "zb-stash":
+        raise ValueError(
+            "zb-stash is dense-LM only (the stash split knows the "
+            "dense block structure); use schedule='zb' with "
+            "seq-parallel"
+        )
+    if args.sp_mode == "ulysses":
+        if args.stages <= 1 and args.heads % n:
+            raise ValueError(
+                f"--sp-mode ulysses needs n_heads ({args.heads}) divisible by the seq axis "
+                f"({n}); use ring or adjust heads")
+        local = args.heads // args.tensor_parallel
+        if args.stages > 1 and local % n:
+            raise ValueError(f"ulysses needs n_heads ({local}) divisible by the seq axis ({n})")
 
 
 def _default_virtual(args) -> int:
@@ -893,7 +926,8 @@ def cmd_lm(args) -> int:
     device = resolve_device(args.device)
     cfg = TransformerConfig(
         vocab_size=256, d_model=args.d_model, n_heads=args.heads, n_layers=args.layers,
-        d_ff=4 * args.d_model, max_seq_len=args.seq_len,
+        # sp feeds full (seq_len + 1)-token rows: one more position
+        d_ff=4 * args.d_model, max_seq_len=args.seq_len + (1 if args.seq_parallel > 1 else 0),
         compute_dtype="bfloat16" if args.bf16 else "float32", remat=args.remat)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     _validate_parallel(args)
@@ -915,14 +949,15 @@ def cmd_lm(args) -> int:
     batches = lm_batches(train_rows, args.batch_size, seed=args.seed, epochs=None)
     checkpoints = _checkpoint_manager(args)
     pipeline = {}
-    if args.stages > 1:
+    if args.stages > 1 or args.seq_parallel > 1:
         from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
 
-        spec = MeshSpec(stage=args.stages, data=args.data_parallel, model=args.tensor_parallel)
+        spec = MeshSpec(stage=args.stages, data=args.data_parallel, model=args.tensor_parallel,
+                        seq=args.seq_parallel)
         pipeline = dict(mesh=build_mesh(spec, _slot_devices(device, spec.num_devices)),
                         num_stages=args.stages, num_microbatches=args.microbatches,
                         schedule=args.schedule, num_virtual=_default_virtual(args),
-                        tensor_parallel=args.tensor_parallel)
+                        tensor_parallel=args.tensor_parallel, sp_mode=args.sp_mode)
     t0 = time.monotonic()
     try:
         params, history = train_lm(params, cfg, batches, train_cfg, checkpoints=checkpoints,
@@ -1153,9 +1188,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "interleaved); default 2 for interleaved, 1 "
                         "(classic contiguous placement) for zb")
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="data replicas of the pipeline (with --stages > 1)")
+                   help="data replicas of the pipeline (with --stages > 1) or of the "
+                        "sequence-parallel program (with --seq-parallel > 1)")
     p.add_argument("--seq-parallel", type=int, default=1,
-                   help="sequence parallelism (not ported: refused above 1)")
+                   help="shard the sequence axis over N seq slots for long-context "
+                        "training (see --sp-mode)")
     p.add_argument("--tensor-parallel", type=int, default=1,
                    help="Megatron-shard each stage's blocks over N model slots "
                         "(requires --stages > 1)")
@@ -1166,7 +1203,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decode --sample-bytes IN the pipeline placement: blocks + "
                         "per-stage KV caches over N stage slots")
     p.add_argument("--sp-mode", choices=["ring", "ulysses"], default="ring",
-                   help="sequence-parallel decomposition (not ported)")
+                   help="sequence-parallel decomposition: ring attention "
+                        "(K/V rotation, O(T/N) memory) or ulysses "
+                        "(all-to-all head scatter; needs heads %% N == 0)")
     p.add_argument("--microbatches", type=int, default=4)
     p.add_argument("--zero1", action="store_true", help="ZeRO-1 (not ported)")
     p.add_argument("--fsdp", action="store_true", help="FSDP (not ported)")

@@ -1,7 +1,8 @@
-"""Collectives over the model slots of one ``(stage, data)`` cell.
+"""Collectives over the model slots and the seq slots of one ``(stage, data)`` cell.
 
 The port's counterpart of ``shard_map``'s ``psum`` and ``all_gather``
-over the JAX mesh's ``model`` axis. One process drives every slot
+over the JAX mesh's ``model`` axis, and of the ring hop (``ppermute``)
+and ``all_to_all`` over its ``seq`` axis. One process drives every slot
 (:mod:`~tpu_dist_nn_torch.parallel.mesh`): a cell's model slots each
 run their shard's work on their own stream, and the cell's lead slot
 (model shard 0) holds the replicated values.
@@ -18,6 +19,20 @@ run their shard's work on their own stream, and the cell's lead slot
   up on the lead.
 * :func:`all_gather` concatenates the shards' columns on the lead in
   shard order (the FCNN column split).
+* :func:`rotate` is one ring hop over seq slots: slot ``q`` receives seq
+  slot ``q - 1``'s block after waiting for that slot's stream (the same
+  tensor on one card, a peer copy on another).
+* :func:`all_to_all` splits each seq shard's tensor along one dim and
+  hands piece ``j`` to seq slot ``j``, which concatenates the pieces it
+  receives along another dim in shard order.
+
+Both seq collectives are autograd ops built from views, hand-offs and
+``torch.cat``: their backward is the reverse hop and the inverse
+exchange, run by autograd on the streams the forward used. A block over
+several slots starts with :func:`fork` (every slot waits for the
+caller's stream) and ends with :func:`join` (the caller waits for every
+slot), so a remat recompute, issued from a backward stream, finds its
+inputs ready and hands its outputs back.
 
 Streams: autograd runs each backward op on its forward op's stream and
 synchronises a gradient that crosses streams; a tensor that one stream
@@ -58,14 +73,14 @@ def fan_out(x: torch.Tensor, slots: Sequence[StageSlot]) -> list[torch.Tensor]:
     return out
 
 
-def _to_lead(lead: StageSlot, slot: StageSlot, part: torch.Tensor) -> torch.Tensor:
-    """A shard's ``part`` (made on ``slot``'s stream) usable on the
-    lead's stream, which is current."""
-    if lead.stream is None:
-        return part.to(lead.device)
-    if slot is not lead:
-        lead.stream.wait_stream(slot.stream)
-    return _receive(lead, part)
+def _hand_off(dst: StageSlot, src: StageSlot, x: torch.Tensor) -> torch.Tensor:
+    """``x`` (made on ``src``'s stream) usable on ``dst``'s stream, which
+    is current."""
+    if dst.stream is None:
+        return x.to(dst.device)
+    if src is not dst:
+        dst.stream.wait_stream(src.stream)
+    return _receive(dst, x)
 
 
 def psum(parts: Sequence[torch.Tensor], slots: Sequence[StageSlot]) -> torch.Tensor:
@@ -74,7 +89,7 @@ def psum(parts: Sequence[torch.Tensor], slots: Sequence[StageSlot]) -> torch.Ten
     lead = slots[0]
     total = parts[0]
     for slot, part in zip(slots[1:], parts[1:]):
-        total = total + _to_lead(lead, slot, part)
+        total = total + _hand_off(lead, slot, part)
     return total
 
 
@@ -83,5 +98,50 @@ def all_gather(parts: Sequence[torch.Tensor], slots: Sequence[StageSlot],
     """The shards' ``parts`` concatenated along ``dim`` in shard order on
     the lead's stream (``slots[0]``, current)."""
     lead = slots[0]
-    return torch.cat([parts[0]] + [_to_lead(lead, slot, part)
+    return torch.cat([parts[0]] + [_hand_off(lead, slot, part)
                                    for slot, part in zip(slots[1:], parts[1:])], dim=dim)
+
+
+def fork(slots: Sequence[StageSlot]):
+    """Every CUDA slot waits for the current stream of its card; returns
+    that stream (None on the CPU), for :func:`join`."""
+    if slots[0].stream is None:
+        return None
+    caller = torch.cuda.current_stream(slots[0].device)
+    for slot in slots:
+        slot.stream.wait_stream(caller)
+    return caller
+
+
+def join(caller, slots: Sequence[StageSlot]) -> None:
+    """The stream :func:`fork` returned waits for every slot."""
+    if caller is not None:
+        for slot in slots:
+            caller.wait_stream(slot.stream)
+
+
+def rotate(xs: Sequence[torch.Tensor], slots: Sequence[StageSlot]) -> list[torch.Tensor]:
+    """One ring hop: ``xs[q]`` lives on seq slot ``q``; returns ``ys``
+    with ``ys[q] = xs[q - 1]`` usable on slot ``q``'s stream."""
+    n = len(slots)
+    out = []
+    for q, slot in enumerate(slots):
+        with on_slot(slot):
+            out.append(_hand_off(slot, slots[(q - 1) % n], xs[(q - 1) % n]))
+    return out
+
+
+def all_to_all(xs: Sequence[torch.Tensor], slots: Sequence[StageSlot], split_dim: int,
+               concat_dim: int) -> list[torch.Tensor]:
+    """``shard_map``'s tiled ``all_to_all`` over seq slots: ``xs[i]`` (on
+    slot ``i``) splits into ``len(slots)`` equal pieces along
+    ``split_dim``; slot ``j`` receives piece ``j`` of every shard and
+    concatenates them along ``concat_dim`` in shard order."""
+    n = len(slots)
+    pieces = [x.chunk(n, dim=split_dim) for x in xs]
+    out = []
+    for j, slot in enumerate(slots):
+        with on_slot(slot):
+            out.append(torch.cat([_hand_off(slot, src, pieces[i][j])
+                                  for i, src in enumerate(slots)], dim=concat_dim))
+    return out

@@ -17,6 +17,14 @@ the reader is done. A tensor on another card is copied peer to peer:
 the copy runs on the source card's current stream after that stream has
 waited for the producer (see ``_receive``).
 
+Under sequence parallelism an op's input and output are the tuple of its
+seq shards, each on its own seq slot, and ``launch`` takes the tuple of
+the cell's seq slots: each shard is received on its own slot (after the
+producer's event), the op runs on seq slot 0, which waits for every seq
+slot before and after it, and its one event covers every shard. A stage
+hand-off moves each shard to the same seq slot of the next stage;
+nothing is gathered at a boundary.
+
 The same calls run inside a CUDA graph capture (the captured training
 step and the pipelined forward, :mod:`tpu_dist_nn_torch.train.graphs`):
 each event wait becomes an edge of the graph, and a hand-off block that
@@ -48,11 +56,15 @@ def _receive(slot: StageSlot, x: torch.Tensor) -> torch.Tensor:
     return x.to(slot.device, non_blocking=True)
 
 
-def launch(slot: StageSlot, fn: Callable, x: torch.Tensor | None, ready=None):
+def launch(slot, fn: Callable, x, ready=None):
     """Run ``fn(x)`` on ``slot`` after ``ready`` (the event that makes
     ``x`` valid; None when it already is). Returns ``(out, done)``:
     ``done`` is the event recorded after the op on the slot's stream
-    (None on a CPU slot, where ops run in issue order)."""
+    (None on a CPU slot, where ops run in issue order). ``slot`` a tuple
+    of seq slots: ``x`` is the tuple of seq shards (see the module
+    docstring)."""
+    if isinstance(slot, tuple):
+        return _launch_shards(slot, fn, x, ready)
     if slot.stream is None:
         return fn(x), None
     with torch.cuda.stream(slot.stream):
@@ -61,6 +73,31 @@ def launch(slot: StageSlot, fn: Callable, x: torch.Tensor | None, ready=None):
         out = fn(None if x is None else _receive(slot, x))
         done = torch.cuda.Event()
         done.record(slot.stream)
+    return out, done
+
+
+def _launch_shards(slots: tuple, fn: Callable, xs, ready):
+    lead = slots[0]
+    if lead.stream is None:
+        return fn(xs), None
+    if xs is not None:
+        got = []
+        for slot, x in zip(slots, xs):
+            with torch.cuda.stream(slot.stream):
+                if ready is not None:
+                    slot.stream.wait_event(ready)
+                got.append(_receive(slot, x))
+        xs = tuple(got)
+    elif ready is not None:
+        lead.stream.wait_event(ready)
+    with torch.cuda.stream(lead.stream):
+        for slot in slots[1:]:
+            lead.stream.wait_stream(slot.stream)
+        out = fn(xs)
+        for slot in slots[1:]:
+            lead.stream.wait_stream(slot.stream)
+        done = torch.cuda.Event()
+        done.record(lead.stream)
     return out, done
 
 
@@ -93,10 +130,11 @@ def gpipe_forward(mesh: Mesh, stage_fns, xs, ready=None) -> list[list]:
 
     ``stage_fns[d][s]``: stage ``s``'s function on replica ``d``;
     ``xs[m][d]``: microbatch ``m``'s rows for replica ``d`` (None = no
-    rows: skipped); ``ready``: the event after which every ``xs`` is
-    valid. Step ``t`` issues stage ``s`` on microbatch ``t - s``.
-    Returns ``outs[m][d] = (tensor, event)`` from the last stage (None
-    where skipped)."""
+    rows: skipped; the tuple of its seq shards on a mesh with seq
+    slots); ``ready``: the event after which every ``xs`` is valid.
+    Step ``t`` issues stage ``s`` on microbatch ``t - s``. Returns
+    ``outs[m][d] = (tensor, event)`` from the last stage (None where
+    skipped)."""
     S, D, M = mesh.spec.stage, mesh.spec.data, len(xs)
     cur = [[None if x is None else (x, ready) for x in row] for row in xs]
     for t in range(M + S - 1):
@@ -104,5 +142,5 @@ def gpipe_forward(mesh: Mesh, stage_fns, xs, ready=None) -> list[list]:
             for s in range(S):
                 m = t - s
                 if 0 <= m < M and cur[m][d] is not None:
-                    cur[m][d] = launch(mesh.slots[s][d], stage_fns[d][s], *cur[m][d])
+                    cur[m][d] = launch(mesh.cell(s, d), stage_fns[d][s], *cur[m][d])
     return cur

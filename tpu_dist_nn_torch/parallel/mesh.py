@@ -12,12 +12,15 @@ one slot (one stream) per mention, so one H100 can run a multi-stage
 schedule, as the JAX tests run one on eight virtual host devices. CPU
 slots have no stream: their ops run in issue order.
 
-Slots sit on the ``(stage, data, model)`` axes of the JAX mesh, in its
-device order: data outermost, model innermost, so slot ``(s, d, m)`` is
-``devices[(d * stage + s) * model + m]``. ``slots[s][d]`` is a cell's
-model slot 0 (its lead), and ``model_slots[s][d]`` all of its model
-slots: with ``model == 1`` (the default) the grid is the ``(stage,
-data)`` one of the dense pipelines.
+Slots sit on the ``(stage, data, seq, model)`` axes of the JAX mesh, in
+its device order ``(data, seq, stage, model)``: data outermost, model
+innermost, so slot ``(s, d, q, m)`` is ``devices[((d * seq + q) * stage
++ s) * model + m]``. ``seq_slots[s][d][q]`` holds the model slots of seq
+shard ``q`` of the ``(stage, data)`` cell; ``model_slots[s][d]`` is seq
+shard 0's and ``slots[s][d]`` its model slot 0 (the cell's lead). With
+``seq == 1`` (the default) the grid is the Megatron ``(stage, data, model)``
+one, and with ``model == 1`` too the ``(stage, data)`` one of the dense
+pipelines.
 """
 
 from __future__ import annotations
@@ -32,20 +35,22 @@ from tpu_dist_nn_torch.utils.device import resolve_device
 AXIS_STAGE = "stage"
 AXIS_DATA = "data"
 AXIS_MODEL = "model"
+AXIS_SEQ = "seq"
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """Pipeline stages x data replicas x model (tensor-parallel) shards;
-    the product must fit the slots."""
+    """Pipeline stages x data replicas x model (tensor-parallel) shards x
+    seq (sequence-parallel) shards; the product must fit the slots."""
 
     stage: int = 1
     data: int = 1
     model: int = 1
+    seq: int = 1
 
     @property
     def num_devices(self) -> int:
-        return self.stage * self.data * self.model
+        return self.stage * self.data * self.model * self.seq
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,27 +63,49 @@ class StageSlot:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A ``(stage, data, model)`` grid of :class:`StageSlot`:
-    ``model_slots[s][d][m]``; ``slots[s][d]`` is ``model_slots[s][d][0]``."""
+    """A ``(stage, data, seq, model)`` grid of :class:`StageSlot`:
+    ``seq_slots[s][d][q][m]``; ``model_slots[s][d]`` is
+    ``seq_slots[s][d][0]`` and ``slots[s][d]`` is ``model_slots[s][d][0]``."""
 
     spec: MeshSpec
-    model_slots: tuple[tuple[tuple[StageSlot, ...], ...], ...]
+    seq_slots: tuple[tuple[tuple[tuple[StageSlot, ...], ...], ...], ...]
+
+    @functools.cached_property
+    def model_slots(self) -> tuple[tuple[tuple[StageSlot, ...], ...], ...]:
+        """Each ``(stage, data)`` cell's model slots of seq shard 0."""
+        return tuple(tuple(cell[0] for cell in row) for row in self.seq_slots)
 
     @functools.cached_property
     def slots(self) -> tuple[tuple[StageSlot, ...], ...]:
-        """Each ``(stage, data)`` cell's lead slot (model shard 0)."""
+        """Each ``(stage, data)`` cell's lead slot (seq and model shard 0)."""
         return tuple(tuple(cell[0] for cell in row) for row in self.model_slots)
+
+    def seq_leads(self, s: int, d: int) -> tuple[StageSlot, ...]:
+        """The lead (model shard 0) of each seq shard of cell ``(s, d)``."""
+        return tuple(shard[0] for shard in self.seq_slots[s][d])
+
+    def cell(self, s: int, d: int):
+        """Where :func:`~tpu_dist_nn_torch.parallel.gpipe.launch` issues
+        cell ``(s, d)``'s ops: its lead slot, or with seq shards the tuple
+        of their leads."""
+        return self.slots[s][d] if self.spec.seq == 1 else self.seq_leads(s, d)
+
+    @property
+    def all_slots(self) -> list[StageSlot]:
+        """Every slot, in grid order."""
+        return [slot for row in self.seq_slots for cell in row for shard in cell
+                for slot in shard]
 
     @property
     def shape(self) -> dict[str, int]:
         """Axis sizes by name, as ``jax.sharding.Mesh.shape`` gives them."""
         return {AXIS_STAGE: self.spec.stage, AXIS_DATA: self.spec.data,
-                AXIS_MODEL: self.spec.model}
+                AXIS_MODEL: self.spec.model, AXIS_SEQ: self.spec.seq}
 
     @property
     def devices(self) -> set[torch.device]:
         """The distinct devices of the slots."""
-        return {slot.device for row in self.model_slots for cell in row for slot in cell}
+        return {slot.device for slot in self.all_slots}
 
     @property
     def on_one_card(self) -> bool:
@@ -99,16 +126,18 @@ def visible_devices(device=None) -> list[torch.device]:
 
 
 def build_mesh(spec: MeshSpec, devices=None) -> Mesh:
-    """Build the ``(stage, data, model)`` slot grid from ``devices``
+    """Build the ``(stage, data, seq, model)`` slot grid from ``devices``
     (default: :func:`visible_devices`). Each CUDA slot gets a new
     stream, so a card listed k times carries k streams. Raises when
-    fewer devices are given than ``stage x data x model``, as the JAX
-    ``build_mesh`` does."""
+    fewer devices are given than ``stage x data x model x seq``, as the
+    JAX ``build_mesh`` does."""
     devices = visible_devices() if devices is None else [resolve_device(d) for d in devices]
     if spec.num_devices > len(devices):
         axes = f"{spec.stage} stage x {spec.data} data"
         if spec.model != 1:
             axes += f" x {spec.model} model"
+        if spec.seq != 1:
+            axes += f" x {spec.seq} seq"
         raise ValueError(
             f"mesh spec needs {spec.num_devices} devices ({axes}) but only "
             f"{len(devices)} are available"
@@ -122,7 +151,7 @@ def build_mesh(spec: MeshSpec, devices=None) -> Mesh:
         return StageSlot(dev, torch.cuda.Stream(device=dev))
 
     flat = [slot(d) for d in devices[: spec.num_devices]]
-    S, D, N = spec.stage, spec.data, spec.model
-    grid = tuple(tuple(tuple(flat[(d * S + s) * N + m] for m in range(N)) for d in range(D))
-                 for s in range(S))
+    S, D, N, Q = spec.stage, spec.data, spec.model, spec.seq
+    grid = tuple(tuple(tuple(tuple(flat[((d * Q + q) * S + s) * N + m] for m in range(N))
+                             for q in range(Q)) for d in range(D)) for s in range(S))
     return Mesh(spec, grid)

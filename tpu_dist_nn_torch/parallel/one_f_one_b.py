@@ -138,10 +138,30 @@ def training_order(schedule: str, num_stages: int, num_virtual: int, num_microba
     return gpipe_order(num_stages, num_microbatches)
 
 
-def _use_here(t: torch.Tensor | None) -> torch.Tensor | None:
+def _use_here(t):
+    """``t`` (a tensor, a tuple of seq shards or None) read on the
+    current stream: recorded there for the caching allocator."""
+    if isinstance(t, tuple):
+        return tuple(_use_here(x) for x in t)
     if t is not None and t.is_cuda:
         t.record_stream(torch.cuda.current_stream(t.device))
     return t
+
+
+def _detached(x, requires_grad: bool | None = None):
+    """``x.detach()`` (requiring grad when asked), shard by shard for a
+    tuple of seq shards."""
+    if isinstance(x, tuple):
+        return tuple(_detached(t, requires_grad) for t in x)
+    return x.detach() if requires_grad is None else x.detach().requires_grad_(requires_grad)
+
+
+def _grad_of(x):
+    return tuple(t.grad for t in x) if isinstance(x, tuple) else x.grad
+
+
+def _requires_grad(x) -> bool:
+    return any(t.requires_grad for t in x) if isinstance(x, tuple) else x.requires_grad
 
 
 def run_schedule(mesh: Mesh, chunk_fns, order, xs, labels, masks, tail=masked_ce_tail, *,
@@ -164,6 +184,10 @@ def run_schedule(mesh: Mesh, chunk_fns, order, xs, labels, masks, tail=masked_ce
     parked)`` and ``split.backward_w(d, c, parked)`` do the backward;
     see the module docstring).
 
+    On a mesh with seq slots every activation, cotangent, label and mask
+    is the tuple of its seq shards (the chunks and the tail take and
+    give tuples; :func:`~tpu_dist_nn_torch.parallel.gpipe.launch`).
+
     Returns ``[(loss, event)]``, one per (microbatch, replica): each a
     detached scalar with the event after it. Before the first op every
     slot stream waits for its card's current stream (the inputs' copies
@@ -172,7 +196,7 @@ def run_schedule(mesh: Mesh, chunk_fns, order, xs, labels, masks, tail=masked_ce
     """
     S, D = mesh.spec.stage, mesh.spec.data
     V = len(chunk_fns[0])
-    slots = [slot for s in range(S) for d in range(D) for slot in mesh.model_slots[s][d]]
+    slots = mesh.all_slots
     for slot in slots:
         if slot.stream is not None:
             slot.stream.wait_stream(torch.cuda.current_stream(slot.device))
@@ -180,19 +204,19 @@ def run_schedule(mesh: Mesh, chunk_fns, order, xs, labels, masks, tail=masked_ce
     stash, parked, grads, losses = {}, {}, {}, []
     for s, op, c, m in order:
         for d in range(D):
-            slot, key = mesh.slots[s][d], (c, m, d)
+            slot, key = mesh.cell(s, d), (c, m, d)
             if op == FWD:
                 def fwd(x, fn=chunk_fns[d][c], c=c):
                     if split is not None:
                         with torch.no_grad():
                             return x, fn(x)
-                    x_in = x.detach().requires_grad_(c > 0)
+                    x_in = _detached(x, c > 0)
                     return x_in, fn(x_in)
 
                 (x_in, y), ev = launch(slot, fwd, *acts.pop((c - 1, m, d)))
                 stash[key] = (x_in, y)
                 if c < V - 1:
-                    acts[key] = (y.detach(), ev)
+                    acts[key] = (_detached(y), ev)
                 continue
             if op == BWD_W:
                 def bwd_w(_, d=d, c=c, held=parked.pop(key)):
@@ -217,11 +241,12 @@ def run_schedule(mesh: Mesh, chunk_fns, order, xs, labels, masks, tail=masked_ce
                 loss = tail(y, lab, msk) if last else None
                 out = y if loss is None else loss
                 if combined:
-                    if out.requires_grad:
+                    if _requires_grad(out):
                         torch.autograd.backward(out, dy)
                 elif c > 0:
-                    torch.autograd.backward(out, dy, inputs=[x_in], retain_graph=True)
-                return x_in.grad, None if loss is None else loss.detach(), (out, dy)
+                    torch.autograd.backward(out, dy, inputs=list(x_in) if isinstance(
+                        x_in, tuple) else [x_in], retain_graph=True)
+                return _grad_of(x_in), None if loss is None else loss.detach(), (out, dy)
 
             (dx, loss, held), ev = launch(slot, bwd, dy, ready)
             if op != BWD:

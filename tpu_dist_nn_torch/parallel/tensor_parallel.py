@@ -14,6 +14,10 @@ Port of :mod:`tpu_dist_nn.parallel.tensor_parallel`:
   zero-padded to a multiple of ``N``; the shards' columns are gathered,
   the padding sliced off and the activation applied to the full row.
 
+Under sequence parallelism :func:`tp_sp_block_apply` runs the same
+block on each seq shard's model slots, with ring or Ulysses attention
+across the seq slots of each model shard (on its local heads).
+
 Layouts are the JAX package's: :func:`tp_shard_blocks` gives sharded
 leaves a leading ``(N, ...)`` model axis and keeps :data:`TP_REPLICATED`
 leaves ``(L, ...)``. Each shard's work is enqueued on its model slot's
@@ -38,7 +42,7 @@ from tpu_dist_nn_torch.models.transformer import (
     unembed,
     unstack_blocks,
 )
-from tpu_dist_nn_torch.parallel.collectives import all_gather, fan_out, on_slot, psum
+from tpu_dist_nn_torch.parallel.collectives import all_gather, fan_out, fork, join, on_slot, psum
 from tpu_dist_nn_torch.parallel.gpipe import caller_event, gather, launch
 from tpu_dist_nn_torch.parallel.mesh import AXIS_DATA, AXIS_MODEL, Mesh, StageSlot
 
@@ -148,25 +152,98 @@ def tp_block_apply(blocks: Sequence[dict], x, cfg, slots: Sequence[StageSlot] | 
         return parts
 
     def attn_part(m, block, xm):
-        h = layer_norm(xm, block["ln1_g"], block["ln1_b"])
-        qkv = h @ block["w_qkv"] + block["b_qkv"]
-        q, k, v = qkv.reshape(B, T, 3 * Hl, Dh).split(Hl, dim=2)
+        q, k, v = _shard_qkv(block, xm, Hl, Dh)
         return shard_attn(m, q, k, v).reshape(B, T, Hl * Dh) @ block["w_o"]
-
-    def mlp_part(m, block, xm):
-        h = layer_norm(xm, block["ln2_g"], block["ln2_b"])
-        up = F.gelu(h @ block["w_up"] + block["b_up"], approximate="tanh")
-        return up @ block["w_down"]
 
     with on_slot(lead):
         parts = shards(attn_part, fan_out(x, slots))
         x = x + (psum(parts, slots) + blocks[0]["b_o"])
-        parts = shards(mlp_part, fan_out(x, slots))
+        parts = shards(_shard_mlp, fan_out(x, slots))
         y = x + (psum(parts, slots) + blocks[0]["b_down"])
     if caller is not None:
         caller.wait_stream(lead.stream)
         y.record_stream(caller)
     return y
+
+
+def _shard_qkv(block: dict, xm, Hl: int, Dh: int):
+    """A model shard's q, k, v ``(B, T, Hl, Dh)`` from its QKV columns."""
+    B, T, _ = xm.shape
+    h = layer_norm(xm, block["ln1_g"], block["ln1_b"])
+    qkv = h @ block["w_qkv"] + block["b_qkv"]
+    return qkv.reshape(B, T, 3 * Hl, Dh).split(Hl, dim=2)
+
+
+def _shard_mlp(m, block: dict, xm):
+    """A model shard's partial MLP output (before the psum)."""
+    h = layer_norm(xm, block["ln2_g"], block["ln2_b"])
+    up = F.gelu(h @ block["w_up"] + block["b_up"], approximate="tanh")
+    return up @ block["w_down"]
+
+
+def tp_sp_block_apply(blocks: Sequence[Sequence[dict]], xs, cfg,
+                      seq_slots: Sequence[Sequence[StageSlot]], sp_attn):
+    """One Megatron-sharded block over seq shards: :func:`tp_block_apply`
+    on each seq shard's model slots, in phases, with attention across the
+    seq slots of each model shard.
+
+    ``xs[q] (B, T_local, D)``, replicated over seq shard ``q``'s model
+    slots ``seq_slots[q]`` (its lead ``seq_slots[q][0]`` holds it);
+    ``blocks[q][m]``: model shard ``m``'s unstacked leaves on slot
+    ``(q, m)``. The QKV projections run on every ``(q, m)`` slot;
+    ``sp_attn`` (ring or Ulysses) then attends over ``[(q, m) for q]`` on
+    model shard ``m``'s ``H / N`` local heads; the output projection, the
+    MLP and the two psums run per seq shard exactly as
+    :func:`tp_block_apply` runs them. Every slot first waits for the
+    caller's stream, which waits for every slot at the end. Returns the
+    shards' outputs, each on its seq shard's lead."""
+    n = len(seq_slots[0])
+    Hl, Dh = cfg.n_heads // n, cfg.head_dim
+    flat = [slot for row in seq_slots for slot in row]
+    caller = fork(flat)
+
+    def shards(fn, q, xms):
+        parts = []
+        for m, (slot, block, xm) in enumerate(zip(seq_slots[q], blocks[q], xms)):
+            with on_slot(slot):
+                parts.append(fn(m, block, xm))
+        return parts
+
+    fanned, qkv = [], []
+    for q, (row, x) in enumerate(zip(seq_slots, xs)):
+        with on_slot(row[0]):
+            fanned.append(fan_out(x, row))
+        qkv.append(shards(lambda m, block, xm: _shard_qkv(block, xm, Hl, Dh), q, fanned[q]))
+    outs = [[None] * n for _ in xs]
+    for m in range(n):
+        got = sp_attn(*([qkv[q][m][j] for q in range(len(xs))] for j in range(3)),
+                      [row[m] for row in seq_slots], causal=cfg.causal)
+        for q, o in enumerate(got):
+            outs[q][m] = o
+    ys = []
+    for q, (row, x) in enumerate(zip(seq_slots, xs)):
+        B, T, _ = x.shape
+        with on_slot(row[0]):
+            parts = shards(lambda m, block, o: o.reshape(B, T, Hl * Dh) @ block["w_o"], q,
+                           outs[q])
+            x = x + (psum(parts, row) + blocks[q][0]["b_o"])
+            parts = shards(_shard_mlp, q, fan_out(x, row))
+            ys.append(x + (psum(parts, row) + blocks[q][0]["b_down"]))
+    join(caller, flat)
+    return tuple(ys)
+
+
+def tp_sp_scan(shards: Sequence[Sequence[dict]], xs, cfg, seq_slots, sp_attn):
+    """A stacked block group through :func:`tp_sp_block_apply` (under
+    remat when ``cfg.remat``, one checkpoint a block across every seq and
+    model slot): ``shards[q][m]`` holds slot ``(q, m)``'s stacked
+    ``(Lg, ...)`` leaves."""
+    apply = maybe_remat(cfg, tp_sp_block_apply)
+    per = [[unstack_blocks(sh) for sh in row] for row in shards]
+    for l in range(len(per[0][0])):
+        layer = [[blocks[l] for blocks in row] for row in per]
+        xs = apply(layer, xs, cfg, seq_slots, sp_attn)
+    return xs
 
 
 def tp_scan(shards: Sequence[dict], x, cfg, slots=None, attn_fn=None):

@@ -1,7 +1,6 @@
-"""Per-block transformer pipeline over stage slots, and its Megatron composition.
+"""Per-block transformer pipeline over stage slots, with Megatron and sequence parallelism.
 
-Port of :mod:`tpu_dist_nn.parallel.transformer_pipeline` without the
-sequence-parallel layouts. BASELINE configs[4]: "Tiny-Transformer
+Port of :mod:`tpu_dist_nn.parallel.transformer_pipeline`. BASELINE configs[4]: "Tiny-Transformer
 encoder ... per-block pipeline stage". The block stack's leading layer
 axis is regrouped per stage (:func:`shard_blocks`), per virtual-stage
 chunk (:func:`shard_blocks_interleaved`, also the zb and zb-stash
@@ -30,6 +29,20 @@ receives a zero gradient); data replicas share them, so their
 contributions add up, and the loss is the per-microbatch mean CE over
 ``M * data``, which makes the sum the global mean. Grads come back in the
 params' layout.
+
+Sequence parallelism (the ``*_sp_*`` and ``*_tp_sp_*`` functions) keeps
+the dense and Megatron layouts: each microbatch's sequence is split over
+the cell's seq slots, a chunk takes and gives the tuple of its seq shards
+(:func:`_sp_chunk_fn`: the embedding at global positions, then ring or
+Ulysses blocks), and a stage hand-off moves each shard to the same seq
+slot of the next stage. The tokens are full (input + target) rows: the
+tail of each (microbatch, seq shard) scores pre-shifted targets under a
+mask normalised by ``B * (T - 1)`` (:func:`_sp_prep`), so the shards'
+partial sums add up to
+:func:`~tpu_dist_nn_torch.models.transformer.masked_next_token_ce`, and a
+seq shard's gradients add into the shared leaves as a data replica's do
+(in another order than the JAX package's ``psum``: equal within
+rounding, not bit for bit).
 """
 
 from __future__ import annotations
@@ -39,6 +52,7 @@ import torch
 from tpu_dist_nn_torch.kernels.flash_attention import default_attn_fn
 from tpu_dist_nn_torch.models.transformer import (
     embed,
+    masked_next_token_ce,
     maybe_remat,
     next_token_ce,
     tree_map,
@@ -49,13 +63,25 @@ from tpu_dist_nn_torch.parallel import split_backward
 from tpu_dist_nn_torch.parallel.collectives import on_slot
 from tpu_dist_nn_torch.parallel.gpipe import caller_event, gather, gpipe_forward
 from tpu_dist_nn_torch.parallel.interleaved import table_order
-from tpu_dist_nn_torch.parallel.mesh import AXIS_DATA, AXIS_MODEL, AXIS_STAGE, Mesh
-from tpu_dist_nn_torch.parallel.one_f_one_b import run_schedule, schedule_tables, training_order
+from tpu_dist_nn_torch.parallel.mesh import AXIS_DATA, AXIS_MODEL, AXIS_SEQ, AXIS_STAGE, Mesh
+from tpu_dist_nn_torch.parallel.one_f_one_b import (
+    _use_here,
+    run_schedule,
+    schedule_tables,
+    training_order,
+)
+from tpu_dist_nn_torch.parallel.ring_attention import (
+    _sp_attn_fn,
+    check_sp_rows,
+    embed_at,
+    sp_scan,
+)
 from tpu_dist_nn_torch.parallel.schedule_table import build_zb_v, build_zero_bubble
 from tpu_dist_nn_torch.parallel.tensor_parallel import (
     TP_REPLICATED,
     tp_scan,
     tp_shard_blocks,
+    tp_sp_scan,
     tp_unshard_blocks,
 )
 
@@ -283,8 +309,60 @@ def _chunk_fn(cfg, shards, cell, attn_fn, tp: bool, top=None):
     return fn
 
 
+def _sp_chunk_fn(cfg, shards, seq_cells, sp_attn, tp: bool, top=None):
+    """Chunk body over a cell's seq shards: ``seq_cells[q]`` the model
+    slots of seq shard ``q``, the input the tuple of its shards (token
+    ids when ``top``, embedded at their global positions). Each slot
+    casts its own leaves on its stream; the blocks run dense
+    (:func:`~tpu_dist_nn_torch.parallel.ring_attention.sp_scan`) or
+    Megatron-sharded (:func:`~tpu_dist_nn_torch.parallel.tensor_parallel.
+    tp_sp_scan`). Returns the tuple of the output shards."""
+
+    def fn(xs):
+        lead = seq_cells[0][0]
+        here = []
+        for cell in seq_cells:
+            row = []
+            for slot, sh in zip(cell, shards):
+                if slot is not lead and slot.stream is not None:
+                    slot.stream.wait_stream(lead.stream)
+                with on_slot(slot):
+                    row.append(cfg.cast_params({k: a.to(slot.device) for k, a in sh.items()}))
+            here.append(row)
+        if top is not None:
+            Tl, emb = xs[0].shape[-1], []
+            for q, (cell, x) in enumerate(zip(seq_cells, xs)):
+                with on_slot(cell[0]):
+                    emb.append(embed_at(cfg.cast_params(
+                        {k: top[k].to(cell[0].device) for k in ("tok_embed", "pos_embed")}),
+                        x, q * Tl))
+            xs = tuple(emb)
+        if tp:
+            return tp_sp_scan(here, xs, cfg, seq_cells, sp_attn)
+        return sp_scan([row[0] for row in here], xs, cfg, [cell[0] for cell in seq_cells],
+                       sp_attn)
+
+    return fn
+
+
 def _resolve_attn(attn_fn):
     return attn_fn or default_attn_fn()
+
+
+def _seq_shards(rows, Q: int) -> tuple:
+    return tuple(rows.chunk(Q, dim=1))
+
+
+def _check_sp(cfg, mesh: Mesh, tp: bool, mode: str) -> None:
+    """The ulysses head split under tensor parallelism (JAX raises it
+    inside ``ulysses_attention`` at trace time)."""
+    Q = mesh.shape[AXIS_SEQ]
+    if tp and mode == "ulysses":
+        N = mesh.shape[AXIS_MODEL]
+        if (cfg.n_heads // N) % Q:
+            raise ValueError(
+                f"ulysses needs n_heads / model ({cfg.n_heads} / {N} = {cfg.n_heads // N} "
+                f"local heads) divisible by the seq axis ({Q})")
 
 
 def _microbatches(rows, M: int, D: int):
@@ -318,6 +396,31 @@ def _pipeline_logits(mesh: Mesh, cfg, num_stages: int, num_microbatches: int, at
         xs = _microbatches(tokens, M, D)
         outs = gpipe_forward(mesh, fns, xs, caller_event(tokens))
         ys = torch.cat(gather([o for row in outs for o in row], home), dim=0)
+        return unembed(cfg.cast_params({k: params[k] for k in _TOP}), ys)
+
+    return fn
+
+
+def _pipeline_sp_logits(mesh: Mesh, cfg, num_stages: int, num_microbatches: int, mode: str,
+                        attn_fn, tp: bool):
+    _check_stages(mesh, num_stages)
+    _check_sp(cfg, mesh, tp, mode)
+    layout = _Layout(num_stages, 1, False, _tp_size(mesh, tp))
+    D, Q, M = mesh.shape[AXIS_DATA], mesh.shape[AXIS_SEQ], num_microbatches
+
+    def fn(params, tokens):
+        check_sp_rows(cfg, tokens.shape[1], Q, " (sp feeds full input+target rows: pick "
+                      "seq_len so seq_len+1 divides)")
+        sp_attn = _sp_attn_fn(mode, attn_fn=attn_fn)
+        home = params["tok_embed"].device
+        views = _chunk_views(params["blocks"], layout, lambda k, i: params["blocks"][k][i])
+        fns = [[_sp_chunk_fn(cfg, views[s], mesh.seq_slots[s][d], sp_attn, tp,
+                             top=params if s == 0 else None)
+                for s in range(num_stages)] for d in range(D)]
+        xs = [[_seq_shards(x, Q) for x in row] for row in _microbatches(tokens, M, D)]
+        outs = gpipe_forward(mesh, fns, xs, caller_event(tokens))
+        ys = torch.cat([torch.cat(gather([(y, ev) for y in shards], home), dim=1)
+                        for row in outs for shards, ev in row], dim=0)
         return unembed(cfg.cast_params({k: params[k] for k in _TOP}), ys)
 
     return fn
@@ -426,11 +529,15 @@ _TAIL = ("tok_embed", "lnf_g", "lnf_b")
 
 
 def _scheduled_grad(mesh: Mesh, cfg, schedule: str, num_virtual: int, num_microbatches: int,
-                    attn_fn, *, interleaved: bool, tp: bool, tables=None):
+                    attn_fn, *, interleaved: bool, tp: bool, tables=None, sp_mode=None):
     """``f(params, tokens) -> (loss, grads)`` through ``run_schedule`` in
     ``schedule``'s op order (``tables`` in place of its default ones);
-    ``tokens (B, T + 1)``."""
+    ``tokens (B, T + 1)``, or with ``sp_mode`` (ring or ulysses over the
+    mesh's seq slots) full rows ``(B, T)`` under the masked CE."""
     S, D, M = mesh.shape[AXIS_STAGE], mesh.shape[AXIS_DATA], num_microbatches
+    Q = mesh.shape[AXIS_SEQ]
+    if sp_mode is not None:
+        _check_sp(cfg, mesh, tp, sp_mode)
     if tables is None:
         tables = schedule_tables(schedule, S, num_virtual, M)
     if tables is None:  # gpipe, 1f1b: chunk c on slot c
@@ -443,7 +550,8 @@ def _scheduled_grad(mesh: Mesh, cfg, schedule: str, num_virtual: int, num_microb
     stash_split = schedule == "zb-stash"
 
     def value_and_grad(params, tokens):
-        attn = _resolve_attn(attn_fn)
+        attn = _resolve_attn(attn_fn) if sp_mode is None else _sp_attn_fn(
+            sp_mode, in_schedule=True, attn_fn=attn_fn)
         blocks = params["blocks"]
         leaves: dict = {}
 
@@ -455,13 +563,28 @@ def _scheduled_grad(mesh: Mesh, cfg, schedule: str, num_virtual: int, num_microb
         views = _chunk_views(blocks, layout, leaf)
         top = {k: params[k].detach().requires_grad_() for k in _TOP}
         cells = [[mesh.model_slots[dev(c)][d] for d in range(D)] for c in range(V)]
-        fns = [[_chunk_fn(cfg, views[c], cells[c][d], attn, tp, top=top if c == 0 else None)
-                for c in range(V)] for d in range(D)]
+        if sp_mode is None:
+            fns = [[_chunk_fn(cfg, views[c], cells[c][d], attn, tp, top=top if c == 0 else None)
+                    for c in range(V)] for d in range(D)]
+        else:
+            fns = [[_sp_chunk_fn(cfg, views[c], mesh.seq_slots[dev(c)][d], attn, tp,
+                                 top=top if c == 0 else None)
+                    for c in range(V)] for d in range(D)]
         last = mesh.slots[dev(V - 1)]
 
         def tail(y, targets, _mask):
             head = cfg.cast_params({k: top[k].to(y.device) for k in _TAIL})
             return next_token_ce(unembed(head, y), targets) / (M * D)
+
+        def sp_tail(ys, targets, masks):
+            """The shards' masked sums, in shard order, on seq slot 0."""
+            dev0 = targets[0].device
+            head = cfg.cast_params({k: top[k].to(dev0) for k in _TAIL})
+            total = None
+            for y, tgt, mask in zip(ys, targets, masks):
+                part = _sp_masked_tail(head, _on_device(y, dev0), tgt, mask)
+                total = part if total is None else total + part
+            return total
 
         def weights_of(c):
             """The leaves chunk ``c``'s W differentiates (the recompute
@@ -473,10 +596,21 @@ def _scheduled_grad(mesh: Mesh, cfg, schedule: str, num_virtual: int, num_microb
 
         weights = [weights_of(c) for c in range(V)]
         split = StashSplit(cfg, views, top, cells, attn, tail) if stash_split else None
-        xs = _microbatches(tokens[:, :-1], M, D)
-        targets = [[t.to(last[d].device) for d, t in enumerate(row)]
-                   for row in _microbatches(tokens[:, 1:], M, D)]
-        losses = run_schedule(mesh, fns, order, xs, targets, [[None] * D] * M, tail=tail,
+        if sp_mode is None:
+            xs = _microbatches(tokens[:, :-1], M, D)
+            targets = [[t.to(last[d].device) for d, t in enumerate(row)]
+                       for row in _microbatches(tokens[:, 1:], M, D)]
+            masks = [[None] * D] * M
+        else:
+            tgt, mask = _sp_prep(cfg, tokens, Q)
+
+            def sharded(rows):
+                return [[tuple(t.to(last[d].device) for t in _seq_shards(r, Q))
+                         for d, r in enumerate(row)] for row in _microbatches(rows, M, D)]
+
+            xs = [[_seq_shards(r, Q) for r in row] for row in _microbatches(tokens, M, D)]
+            targets, masks, tail = sharded(tgt), sharded(mask), sp_tail
+        losses = run_schedule(mesh, fns, order, xs, targets, masks, tail=tail,
                               weights=[weights] * D, split=split)
         home = params["tok_embed"].device
         loss = torch.stack(gather(losses, home)).sum()
@@ -491,6 +625,36 @@ def _scheduled_grad(mesh: Mesh, cfg, schedule: str, num_virtual: int, num_microb
         return loss, grads
 
     return value_and_grad
+
+
+def _on_device(y, device):
+    """A seq shard read by the tail on the current stream of ``device``
+    (a peer copy from another card)."""
+    if y.device == device:
+        return _use_here(y)
+    if y.is_cuda:
+        y.record_stream(torch.cuda.current_stream(y.device))
+    return y.to(device, non_blocking=True)
+
+
+def _sp_masked_tail(head: dict, y, tgt, mask):
+    """A (microbatch, seq shard)'s masked CE sum: ``mask`` carries the
+    global ``1 / (B * (T - 1))``, so the shards' sums add up to
+    :func:`~tpu_dist_nn_torch.models.transformer.masked_next_token_ce`."""
+    logp = torch.log_softmax(unembed(head, y).float(), dim=-1)
+    ll = logp.gather(-1, tgt.long()[..., None])[..., 0]
+    return -(ll * mask).sum()
+
+
+def _sp_prep(cfg, tokens, seq: int):
+    """Full rows -> pre-shifted targets and the normalised mask: position
+    ``p`` scores ``tokens[p + 1]``, the last position of a row none."""
+    B, T = tokens.shape
+    check_sp_rows(cfg, T, seq, " (sp feeds full input+target rows)", "")
+    tgt = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    mask = torch.cat([torch.ones((B, T - 1), device=tokens.device),
+                      torch.zeros((B, 1), device=tokens.device)], dim=1) / (B * (T - 1))
+    return tgt, mask
 
 
 def make_pipeline_lm_1f1b_grad(mesh: Mesh, cfg, num_stages: int, num_microbatches: int,
@@ -603,6 +767,141 @@ def make_pipeline_lm_zb_stash_grad(mesh: Mesh, cfg, num_virtual: int, num_microb
     :func:`shard_blocks_interleaved` layout, as zb."""
     return _scheduled_grad(mesh, cfg, "zb-stash", num_virtual, num_microbatches, attn_fn,
                            interleaved=True, tp=False)
+
+
+# ---------------------------------------------------------------------------
+# Pipeline x sequence parallelism (x Megatron TP)
+# ---------------------------------------------------------------------------
+
+
+def make_pipeline_sp_lm_forward(mesh: Mesh, cfg, num_stages: int, num_microbatches: int,
+                                mode: str = "ring", attn_fn=None):
+    """-> ``fn(params, tokens) -> logits``: blocks pipelined over the
+    stage slots (GPipe) with every microbatch's sequence split over the
+    seq slots (ring or Ulysses attention in the stages), the batch over
+    the data slots. ``params["blocks"]`` in :func:`shard_blocks` layout;
+    ``tokens`` full (input + target) rows. ``attn_fn``: Ulysses' local
+    attention."""
+    return _pipeline_sp_logits(mesh, cfg, num_stages, num_microbatches, mode, attn_fn, tp=False)
+
+
+def make_pipeline_sp_lm_loss(mesh: Mesh, cfg, num_stages: int, num_microbatches: int,
+                             mode: str = "ring", attn_fn=None):
+    """Masked next-token CE through :func:`make_pipeline_sp_lm_forward`
+    (the sp-only loss's convention)."""
+    fwd = make_pipeline_sp_lm_forward(mesh, cfg, num_stages, num_microbatches, mode, attn_fn)
+    return lambda params, tokens: masked_next_token_ce(fwd(params, tokens), tokens)
+
+
+def make_pipeline_tp_sp_lm_forward(mesh: Mesh, cfg, num_stages: int, num_microbatches: int,
+                                   mode: str = "ring", attn_fn=None):
+    """-> ``fn(params, tokens) -> logits``: GPipe x Megatron TP x sequence
+    parallelism; ``params["blocks"]`` in :func:`shard_blocks_pp_tp`
+    layout, ``tokens`` full rows."""
+    return _pipeline_sp_logits(mesh, cfg, num_stages, num_microbatches, mode, attn_fn, tp=True)
+
+
+def make_pipeline_tp_sp_lm_loss(mesh: Mesh, cfg, num_stages: int, num_microbatches: int,
+                                mode: str = "ring", attn_fn=None):
+    """Masked next-token CE through :func:`make_pipeline_tp_sp_lm_forward`."""
+    fwd = make_pipeline_tp_sp_lm_forward(mesh, cfg, num_stages, num_microbatches, mode, attn_fn)
+    return lambda params, tokens: masked_next_token_ce(fwd(params, tokens), tokens)
+
+
+def make_pipeline_sp_lm_gpipe_grad(mesh: Mesh, cfg, num_stages: int, num_microbatches: int,
+                                   mode: str = "ring", attn_fn=None):
+    """-> ``f(params, tokens) -> (loss, grads)``: the gradient of
+    :func:`make_pipeline_sp_lm_loss` played op by op in the GPipe order;
+    ``params["blocks"]`` in :func:`shard_blocks` layout, full rows."""
+    _check_stages(mesh, num_stages)
+    return _scheduled_grad(mesh, cfg, "gpipe", 1, num_microbatches, attn_fn,
+                           interleaved=False, tp=False, sp_mode=mode)
+
+
+def make_pipeline_sp_lm_1f1b_grad(mesh: Mesh, cfg, num_stages: int, num_microbatches: int,
+                                  mode: str = "ulysses", attn_fn=None):
+    """1F1B x sequence parallelism (ring or Ulysses in the stage bodies,
+    the masked-CE tail a (microbatch, seq shard)); ``params["blocks"]``
+    in :func:`shard_blocks` layout, full rows."""
+    _check_stages(mesh, num_stages)
+    return _scheduled_grad(mesh, cfg, "1f1b", 1, num_microbatches, attn_fn,
+                           interleaved=False, tp=False, sp_mode=mode)
+
+
+def make_pipeline_sp_lm_interleaved_grad(mesh: Mesh, cfg, num_virtual: int,
+                                         num_microbatches: int, mode: str = "ulysses",
+                                         tables=None, attn_fn=None):
+    """Interleaved 1F1B (or ``tables``: the zero-bubble ones) x sequence
+    parallelism; ``params["blocks"]`` in :func:`shard_blocks_interleaved`
+    layout (:func:`shard_blocks_vshape` for the V-shape tables)."""
+    return _scheduled_grad(mesh, cfg, "interleaved", num_virtual, num_microbatches, attn_fn,
+                           interleaved=True, tp=False, tables=tables, sp_mode=mode)
+
+
+def make_pipeline_sp_lm_zb_grad(mesh: Mesh, cfg, num_virtual: int, num_microbatches: int,
+                                mode: str = "ulysses", attn_fn=None):
+    """ZB-H1 x sequence parallelism (the recompute split);
+    :func:`shard_blocks_interleaved` layout."""
+    tables = build_zero_bubble(mesh.shape[AXIS_STAGE], num_virtual, num_microbatches)
+    return make_pipeline_sp_lm_interleaved_grad(mesh, cfg, num_virtual, num_microbatches, mode,
+                                                tables=tables, attn_fn=attn_fn)
+
+
+def make_pipeline_sp_lm_zb_v_grad(mesh: Mesh, cfg, num_microbatches: int, mode: str = "ring",
+                                  attn_fn=None):
+    """ZB-V x sequence parallelism; :func:`shard_blocks_vshape` layout."""
+    tables = build_zb_v(mesh.shape[AXIS_STAGE], num_microbatches)
+    return make_pipeline_sp_lm_interleaved_grad(mesh, cfg, 2, num_microbatches, mode,
+                                                tables=tables, attn_fn=attn_fn)
+
+
+def make_pipeline_tp_sp_lm_gpipe_grad(mesh: Mesh, cfg, num_stages: int, num_microbatches: int,
+                                      mode: str = "ring", attn_fn=None):
+    """GPipe order x Megatron TP x sequence parallelism, the gradient of
+    :func:`make_pipeline_tp_sp_lm_loss`; :func:`shard_blocks_pp_tp` layout."""
+    _check_stages(mesh, num_stages)
+    return _scheduled_grad(mesh, cfg, "gpipe", 1, num_microbatches, attn_fn,
+                           interleaved=False, tp=True, sp_mode=mode)
+
+
+def make_pipeline_tp_sp_lm_1f1b_grad(mesh: Mesh, cfg, num_stages: int, num_microbatches: int,
+                                     mode: str = "ring", attn_fn=None):
+    """1F1B x Megatron TP x sequence parallelism (PP for depth, TP for
+    width, SP for length, DP for batch): each seq shard's block runs on
+    its model slots, attention over the seq slots of each model shard on
+    its local heads (Ulysses needs ``(n_heads / model) % seq == 0``).
+    :func:`shard_blocks_pp_tp` layout, full rows."""
+    _check_stages(mesh, num_stages)
+    return _scheduled_grad(mesh, cfg, "1f1b", 1, num_microbatches, attn_fn,
+                           interleaved=False, tp=True, sp_mode=mode)
+
+
+def make_pipeline_tp_sp_lm_interleaved_grad(mesh: Mesh, cfg, num_virtual: int,
+                                            num_microbatches: int, mode: str = "ring",
+                                            tables=None, attn_fn=None):
+    """Interleaved 1F1B (or ``tables``) x Megatron TP x sequence
+    parallelism; :func:`shard_blocks_interleaved_tp` layout
+    (:func:`shard_blocks_vshape_tp` for the V-shape tables)."""
+    return _scheduled_grad(mesh, cfg, "interleaved", num_virtual, num_microbatches, attn_fn,
+                           interleaved=True, tp=True, tables=tables, sp_mode=mode)
+
+
+def make_pipeline_tp_sp_lm_zb_grad(mesh: Mesh, cfg, num_virtual: int, num_microbatches: int,
+                                   mode: str = "ring", attn_fn=None):
+    """ZB-H1 x Megatron TP x sequence parallelism;
+    :func:`shard_blocks_interleaved_tp` layout."""
+    tables = build_zero_bubble(mesh.shape[AXIS_STAGE], num_virtual, num_microbatches)
+    return make_pipeline_tp_sp_lm_interleaved_grad(mesh, cfg, num_virtual, num_microbatches,
+                                                   mode, tables=tables, attn_fn=attn_fn)
+
+
+def make_pipeline_tp_sp_lm_zb_v_grad(mesh: Mesh, cfg, num_microbatches: int,
+                                     mode: str = "ring", attn_fn=None):
+    """ZB-V x Megatron TP x sequence parallelism;
+    :func:`shard_blocks_vshape_tp` layout."""
+    tables = build_zb_v(mesh.shape[AXIS_STAGE], num_microbatches)
+    return make_pipeline_tp_sp_lm_interleaved_grad(mesh, cfg, 2, num_microbatches, mode,
+                                                   tables=tables, attn_fn=attn_fn)
 
 
 def _check_stages(mesh: Mesh, num_stages: int) -> None:

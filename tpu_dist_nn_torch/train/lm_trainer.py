@@ -34,8 +34,18 @@ program's (the slot streams fork from the capturing stream and join it
 again inside the capture), and slots on several cards run it eager (a
 graph and its memory pool belong to one card). Its params live in the
 staged layout (:func:`lm_block_layout`), so a checkpoint records the
-layout and a resume into another is refused. Left for later slices: the
-mixture-of-experts, sequence-parallel, ZeRO and multi-host trainers.
+layout and a resume into another is refused.
+
+The sequence-parallel trainers split each row over the mesh's seq slots
+with ring or Ulysses attention (:mod:`~tpu_dist_nn_torch.parallel.
+ring_attention`): :func:`make_seq_parallel_lm_train_step` on a ``(seq,
+data)`` grid, :func:`make_pipeline_sp_lm_train_step` through the
+pipeline (every schedule but zb-stash, Megatron-sharded with
+``tensor_parallel``). Their rows are full (input + target) rows scored
+by the masked CE, and sp keeps the dense and Megatron block layouts.
+:func:`train_lm` runs them for a mesh with seq slots, captured when every
+slot is on the params' card. Left for later slices: the
+mixture-of-experts, ZeRO and multi-host trainers.
 """
 
 from __future__ import annotations
@@ -56,7 +66,8 @@ from tpu_dist_nn_torch.models.transformer import (
     tree_map,
 )
 from tpu_dist_nn_torch.parallel import transformer_pipeline as tpl
-from tpu_dist_nn_torch.parallel.mesh import AXIS_MODEL
+from tpu_dist_nn_torch.parallel.mesh import AXIS_MODEL, AXIS_SEQ
+from tpu_dist_nn_torch.parallel.ring_attention import make_seq_parallel_lm_loss
 from tpu_dist_nn_torch.parallel.one_f_one_b import validate_schedule
 from tpu_dist_nn_torch.train.graphs import CompiledStep
 from tpu_dist_nn_torch.train.optimizers import Optimizer, apply_updates, build_optimizer
@@ -92,10 +103,17 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer: Optimizer, attn_fn=Non
     :func:`train_lm` captures the one-step one on a card.
     """
     attn_fn = attn_fn or default_attn_fn()
+    return _autograd_step(lambda params, tokens: lm_loss(params, tokens, cfg, attn_fn),
+                          optimizer, steps_per_call)
+
+
+def _autograd_step(loss_fn, optimizer: Optimizer, steps_per_call: int = 1):
+    """The step (or K-step superstep) of a ``loss_fn(params, tokens)``
+    differentiated by autograd: see :func:`make_lm_train_step`."""
 
     def step(params, opt_state, tokens, *, micro_step=None):
         leaves = param_leaves(params)
-        loss = lm_loss(params, tokens, cfg, attn_fn)
+        loss = loss_fn(params, tokens)
         grads = torch.autograd.grad(loss, leaves)
         updates = optimizer.update(grads, opt_state, leaves, micro_step=micro_step)
         if updates is not None:
@@ -118,6 +136,72 @@ def make_lm_train_step(cfg: TransformerConfig, optimizer: Optimizer, attn_fn=Non
     return superstep
 
 
+def make_seq_parallel_lm_train_step(mesh, cfg: TransformerConfig, optimizer: Optimizer,
+                                    mode: str = "ring", attn_fn=None):
+    """The sequence-parallel step over the mesh's seq slots (and data
+    slots): ``mode`` "ring" (K/V rotation, O(T/N) memory a slot) or
+    "ulysses" (all-to-all head scatter, the flash kernels on a card).
+    Tokens are full (input + target) rows: the masked CE scores
+    positions ``0..T-2``. Same signature and in-place updates as
+    :func:`make_lm_train_step`'s step."""
+    return _autograd_step(make_seq_parallel_lm_loss(mesh, cfg, mode, attn_fn), optimizer)
+
+
+def make_pipeline_sp_lm_train_step(mesh, cfg: TransformerConfig, num_stages: int,
+                                   num_microbatches: int, optimizer: Optimizer,
+                                   mode: str = "ring", schedule: str = "gpipe",
+                                   num_virtual: int = 1, tensor_parallel: int = 1,
+                                   attn_fn=None):
+    """Pipeline x sequence-parallel step: blocks over the stage slots,
+    each microbatch's sequence over the seq slots, the batch over the
+    data slots, tokens full rows. ``schedule`` and the layouts as
+    :func:`make_pipeline_lm_train_step`'s, but zb-stash, which is refused
+    (the stash split knows only the dense block); ``tensor_parallel > 1``
+    Megatron-shards each chunk over the model slots (PP x TP x SP x DP).
+    ``attn_fn``: Ulysses' local attention."""
+    validate_schedule(schedule)
+    if schedule == "zb-stash":
+        raise ValueError(
+            "zb-stash is dense-LM only (the stash split knows the "
+            "dense block structure); use schedule='zb' with "
+            "seq-parallel"
+        )
+    _check_model_axis(mesh, tensor_parallel)
+    T = "_tp" if tensor_parallel > 1 else ""
+    if schedule == "zb-v":
+        vag = getattr(tpl, f"make_pipeline{T}_sp_lm_zb_v_grad")(mesh, cfg, num_microbatches,
+                                                                mode, attn_fn=attn_fn)
+    elif schedule in ("interleaved", "zb"):
+        vag = getattr(tpl, f"make_pipeline{T}_sp_lm_{schedule}_grad")(
+            mesh, cfg, num_virtual, num_microbatches, mode, attn_fn=attn_fn)
+    else:
+        vag = getattr(tpl, f"make_pipeline{T}_sp_lm_{schedule}_grad")(
+            mesh, cfg, num_stages, num_microbatches, mode, attn_fn=attn_fn)
+    return _vag_step(vag, optimizer)
+
+
+def _check_model_axis(mesh, tensor_parallel: int) -> None:
+    if tensor_parallel > 1 and mesh.shape.get(AXIS_MODEL, 1) != tensor_parallel:
+        raise ValueError(
+            f"tensor_parallel={tensor_parallel} but the mesh '{AXIS_MODEL}' "
+            f"axis has size {mesh.shape.get(AXIS_MODEL, 1)}"
+        )
+
+
+def _vag_step(vag, optimizer: Optimizer):
+    """The step of a ``vag(params, tokens) -> (loss, grads)``."""
+
+    def step(params, opt_state, tokens, *, micro_step=None):
+        loss, grads = vag(params, tokens)
+        leaves = param_leaves(params)
+        updates = optimizer.update(param_leaves(grads), opt_state, leaves, micro_step=micro_step)
+        if updates is not None:
+            apply_updates(leaves, updates)
+        return params, opt_state, loss.detach()
+
+    return step
+
+
 def make_pipeline_lm_train_step(mesh, cfg: TransformerConfig, num_stages: int,
                                 num_microbatches: int, optimizer: Optimizer, attn_fn=None,
                                 schedule: str = "gpipe", num_virtual: int = 1,
@@ -136,11 +220,7 @@ def make_pipeline_lm_train_step(mesh, cfg: TransformerConfig, num_stages: int,
     (the ``_pp_tp`` / ``_interleaved_tp`` / ``_vshape_tp`` layouts).
     ``micro_step``: see :meth:`Optimizer.update`."""
     validate_schedule(schedule)
-    if tensor_parallel > 1 and mesh.shape.get(AXIS_MODEL, 1) != tensor_parallel:
-        raise ValueError(
-            f"tensor_parallel={tensor_parallel} but the mesh '{AXIS_MODEL}' "
-            f"axis has size {mesh.shape.get(AXIS_MODEL, 1)}"
-        )
+    _check_model_axis(mesh, tensor_parallel)
     tp = tensor_parallel > 1
     if schedule == "zb-v":
         make = tpl.make_pipeline_tp_lm_zb_v_grad if tp else tpl.make_pipeline_lm_zb_v_grad
@@ -166,16 +246,7 @@ def make_pipeline_lm_train_step(mesh, cfg: TransformerConfig, num_stages: int,
         tpl._check_stages(mesh, num_stages)
         vag = tpl._scheduled_grad(mesh, cfg, schedule, 1, num_microbatches, attn_fn,
                                   interleaved=False, tp=tp)
-
-    def step(params, opt_state, tokens, *, micro_step=None):
-        loss, grads = vag(params, tokens)
-        leaves = param_leaves(params)
-        updates = optimizer.update(param_leaves(grads), opt_state, leaves, micro_step=micro_step)
-        if updates is not None:
-            apply_updates(leaves, updates)
-        return params, opt_state, loss.detach()
-
-    return step
+    return _vag_step(vag, optimizer)
 
 
 def lm_block_layout(sched: str, stages: int, num_virtual: int, *, cfg=None, tp: int = 1,
@@ -214,16 +285,20 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
              train_cfg: LMTrainConfig, *, attn_fn=None, step_fn=None, checkpoints=None,
              checkpoint_every: int | None = None, mesh=None, num_stages: int = 1,
              num_microbatches: int = 1, schedule: str = "gpipe", num_virtual: int = 1,
-             tensor_parallel: int = 1):
+             tensor_parallel: int = 1, sp_mode: str = "ring"):
     """Train for ``train_cfg.steps`` batches of ``(batch, seq_len + 1)``
     token rows on the params' device; returns ``(params, history)``.
 
     Pipelined when ``mesh`` and ``num_stages > 1`` (and no ``step_fn``):
     the params are regrouped into ``schedule``'s staged layout
     (:func:`lm_block_layout`, Megatron-sharded when ``tensor_parallel >
-    1``) for the run, and come back in the standard layout. The staged
-    step is captured when every slot is on the params' card, and runs
-    eager otherwise.
+    1``) for the run, and come back in the standard layout. Sequence-
+    parallel when the mesh has seq slots (``sp_mode`` ring or ulysses):
+    alone (:func:`make_seq_parallel_lm_train_step`) or through the
+    pipeline (:func:`make_pipeline_sp_lm_train_step`); the rows are then
+    full rows (``cfg.max_seq_len`` must hold ``seq_len + 1`` positions).
+    A step over slots is captured when every slot is on the params'
+    card, and runs eager otherwise.
 
     The caller's tensors are not modified (the loop trains a copy).
     ``history`` holds ``{"step", "loss", "seconds"}`` every
@@ -279,12 +354,13 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
         )
     validate_schedule(schedule)
     pipelined = step_fn is None and mesh is not None and num_stages > 1
+    sp = step_fn is None and mesh is not None and mesh.shape[AXIS_SEQ] > 1
     if schedule != "gpipe" and not pipelined:
         raise ValueError(
             f"schedule={schedule!r} requires the pipelined dense LM path "
             "(mesh + num_stages > 1, no custom step_fn)"
         )
-    if k > 1 and (step_fn is not None or pipelined):
+    if k > 1 and (step_fn is not None or pipelined or sp):
         raise ValueError(
             "steps_per_call > 1 is the built-in single-chip path only "
             "(custom step_fn and pipelined schedules run one step per "
@@ -295,17 +371,27 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
         shard, unshard = lm_block_layout(schedule, num_stages, num_virtual, cfg=cfg,
                                          tp=tensor_parallel)
         params = dict(params, blocks=shard(params["blocks"]))
-        step = make_pipeline_lm_train_step(mesh, cfg, num_stages, num_microbatches, optimizer,
-                                           attn_fn, schedule=schedule, num_virtual=num_virtual,
-                                           tensor_parallel=tensor_parallel)
+        if sp:
+            step = make_pipeline_sp_lm_train_step(
+                mesh, cfg, num_stages, num_microbatches, optimizer, sp_mode, schedule=schedule,
+                num_virtual=num_virtual, tensor_parallel=tensor_parallel, attn_fn=attn_fn)
+        else:
+            step = make_pipeline_lm_train_step(mesh, cfg, num_stages, num_microbatches,
+                                               optimizer, attn_fn, schedule=schedule,
+                                               num_virtual=num_virtual,
+                                               tensor_parallel=tensor_parallel)
         params = tree_map(lambda a: a.detach().clone(), params)
     else:
-        step = step_fn(optimizer) if step_fn is not None else make_lm_train_step(
-            cfg, optimizer, attn_fn)
+        if sp:
+            step = make_seq_parallel_lm_train_step(mesh, cfg, optimizer, sp_mode, attn_fn)
+        elif step_fn is not None:
+            step = step_fn(optimizer)
+        else:
+            step = make_lm_train_step(cfg, optimizer, attn_fn)
         params = tree_map(lambda a: a.detach().clone().requires_grad_(True), params)
     device = _device_of(params)
     # A graph and its memory pool belong to one card: slots elsewhere run eager.
-    graphed = device.type == "cuda" and (not pipelined or mesh.devices == {device})
+    graphed = device.type == "cuda" and (not (pipelined or sp) or mesh.devices == {device})
     start_step, state = resume_or_init(
         checkpoints, {"params": params, "opt_state": optimizer.init(param_leaves(params))})
     params, opt_state = state["params"], state["opt_state"]
