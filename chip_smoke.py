@@ -288,6 +288,25 @@ package. Phases, each fatal on failure (exit 1, no result line):
      step p50, tokens/s and peak memory beside the graphed single
      program's.
 
+   * the mixture-of-experts LM (``moe_phase``, after sequence
+     parallelism): the 85M width with 8 experts, top-2, capacity 1.25
+     (README's ``--experts 8 --router-top-k 2``), bf16, remat, seeded,
+     batch 16 x 1,024, on slots of the card; 4 microbatches of 4 rows
+     where it pipelines. Arms: the single program, flat EP at expert 2 x
+     data 2, TP inside the experts at expert 2 x model 2, sp x ep at seq 2
+     x expert 2 (ring and Ulysses), pp x ep at stage 4 x expert 2 (gpipe,
+     1f1b, zb), interleaved 2 x 3 x 2, zb-v 3 x 2, and pp x sp x ep
+     (Ulysses, gpipe) at 2 x 2 x 2. Each arm's first step against the
+     grouped single bf16 program over the same routing groups, run over
+     its partition, at the model-parallel phase's limits; its routes
+     layer by layer against the reference's (a differing route only at a
+     near tie, counted and printed); its flash launches the dense
+     partition's (SDPA replaced by a raise); a run with one shard routing
+     the wrong group must fail the check. The single program, flat EP, sp
+     x ep Ulysses and pp x ep 1f1b take 6 steps eager and graphed through
+     ``train_lm`` (bit-equal), the other arms 3 eager steps; each arm's
+     step p50, tokens/s and peak memory beside the single program's.
+
    * the float32 LM path, ``tdn lm``'s default recipe
      (``artifacts/real_text_r04/RECORD.json``): d 128, 4 heads, 4
      layers, T 128, batch 16, 400 steps, Adam at 1e-3 cosine after 20
@@ -320,7 +339,9 @@ package. Phases, each fatal on failure (exit 1, no result line):
    takes over 10% longer, both printed); the sm90 flash pair in bf16
    and the f32 pair in float32 beside SDPA in the same dtype, at the
    85M shape and (f32) at the recipe's (B 16, H 4, T 128, Dh 32), with
-   the FP32 FFMA and the 3xTF32 bounds printed for the f32 pair; flash
+   the FP32 FFMA and the 3xTF32 bounds printed for the f32 pair, and the
+   sm90 pair at the model-parallel, sequence-parallel and MoE arms'
+   shard shapes; flash
    attention and the materialised attention at the TPU kernel sweep's
    shape (B 4, H 8, T 4096).
 
@@ -3210,6 +3231,481 @@ def seq_parallel_phase(dev, cfg, text, out_dir, smi_line) -> None:
     print(f"seq parallel phase: {time.monotonic() - t_phase:.1f} s")
 
 
+MOE = dict(experts=8, top_k=2, capacity=1.25, micro=4, steps=6, timed=3, lr=5e-5, seed=17,
+           stages=4, il_stages=2, il_virtual=3, zbv_stages=3, near_tie=0.02)
+
+
+def route_check(ref, arm, k: int, bound: float, row_len: int, seq_groups: int) -> dict:
+    """Step-1 routes of an arm (``arm``, a :class:`RouteLog`) against the
+    reference's over the same routing groups, layer by layer. A token
+    whose expert choices differ is accepted only at a near tie of the
+    reference (its smallest gap between adjacent probabilities among the
+    top k + 1 under ``bound``). From the next layer on, that token and
+    the later positions of its row (which attend to it) are left out: a
+    flipped route or a dropped slot moves the token's output a lot. A
+    token whose choices
+    agree but whose slot was kept in one run and dropped in the other is
+    accepted only in a group whose routes already differ (a flip shifts
+    the capacity positions after it). A group holds rows of ``row_len``
+    positions, the ``seq_groups`` position blocks of a row in
+    consecutive groups. Returns the counts; ``rejected`` must be 0."""
+    import torch
+
+    got, want = arm.layers(), ref.layers()
+    out = dict(layers=len(want), accepted=0, kept_shifts=0, rejected=0, tainted=0,
+               max_accepted_gap=0.0)
+    if sorted(got) != sorted(want):
+        out["rejected"] = -1
+        return out
+    tainted = row = pos = None
+    for layer in sorted(want):
+        rt, rk, rp = want[layer]
+        at, ak, _ = (t.to(rt.device) for t in got[layer])
+        if at.shape != rt.shape:
+            out["rejected"] = -1
+            return out
+        if tainted is None:
+            G, S = rt.shape[:2]
+            g = torch.arange(G, device=rt.device)[:, None]
+            t = torch.arange(S, device=rt.device)[None, :]
+            row = (g // seq_groups) * (S // row_len) + t // row_len
+            pos = (g % seq_groups) * row_len + t % row_len
+            tainted = torch.zeros((G, S), dtype=torch.bool, device=rt.device)
+        top = rp.topk(min(k + 1, rp.shape[-1]), dim=-1).values
+        gap = (top[..., :-1] - top[..., 1:]).min(dim=-1).values
+        differ = (rt != at).any(dim=-1)
+        flip = differ & ~tainted
+        near = flip & (gap < bound)
+        kept = (rk != ak).any(dim=-1) & ~differ & ~tainted
+        moved = (differ | tainted).any(dim=-1, keepdim=True)
+        out["accepted"] += int(near.sum())
+        out["rejected"] += int((flip & ~near).sum()) + int((kept & ~moved).sum())
+        out["kept_shifts"] += int((kept & moved).sum())
+        if bool(near.any()):
+            out["max_accepted_gap"] = max(out["max_accepted_gap"], float(gap[near].max()))
+        out["tainted"] += int(tainted.sum())
+        changed = differ | (rk != ak).any(dim=-1)  # a route or a dropped slot
+        if bool(changed.any()):
+            # each row's first changed position; later positions attend to it
+            first = torch.full((int(row.max()) + 1,), pos.numel(), device=rt.device)
+            first = first.scatter_reduce(0, row[changed], pos[changed], reduce="amin")
+            tainted = tainted | (pos >= first[row])
+    return out
+
+
+def moe_phase(dev, cfg, text, out_dir, smi_line) -> None:
+    """The mixture-of-experts LM at the 85M width (``cfg``'s: d 768, 12
+    heads, 12 layers, bf16, remat) with README's ``--experts 8
+    --router-top-k 2`` and capacity 1.25, seeded, batch 16 x 1,024
+    tokens, on slots of one card (cut from a multi-chip mesh); 4
+    microbatches of 4 rows where it pipelines. The arms: the single
+    program; flat EP at expert 2 x data 2; TP inside the experts at
+    expert 2 x model 2; sp x ep at seq 2 x expert 2, ring and Ulysses;
+    pp x ep at stage 4 x expert 2 on gpipe, 1f1b and zb, interleaved at
+    2 stages x 3 virtual x expert 2 and zb-v at 3 stages x expert 2; pp x
+    sp x ep (Ulysses) on gpipe at stage 2 x seq 2 x expert 2.
+
+    * step 1 of each arm against the grouped single bf16 program over the
+      same routing groups (``n_groups = M x data x expert``,
+      ``n_seq_groups = seq``), run over the arm's partition (each row
+      group and position chunk embedded through its own bf16 copy of the
+      table), at the model-parallel phase's limits: ``MP["spread_factor"]``
+      x the reference's own flash-vs-materialised spread a leaf (at least
+      2**-8; the loss at least ``BF16_PARITY_RTOL[0]``). Each layer's
+      routes against the reference's (:func:`route_check`: a differing
+      route accepted only at a near tie, under ``MOE["near_tie"]`` in
+      probability; the accepted ones printed). The flash launches of the
+      step equal the dense arm's of the same partition (2 forwards and 1
+      backward a block and attention shard under remat; zb and zb-v 3
+      and 2, chunk 0's blocks 2 and 1; the ring none), with SDPA replaced
+      by a raise;
+    * the check can fail: the flat EP arm with its shard 0 routing its
+      tokens one position off (the wrong group) must be caught;
+    * the single program, flat EP, sp x ep Ulysses and pp x ep 1f1b take
+      ``MOE["steps"]`` steps eager (CUDA events) and graphed through
+      ``train_lm``: losses finite and falling, graphed losses and trained
+      params bit-equal to eager, launches a step; every other arm takes
+      ``MOE["timed"]`` eager steps after step 1. Each arm's step p50,
+      tokens/s and peak memory beside the single program's. Every check
+      is fatal."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_dist_nn_torch.data.text import encode, lm_batches, lm_sequences
+    from tpu_dist_nn_torch.kernels import KERNEL_WRAPPERS, reset_launch_counts
+    from tpu_dist_nn_torch.kernels.flash_attention import flash_attention
+    from tpu_dist_nn_torch.models.transformer import (
+        dot_product_attention,
+        param_leaves,
+        tree_map,
+        unembed,
+        unstack_blocks,
+    )
+    from tpu_dist_nn_torch.parallel import expert_parallel as ep
+    from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+    from tpu_dist_nn_torch.parallel.ring_attention import embed_at
+    from tpu_dist_nn_torch.train.lm_trainer import (
+        LMTrainConfig,
+        lm_block_layout,
+        make_ep_tp_moe_lm_train_step,
+        make_moe_lm_train_step,
+        make_pipeline_moe_lm_train_step,
+        make_sp_moe_lm_train_step,
+        train_lm,
+    )
+    from tpu_dist_nn_torch.train.optimizers import build_optimizer
+
+    t_phase = time.monotonic()
+    mcfg = ep.MoEConfig(**dataclasses.asdict(cfg), n_experts=MOE["experts"],
+                        capacity_factor=MOE["capacity"], router_top_k=MOE["top_k"])
+    T, B, M, L, K = mcfg.max_seq_len, LM["batch"], MOE["micro"], mcfg.n_layers, MOE["top_k"]
+    ids = encode(text)
+    shifted_rows = lm_sequences(ids, T)  # T + 1 tokens: inputs and targets
+    full_rows = lm_sequences(ids, T - 1)  # T tokens: the sp arms' full rows
+
+    def batches_of(rows):
+        train = rows[:max(1, int(len(rows) * 0.95))]
+        stream = lm_batches(train, B, seed=MOE["seed"], epochs=None)
+        return [torch.as_tensor(next(stream), device=dev).long() for _ in range(MOE["steps"])]
+
+    shifted, full = batches_of(shifted_rows), batches_of(full_rows)
+    params = ep.init_moe_transformer(torch.Generator().manual_seed(MOE["seed"]), mcfg,
+                                     device=dev)
+    names = [n for n, _ in _named_leaves(params)]
+    print(f"moe: {sum(int(a.numel()) for a in param_leaves(params)):,} parameters ({MOE['experts']} "
+          f"experts, top-{K}, capacity {MOE['capacity']}: {mcfg.capacity(B * T)} slots an expert "
+          f"for a group of {B * T} tokens) on {smi_line}")
+
+    def mesh(stage=1, model=1, seq=1, data=1, expert=1):
+        spec = MeshSpec(stage=stage, model=model, seq=seq, data=data, expert=expert)
+        return build_mesh(spec, [dev] * spec.num_devices)
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+    def no_sdpa(*a, **kw):
+        raise RuntimeError("scaled_dot_product_attention called on the MoE path")
+
+    sdpa = F.scaled_dot_product_attention
+    F.scaled_dot_product_attention = no_sdpa
+
+    # (a) the references: the grouped single program over the arm's
+    # partition, R row groups x Q position chunks (a routing group each),
+    # with the flash pair and with the materialised attention.
+    def reference(attn, R, Q, log=None):
+        toks = full[0] if Q > 1 else shifted[0]
+        p = tree_map(lambda a: a.clone().requires_grad_(True), params)
+        loss = 0.0
+        with ep.recording_routes(log) if log is not None else contextlib.nullcontext():
+            for rows in toks.chunk(R):
+                pc = mcfg.cast_params(p)
+                inp = rows if Q > 1 else rows[:, :-1]
+                Tq = inp.shape[1] // Q
+                # Each (row group, position chunk) embeds through its own
+                # bf16 copy of the table, as each shard does; the single
+                # program embeds and unembeds through one.
+                x = torch.cat([embed_at(pc if R * Q == 1 else mcfg.cast_params(
+                    {k: p[k] for k in ("tok_embed", "pos_embed")}), t, q * Tq)
+                    for q, t in enumerate(inp.chunk(Q, dim=1))], dim=1)
+                apply = ep._maybe_remat(mcfg, ep.moe_block_apply)
+                auxs = []
+                for layer, block in enumerate(unstack_blocks(pc["blocks"])):
+                    ep._at_layer(layer)
+                    x, aux = apply(block, x, mcfg, 1, attn,
+                                   lambda b, h: ep.moe_ffn_apply(b, h, mcfg, 1, Q))
+                    auxs.append(aux)
+                logp = torch.log_softmax(unembed(pc, x).float(), dim=-1)
+                if Q > 1:
+                    ll = logp[:, :-1].gather(-1, rows[:, 1:, None])[..., 0]
+                    part = -ll.sum() / (B * (T - 1))
+                else:
+                    ll = logp.gather(-1, rows[:, 1:, None])[..., 0]
+                    part = -ll.mean() / R
+                part = part + mcfg.router_aux_weight * torch.stack(auxs).mean() / R
+                part.backward()
+                loss += float(part.detach())
+        return loss, [a.grad for a in param_leaves(p)]
+
+    refs = {}
+    for R, Q in ((1, 1), (4, 1), (2, 1), (2, 2), (2 * M, 1), (2 * M, 2)):
+        log = ep.RouteLog()
+        flash_ref = reference(flash_attention, R, Q, log)
+        dot_ref = reference(dot_product_attention, R, Q)
+        spread_loss = abs(dot_ref[0] - flash_ref[0]) / abs(flash_ref[0])
+        spread = {n: rel(a, b) for n, a, b in zip(names, dot_ref[1], flash_ref[1])}
+        refs[R, Q] = (flash_ref, max(MP["spread_factor"] * spread_loss, BF16_PARITY_RTOL[0]),
+                      {n: max(MP["spread_factor"] * e, 2.0**-8) for n, e in spread.items()}, log)
+        print(f"moe: reference step 1 (grouped single program, {R} row group(s) x {Q} position "
+              f"chunk(s), {R * Q} routing groups of {B * T // (R * Q)} tokens): loss "
+              f"{flash_ref[0]!r} (materialised {dot_ref[0]!r}: rel {spread_loss:.3e}); spread a "
+              f"leaf {json.dumps({n: float(f'{e:.3e}') for n, e in spread.items()})}")
+        del dot_ref
+    torch.cuda.empty_cache()
+
+    # (label, kind, dict(stage, virtual, model, seq, data, expert, mode, sched), (R, Q))
+    S, Sil, vil, Sv = MOE["stages"], MOE["il_stages"], MOE["il_virtual"], MOE["zbv_stages"]
+    ARMS = [("single", "single", {}, (1, 1)),
+            ("flat EP expert 2 x data 2", "ep", dict(data=2, expert=2), (4, 1)),
+            ("TP inside experts expert 2 x model 2", "tp", dict(expert=2, model=2), (2, 1)),
+            ("sp x ep ring seq 2 x expert 2", "sp", dict(seq=2, expert=2, mode="ring"), (2, 2)),
+            ("sp x ep ulysses seq 2 x expert 2", "sp", dict(seq=2, expert=2, mode="ulysses"),
+             (2, 2))]
+    for sched in ("gpipe", "1f1b", "zb"):
+        ARMS.append((f"pp x ep {sched} stage {S} x expert 2", "pp",
+                     dict(stage=S, expert=2, sched=sched, virtual=1), (2 * M, 1)))
+    ARMS.append((f"pp x ep interleaved stage {Sil} x virtual {vil} x expert 2", "pp",
+                 dict(stage=Sil, expert=2, sched="interleaved", virtual=vil), (2 * M, 1)))
+    ARMS.append((f"pp x ep zb-v stage {Sv} x expert 2", "pp",
+                 dict(stage=Sv, expert=2, sched="zb-v", virtual=2), (2 * M, 1)))
+    ARMS.append(("pp x sp x ep gpipe-ulysses stage 2 x seq 2 x expert 2", "ppsp",
+                 dict(stage=2, seq=2, expert=2, mode="ulysses", sched="gpipe", virtual=1),
+                 (2 * M, 2)))
+
+    def want_launches(kind, a):
+        """The dense arm's flash launches for the same partition: 2
+        forwards and 1 backward a block and attention shard under remat."""
+        X, Q = a.get("expert", 1), a.get("seq", 1)
+        if a.get("mode") == "ring":
+            return 0, 0
+        shards = {"single": 1, "ep": a.get("data", 1) * X, "tp": X, "sp": X * Q}.get(kind)
+        if shards is not None:
+            return 2 * L * shards, L * shards
+        per = M * X * Q
+        if a["sched"] in ("zb", "zb-v"):
+            first = L // (a["stage"] * a["virtual"])
+            return (3 * L - first) * per, (2 * L - first) * per
+        return 2 * L * per, L * per
+
+    def only_flash(launched, want):
+        return ({k: n for k, n in launched.items() if n}
+                == {k: n for k, n in zip(("flash_fwd_sm90", "flash_bwd_sm90"), want) if n})
+
+    def first_step(kind, a):
+        X = a.get("expert", 1)
+        if kind == "single":
+            p = tree_map(lambda t: t.clone().requires_grad_(True), params)
+            loss = ep.moe_lm_loss(p, shifted[0], mcfg, attn_fn=flash_attention)
+            loss.backward()
+            return float(loss.detach()), [t.grad for t in param_leaves(p)]
+        if kind in ("ep", "tp", "sp"):
+            m = mesh(model=a.get("model", 1), seq=a.get("seq", 1), data=a.get("data", 1),
+                     expert=X)
+            fn = {"ep": lambda: ep.make_ep_lm_forward(m, mcfg, with_loss=True),
+                  "tp": lambda: ep.make_ep_tp_lm_loss(m, mcfg),
+                  "sp": lambda: ep.make_sp_ep_lm_loss(m, mcfg, a.get("mode"))}[kind]()
+            p = tree_map(lambda t: t.clone().requires_grad_(True),
+                         dict(params, blocks=ep.ep_shard_blocks(params["blocks"], X)))
+            loss = fn(p, full[0] if kind == "sp" else shifted[0])
+            loss.backward()
+            g = tree_map(lambda t: t.grad, p)
+            return float(loss.detach()), param_leaves(dict(g, blocks=ep.ep_unshard_blocks(
+                g["blocks"])))
+        stage, v, sched = a["stage"], a["virtual"], a["sched"]
+        shard, unshard = lm_block_layout(sched, stage, v, ep=X)
+        if kind == "ppsp":
+            vag = ep.make_pipeline_sp_ep_lm_gpipe_grad(mesh(stage=stage, seq=a["seq"], expert=X),
+                                                       mcfg, stage, M, a["mode"])
+        elif sched == "zb-v":
+            vag = ep.make_pipeline_ep_lm_zb_v_grad(mesh(stage=stage, expert=X), mcfg, M)
+        elif sched in ("interleaved", "zb"):
+            vag = getattr(ep, f"make_pipeline_ep_lm_{sched}_grad")(
+                mesh(stage=stage, expert=X), mcfg, v, M)
+        else:
+            vag = getattr(ep, f"make_pipeline_ep_lm_{sched}_grad")(
+                mesh(stage=stage, expert=X), mcfg, stage, M)
+        loss, grads = vag(dict(params, blocks=shard(params["blocks"])),
+                          full[0] if kind == "ppsp" else shifted[0])
+        return float(loss), param_leaves(dict(grads, blocks=unshard(grads["blocks"])))
+
+    def check_step1(label, kind, a, RQ, log):
+        (loss_ref, g_ref), tol_loss, tol_g, ref_log = refs[RQ]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with ep.recording_routes(log):
+            loss, flat = first_step(kind, a)
+        torch.cuda.synchronize()
+        launched = counts()
+        errs = {n: rel(x, y) for n, x, y in zip(names, flat, g_ref)}
+        share = {n: errs[n] / tol_g[n] for n in names}
+        worst = max(share, key=share.get)
+        lrel = abs(loss - loss_ref) / abs(loss_ref)
+        Q = RQ[1]
+        routes = route_check(ref_log, log, K, MOE["near_tie"], T // Q, Q)
+        return loss, lrel, tol_loss, errs, share, worst, launched, routes
+
+    worst_share = 0.0
+    for label, kind, a, RQ in ARMS:
+        loss, lrel, tol_loss, errs, share, worst, launched, routes = check_step1(
+            label, kind, a, RQ, ep.RouteLog())
+        worst_share = max(worst_share, share[worst])
+        want = want_launches(kind, a)
+        ok = (lrel <= tol_loss and share[worst] <= 1.0 and routes["rejected"] == 0
+              and only_flash(launched, want))
+        print(f"check moe {label}, step 1 vs the grouped program ({RQ[0]} x {RQ[1]}): loss "
+              f"{loss!r} (rel {lrel:.3e}, tol {tol_loss:.3e}); gradients' relative L2 "
+              f"{json.dumps({n: float(f'{e:.3e}') for n, e in errs.items()})}; largest share of "
+              f"its tolerance {share[worst]:.3f} ({worst}); routes over {routes['layers']} "
+              f"layers: {routes['accepted']} differing at a near tie (largest gap "
+              f"{routes['max_accepted_gap']:.3e}, bound {MOE['near_tie']}), {routes['kept_shifts']}"
+              f" capacity shifts after them, {routes['tainted']} token-layers after a flip not "
+              f"compared, {routes['rejected']} rejected; launches "
+              f"{json.dumps({k: n for k, n in launched.items() if n})}, the dense partition's "
+              f"flash_fwd_sm90 {want[0]} flash_bwd_sm90 {want[1]} | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"moe {label}: the first step departs from the grouped single program, routes "
+                 f"away from a near tie, or launched other attention")
+        torch.cuda.empty_cache()
+    print(f"moe step 1: largest share of a limit over {len(ARMS)} arms {worst_share:.3f}")
+
+    # (b) the check can fail: shard 0 of each flat EP replica routes its
+    # tokens one position off.
+    route_shards = ep._route_shards
+
+    def wrong_group(blocks, hs, c, slots):
+        return route_shards(blocks, [hs[0].roll(1, dims=1)] + list(hs[1:]), c, slots)
+
+    ep._route_shards = wrong_group
+    try:
+        loss, lrel, tol_loss, errs, share, worst, _, routes = check_step1(
+            "fault", "ep", dict(data=2, expert=2), (4, 1), ep.RouteLog())
+    finally:
+        ep._route_shards = route_shards
+    caught = routes["rejected"] != 0 and (lrel > tol_loss or share[worst] > 1.0)
+    print(f"check moe the route check can fail: flat EP with shard 0 routing one position off: "
+          f"{routes['rejected']} routes rejected, loss rel {lrel:.3e} (tol {tol_loss:.3e}), "
+          f"largest share {share[worst]:.3f} ({worst}) | {'ok' if caught else 'FAIL'}")
+    if not caught:
+        fail("moe: a shard routing the wrong group passed the step-1 check")
+    del refs
+    torch.cuda.empty_cache()
+
+    # (c) steps: eager (CUDA events) for every arm; graphed through
+    # train_lm, bit-equal to eager, for four of them.
+    train_cfg = LMTrainConfig(learning_rate=MOE["lr"], steps=MOE["steps"], batch_size=B,
+                              seq_len=T, log_every=1)
+
+    def make_step(kind, a, opt):
+        """The train step ``train_lm`` builds for the arm, its staged
+        params and the inverse layout."""
+        X = a.get("expert", 1)
+        if kind == "single":
+            st = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+            return make_moe_lm_train_step(mcfg, opt), st, None
+        if kind in ("ep", "tp", "sp"):
+            m = mesh(model=a.get("model", 1), seq=a.get("seq", 1), data=a.get("data", 1),
+                     expert=X)
+            st = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                          dict(params, blocks=ep.ep_shard_blocks(params["blocks"], X)))
+            step = {"ep": lambda: make_moe_lm_train_step(mcfg, opt, m),
+                    "tp": lambda: make_ep_tp_moe_lm_train_step(m, mcfg, opt),
+                    "sp": lambda: make_sp_moe_lm_train_step(m, mcfg, opt, a["mode"])}[kind]()
+            return step, st, ep.ep_unshard_blocks
+        shard, unshard = lm_block_layout(a["sched"], a["stage"], a["virtual"], ep=X)
+        st = tree_map(lambda t: t.detach().clone(), dict(params, blocks=shard(params["blocks"])))
+        m = mesh(stage=a["stage"], seq=a.get("seq", 1), expert=X)
+        step = make_pipeline_moe_lm_train_step(m, mcfg, a["stage"], M, opt, schedule=a["sched"],
+                                               num_virtual=a["virtual"],
+                                               sp_mode=a.get("mode") if kind == "ppsp" else None)
+        return step, st, unshard
+
+    def eager_run(kind, a, n):
+        opt = build_optimizer(MOE["lr"], total_steps=MOE["steps"])
+        step, st, unshard = make_step(kind, a, opt)
+        state = opt.init(param_leaves(st))
+        toks = full if kind in ("sp", "ppsp") else shifted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, per_step = [], [], None
+        for i in range(n):
+            if i == 1:
+                torch.cuda.synchronize()
+                reset_launch_counts()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            loss = step(st, state, toks[i])[2]
+            e1.record()
+            torch.cuda.synchronize()
+            if i == 1:
+                per_step = counts()
+            ms.append(e0.elapsed_time(e1))
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        trained = param_leaves(st if unshard is None else dict(st, blocks=unshard(st["blocks"])))
+        del step, state
+        return losses, ms, per_step, peak, trained
+
+    def graphed_run(kind, a):
+        kw = {}
+        X = a.get("expert", 1)
+        if kind != "single":
+            kw = dict(mesh=mesh(stage=a.get("stage", 1), model=a.get("model", 1),
+                                seq=a.get("seq", 1), data=a.get("data", 1), expert=X),
+                      num_stages=a.get("stage", 1), num_microbatches=M,
+                      schedule=a.get("sched", "gpipe"), num_virtual=a.get("virtual", 1),
+                      sp_mode=a.get("mode") or "ring")
+        toks = full if kind in ("sp", "ppsp") else shifted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        trained, hist = train_lm(params, mcfg, [t.cpu().numpy() for t in toks], train_cfg, **kw)
+        torch.cuda.synchronize()
+        launched, peak = counts(), torch.cuda.max_memory_allocated() / 1e9
+        ms = [1e3 * (b["seconds"] - a_["seconds"]) for a_, b in zip(hist, hist[1:])]
+        return param_leaves(trained), [h["loss"] for h in hist], float(np.median(ms)), launched, \
+            peak, ms
+
+    GRAPHED = {"single", "flat EP expert 2 x data 2", "sp x ep ulysses seq 2 x expert 2",
+               f"pp x ep 1f1b stage {S} x expert 2"}
+    summary, single = {}, None
+    for label, kind, a, _ in ARMS:
+        n = MOE["steps"] if label in GRAPHED else 1 + MOE["timed"]
+        losses, ms, per_step, peak, eager = eager_run(kind, a, n)
+        p50 = float(np.median(ms[1:]))
+        want = want_launches(kind, a)
+        ok = (all(math.isfinite(x) for x in losses) and only_flash(per_step, want)
+              and (n < 3 or losses[-1] < losses[0]))
+        line = dict(eager_ms=round(p50, 3), tokens_per_s=round(B * T / p50 * 1e3, 1),
+                    peak_gb=round(peak, 3), flash_launches_a_step=list(want))
+        if label in GRAPHED:
+            trained, g_losses, g_p50, g_launched, g_peak, g_ms = graphed_run(kind, a)
+            differ = sum(int((x != y).sum()) for x, y in zip(trained, eager))
+            total = (want[0] * n, want[1] * n)
+            ok = ok and g_losses == losses and differ == 0 and only_flash(g_launched, total)
+            line.update(graphed_ms=round(g_p50, 3), tokens_per_s=round(B * T / g_p50 * 1e3, 1),
+                        peak_gb_graphed=round(g_peak, 3))
+            print(f"moe {label} graphed (train_lm): losses {g_losses}; step ms (host clock) "
+                  f"{[round(t, 3) for t in g_ms]}; losses bit-equal to eager "
+                  f"{g_losses == losses}, trained elements not bit-equal {differ}; launches "
+                  f"{json.dumps({k: v for k, v in g_launched.items() if v})} (expected "
+                  f"{total[0]} + {total[1]}); peak {g_peak:.3f} GB")
+            del trained
+        if single is None:
+            single = line
+        graphed = f", graphed {line['graphed_ms']:.3f} ms" if "graphed_ms" in line else ""
+        print(f"check moe {label} steps: eager losses {losses}; step ms "
+              f"{[round(t, 3) for t in ms]} (the first includes warm-up); p50 {p50:.3f} ms"
+              f"{graphed}, {line['tokens_per_s']} tokens/s, peak {peak:.3f} GB (the single program: "
+              f"{single.get('graphed_ms', single['eager_ms'])} ms, {single['peak_gb']} GB); one "
+              f"step's launches {json.dumps({k: v for k, v in per_step.items() if v})} (the "
+              f"dense partition's {want[0]} + {want[1]}) | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"moe {label}: losses not finite and falling, other launches, or the graphed "
+                 f"step departs from the eager one")
+        summary[label] = line
+        del eager
+        gc.collect()
+        torch.cuda.empty_cache()
+    F.scaled_dot_product_attention = sdpa
+    print("moe steps: " + json.dumps(summary))
+    del params
+    torch.cuda.empty_cache()
+    print(f"moe phase: {time.monotonic() - t_phase:.1f} s")
+
+
 def _named_leaves(tree, prefix=""):
     """``(path, tensor)`` in ``param_leaves`` order."""
     out = []
@@ -4600,6 +5096,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     seq_parallel_phase(dev, cfg, text, out_dir, smi[0])
     torch.cuda.empty_cache()
+    moe_phase(dev, cfg, text, out_dir, smi[0])
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=out_dir) as tmp:
         metrics = Path(tmp) / "lm_metrics.jsonl"
@@ -5103,6 +5601,18 @@ def main() -> None:
         time_flash(k, sets, shape_sp, torch.bfloat16, sdpa_sp, graph=True)
     del sets
     torch.cuda.empty_cache()
+    # The MoE arms' attention shards (moe_phase): flat EP 2 x 2 (B 4, H 12),
+    # a pp x ep microbatch's expert shard (B 2, H 12) and sp x ep Ulysses
+    # at seq 2 x expert 2 (B 8, the full sequence on 6 heads).
+    for shape_moe, seed in (((B_LM // 4, T_LM, H_LM, DH_LM), 70),
+                            ((B_LM // (2 * MOE["micro"]), T_LM, H_LM, DH_LM), 80),
+                            ((B_LM // 2, T_LM, H_LM // 2, DH_LM), 90)):
+        sets = flash_sets(shape_moe, torch.bfloat16, 3, seed)
+        sdpa_moe = sdpa_times(sets, shape_moe, "bfloat16")
+        for k in ("flash_fwd_sm90", "flash_bwd_sm90"):
+            time_flash(k, sets, shape_moe, torch.bfloat16, sdpa_moe, graph=True)
+        del sets
+        torch.cuda.empty_cache()
     # The f32 pair on its own route, float32, at the 85M shape (the
     # kernels line; launches from the float32 recipe's main path) and at
     # the recipe's shape.

@@ -380,6 +380,13 @@ QUICK_TESTS = {
                                   "test_sp_loss_gradients_match_jax[ulysses]"],
     "test_torch_pipeline_sp": ["test_pp_sp_1f1b_gradients_match_jax[2-2-ring]"],
     "test_torch_pipeline_tp_sp": ["test_pp_tp_sp_1f1b_gradients_match_jax[ulysses]"],
+    "test_torch_moe": ["test_forward_loss_and_gradients_match_jax[4-2]",
+                       "test_routing_matches_jax_dispatch_combine_and_aux[2-4]"],
+    "test_torch_expert_parallel": ["test_flat_ep_loss_and_gradients_match_jax[2-4-2]",
+                                   "test_sp_ep_ulysses_matches_the_jax_grouped_oracle_and_the_ring"
+                                   "[2-2-2]"],
+    "test_torch_pipeline_ep": ["test_1f1b_gradients_match_jax[2-2-1-2]",
+                               "test_cli_refusals_in_jax_texts[zb-stash]"],
     # ISSUE 10: the codec fast lane's correctness anchor (byte-exact
     # scalar/vectorized equivalence + fuzz agreement), the decode-into-
     # staging path through a real batcher, the codec A/B perf smoke,

@@ -22,7 +22,10 @@ request alone), and uint8 rows through the dense engine; training's
 eval through the chain kernel, and the int8 warm-up gate's launches;
 the continuous scheduler's captured step against its eager step; the
 sequence-parallel steps (ring and Ulysses, alone, pipelined and with
-Megatron TP) graphed against eager, with their flash launches.
+Megatron TP) graphed against eager, with their flash launches; the
+mixture-of-experts steps (one program, over expert slots, TP inside the
+experts, sp x ep, through the pipeline) graphed against eager, and the
+routing on the card against the CPU's.
 ``chip_smoke.py`` covers the main path's shapes.
 """
 
@@ -1277,3 +1280,118 @@ def test_hetero_pipeline_across_cards(cuda):
     for a, b in zip(across.model.layers, one_card.model.layers):
         if hasattr(a, "weights"):
             np.testing.assert_allclose(a.weights, b.weights, rtol=1e-5, atol=1e-7)
+
+
+MOE_CASES = {  # (stage, data, model, seq, expert, mode, schedule)
+    "single": (1, 1, 1, 1, 1, None, "gpipe"),
+    "ep-data2": (1, 2, 1, 1, 2, None, "gpipe"),
+    "tp-in-experts": (1, 1, 2, 1, 2, None, "gpipe"),
+    "sp-ep-ulysses": (1, 1, 1, 2, 2, "ulysses", "gpipe"),
+    "pp-ep-1f1b": (2, 1, 1, 1, 2, None, "1f1b"),
+    "pp-ep-zb-v": (2, 1, 1, 1, 2, None, "zb-v"),
+    "pp-sp-ep-gpipe": (2, 1, 1, 2, 2, "ring", "gpipe"),
+}
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_graphed_moe_step_equals_the_eager_step(cuda, case):
+    """``train_lm`` with a MoE config (8 experts, top-2) on slots of the
+    card captures the step; its losses, trained params and flash launches
+    equal the eager step's over 3 steps, bit for bit."""
+    from tpu_dist_nn_torch.models.transformer import param_leaves
+    from tpu_dist_nn_torch.parallel import expert_parallel as ep
+    from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+    from tpu_dist_nn_torch.train.lm_trainer import (
+        lm_block_layout,
+        make_ep_tp_moe_lm_train_step,
+        make_moe_lm_train_step,
+        make_pipeline_moe_lm_train_step,
+        make_sp_moe_lm_train_step,
+    )
+    from tpu_dist_nn_torch.train.optimizers import build_optimizer
+
+    stage, data, model, seq, expert, mode, schedule = MOE_CASES[case]
+    cfg = ep.MoEConfig(vocab_size=256, d_model=128, n_heads=4, n_layers=4, d_ff=512,
+                       max_seq_len=128, compute_dtype="bfloat16", remat=True, n_experts=8,
+                       router_top_k=2)
+    params = ep.init_moe_transformer(torch.Generator().manual_seed(0), cfg, device=cuda)
+    T = 128 if seq > 1 else 129
+    batches = [np.random.default_rng(i).integers(0, 256, (8, T)) for i in range(3)]
+    spec = MeshSpec(stage=stage, data=data, model=model, seq=seq, expert=expert)
+
+    def mesh():
+        return build_mesh(spec, ["cuda:0"] * spec.num_devices)
+
+    kw = {} if case == "single" else dict(
+        mesh=mesh(), num_stages=stage, num_microbatches=2, schedule=schedule,
+        num_virtual=2 if schedule == "zb-v" else 1, sp_mode=mode or "ring")
+    reset_launch_counts()
+    got, hist = train_lm(params, cfg, batches,
+                         LMTrainConfig(learning_rate=1e-3, steps=3, batch_size=8, seq_len=T - 1,
+                                       log_every=1), **kw)
+    graphed = (flash_fwd_sm90.launches, flash_bwd_sm90.launches)
+    opt = build_optimizer(1e-3, total_steps=3)
+    unshard = ep.ep_unshard_blocks
+    if stage > 1:
+        shard, unshard = lm_block_layout(schedule, stage, 2 if schedule == "zb-v" else 1,
+                                         ep=expert)
+        st = tree_map(lambda a: a.detach().clone(), dict(params, blocks=shard(params["blocks"])))
+        step = make_pipeline_moe_lm_train_step(mesh(), cfg, stage, 2, opt, schedule=schedule,
+                                               num_virtual=2 if schedule == "zb-v" else 1,
+                                               sp_mode=mode if seq > 1 else None)
+    elif case == "single":
+        unshard = None
+        st = tree_map(lambda a: a.detach().clone().requires_grad_(), params)
+        step = make_moe_lm_train_step(cfg, opt)
+    else:
+        st = tree_map(lambda a: a.detach().clone().requires_grad_(),
+                      dict(params, blocks=ep.ep_shard_blocks(params["blocks"], expert)))
+        step = (make_sp_moe_lm_train_step(mesh(), cfg, opt, mode) if seq > 1 else
+                make_ep_tp_moe_lm_train_step(mesh(), cfg, opt) if model > 1 else
+                make_moe_lm_train_step(cfg, opt, mesh()))
+    state = opt.init(param_leaves(st))
+    reset_launch_counts()
+    losses = [float(step(st, state, torch.from_numpy(b).to(cuda))[2]) for b in batches]
+    assert [h["loss"] for h in hist] == losses and all(np.isfinite(losses))
+    want = st if unshard is None else dict(st, blocks=unshard(st["blocks"]))
+    for a, b in zip(param_leaves(got), param_leaves(want)):
+        assert torch.equal(a, b)
+    assert graphed == (flash_fwd_sm90.launches, flash_bwd_sm90.launches)
+    assert mode == "ring" or graphed != (0, 0)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_moe_routing_on_the_card_equals_the_cpu(cuda, k):
+    """Routing, dispatch and combine on the card, float32: the same routes
+    as on the CPU, the buffer bit-equal to the one-hot product, the
+    combine within rounding of it."""
+    from tpu_dist_nn_torch.parallel import expert_parallel as ep
+
+    rng = np.random.default_rng(k)
+    x = torch.from_numpy(rng.standard_normal((3, 500, 64)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((64, 8)).astype(np.float32))
+    cap = 100
+    want = ep.route_topk(x, w, cap, k)
+    got = ep.route_topk(x.to(cuda), w.to(cuda), cap, k)
+    for f in ("slot", "top", "kept"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    buf = ep.dispatch(x.to(cuda), got, 8, cap)
+    d, c = ep.routes_to_onehot(got, 8, cap)
+    assert torch.equal(buf, torch.einsum("gsec,gsd->gecd", d, x.to(cuda)))
+    out = torch.from_numpy(rng.standard_normal((3, 8, cap, 64)).astype(np.float32)).to(cuda)
+    torch.testing.assert_close(ep.combine(out, got), torch.einsum("gsec,gecd->gsd", c, out),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_cli_lm_experts_through_the_pipeline_on_the_card(cuda, capsys):
+    from tpu_dist_nn_torch.cli import main
+
+    assert main(["lm", "--d-model", "128", "--heads", "4", "--layers", "4", "--seq-len", "128",
+                 "--steps", "3", "--batch-size", "8", "--bf16", "--remat", "--eval-batches",
+                 "2", "--log-every", "1", "--experts", "8", "--router-top-k", "2",
+                 "--expert-parallel", "2", "--stages", "2", "--schedule", "1f1b",
+                 "--microbatches", "2"]) == 0
+    import json
+
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert np.isfinite(report["final_train_loss"]) and np.isfinite(report["perplexity"])

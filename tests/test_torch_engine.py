@@ -347,6 +347,19 @@ for mode in ("ring", "ulysses"):
         schedule="1f1b")
     pst = tree_map(lambda a: a.clone(), dict(lm4, blocks=shard_blocks(lm4["blocks"], 2)))
     assert abs(float(pp_sp(pst, zopt.init(param_leaves(pst)), full)[2]) - want) < 1e-4
+# The mixture-of-experts LM: a top-2 step on one program and with the
+# experts over (data 2, expert 2) CPU slots, against the grouped program.
+from tpu_dist_nn_torch.parallel import expert_parallel as ep
+from tpu_dist_nn_torch.train.lm_trainer import make_moe_lm_train_step
+mcfg = ep.MoEConfig(vocab_size=256, d_model=16, n_heads=2, n_layers=2, d_ff=32, max_seq_len=16,
+                    n_experts=4, router_top_k=2)
+moe = ep.init_moe_transformer(torch.Generator().manual_seed(3), mcfg, device="cpu")
+for mesh, groups, blocks in ((None, 1, moe["blocks"]),
+                             (build_mesh(MeshSpec(data=2, expert=2), ["cpu"] * 4), 4,
+                              ep.ep_shard_blocks(moe["blocks"], 2))):
+    mst = tree_map(lambda a: a.clone().requires_grad_(), dict(moe, blocks=blocks))
+    mloss = make_moe_lm_train_step(mcfg, zopt, mesh)(mst, zopt.init(param_leaves(mst)), toks)[2]
+    assert abs(float(mloss) - float(ep.moe_lm_loss(moe, toks, mcfg, n_groups=groups))) < 1e-4
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist_nn")]
 assert not bad, bad
 print("imported", len(mods), "modules without jax")

@@ -4,11 +4,14 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU::
 
     python3 tools/torch_lm_profile.py [--layers 12] [--warmup 5] [--steps 3]
+        [--experts 8 --router-top-k 2]
 
 Builds the 85M recipe of ``chip_smoke.py``'s LM path (d 768, 12 heads,
 ``--layers`` layers, T 1024, batch 16, bf16 over float32 masters, remat,
 Adam at 3e-4) on random weights and corpus batches, runs ``--warmup``
-steps through ``make_lm_train_step``, then ``--steps`` more under
+steps through ``make_lm_train_step`` (``--experts E``: the single MoE
+program, capacity 1.25, through ``make_moe_lm_train_step``), then
+``--steps`` more under
 ``torch.profiler`` (CPU and CUDA activities). Prints each kernel's device
 time per step, the sums by group (each flash kernel: the bf16 path's
 sm90 forward and fused backward, or the float32 path's f32 pair; matrix products;
@@ -48,6 +51,8 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=12)
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--experts", type=int, default=0)
+    ap.add_argument("--router-top-k", type=int, default=1, choices=[1, 2])
     args = ap.parse_args(argv)
     import torch
     from torch.autograd import DeviceType
@@ -64,19 +69,25 @@ def main(argv=None) -> int:
         param_leaves,
         tree_map,
     )
-    from tpu_dist_nn_torch.train.lm_trainer import make_lm_train_step
+    from tpu_dist_nn_torch.parallel import expert_parallel as ep
+    from tpu_dist_nn_torch.train.lm_trainer import make_lm_train_step, make_moe_lm_train_step
     from tpu_dist_nn_torch.train.optimizers import build_optimizer
 
     dev = torch.device("cuda")
-    cfg = TransformerConfig(vocab_size=256, d_model=768, n_heads=12, n_layers=args.layers,
-                            d_ff=3072, max_seq_len=1024, compute_dtype="bfloat16", remat=True)
+    shape = dict(vocab_size=256, d_model=768, n_heads=12, n_layers=args.layers, d_ff=3072,
+                 max_seq_len=1024, compute_dtype="bfloat16", remat=True)
+    if args.experts:
+        cfg = ep.MoEConfig(**shape, n_experts=args.experts, router_top_k=args.router_top_k)
+        init = ep.init_moe_transformer
+    else:
+        cfg, init = TransformerConfig(**shape), init_transformer
     rows = lm_sequences(encode(load_corpus()[0]), 1024)
     stream = lm_batches(rows, 16, seed=0, epochs=None)
     params = tree_map(lambda a: a.requires_grad_(True),
-                      init_transformer(torch.Generator().manual_seed(0), cfg, device=dev))
+                      init(torch.Generator().manual_seed(0), cfg, device=dev))
     opt = build_optimizer(3e-4)
     state = opt.init(param_leaves(params))
-    step = make_lm_train_step(cfg, opt)
+    step = make_moe_lm_train_step(cfg, opt) if args.experts else make_lm_train_step(cfg, opt)
 
     def run(n):
         for _ in range(n):
@@ -95,7 +106,8 @@ def main(argv=None) -> int:
     per_step = {e.key: e.self_device_time_total / 1e3 / args.steps for e in kernels}
     busy = sum(per_step.values())
     name = torch.cuda.get_device_name(0)
-    print(f"device {name}; torch {torch.__version__}; {args.layers} layers; "
+    print(f"device {name}; torch {torch.__version__}; {args.layers} layers"
+          f"{f', {args.experts} experts, top-{args.router_top_k}' if args.experts else ''}; "
           f"{args.steps} profiled steps after {args.warmup}")
     if busy <= 0:
         print("torch_lm_profile: the profiler recorded no device time", file=sys.stderr)

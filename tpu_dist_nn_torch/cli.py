@@ -55,10 +55,17 @@ printed lines:
   ``--sample-pipeline-stages`` and
   ``--sample-tensor-parallel`` decode the sample in those placements.
   ``lm --stream --target HOST:PORT`` is a client only: it streams one
-  generation of ``--prompt`` from a running endpoint. Left for later
-  slices, refused before training by what is missing: ``--experts`` /
-  ``--expert-parallel``, ``--zero1``, ``--fsdp``, ``--data-parallel``
-  without ``--stages`` or ``--seq-parallel``; and ``--metrics-port``.
+  generation of ``--prompt`` from a running endpoint. ``--experts E``
+  trains the mixture-of-experts LM (``--router-top-k``,
+  ``--capacity-factor``): on one program, with the experts over
+  ``--expert-parallel`` expert slots and ``--data-parallel`` replicas,
+  Megatron-split inside the experts (``--tensor-parallel``), with
+  ``--seq-parallel``, or through ``--stages`` on every schedule but
+  zb-stash (with ``--seq-parallel`` too: gpipe only); the JAX package's
+  refusals of its other combinations come first, in its texts. Left for
+  later slices, refused before training by what is missing: ``--zero1``,
+  ``--fsdp``, the dense ``--data-parallel`` without ``--stages`` or
+  ``--seq-parallel``; and ``--metrics-port``.
 
 Every engine-side verb runs on the card unless ``--device cpu`` is
 given.
@@ -584,13 +591,6 @@ def _validate_sampling(args, cfg, generator) -> None:
 def _refuse_unported(args) -> None:
     """``tdn lm``'s parallel flags that this port does not carry yet,
     refused before any work, each naming what is missing."""
-    if args.experts > 0:
-        raise ValueError(
-            "--experts: the mixture-of-experts LM (parallel/expert_parallel.py) is "
-            "not ported yet"
-        )
-    if args.expert_parallel > 1:
-        raise ValueError("--expert-parallel requires --experts > 0")
     if args.zero1 or args.fsdp:
         raise ValueError(
             ("--fsdp" if args.fsdp else "--zero1")
@@ -598,9 +598,111 @@ def _refuse_unported(args) -> None:
         )
 
 
+def _validate_moe(args) -> None:
+    """``tdn lm --experts``'s flags, with the JAX package's texts and in
+    its order, before any work (sampling and serving a MoE LM included:
+    the JAX package refuses both)."""
+    if args.schedule == "zb-v" and args.virtual_stages not in (None, 2):
+        raise ValueError(
+            "--schedule zb-v fixes the chunk count at 2 per device (the "
+            "V placement's two legs); drop --virtual-stages or use "
+            "--schedule zb for a free chunk count"
+        )
+    if args.tensor_parallel > 1:
+        if args.stages > 1:
+            raise ValueError(
+                "--tensor-parallel x --experts x --stages is out "
+                "of scope: TP-inside-experts runs on the flat "
+                "(model, expert, data) mesh; pipelined MoE shards "
+                "experts over `expert` (README matrix footnote)"
+            )
+        if args.seq_parallel > 1:
+            raise ValueError(
+                "--tensor-parallel x --experts x --seq-parallel "
+                "is out of scope (README matrix footnote)"
+            )
+        if (4 * args.d_model) % args.tensor_parallel:
+            raise ValueError(
+                f"d_ff={4 * args.d_model} must be divisible by "
+                f"--tensor-parallel {args.tensor_parallel} "
+                "(TP-inside-experts shards the FF dim)"
+            )
+    if args.sample_tensor_parallel > 1 and args.sample_bytes <= 0:
+        raise ValueError(
+            "--sample-tensor-parallel requires --sample-bytes > 0 "
+            "(it shards the decode; without sampling it would be "
+            "silently ignored)"
+        )
+    if args.sample_pipeline_stages > 1 and args.sample_bytes <= 0:
+        raise ValueError(
+            "--sample-pipeline-stages requires --sample-bytes > 0 "
+            "(it places the decode; without sampling it would be "
+            "silently ignored)"
+        )
+    if args.serve_generate is not None:
+        raise ValueError("--serve-generate supports the dense LM only")
+    if args.sample_bytes > 0:
+        raise ValueError("--sample-bytes supports the dense LM only")
+    if args.zero1:
+        raise ValueError("--zero1 supports the dense LM only")
+    if args.seq_parallel > 1 and args.stages > 1 and args.schedule != "gpipe":
+        raise ValueError(
+            "--experts x --seq-parallel x --stages supports --schedule "
+            "gpipe only (three-axis MoE rides the branch-free gpipe "
+            "executor; the scheduled executors' three-axis product is "
+            "out of scope — README matrix footnote)"
+        )
+    if args.fsdp:
+        raise ValueError("--fsdp supports the dense LM only")
+    ep, dp, mb = max(args.expert_parallel, 1), args.data_parallel, args.microbatches
+    if args.stages > 1 and args.layers % args.stages:
+        raise ValueError(f"--layers {args.layers} must be divisible by --stages {args.stages}")
+    if args.seq_parallel > 1 and (args.seq_len + 1) % args.seq_parallel:
+        raise ValueError(
+            f"--seq-len+1 ({args.seq_len + 1}) must be divisible "
+            f"by --seq-parallel {args.seq_parallel} (rows carry "
+            "the next-token target)"
+        )
+    if args.stages > 1:
+        if args.batch_size % (mb * ep * dp):
+            raise ValueError(
+                f"--batch-size {args.batch_size} must be divisible by "
+                f"microbatches*expert_parallel*data_parallel={mb * ep * dp}"
+            )
+    elif args.batch_size % (ep * dp):
+        raise ValueError(
+            f"--batch-size {args.batch_size} must be divisible "
+            f"by expert_parallel*data_parallel={ep * dp}"
+        )
+    if args.schedule != "gpipe" and args.stages <= 1:
+        raise ValueError(
+            f"--schedule {args.schedule} applies to the pipelined dense LM "
+            "only (--stages > 1, without --experts/--seq-parallel/"
+            "--zero1/--fsdp)"
+        )
+    if args.sp_mode != "ring" and args.seq_parallel <= 1:
+        raise ValueError(
+            "--sp-mode requires --seq-parallel > 1 (it picks the "
+            "sequence-parallel decomposition)"
+        )
+    if args.stages > 1 and args.schedule == "zb-stash":
+        raise ValueError(
+            "zb-stash is dense-LM only (the stash split knows the "
+            "dense block structure); use schedule='zb' with --experts"
+        )
+    if args.seq_parallel > 1 and args.sp_mode == "ulysses" and args.heads % args.seq_parallel:
+        raise ValueError(f"ulysses needs n_heads ({args.heads}) divisible by the seq axis "
+                         f"({args.seq_parallel})")
+
+
 def _validate_parallel(args) -> None:
     """``tdn lm``'s pipeline and tensor-parallel flags, with the JAX
     package's texts, before any work."""
+    if args.experts <= 0 and args.expert_parallel > 1:
+        raise ValueError("--expert-parallel requires --experts > 0")
+    if args.experts > 0:
+        _validate_moe(args)
+        return
     _refuse_unported(args)
     if args.schedule == "zb-v" and args.virtual_stages not in (None, 2):
         raise ValueError(
@@ -919,27 +1021,43 @@ def cmd_lm(args) -> int:
         init_transformer,
         num_params,
     )
-    from tpu_dist_nn_torch.train.lm_trainer import LMTrainConfig, evaluate_lm, train_lm
+    from tpu_dist_nn_torch.parallel import expert_parallel as epl
+    from tpu_dist_nn_torch.train.lm_trainer import (
+        LMTrainConfig,
+        evaluate_lm,
+        evaluate_moe_lm,
+        train_lm,
+    )
     from tpu_dist_nn_torch.utils.device import resolve_device
 
     _refuse_orbax(args)
     device = resolve_device(args.device)
-    cfg = TransformerConfig(
+    _validate_parallel(args)
+    moe = args.experts > 0
+    common = dict(
         vocab_size=256, d_model=args.d_model, n_heads=args.heads, n_layers=args.layers,
         # sp feeds full (seq_len + 1)-token rows: one more position
         d_ff=4 * args.d_model, max_seq_len=args.seq_len + (1 if args.seq_parallel > 1 else 0),
         compute_dtype="bfloat16" if args.bf16 else "float32", remat=args.remat)
+    if moe:
+        cfg = epl.MoEConfig(**common, n_experts=args.experts,
+                            capacity_factor=args.capacity_factor,
+                            router_top_k=args.router_top_k)
+        init_fn, eval_fn = epl.init_moe_transformer, evaluate_moe_lm
+    else:
+        cfg = TransformerConfig(**common)
+        init_fn, eval_fn = init_transformer, evaluate_lm
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    _validate_parallel(args)
     _validate_sampling(args, cfg, generator)
     _validate_serving(args, cfg, generator)
     text, source = load_corpus(args.corpus)
     rows = lm_sequences(encode(text), args.seq_len)
     split = max(1, int(len(rows) * 0.95))
     train_rows, eval_rows = rows[:split], rows[split:]
-    params = init_transformer(torch.Generator().manual_seed(args.seed), cfg, device=device)
-    log.info("tiny-transformer: %d params, corpus=%s, %d train rows, %d eval rows, device %s",
-             num_params(params), source, len(train_rows), len(eval_rows), device)
+    params = init_fn(torch.Generator().manual_seed(args.seed), cfg, device=device)
+    log.info("tiny-transformer%s: %d params, corpus=%s, %d train rows, %d eval rows, device %s",
+             f" (MoE x{args.experts})" if moe else "", num_params(params), source,
+             len(train_rows), len(eval_rows), device)
     train_cfg = LMTrainConfig(
         learning_rate=args.lr, steps=args.steps, batch_size=args.batch_size,
         seq_len=args.seq_len, clip_norm=args.clip_norm, warmup_steps=args.warmup_steps,
@@ -949,11 +1067,12 @@ def cmd_lm(args) -> int:
     batches = lm_batches(train_rows, args.batch_size, seed=args.seed, epochs=None)
     checkpoints = _checkpoint_manager(args)
     pipeline = {}
-    if args.stages > 1 or args.seq_parallel > 1:
+    flat_moe = moe and max(args.expert_parallel, args.data_parallel, args.tensor_parallel) > 1
+    if args.stages > 1 or args.seq_parallel > 1 or flat_moe:
         from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
 
         spec = MeshSpec(stage=args.stages, data=args.data_parallel, model=args.tensor_parallel,
-                        seq=args.seq_parallel)
+                        seq=args.seq_parallel, expert=max(args.expert_parallel, 1))
         pipeline = dict(mesh=build_mesh(spec, _slot_devices(device, spec.num_devices)),
                         num_stages=args.stages, num_microbatches=args.microbatches,
                         schedule=args.schedule, num_virtual=_default_virtual(args),
@@ -981,8 +1100,8 @@ def cmd_lm(args) -> int:
             "--eval-batches %d truncates the eval set (%d of %d batches evaluated); "
             "loss/perplexity cover a subset — compare eval_rows_used across runs",
             cap, cap, avail_batches)
-    eval_metrics = evaluate_lm(params, cfg, eval_rows_used, batch_size=args.batch_size,
-                               max_batches=cap if cap > 0 else None)
+    eval_metrics = eval_fn(params, cfg, eval_rows_used, batch_size=args.batch_size,
+                           max_batches=cap if cap > 0 else None)
     report = {
         "train_seconds": round(train_seconds, 2),
         "final_train_loss": history[-1]["loss"] if history else None,
@@ -1195,7 +1314,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "training (see --sp-mode)")
     p.add_argument("--tensor-parallel", type=int, default=1,
                    help="Megatron-shard each stage's blocks over N model slots "
-                        "(requires --stages > 1)")
+                        "(requires --stages > 1); with --experts, each expert's FFN")
     p.add_argument("--sample-tensor-parallel", type=int, default=1,
                    help="decode --sample-bytes with heads + KV cache Megatron-sharded "
                         "over N model slots")
@@ -1210,9 +1329,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--zero1", action="store_true", help="ZeRO-1 (not ported)")
     p.add_argument("--fsdp", action="store_true", help="FSDP (not ported)")
     p.add_argument("--experts", type=int, default=0,
-                   help="mixture-of-experts FFN (not ported: refused above 0)")
+                   help="MoE: experts per block (0 = dense MLP)")
+    p.add_argument("--capacity-factor", type=float, default=1.25)
+    p.add_argument("--router-top-k", type=int, default=1, choices=[1, 2],
+                   help="experts per token: 1 = Switch, 2 = GShard gates")
     p.add_argument("--expert-parallel", type=int, default=1,
-                   help="expert parallelism (not ported)")
+                   help="shard experts over this many expert slots (all_to_all)")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute (f32 master params + CE)")
     p.add_argument("--remat", action="store_true",

@@ -125,22 +125,34 @@ def gather(outs: Sequence, device: torch.device) -> list[torch.Tensor]:
     return got
 
 
-def gpipe_forward(mesh: Mesh, stage_fns, xs, ready=None) -> list[list]:
+def gpipe_forward(mesh: Mesh, stage_fns, xs, ready=None, *, with_aux: bool = False):
     """The GPipe forward over every data replica of ``mesh``.
 
     ``stage_fns[d][s]``: stage ``s``'s function on replica ``d``;
     ``xs[m][d]``: microbatch ``m``'s rows for replica ``d`` (None = no
-    rows: skipped; the tuple of its seq shards on a mesh with seq
-    slots); ``ready``: the event after which every ``xs`` is valid.
+    rows: skipped; the tuple of its seq or expert shards on a mesh with
+    such slots); ``ready``: the event after which every ``xs`` is valid.
     Step ``t`` issues stage ``s`` on microbatch ``t - s``. Returns
     ``outs[m][d] = (tensor, event)`` from the last stage (None where
-    skipped)."""
+    skipped).
+
+    ``with_aux``: the JAX executor's aux channel. A stage gives ``(y,
+    aux)``: ``y`` goes on to the next stage and the scalar ``aux`` (the
+    router loss of a mixture-of-experts stage) is kept. Only the ops
+    that run add theirs: the JAX schedule's invalid ticks, which the
+    port never issues, add nothing. Returns ``(outs, auxes)``, ``auxes``
+    a list of ``(aux, event)`` in issue order."""
     S, D, M = mesh.spec.stage, mesh.spec.data, len(xs)
     cur = [[None if x is None else (x, ready) for x in row] for row in xs]
+    auxes = []
     for t in range(M + S - 1):
         for d in range(D):
             for s in range(S):
                 m = t - s
                 if 0 <= m < M and cur[m][d] is not None:
-                    cur[m][d] = launch(mesh.cell(s, d), stage_fns[d][s], *cur[m][d])
-    return cur
+                    out, ev = launch(mesh.cell(s, d), stage_fns[d][s], *cur[m][d])
+                    if with_aux:
+                        out, aux = out
+                        auxes.append((aux, ev))
+                    cur[m][d] = (out, ev)
+    return (cur, auxes) if with_aux else cur

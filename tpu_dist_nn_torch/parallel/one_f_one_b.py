@@ -44,6 +44,14 @@ events both ways. The orders:
 The loss is the masked mean CE over real rows: the tail's mask arrives
 pre-scaled by the global row count, so each microbatch's contribution
 needs no cross-microbatch state (``one_f_one_b.py:424-427``).
+
+The aux channel (``with_aux``, the JAX executors' ``with_aux``): a chunk
+gives ``(y, aux)``, ``aux`` a scalar that arrives pre-scaled (the router
+loss of a mixture-of-experts chunk, its weight and ``1 / (chunks *
+microbatches * shards)`` folded in). Its backward adds it to the loss
+and sends cotangent 1 into the chunk's backward beside ``y``'s; on the
+split schedules its input gradient rides BWD_B and its weight gradient
+BWD_W, as ``interleaved.make_interleaved_1f1b`` routes them.
 """
 
 from __future__ import annotations
@@ -160,12 +168,20 @@ def _grad_of(x):
     return tuple(t.grad for t in x) if isinstance(x, tuple) else x.grad
 
 
-def _requires_grad(x) -> bool:
-    return any(t.requires_grad for t in x) if isinstance(x, tuple) else x.requires_grad
+def _backward_pair(out, dy, aux):
+    """The ``(tensors, cotangents)`` of a chunk's backward: ``out`` (a
+    tensor or a tuple of shards) with ``dy``, and a pre-scaled ``aux``
+    with cotangent 1."""
+    outs = list(out) if isinstance(out, tuple) else [out]
+    dys = list(dy) if isinstance(dy, tuple) else [dy]
+    if aux is not None:
+        outs.append(aux)
+        dys.append(torch.ones_like(aux))
+    return outs, dys
 
 
 def run_schedule(mesh: Mesh, chunk_fns, order, xs, labels, masks, tail=masked_ce_tail, *,
-                 weights=None, split=None) -> list:
+                 weights=None, split=None, with_aux: bool = False) -> list:
     """Play a training ``order`` over every data replica.
 
     ``chunk_fns[d][c](x) -> logits-or-activation`` with autograd on
@@ -186,10 +202,16 @@ def run_schedule(mesh: Mesh, chunk_fns, order, xs, labels, masks, tail=masked_ce
 
     On a mesh with seq slots every activation, cotangent, label and mask
     is the tuple of its seq shards (the chunks and the tail take and
-    give tuples; :func:`~tpu_dist_nn_torch.parallel.gpipe.launch`).
+    give tuples; :func:`~tpu_dist_nn_torch.parallel.gpipe.launch`), and
+    so on a mesh with expert slots the tuple of its expert shards.
 
-    Returns ``[(loss, event)]``, one per (microbatch, replica): each a
-    detached scalar with the event after it. Before the first op every
+    ``with_aux``: every chunk gives ``(y, aux)`` (the module docstring's
+    aux channel; not with ``split``).
+
+    Returns ``[(loss, event)]``, one per (microbatch, replica) (with
+    ``with_aux`` one per backward op: the chunk's aux, plus the tail's
+    loss at the last chunk): each a detached scalar with the event
+    after it. Before the first op every
     slot stream waits for its card's current stream (the inputs' copies
     and the last optimizer update); after the last, every card's current
     stream waits for its slots, so the caller may read ``.grad`` there.
@@ -214,7 +236,10 @@ def run_schedule(mesh: Mesh, chunk_fns, order, xs, labels, masks, tail=masked_ce
                     return x_in, fn(x_in)
 
                 (x_in, y), ev = launch(slot, fwd, *acts.pop((c - 1, m, d)))
-                stash[key] = (x_in, y)
+                aux = None
+                if with_aux:
+                    y, aux = y
+                stash[key] = (x_in, y, aux)
                 if c < V - 1:
                     acts[key] = (_detached(y), ev)
                 continue
@@ -227,11 +252,11 @@ def run_schedule(mesh: Mesh, chunk_fns, order, xs, labels, masks, tail=masked_ce
 
                 launch(slot, bwd_w, None)
                 continue
-            x_in, y = stash.pop(key)
+            x_in, y, aux = stash.pop(key)
             last = c == V - 1
             dy, ready = (None, None) if last else grads.pop((c + 1, m, d))
 
-            def bwd(dy, c=c, d=d, m=m, x_in=x_in, y=y, last=last, combined=op == BWD):
+            def bwd(dy, c=c, d=d, m=m, x_in=x_in, y=y, aux=aux, last=last, combined=op == BWD):
                 """-> (dx, loss, what W needs)."""
                 lab = msk = None
                 if last:
@@ -239,14 +264,17 @@ def run_schedule(mesh: Mesh, chunk_fns, order, xs, labels, masks, tail=masked_ce
                 if split is not None:
                     return split.backward_b(d, c, x_in, dy, lab, msk)
                 loss = tail(y, lab, msk) if last else None
-                out = y if loss is None else loss
+                outs, dys = _backward_pair(y if loss is None else loss, dy, aux)
                 if combined:
-                    if _requires_grad(out):
-                        torch.autograd.backward(out, dy)
+                    if any(t.requires_grad for t in outs):
+                        torch.autograd.backward(outs, dys)
                 elif c > 0:
-                    torch.autograd.backward(out, dy, inputs=list(x_in) if isinstance(
+                    torch.autograd.backward(outs, dys, inputs=list(x_in) if isinstance(
                         x_in, tuple) else [x_in], retain_graph=True)
-                return _grad_of(x_in), None if loss is None else loss.detach(), (out, dy)
+                value = None if loss is None else loss.detach()
+                if aux is not None:
+                    value = aux.detach() if value is None else value + aux.detach()
+                return _grad_of(x_in), value, (outs, dys)
 
             (dx, loss, held), ev = launch(slot, bwd, dy, ready)
             if op != BWD:

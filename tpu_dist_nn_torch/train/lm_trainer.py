@@ -44,8 +44,21 @@ pipeline (every schedule but zb-stash, Megatron-sharded with
 ``tensor_parallel``). Their rows are full (input + target) rows scored
 by the masked CE, and sp keeps the dense and Megatron block layouts.
 :func:`train_lm` runs them for a mesh with seq slots, captured when every
-slot is on the params' card. Left for later slices: the
-mixture-of-experts, ZeRO and multi-host trainers.
+slot is on the params' card, and runs eager otherwise.
+
+The mixture-of-experts trainers (a :class:`~tpu_dist_nn_torch.parallel.
+expert_parallel.MoEConfig`; :mod:`~tpu_dist_nn_torch.parallel.
+expert_parallel`) take the CE plus the weighted router loss:
+:func:`make_moe_lm_train_step` on one program or with the experts over a
+mesh's expert slots (the batch over ``(data, expert)``),
+:func:`make_ep_tp_moe_lm_train_step` with each expert's FFN Megatron-split
+over model slots, :func:`make_sp_moe_lm_train_step` with the sequence over
+seq slots, and :func:`make_pipeline_moe_lm_train_step` through the
+pipeline on every schedule but zb-stash (with seq slots: GPipe only).
+:func:`train_lm` picks one from the mesh for a MoE config, in the expert
+layouts (:func:`lm_block_layout` with ``ep``), and captures it as the
+dense steps are captured. :func:`evaluate_moe_lm` scores the CE alone.
+Left for later slices: the ZeRO and multi-host trainers.
 """
 
 from __future__ import annotations
@@ -62,16 +75,19 @@ from tpu_dist_nn_torch.kernels.flash_attention import default_attn_fn
 from tpu_dist_nn_torch.models.transformer import (
     TransformerConfig,
     lm_loss,
+    next_token_ce,
     param_leaves,
     tree_map,
 )
+from tpu_dist_nn_torch.parallel import expert_parallel as epl
 from tpu_dist_nn_torch.parallel import transformer_pipeline as tpl
-from tpu_dist_nn_torch.parallel.mesh import AXIS_MODEL, AXIS_SEQ
+from tpu_dist_nn_torch.parallel.mesh import AXIS_EXPERT, AXIS_MODEL, AXIS_SEQ
 from tpu_dist_nn_torch.parallel.ring_attention import make_seq_parallel_lm_loss
 from tpu_dist_nn_torch.parallel.one_f_one_b import validate_schedule
 from tpu_dist_nn_torch.train.graphs import CompiledStep
 from tpu_dist_nn_torch.train.optimizers import Optimizer, apply_updates, build_optimizer
 from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
+
 
 @dataclasses.dataclass(frozen=True)
 class LMTrainConfig:
@@ -249,17 +265,93 @@ def make_pipeline_lm_train_step(mesh, cfg: TransformerConfig, num_stages: int,
     return _vag_step(vag, optimizer)
 
 
+def make_moe_lm_train_step(cfg, optimizer: Optimizer, mesh=None, attn_fn=None):
+    """The MoE step (CE + weighted router loss; same signature and
+    in-place updates as :func:`make_lm_train_step`'s step): the single
+    program (``mesh=None``), or the experts over the mesh's expert slots
+    with the batch over ``(data, expert)`` (blocks in
+    :func:`~tpu_dist_nn_torch.parallel.expert_parallel.ep_shard_blocks`
+    layout; ``expert == 1`` is plain data parallelism over that layout).
+    ``cfg`` is a :class:`~tpu_dist_nn_torch.parallel.expert_parallel.
+    MoEConfig`."""
+    attn_fn = attn_fn or default_attn_fn()
+    if mesh is None:
+        return _autograd_step(lambda p, t: epl.moe_lm_loss(p, t, cfg, attn_fn=attn_fn), optimizer)
+    return _autograd_step(epl.make_ep_lm_forward(mesh, cfg, attn_fn, with_loss=True), optimizer)
+
+
+def make_ep_tp_moe_lm_train_step(mesh, cfg, optimizer: Optimizer, attn_fn=None):
+    """Tensor parallelism inside the experts: the experts over the expert
+    slots and each expert's FFN Megatron-split over its shard's model
+    slots (:func:`~tpu_dist_nn_torch.parallel.expert_parallel.
+    make_ep_tp_lm_loss`); ``ep_shard_blocks`` layout."""
+    return _autograd_step(epl.make_ep_tp_lm_loss(mesh, cfg, attn_fn), optimizer)
+
+
+def make_sp_moe_lm_train_step(mesh, cfg, optimizer: Optimizer, mode: str = "ring",
+                              attn_fn=None):
+    """Long-context MoE: ring or Ulysses attention over the seq slots x
+    the experts over the expert slots, the batch over ``(data, expert)``
+    (:func:`~tpu_dist_nn_torch.parallel.expert_parallel.
+    make_sp_ep_lm_loss`); full rows, ``ep_shard_blocks`` layout."""
+    return _autograd_step(epl.make_sp_ep_lm_loss(mesh, cfg, mode, attn_fn), optimizer)
+
+
+def make_pipeline_moe_lm_train_step(mesh, cfg, num_stages: int, num_microbatches: int,
+                                    optimizer: Optimizer, attn_fn=None,
+                                    schedule: str = "gpipe", num_virtual: int = 1,
+                                    sp_mode: str | None = None):
+    """Pipeline x expert parallelism: MoE blocks over the stage slots,
+    the experts over each stage's expert slots, the batch over ``(data,
+    expert)``; the router losses on the executors' aux channel.
+    ``schedule`` gpipe or 1f1b (:func:`~tpu_dist_nn_torch.parallel.
+    expert_parallel.shard_blocks_pp_ep` layout), interleaved or zb
+    (``shard_blocks_interleaved_ep``), zb-v (``shard_blocks_vshape_ep``);
+    zb-stash is refused (JAX's text). ``sp_mode`` adds the seq slots
+    (pipeline x sequence x expert, GPipe only; full rows)."""
+    validate_schedule(schedule)
+    if schedule == "zb-stash":
+        raise ValueError(
+            "zb-stash is dense-LM only (the stash split knows the "
+            "dense block structure); use schedule='zb' with --experts"
+        )
+    if sp_mode is not None:
+        if schedule != "gpipe":
+            raise ValueError(
+                f"--experts x --seq-parallel x --stages supports the "
+                f"gpipe schedule only (got {schedule!r}): the scheduled "
+                "executors' three-axis product (aux channel + "
+                "in-schedule ring + expert all_to_all per tick branch) "
+                "is out of scope; the gpipe cell carries the "
+                "three-axis parity evidence"
+            )
+        return _vag_step(epl.make_pipeline_sp_ep_lm_gpipe_grad(
+            mesh, cfg, num_stages, num_microbatches, sp_mode, attn_fn), optimizer)
+    if schedule == "zb-v":
+        vag = epl.make_pipeline_ep_lm_zb_v_grad(mesh, cfg, num_microbatches, attn_fn)
+    elif schedule in ("interleaved", "zb"):
+        vag = getattr(epl, f"make_pipeline_ep_lm_{schedule}_grad")(
+            mesh, cfg, num_virtual, num_microbatches, attn_fn)
+    else:
+        vag = getattr(epl, f"make_pipeline_ep_lm_{schedule}_grad")(
+            mesh, cfg, num_stages, num_microbatches, attn_fn)
+    return _vag_step(vag, optimizer)
+
+
 def lm_block_layout(sched: str, stages: int, num_virtual: int, *, cfg=None, tp: int = 1,
                     ep: int = 0):
     """-> ``(shard_blocks_fn, unshard_blocks_fn)`` for the pipelined LM's
-    param layout under (schedule, sharding): ``tp > 1`` the Megatron
-    family (needs ``cfg``), else the dense one. The expert-sharded family
-    (``ep``) is refused by what it needs."""
-    if ep:
-        raise ValueError(
-            "the expert-sharded block layouts (expert_parallel.py) are not ported yet"
-        )
+    param layout under (schedule, sharding): ``ep > 0`` the expert-sharded
+    family (``ep`` expert shards; ``cfg`` unused), ``tp > 1`` the
+    Megatron family (needs ``cfg``), else the dense one."""
     validate_schedule(sched)
+    if ep:
+        if sched == "zb-v":
+            return lambda b: epl.shard_blocks_vshape_ep(b, stages, ep), epl.unshard_blocks_vshape_ep
+        if sched in ("interleaved", "zb"):
+            return (lambda b: epl.shard_blocks_interleaved_ep(b, stages, num_virtual, ep),
+                    epl.unshard_blocks_interleaved_ep)
+        return lambda b: epl.shard_blocks_pp_ep(b, stages, ep), epl.unshard_blocks_pp_ep
     if tp > 1:
         if sched == "zb-v":
             return (lambda b: tpl.shard_blocks_vshape_tp(b, cfg, stages, tp),
@@ -288,6 +380,14 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
              tensor_parallel: int = 1, sp_mode: str = "ring"):
     """Train for ``train_cfg.steps`` batches of ``(batch, seq_len + 1)``
     token rows on the params' device; returns ``(params, history)``.
+
+    A :class:`~tpu_dist_nn_torch.parallel.expert_parallel.MoEConfig`
+    trains the MoE LM: on one program without a ``mesh``; with one, in
+    the expert layouts (returned in the standard one), through the
+    pipeline when ``num_stages > 1`` (:func:`make_pipeline_moe_lm_train_step`),
+    else with seq slots :func:`make_sp_moe_lm_train_step`, with model
+    slots :func:`make_ep_tp_moe_lm_train_step`, and otherwise over the
+    ``(data, expert)`` slots (:func:`make_moe_lm_train_step`).
 
     Pipelined when ``mesh`` and ``num_stages > 1`` (and no ``step_fn``):
     the params are regrouped into ``schedule``'s staged layout
@@ -353,14 +453,16 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
             "device call can only capture group-end state"
         )
     validate_schedule(schedule)
+    moe = isinstance(cfg, epl.MoEConfig) and step_fn is None
     pipelined = step_fn is None and mesh is not None and num_stages > 1
     sp = step_fn is None and mesh is not None and mesh.shape[AXIS_SEQ] > 1
+    over_slots = pipelined or sp or (moe and mesh is not None)
     if schedule != "gpipe" and not pipelined:
         raise ValueError(
             f"schedule={schedule!r} requires the pipelined dense LM path "
             "(mesh + num_stages > 1, no custom step_fn)"
         )
-    if k > 1 and (step_fn is not None or pipelined or sp):
+    if k > 1 and (step_fn is not None or pipelined or sp or moe):
         raise ValueError(
             "steps_per_call > 1 is the built-in single-chip path only "
             "(custom step_fn and pipelined schedules run one step per "
@@ -369,9 +471,14 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
     unshard = None
     if pipelined:
         shard, unshard = lm_block_layout(schedule, num_stages, num_virtual, cfg=cfg,
-                                         tp=tensor_parallel)
+                                         tp=tensor_parallel,
+                                         ep=mesh.shape[AXIS_EXPERT] if moe else 0)
         params = dict(params, blocks=shard(params["blocks"]))
-        if sp:
+        if moe:
+            step = make_pipeline_moe_lm_train_step(
+                mesh, cfg, num_stages, num_microbatches, optimizer, attn_fn, schedule=schedule,
+                num_virtual=num_virtual, sp_mode=sp_mode if sp else None)
+        elif sp:
             step = make_pipeline_sp_lm_train_step(
                 mesh, cfg, num_stages, num_microbatches, optimizer, sp_mode, schedule=schedule,
                 num_virtual=num_virtual, tensor_parallel=tensor_parallel, attn_fn=attn_fn)
@@ -382,7 +489,19 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
                                                tensor_parallel=tensor_parallel)
         params = tree_map(lambda a: a.detach().clone(), params)
     else:
-        if sp:
+        if moe and mesh is not None:
+            params = dict(params, blocks=epl.ep_shard_blocks(params["blocks"],
+                                                             mesh.shape[AXIS_EXPERT]))
+            unshard = epl.ep_unshard_blocks
+            if sp:
+                step = make_sp_moe_lm_train_step(mesh, cfg, optimizer, sp_mode, attn_fn)
+            elif mesh.shape[AXIS_MODEL] > 1:
+                step = make_ep_tp_moe_lm_train_step(mesh, cfg, optimizer, attn_fn)
+            else:
+                step = make_moe_lm_train_step(cfg, optimizer, mesh, attn_fn)
+        elif moe:
+            step = make_moe_lm_train_step(cfg, optimizer, attn_fn=attn_fn)
+        elif sp:
             step = make_seq_parallel_lm_train_step(mesh, cfg, optimizer, sp_mode, attn_fn)
         elif step_fn is not None:
             step = step_fn(optimizer)
@@ -391,7 +510,7 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
         params = tree_map(lambda a: a.detach().clone().requires_grad_(True), params)
     device = _device_of(params)
     # A graph and its memory pool belong to one card: slots elsewhere run eager.
-    graphed = device.type == "cuda" and (not (pipelined or sp) or mesh.devices == {device})
+    graphed = device.type == "cuda" and (not over_slots or mesh.devices == {device})
     start_step, state = resume_or_init(
         checkpoints, {"params": params, "opt_state": optimizer.init(param_leaves(params))})
     params, opt_state = state["params"], state["opt_state"]
@@ -457,20 +576,40 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
     return params, history
 
 
-@torch.no_grad()
 def evaluate_lm(params: dict, cfg: TransformerConfig, rows: np.ndarray, batch_size: int = 16,
                 max_batches: int | None = None) -> dict:
     """Mean next-token CE, perplexity and bits/byte over ``(N, T + 1)``
     rows, in full batches (at most ``max_batches``); one host sync at
     the end."""
     attn_fn = default_attn_fn()
+    return _evaluate_ce(lambda batch: lm_loss(params, batch, cfg, attn_fn), params, rows,
+                        batch_size, max_batches)
+
+
+def evaluate_moe_lm(params: dict, cfg, rows: np.ndarray, batch_size: int = 16,
+                    max_batches: int | None = None) -> dict:
+    """:func:`evaluate_lm` for the MoE LM (one program, one routing group
+    a batch): the CE alone, without the router loss, so perplexity and
+    bits/byte compare with the dense model's."""
+    attn_fn = default_attn_fn()
+
+    def ce(batch):
+        return next_token_ce(epl.moe_forward(params, batch[:, :-1], cfg, attn_fn=attn_fn)[0],
+                             batch[:, 1:])
+
+    return _evaluate_ce(ce, params, rows, batch_size, max_batches)
+
+
+@torch.no_grad()
+def _evaluate_ce(loss_fn, params: dict, rows: np.ndarray, batch_size: int,
+                 max_batches: int | None) -> dict:
     device = _device_of(params)
     total, n = None, 0
     for i in range(0, len(rows) - batch_size + 1, batch_size):
         if max_batches is not None and n >= max_batches:
             break
         batch = torch.as_tensor(np.asarray(rows[i : i + batch_size]), device=device).long()
-        loss_b = lm_loss(params, batch, cfg, attn_fn)
+        loss_b = loss_fn(batch)
         total = loss_b if total is None else total + loss_b
         n += 1
     if n == 0:
