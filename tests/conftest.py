@@ -387,6 +387,10 @@ QUICK_TESTS = {
                                    "[2-2-2]"],
     "test_torch_pipeline_ep": ["test_1f1b_gradients_match_jax[2-2-1-2]",
                                "test_cli_refusals_in_jax_texts[zb-stash]"],
+    "test_torch_zero": ["test_loss_trajectory_and_params_match_jax[zero1]",
+                        "test_slices_match_the_unsharded_step_with_every_control[fsdp-3]"],
+    "test_torch_data_parallel": ["test_dense_engine_serves_over_data_slots_as_jax_does[int8]",
+                                 "test_train_fcnn_mesh_follows_jax_history[does-not-divide]"],
     # ISSUE 10: the codec fast lane's correctness anchor (byte-exact
     # scalar/vectorized equivalence + fuzz agreement), the decode-into-
     # staging path through a real batcher, the codec A/B perf smoke,

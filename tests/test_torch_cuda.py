@@ -25,7 +25,9 @@ sequence-parallel steps (ring and Ulysses, alone, pipelined and with
 Megatron TP) graphed against eager, with their flash launches; the
 mixture-of-experts steps (one program, over expert slots, TP inside the
 experts, sp x ep, through the pipeline) graphed against eager, and the
-routing on the card against the CPU's.
+routing on the card against the CPU's; the ZeRO-1 and FSDP steps (alone
+and under sp) graphed against eager, and the data-sharded engine's
+launches a slot.
 ``chip_smoke.py`` covers the main path's shapes.
 """
 
@@ -1395,3 +1397,165 @@ def test_cli_lm_experts_through_the_pipeline_on_the_card(cuda, capsys):
 
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert np.isfinite(report["final_train_loss"]) and np.isfinite(report["perplexity"])
+
+
+ZERO_CASES = {  # (data, seq, mode, fsdp, compute dtype)
+    "zero1": (4, 1, None, False, "bfloat16"),
+    "zero1-float32": (4, 1, None, False, "float32"),
+    "fsdp": (4, 1, None, True, "bfloat16"),
+    "sp-zero1-ulysses": (2, 2, "ulysses", False, "bfloat16"),
+    "sp-fsdp-ring": (2, 2, "ring", True, "bfloat16"),
+}
+
+
+@pytest.mark.parametrize("case", list(ZERO_CASES))
+def test_graphed_zero_step_equals_the_eager_step(cuda, case):
+    """``train_lm`` with a ZeRO-1 / FSDP step over data slots of the card
+    (alone and under sp) captures it; with ``clip_norm`` on, its losses,
+    trained params and flash launches equal the eager step's over 3 steps,
+    bit for bit (the sm90 pair in bf16, the f32 pair in float32), and
+    each slot owns 1/N of every sliced moment."""
+    from tpu_dist_nn_torch.models.transformer import param_leaves
+    from tpu_dist_nn_torch.parallel import zero
+    from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+    from tpu_dist_nn_torch.train.optimizers import build_optimizer
+
+    data, seq, mode, fsdp, dtype = ZERO_CASES[case]
+    cfg = TransformerConfig(vocab_size=256, d_model=128, n_heads=4, n_layers=4, d_ff=512,
+                            max_seq_len=128, compute_dtype=dtype, remat=True)
+    pair = (flash_fwd_sm90, flash_bwd_sm90) if dtype == "bfloat16" else (flash_fwd_f32,
+                                                                          flash_bwd_f32)
+    params = init_transformer(torch.Generator().manual_seed(0), cfg, device=cuda)
+    width = 128 if seq > 1 else 129  # sp rows are full rows
+    batches = [np.random.default_rng(i).integers(0, 256, (8, width)) for i in range(3)]
+
+    def make(opt):
+        m = build_mesh(MeshSpec(data=data, seq=seq), ["cuda:0"] * (data * seq))
+        if seq > 1:
+            return zero.make_sp_sharded_lm_train_step(m, cfg, opt, params, mode=mode,
+                                                      shard_params=fsdp)
+        return (zero.make_fsdp_lm_train_step if fsdp else zero.make_zero_lm_train_step)(
+            m, cfg, opt, params)
+
+    reset_launch_counts()
+    got, hist = train_lm(params, cfg, batches,
+                         LMTrainConfig(learning_rate=1e-3, steps=3, batch_size=8,
+                                       seq_len=width - 1, log_every=1, clip_norm=0.5),
+                         step_fn=make)
+    graphed = tuple(fn.launches for fn in pair)
+    opt = build_optimizer(1e-3, total_steps=3, clip_norm=0.5)
+    step = make(opt)
+    st = step.shard_params(tree_map(lambda a: a.detach().clone().requires_grad_(), params))
+    state = step.init_opt_state(param_leaves(st))
+    for i, d in enumerate(step.layout):
+        if d is not None:
+            assert all(p.numel() * data == state.mu[i].numel() for p in state.mu[i].parts)
+    reset_launch_counts()
+    losses = [float(step(st, state, torch.from_numpy(b).to(cuda))[2]) for b in batches]
+    assert [h["loss"] for h in hist] == losses and all(np.isfinite(losses))
+    for a, b in zip(param_leaves(got), param_leaves(step.unshard_params(st))):
+        assert torch.equal(a, b)
+    assert graphed == tuple(fn.launches for fn in pair)
+    assert graphed == ((0, 0) if mode == "ring" else (3 * 2 * 4 * data * seq, 3 * 4 * data * seq))
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8", "conv"])
+def test_data_sharded_engine_launches_once_a_slot_on_the_card(cuda, kind):
+    """The data-sharded engine on 4 slots of the card: each slot launches
+    the model's kernels once a batch (a pad tail of 3 rows included); f32
+    within 1e-5 of the float64 oracle, int8 bit-equal to the single-program
+    int8 engine and within the chain's tolerance of its plain version,
+    conv within the conv tolerance of the plain network."""
+    from tpu_dist_nn_torch.models.network import build_network, network_forward
+    from tpu_dist_nn_torch.testing.oracle import oracle_forward_batch
+
+    if kind == "conv":
+        model = init_conv_mlp(torch.Generator().manual_seed(0), in_shape=(16, 16, 3),
+                              conv_filters=(8, 16), hidden=(32,), num_classes=10)
+    else:
+        model = _model([784, 128, 64, 10], ["relu", "relu", "softmax"])
+    eng = Engine.up(model, data_parallel=4, devices=["cuda:0"] * 4,
+                    quantize="int8" if kind == "int8" else None)
+    assert eng.data_sharded and eng.placement()["data_parallel"] == 4
+    x = np.random.default_rng(2).uniform(0, 1, (1021, model.input_dim)).astype(np.float32)
+    reset_launch_counts()
+    out = eng.infer(x)
+    launched = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS if fn.launches}
+    if kind == "f32":
+        assert launched == {"fcnn_fused_forward": 4}
+        np.testing.assert_allclose(out, oracle_forward_batch(model, x), atol=1e-5)
+    elif kind == "int8":
+        assert launched == {"fcnn_quantized_forward": 4}
+        want = forward_quantized(quantize_fcnn(params_from_spec(model, device=cuda)),
+                                 torch.from_numpy(x).to(cuda))
+        np.testing.assert_allclose(out, want.cpu().numpy(), atol=1e-7, rtol=1e-6)
+        np.testing.assert_array_equal(out, Engine.up(model, quantize="int8").infer(x))
+    else:
+        assert launched == {"fused_conv2d": 8, "fcnn_fused_forward": 4}
+        plan, params = build_network(model, torch.float32, "cpu")
+        want = network_forward(plan, params, torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(out, want, atol=1e-5, rtol=2e-5)
+
+
+def test_data_slots_across_cards(cuda):
+    """Data slots on distinct cards (2 to 4) against the same slots on one
+    card: the data-sharded engine in f32 and int8 (each other card
+    serving from its own copy of the weights), then trained through
+    ``Engine.train`` and served again (the copies made before training
+    must not be served after it); and 3 ZeRO-1 and FSDP steps with
+    ``clip_norm`` on (the ZeRO-1 slices updated on another card written
+    back to the replica, FSDP's slices gathered by peer copies)."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip(f"needs two or more cards, {n_cards} visible")
+    from tpu_dist_nn_torch.data.datasets import synthetic_mnist
+    from tpu_dist_nn_torch.models.transformer import param_leaves
+    from tpu_dist_nn_torch.parallel import zero
+    from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+    from tpu_dist_nn_torch.train.optimizers import build_optimizer
+    from tpu_dist_nn_torch.train.trainer import TrainConfig
+
+    n = min(n_cards, 4)
+    cards = [f"cuda:{i}" for i in range(n)]
+    one = ["cuda:0"] * n
+    model = _model([784, 128, 64, 10], ["relu", "relu", "softmax"])
+    x = np.random.default_rng(13).uniform(0, 1, (1001, 784)).astype(np.float32)
+    for quantize in (None, "int8"):
+        across = Engine.up(model, data_parallel=n, devices=cards, quantize=quantize)
+        assert {d for row in across.placement()["slots"] for d in row} == set(cards)
+        want = Engine.up(model, data_parallel=n, devices=one, quantize=quantize).infer(x)
+        np.testing.assert_array_equal(across.infer(x), want)
+    data = synthetic_mnist(512, seed=14)
+    tc = TrainConfig(epochs=1, batch_size=64, clip_norm=1.0)
+    trained = []
+    for devices in (cards, one):
+        eng = Engine.up(model, data_parallel=n, devices=devices)
+        eng.infer(x)  # each card's copy of the weights, before training
+        hist = eng.train(data, tc)
+        trained.append((hist[-1]["loss"], eng.infer(x)))
+    np.testing.assert_allclose(trained[0][0], trained[1][0], rtol=1e-6)
+    np.testing.assert_allclose(trained[0][1], trained[1][1], rtol=1e-5, atol=1e-6)
+    assert np.abs(trained[0][1] - want).max() > 1e-3  # training moved the outputs
+
+    cfg = TransformerConfig(vocab_size=256, d_model=64, n_heads=4, n_layers=2, d_ff=256,
+                            max_seq_len=64, compute_dtype="float32")
+    params = init_transformer(torch.Generator().manual_seed(1), cfg, device=cuda)
+    batches = [torch.from_numpy(np.random.default_rng(20 + i).integers(0, 256, (4 * n, 33)))
+               .to(cuda) for i in range(3)]
+    for make in (zero.make_zero_lm_train_step, zero.make_fsdp_lm_train_step):
+        runs = []
+        for devices in (cards, one):
+            opt = build_optimizer(1e-3, total_steps=3, clip_norm=0.05)
+            step = make(build_mesh(MeshSpec(data=n), devices), cfg, opt, params)
+            p = step.shard_params(tree_map(lambda a: a.detach().clone().requires_grad_(), params))
+            state = step.init_opt_state(param_leaves(p))
+            sliced = [m for m in state.mu if isinstance(m, zero.Shards)]
+            assert sliced and all([str(q.device) for q in m.parts] == devices for m in sliced)
+            losses = [float(step(p, state, b)[2]) for b in batches]
+            runs.append((losses, [t.cpu() for t in param_leaves(step.unshard_params(p))]))
+        (l_across, p_across), (l_one, p_one) = runs
+        np.testing.assert_allclose(l_across, l_one, rtol=1e-6)
+        for a, b in zip(p_across, p_one):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        assert max(float((a - b.detach().cpu()).abs().max())
+                   for a, b in zip(p_one, param_leaves(params))) > 1e-4  # the steps moved them

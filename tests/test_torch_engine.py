@@ -360,6 +360,19 @@ for mesh, groups, blocks in ((None, 1, moe["blocks"]),
     mst = tree_map(lambda a: a.clone().requires_grad_(), dict(moe, blocks=blocks))
     mloss = make_moe_lm_train_step(mcfg, zopt, mesh)(mst, zopt.init(param_leaves(mst)), toks)[2]
     assert abs(float(mloss) - float(ep.moe_lm_loss(moe, toks, mcfg, n_groups=groups))) < 1e-4
+# ZeRO-1 and FSDP over (data 2) CPU slots, and the data-sharded engine,
+# against the one-program step and engine.
+from tpu_dist_nn_torch.parallel import zero
+from tpu_dist_nn_torch.train.lm_trainer import make_lm_train_step
+base = make_lm_train_step(cfg4, zopt)
+bst = tree_map(lambda a: a.clone().requires_grad_(), lm4)
+want = float(base(bst, zopt.init(param_leaves(bst)), toks)[2])
+for make in (zero.make_zero_lm_train_step, zero.make_fsdp_lm_train_step):
+    zs = make(build_mesh(MeshSpec(data=2), ["cpu"] * 2), cfg4, zopt, lm4)
+    zst = zs.shard_params(tree_map(lambda a: a.clone().requires_grad_(), lm4))
+    assert abs(float(zs(zst, zs.init_opt_state(param_leaves(zst)), toks)[2]) - want) < 1e-4
+dp = Engine.up(sys.argv[1], data_parallel=2, devices=["cpu"] * 2)
+assert dp.data_sharded and np.array_equal(dp.infer(xs), Engine.up(sys.argv[1], device="cpu").infer(xs))
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist_nn")]
 assert not bad, bad
 print("imported", len(mods), "modules without jax")

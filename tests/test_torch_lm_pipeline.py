@@ -408,30 +408,36 @@ def test_cli_parallel_flags_refused_with_jax_texts(flags):
     assert texts[0] == texts[1]
 
 
-@pytest.mark.parametrize("flags,missing", [
-    # The MoE LM is ported: what stays refused with --experts is what the
-    # JAX package refuses, in its texts.
-    (["--experts", "4", "--zero1", "--data-parallel", "2"], "--zero1 supports the dense LM only"),
-    (["--seq-parallel", "2", "--experts", "4", "--tensor-parallel", "2"],
-     "--tensor-parallel x --experts x --seq-parallel is out of scope"),
-    (["--zero1", "--data-parallel", "2"], "(parallel/zero.py) is not ported"),
-    (["--fsdp", "--data-parallel", "2"], "(parallel/zero.py) is not ported"),
-    (["--stages", "2", "--schedule", "zb", "--seq-parallel", "2", "--zero1"],
-     "(parallel/zero.py) is not ported"),
-    (["--stages", "2", "--schedule", "zb-v", "--experts", "4", "--seq-parallel", "2"],
-     "--experts x --seq-parallel x --stages supports --schedule gpipe only"),
-    (["--stages", "2", "--schedule", "zb-stash", "--zero1"], "(parallel/zero.py) is not ported"),
-    (["--data-parallel", "2"], "data-sharded single program is not ported"),
+@pytest.mark.parametrize("flags,refused", [
+    # Each case as the JAX package takes it: a refusal in its text, held
+    # equal to tdn's last stderr line before any work, or a run that trains.
+    (["--experts", "4", "--zero1", "--data-parallel", "2"], True),
+    (["--seq-parallel", "2", "--experts", "4", "--tensor-parallel", "2"], True),
+    (["--zero1", "--data-parallel", "2"], False),
+    (["--fsdp", "--data-parallel", "2"], False),
+    (["--stages", "2", "--schedule", "zb", "--seq-parallel", "2", "--zero1"], True),
+    (["--stages", "2", "--schedule", "zb-v", "--experts", "4", "--seq-parallel", "2"], True),
+    (["--stages", "2", "--schedule", "zb-stash", "--zero1"], True),
+    (["--data-parallel", "2"], False),
 ], ids=["experts", "seq-parallel", "zero1", "fsdp", "zb", "zb-v", "zb-stash", "data-parallel"])
-def test_cli_refuses_flags_not_ported_before_training(flags, missing):
+def test_cli_refuses_flags_not_ported_before_training(flags, refused, capsys):
+    from tpu_dist_nn.cli import main as tdn_main
     from tpu_dist_nn_torch.cli import main as port_main
 
-    err = io.StringIO()
+    if not refused:
+        assert port_main(LM + flags + ["--device", "cpu"]) == 0
+        assert "perplexity" in capsys.readouterr().out
+        return
+    texts = []
     t0 = time.monotonic()
-    with redirect_stderr(err):
-        assert port_main(LM + flags + ["--device", "cpu"]) == 2
+    for main, argv in ((port_main, LM + flags + ["--device", "cpu"]),
+                       (tdn_main, ["--platform", "cpu"] + LM + flags)):
+        err = io.StringIO()
+        with redirect_stderr(err):
+            assert main(argv) == 2
+        texts.append(err.getvalue().strip().splitlines()[-1])
     assert time.monotonic() - t0 < 10.0  # before the corpus or any training
-    assert missing in err.getvalue()
+    assert texts[0] == texts[1] and "not ported" not in texts[0]
 
 
 @pytest.mark.parametrize("family", ["pp", "pp_tp"])

@@ -267,9 +267,10 @@ def test_the_fcnn_pipeline_refuses_zero_bubble_with_jax_texts():
 
 
 @pytest.mark.parametrize("flags,missing", [
-    (["--schedule", "zb", "--seq-parallel", "2", "--fsdp"], "(parallel/zero.py) is not ported"),
-    # The MoE LM is ported: its zero-bubble compositions that the JAX
-    # package refuses are refused in its texts.
+    # ZeRO and the MoE LM are ported: their zero-bubble compositions that
+    # the JAX package refuses are refused in its texts.
+    (["--schedule", "zb", "--seq-parallel", "2", "--fsdp"],
+     "--fsdp shards over the data axis: needs --data-parallel >= 2"),
     (["--schedule", "zb-v", "--seq-parallel", "2", "--experts", "4"],
      "--experts x --seq-parallel x --stages supports --schedule gpipe only"),
     (["--schedule", "zb", "--experts", "4", "--tensor-parallel", "2"],

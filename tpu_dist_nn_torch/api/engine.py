@@ -41,11 +41,19 @@ A conv model's multi-stage distribution is served by the
 heterogeneous pipeline
 (:class:`~tpu_dist_nn_torch.parallel.hetero_pipeline.HeteroPipeline`):
 each stage's layers on a slot, through the conv and chain kernels,
-``len(x) // num_microbatches`` rows a chunk. A placement that needs
-more slots than there are collapses to the single-program executor, as
-the JAX Engine collapses to one chip, and so does a single-stage
-data-parallel placement (the data-sharded single program is not
-ported); each is logged.
+``len(x) // num_microbatches`` rows a chunk. A single-stage plan with
+``data_parallel = N`` slots is the data-sharded single program (JAX
+``Engine.data_sharded``): the rows padded with zeros to a multiple of N,
+slot ``d`` running its contiguous chunk through the model's kernels on
+its own stream (the f32 chain, the int8 chain, or the conv kernels and
+the chain tail; a slot on another card reads its own copy of the
+weights), the results concatenated in slot order and the pad dropped;
+:meth:`Engine.train` then trains a dense model with the rows over the
+data slots (:func:`~tpu_dist_nn_torch.train.trainer.train_fcnn`'s
+``mesh``), a conv model on one program, as the JAX Engine does. A
+placement that needs more slots than there are collapses to the
+single-program executor, as the JAX Engine collapses to one chip
+(logged); on one card, pass ``devices=[card] * N``.
 
 On a card, a pipelined engine whose slots share one card serves each
 pow2 row bucket through a captured CUDA graph of the pipelined forward
@@ -77,6 +85,7 @@ and serves the trained weights on every path afterwards.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import os
 import time
@@ -96,6 +105,7 @@ from tpu_dist_nn_torch.models.network import (
 )
 from tpu_dist_nn_torch.obs.log import get_logger
 from tpu_dist_nn_torch.obs.registry import REGISTRY
+from tpu_dist_nn_torch.parallel.gpipe import caller_event, gather, launch
 from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh, visible_devices
 from tpu_dist_nn_torch.parallel.one_f_one_b import validate_schedule
 from tpu_dist_nn_torch.parallel.pipeline import (
@@ -202,6 +212,10 @@ class Engine:
         # Interleaved placements pipeline V = stage * v chunks over
         # stage slots, so stage == 1 with v > 1 still pipelines.
         self.pipelined = mesh_spec.stage > 1 or self.virtual_stages > 1
+        # Pure data parallelism on a single-stage plan: the rows over
+        # the data slots, the weights shared (a copy a card).
+        self.data_sharded = not self.pipelined and mesh_spec.data > 1
+        self._copies: dict = {}  # data-sharded: device -> (params, q) there
         self._plan = None  # mixed-layer (conv/pool) networks only
         self._params = None  # single-program params
         self._pp = None  # pipelined: the padded contract
@@ -222,7 +236,7 @@ class Engine:
             self._placed = place_pipeline(self.mesh, self._pp, num_virtual=self.virtual_stages)
             self.device = self._placed.device
         else:
-            self.mesh = None
+            self.mesh = build_mesh(mesh_spec, devices) if self.data_sharded else None
             self.device = device
             if model.is_dense:
                 self._params = params_from_spec(model, dtype, device)
@@ -243,6 +257,7 @@ class Engine:
 
     def _quantize(self) -> None:
         self._graphs.clear()
+        self._copies.clear()
         if self.pipelined:
             from tpu_dist_nn_torch.kernels.quantized import quantize_pipeline_weights
 
@@ -265,11 +280,12 @@ class Engine:
         card (raises :class:`UnavailableError` without one); pass
         ``"cpu"`` for the plain PyTorch path. ``devices`` (default: the
         visible cards, each once; ``[device]`` on the CPU) are the slots
-        a multi-stage distribution may take: one per stage and data
-        replica, and one card may be named several times. A dense
-        model's ``S``-stage distribution with ``S x data_parallel`` slots
-        runs the pipeline in ``num_microbatches`` microbatches; with
-        too few it collapses to one program (logged). ``quantize="int8"``
+        a distribution may take: one per stage and data replica, and one
+        card may be named several times. A dense model's ``S``-stage
+        distribution with ``S x data_parallel`` slots runs the pipeline
+        in ``num_microbatches`` microbatches, and a single-stage plan
+        with ``data_parallel`` slots the data-sharded single program;
+        with too few either collapses to one program (logged). ``quantize="int8"``
         serves through the int8 chain kernel (dense models only). A conv
         model serves through the conv and chain kernels.
         ``warm_rows > 0`` runs the whole pow2 row-bucket ladder up to
@@ -339,13 +355,6 @@ class Engine:
                     stages, data_parallel, n_devices,
                 )
                 mesh_spec = single
-            elif stages == 1 and data_parallel > 1:
-                log.info(
-                    "placement: the data-sharded single program is not ported; "
-                    "%d data shards collapse to the single-program executor",
-                    data_parallel,
-                )
-                mesh_spec = single
             else:
                 mesh_spec = MeshSpec(stage=stages, data=data_parallel)
         if mesh_spec.stage == 1 and virtual_stages == 1:
@@ -376,6 +385,8 @@ class Engine:
             "data_parallel": self.mesh_spec.data,
             "pipelined": self.pipelined,
         }
+        if self.data_sharded:
+            base["slots"] = [[str(slot.device) for slot in row] for row in self.mesh.slots]
         if self.virtual_stages > 1:
             base["virtual_stages"] = self.virtual_stages
         if self._hp is not None:
@@ -488,11 +499,42 @@ class Engine:
             if graphed is not None:
                 return graphed(x)
             return run_placed(placed, x, self.num_microbatches)
+        if self.data_sharded:
+            return self._sharded_forward(x)
+        return self._program(self._params, self._q, x)
+
+    def _program(self, params, q, x: torch.Tensor) -> torch.Tensor:
+        """The single program's kernels on ``x`` with ``params`` (or the
+        int8 ``q``) on ``x``'s device."""
         if self._serves_int8:
-            return dense_forward(self._q, x, quantized=True)
+            return dense_forward(q, x, quantized=True)
         if self._plan is not None:
-            return network_forward(self._plan, self._params, x)
-        return dense_forward(self._params, x)
+            return network_forward(self._plan, params, x)
+        return dense_forward(params, x)
+
+    def _sharded_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The data-sharded forward (the JAX Engine's data-sharded
+        launch): rows zero-padded to a multiple of the data slots, slot
+        ``d`` runs its contiguous chunk on its stream, the results
+        concatenated in slot order on the caller's stream, pad dropped."""
+        slots = self.mesh.slots[0]
+        n, pad = len(x), -len(x) % len(slots)
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+        ready = caller_event(x)
+        outs = [launch(slot, functools.partial(self._program, *self._weights_on(slot.device)),
+                       rows, ready)
+                for slot, rows in zip(slots, x.chunk(len(slots)))]
+        return torch.cat(gather(outs, self.device))[:n]
+
+    def _weights_on(self, device) -> tuple:
+        """``(params, q)`` on ``device``: the engine's own on its card, a
+        copy made once on another."""
+        if device == self.mesh.slots[0][0].device:
+            return self._params, self._q
+        if device not in self._copies:
+            self._copies[device] = (_moved(self._params, device), _moved(self._q, device))
+        return self._copies[device]
 
     def _graphed(self, placed) -> GraphedPlaced | None:
         """The captured forward of ``placed`` (the f32 or the int8
@@ -780,6 +822,7 @@ class Engine:
                 self._plan, self._params, train_data, config,
                 eval_data=eval_data, checkpoints=checkpoints,
             )
+            self._copies.clear()
             self.model = network_model_from_params(self.model, self._params)
             return history
         if self.pipelined:
@@ -795,7 +838,10 @@ class Engine:
             self._params, history = train_fcnn(
                 self._params, train_data, config,
                 eval_data=eval_data, checkpoints=checkpoints,
+                # Data-sharded placement: train over the data slots too.
+                mesh=self.mesh if self.data_sharded else None,
             )
+            self._copies.clear()
             layers = [
                 dataclasses.replace(layer, weights=p["w"].cpu().double().numpy(),
                                     biases=p["b"].cpu().double().numpy())
@@ -832,6 +878,7 @@ class Engine:
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
         self._graphs.clear()
+        self._copies.clear()
         self._params = None
         self._placed = None
         self._q = None
@@ -841,3 +888,15 @@ class Engine:
     def is_ready(self) -> bool:
         return self._params is not None or self._placed is not None or self._hp is not None
 
+
+
+def _moved(tree, device):
+    """A copy of a params tree (lists and dicts of tensors and ints) on
+    ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_moved(t, device) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _moved(v, device) for k, v in tree.items()}
+    return tree

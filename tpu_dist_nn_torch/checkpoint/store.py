@@ -17,6 +17,11 @@ Restore is template-based: the caller rebuilds the state skeleton
 (initial params and ``optimizer.init``) and the stored arrays are
 poured into it, each tensor leaf landing on its template's device and
 dtype. Every leaf of the template must be in the file and nothing else.
+A leaf sliced over data slots (the ZeRO / FSDP state of
+:mod:`tpu_dist_nn_torch.parallel.zero`) is written whole under its usual
+key and re-sliced by its template's layout on restore, so a sharded
+run's checkpoint and an unsharded run's are the same file (the JAX
+package fetches sharded leaves whole to the host the same way).
 """
 
 from __future__ import annotations
@@ -78,7 +83,10 @@ def _map_leaves(fn: Callable[[str, Any], Any], tree: Any, path: str = "") -> Any
 
 def _to_host(leaf) -> np.ndarray:
     """A host copy of one leaf (a snapshot: the trainer updates its
-    tensors in place after the save)."""
+    tensors in place after the save). A leaf sliced over data slots
+    (:class:`~tpu_dist_nn_torch.parallel.zero.Shards`) is saved whole."""
+    if hasattr(leaf, "host_array"):
+        return leaf.host_array()
     if isinstance(leaf, torch.Tensor):
         return np.array(leaf.detach().cpu())
     return np.array(leaf)
@@ -92,6 +100,8 @@ def _host_arrays(state: Any) -> dict[str, np.ndarray]:
 
 
 def _restore_leaf(template, arr: np.ndarray):
+    if hasattr(template, "restored"):
+        return template.restored(arr)  # re-sliced by the template's layout
     if isinstance(template, torch.Tensor):
         t = torch.from_numpy(arr).to(device=template.device, dtype=template.dtype)
         return t.requires_grad_(True) if template.requires_grad else t

@@ -62,10 +62,17 @@ printed lines:
   Megatron-split inside the experts (``--tensor-parallel``), with
   ``--seq-parallel``, or through ``--stages`` on every schedule but
   zb-stash (with ``--seq-parallel`` too: gpipe only); the JAX package's
-  refusals of its other combinations come first, in its texts. Left for
-  later slices, refused before training by what is missing: ``--zero1``,
-  ``--fsdp``, the dense ``--data-parallel`` without ``--stages`` or
-  ``--seq-parallel``; and ``--metrics-port``.
+  refusals of its other combinations come first, in its texts.
+  ``--zero1`` / ``--fsdp`` with ``--data-parallel N`` train the dense LM
+  with Adam's state (and, for FSDP, the params) sliced over N data
+  slots, alone or with ``--seq-parallel`` (ring or Ulysses); the JAX
+  package's refusals of the other combinations, in its texts. The dense
+  ``--data-parallel`` without those, ``--stages`` or ``--seq-parallel``
+  trains one program, as ``tdn lm`` does (it builds no mesh there), and
+  says so in a log line. ``up``, ``infer`` and ``train`` take
+  ``--data-parallel N`` to the Engine's data-sharded placement (N slots;
+  on one card it collapses, as the JAX Engine does on one chip). Left
+  for later slices: ``--metrics-port``.
 
 Every engine-side verb runs on the card unless ``--device cpu`` is
 given.
@@ -588,13 +595,20 @@ def _validate_sampling(args, cfg, generator) -> None:
                            args.top_p, generator, args.eos_id)
 
 
-def _refuse_unported(args) -> None:
-    """``tdn lm``'s parallel flags that this port does not carry yet,
-    refused before any work, each naming what is missing."""
-    if args.zero1 or args.fsdp:
+def _validate_zero(args) -> None:
+    """``--zero1`` / ``--fsdp`` with the JAX package's texts and in its
+    order (checked with the dense LM's placement flags)."""
+    if args.zero1 and args.fsdp:
+        raise ValueError("--fsdp already shards the optimizer state; drop --zero1")
+    if (args.zero1 or args.fsdp) and args.data_parallel < 2:
         raise ValueError(
             ("--fsdp" if args.fsdp else "--zero1")
-            + ": sharded optimizer state (parallel/zero.py) is not ported yet"
+            + " shards over the data axis: needs --data-parallel >= 2"
+        )
+    if args.stages > 1 and (args.zero1 or args.fsdp):
+        raise ValueError(
+            "--zero1/--fsdp compose with --data-parallel only "
+            "(state already lives per-stage in the pipeline)"
         )
 
 
@@ -703,7 +717,6 @@ def _validate_parallel(args) -> None:
     if args.experts > 0:
         _validate_moe(args)
         return
-    _refuse_unported(args)
     if args.schedule == "zb-v" and args.virtual_stages not in (None, 2):
         raise ValueError(
             "--schedule zb-v fixes the chunk count at 2 per device (the "
@@ -723,6 +736,7 @@ def _validate_parallel(args) -> None:
                 f"--tensor-parallel {args.tensor_parallel} "
                 "(Megatron shards attention head-wise)"
             )
+    _validate_zero(args)
     if args.schedule != "gpipe" and args.stages <= 1:
         raise ValueError(
             f"--schedule {args.schedule} applies to the pipelined dense LM "
@@ -743,11 +757,11 @@ def _validate_parallel(args) -> None:
                 f"by microbatches*data_parallel="
                 f"{args.microbatches * args.data_parallel}"
             )
-    elif args.data_parallel > 1 and args.seq_parallel <= 1:
+    elif (args.zero1 or args.fsdp) and args.seq_parallel <= 1 and (
+            args.batch_size % args.data_parallel):
         raise ValueError(
-            "--data-parallel without --stages or --seq-parallel: the data-sharded single "
-            "program is not ported yet (use --stages > 1 or --seq-parallel > 1 for data "
-            "replicas)"
+            f"--batch-size {args.batch_size} must be divisible by "
+            f"--data-parallel {args.data_parallel}"
         )
 
 
@@ -1068,7 +1082,23 @@ def cmd_lm(args) -> int:
     checkpoints = _checkpoint_manager(args)
     pipeline = {}
     flat_moe = moe and max(args.expert_parallel, args.data_parallel, args.tensor_parallel) > 1
-    if args.stages > 1 or args.seq_parallel > 1 or flat_moe:
+    if args.zero1 or args.fsdp:
+        from tpu_dist_nn_torch.parallel import zero
+        from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
+
+        spec = MeshSpec(seq=args.seq_parallel, data=args.data_parallel)
+        zero_mesh = build_mesh(spec, _slot_devices(device, spec.num_devices))
+        if args.seq_parallel > 1:
+            pipeline = dict(step_fn=lambda opt: zero.make_sp_sharded_lm_train_step(
+                zero_mesh, cfg, opt, params, mode=args.sp_mode, shard_params=args.fsdp))
+        else:
+            make = zero.make_fsdp_lm_train_step if args.fsdp else zero.make_zero_lm_train_step
+            pipeline = dict(step_fn=lambda opt: make(zero_mesh, cfg, opt, params))
+    elif args.data_parallel > 1 and not moe and args.stages <= 1 and args.seq_parallel <= 1:
+        log.info("--data-parallel %d without --zero1/--fsdp, --stages or --seq-parallel: "
+                 "the dense LM trains as one program (tdn lm builds no mesh here)",
+                 args.data_parallel)
+    elif args.stages > 1 or args.seq_parallel > 1 or flat_moe:
         from tpu_dist_nn_torch.parallel.mesh import MeshSpec, build_mesh
 
         spec = MeshSpec(stage=args.stages, data=args.data_parallel, model=args.tensor_parallel,
@@ -1307,8 +1337,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "interleaved); default 2 for interleaved, 1 "
                         "(classic contiguous placement) for zb")
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="data replicas of the pipeline (with --stages > 1) or of the "
-                        "sequence-parallel program (with --seq-parallel > 1)")
+                   help="data replicas of the pipeline (with --stages > 1), of the "
+                        "sequence-parallel program (with --seq-parallel > 1), or of the "
+                        "ZeRO-1 / FSDP step (with --zero1 / --fsdp)")
     p.add_argument("--seq-parallel", type=int, default=1,
                    help="shard the sequence axis over N seq slots for long-context "
                         "training (see --sp-mode)")
@@ -1326,8 +1357,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "(K/V rotation, O(T/N) memory) or ulysses "
                         "(all-to-all head scatter; needs heads %% N == 0)")
     p.add_argument("--microbatches", type=int, default=4)
-    p.add_argument("--zero1", action="store_true", help="ZeRO-1 (not ported)")
-    p.add_argument("--fsdp", action="store_true", help="FSDP (not ported)")
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1: slice Adam's moments over the --data-parallel slots "
+                        "(dense LM; alone or with --seq-parallel)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="FSDP: slice the params and Adam's moments over the "
+                        "--data-parallel slots, gathered at use")
     p.add_argument("--experts", type=int, default=0,
                    help="MoE: experts per block (0 = dense MLP)")
     p.add_argument("--capacity-factor", type=float, default=1.25)

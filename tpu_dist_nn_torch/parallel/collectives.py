@@ -1,8 +1,11 @@
-"""Collectives over the model slots and the seq slots of one ``(stage, data)`` cell.
+"""Collectives over the model slots and the seq slots of one ``(stage, data)`` cell,
+and over the data slots.
 
 The port's counterpart of ``shard_map``'s ``psum`` and ``all_gather``
-over the JAX mesh's ``model`` axis, and of the ring hop (``ppermute``)
-and ``all_to_all`` over its ``seq`` axis. One process drives every slot
+over the JAX mesh's ``model`` axis, of the ring hop (``ppermute``)
+and ``all_to_all`` over its ``seq`` axis, and of the reduce-scatter and
+all-gather that XLA's partitioner inserts over its ``data`` axis for a
+sharded optimizer state (:mod:`~tpu_dist_nn_torch.parallel.zero`). One process drives every slot
 (:mod:`~tpu_dist_nn_torch.parallel.mesh`): a cell's model slots each
 run their shard's work on their own stream, and the cell's lead slot
 (model shard 0) holds the replicated values.
@@ -25,6 +28,20 @@ run their shard's work on their own stream, and the cell's lead slot
 * :func:`all_to_all` splits each seq shard's tensor along one dim and
   hands piece ``j`` to seq slot ``j``, which concatenates the pieces it
   receives along another dim in shard order.
+
+* :func:`reduce_scatter` sums ``N`` data slots' full partials slice by
+  slice: slot ``j`` receives slice ``j`` (along one dim) of every partial
+  and adds them in shard order 0, 1, ..., N-1 on its own stream, so a
+  repeat gives the same bits.
+* :func:`gather_slices` concatenates a leaf's ``N`` slices along its
+  sharded dim on one data slot (a peer copy from another card).
+
+Both data collectives are autograd ops too: the gradient of a
+reduce-scatter is the gather of its slices' cotangents, and the gradient
+of a gather, summed over the slots that gathered, is the reduce-scatter
+(autograd adds those cotangents in its own order; the ZeRO steps take
+each slot's gradients and call :func:`reduce_scatter` themselves, for
+the fixed order).
 
 Both seq collectives are autograd ops built from views, hand-offs and
 ``torch.cat``: their backward is the reverse hop and the inverse
@@ -73,7 +90,7 @@ def fan_out(x: torch.Tensor, slots: Sequence[StageSlot]) -> list[torch.Tensor]:
     return out
 
 
-def _hand_off(dst: StageSlot, src: StageSlot, x: torch.Tensor) -> torch.Tensor:
+def hand_off(dst: StageSlot, src: StageSlot, x: torch.Tensor) -> torch.Tensor:
     """``x`` (made on ``src``'s stream) usable on ``dst``'s stream, which
     is current."""
     if dst.stream is None:
@@ -89,7 +106,7 @@ def psum(parts: Sequence[torch.Tensor], slots: Sequence[StageSlot]) -> torch.Ten
     lead = slots[0]
     total = parts[0]
     for slot, part in zip(slots[1:], parts[1:]):
-        total = total + _hand_off(lead, slot, part)
+        total = total + hand_off(lead, slot, part)
     return total
 
 
@@ -98,7 +115,7 @@ def all_gather(parts: Sequence[torch.Tensor], slots: Sequence[StageSlot],
     """The shards' ``parts`` concatenated along ``dim`` in shard order on
     the lead's stream (``slots[0]``, current)."""
     lead = slots[0]
-    return torch.cat([parts[0]] + [_hand_off(lead, slot, part)
+    return torch.cat([parts[0]] + [hand_off(lead, slot, part)
                                    for slot, part in zip(slots[1:], parts[1:])], dim=dim)
 
 
@@ -127,7 +144,7 @@ def rotate(xs: Sequence[torch.Tensor], slots: Sequence[StageSlot]) -> list[torch
     out = []
     for q, slot in enumerate(slots):
         with on_slot(slot):
-            out.append(_hand_off(slot, slots[(q - 1) % n], xs[(q - 1) % n]))
+            out.append(hand_off(slot, slots[(q - 1) % n], xs[(q - 1) % n]))
     return out
 
 
@@ -142,6 +159,46 @@ def all_to_all(xs: Sequence[torch.Tensor], slots: Sequence[StageSlot], split_dim
     out = []
     for j, slot in enumerate(slots):
         with on_slot(slot):
-            out.append(torch.cat([_hand_off(slot, src, pieces[i][j])
+            out.append(torch.cat([hand_off(slot, src, pieces[i][j])
                                   for i, src in enumerate(slots)], dim=concat_dim))
     return out
+
+
+def _current_waits(slot: StageSlot) -> None:
+    """``slot``'s stream waits for the current stream of its card (a
+    value made there, e.g. a gradient autograd handed back, is then
+    valid on the slot)."""
+    if slot.stream is not None:
+        slot.stream.wait_stream(torch.cuda.current_stream(slot.device))
+
+
+def take(slot: StageSlot, x: torch.Tensor) -> torch.Tensor:
+    """``x``, already valid on ``slot``'s stream (current), usable there."""
+    return x.to(slot.device) if slot.stream is None else _receive(slot, x)
+
+
+def reduce_scatter(parts: Sequence[torch.Tensor], slots: Sequence[StageSlot],
+                   dim: int) -> list[torch.Tensor]:
+    """``parts[d]``: data slot ``d``'s full partial, valid on its card's
+    current stream. Returns ``out[j] = sum_d parts[d].narrow(dim, j *
+    s, s)`` (``s = size / N``), summed in shard order on slot ``j``'s
+    stream, where it is valid."""
+    n = len(slots)
+    size = parts[0].shape[dim] // n
+    out = []
+    for j, slot in enumerate(slots):
+        _current_waits(slot)
+        with on_slot(slot):
+            total = None
+            for part in parts:
+                piece = take(slot, part.narrow(dim, j * size, size))
+                total = piece if total is None else total + piece
+            out.append(total)
+    return out
+
+
+def gather_slices(parts: Sequence[torch.Tensor], slot: StageSlot, dim: int) -> torch.Tensor:
+    """A leaf's slices ``parts`` (shard order, each valid on ``slot``'s
+    stream: after a :func:`fork` that followed their update) concatenated
+    along ``dim`` on ``slot``, whose stream is current."""
+    return torch.cat([take(slot, p) for p in parts], dim=dim)

@@ -226,7 +226,9 @@ def make_seq_parallel_lm_forward(mesh: Mesh, cfg, mode: str = "ring", attn_fn=No
     model 1). Each seq shard embeds its tokens at their global
     positions, runs every block (:func:`sp_block_apply`; the leaves cast
     on its own slot's stream) and the tied head; the logits come back on
-    the params' device. ``attn_fn`` is Ulysses' local attention (the
+    the params' device. ``params`` may be a list of one tree a data
+    replica (the ZeRO steps' per-slot leaves, :mod:`~tpu_dist_nn_torch.
+    parallel.zero`): replica ``d`` then reads only ``params[d]``. ``attn_fn`` is Ulysses' local attention (the
     port's attention entry by default)."""
     Q, D = mesh.shape[AXIS_SEQ], mesh.shape[AXIS_DATA]
     sp_attn = _sp_attn_fn(mode, attn_fn=attn_fn)
@@ -239,13 +241,14 @@ def make_seq_parallel_lm_forward(mesh: Mesh, cfg, mode: str = "ring", attn_fn=No
         check_sp_rows(cfg, tokens.shape[1], Q)
         if tokens.shape[0] % D:
             raise ValueError(f"batch {tokens.shape[0]} not divisible by data axis {D}")
-        home = params["tok_embed"].device
+        replicas = list(params) if isinstance(params, (list, tuple)) else [params] * D
+        home = replicas[0]["tok_embed"].device
         ready = caller_event(tokens)
         outs = []
         for d, rows in enumerate(tokens.chunk(D, dim=0)):
             slots = mesh.seq_leads(0, d)
 
-            def run(xs, slots=slots):
+            def run(xs, slots=slots, params=replicas[d]):
                 lead = slots[0]
                 here = []
                 for slot in slots:

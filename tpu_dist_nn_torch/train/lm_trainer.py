@@ -58,7 +58,14 @@ pipeline on every schedule but zb-stash (with seq slots: GPipe only).
 :func:`train_lm` picks one from the mesh for a MoE config, in the expert
 layouts (:func:`lm_block_layout` with ``ep``), and captures it as the
 dense steps are captured. :func:`evaluate_moe_lm` scores the CE alone.
-Left for later slices: the ZeRO and multi-host trainers.
+
+The ZeRO-1 and FSDP steps (:mod:`~tpu_dist_nn_torch.parallel.zero`, the
+batch over a mesh's data slots with Adam's state, and for FSDP the
+params, sliced over them) come in as a ``step_fn``, as the JAX CLI
+passes them: :func:`train_lm` takes their sliced state from
+``step.init_opt_state``, slices the params with ``step.shard_params``
+and returns them whole, and captures the step when every slot is on the
+params' card. Left for later slices: the multi-host trainers.
 """
 
 from __future__ import annotations
@@ -406,7 +413,12 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
     ``float(loss)``, which waits for the step to finish on the device.
     ``step_fn``: ``optimizer -> step`` factory overriding the built-in
     step (one step a call; on a card it is captured too, so it takes
-    ``micro_step`` as :func:`make_lm_train_step`'s steps do).
+    ``micro_step`` as :func:`make_lm_train_step`'s steps do). The step's
+    optional attributes: ``init_opt_state`` (the optimizer state, in
+    place of ``optimizer.init``), ``shard_params`` / ``unshard_params``
+    (the params' layout for the run, and back), ``mesh`` (its slots: it
+    is captured only when they are all on the params' card) — the ZeRO
+    and FSDP steps of :mod:`~tpu_dist_nn_torch.parallel.zero` have them.
 
     ``checkpoints`` (a checkpoint manager) saves and resumes ``{"params",
     "opt_state"}``: the newest checkpoint is restored before the first
@@ -508,11 +520,15 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
         else:
             step = make_lm_train_step(cfg, optimizer, attn_fn)
         params = tree_map(lambda a: a.detach().clone().requires_grad_(True), params)
+    if getattr(step, "shard_params", None) is not None:
+        params = step.shard_params(params)
     device = _device_of(params)
     # A graph and its memory pool belong to one card: slots elsewhere run eager.
-    graphed = device.type == "cuda" and (not over_slots or mesh.devices == {device})
+    step_mesh = mesh if over_slots else getattr(step, "mesh", None)
+    graphed = device.type == "cuda" and (step_mesh is None or step_mesh.devices == {device})
+    init_opt_state = getattr(step, "init_opt_state", optimizer.init)
     start_step, state = resume_or_init(
-        checkpoints, {"params": params, "opt_state": optimizer.init(param_leaves(params))})
+        checkpoints, {"params": params, "opt_state": init_opt_state(param_leaves(params))})
     params, opt_state = state["params"], state["opt_state"]
     every = checkpoint_every or train_cfg.log_every
     superstep = make_lm_train_step(cfg, optimizer, attn_fn, steps_per_call=k) if k > 1 else None
@@ -570,6 +586,8 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
         raise
     else:
         flush(checkpoints)
+    if getattr(step, "unshard_params", None) is not None:
+        return tree_map(lambda a: a.detach(), step.unshard_params(params)), history
     params = tree_map(lambda a: a.detach(), params)
     if unshard is not None:
         params = dict(params, blocks=unshard(params["blocks"]))

@@ -19,7 +19,11 @@ optax chain the JAX package builds:
 
 The optimizer works on a list of tensors; the trainer applies the
 updates in place (:func:`apply_updates`) where the JAX package returns
-new arrays.
+new arrays. :meth:`Optimizer.update` is :meth:`~Optimizer.accumulate`
+then :meth:`~Optimizer.apply`; a caller whose leaves are split into
+parts (the sharded steps of :mod:`~tpu_dist_nn_torch.parallel.zero`)
+calls the two on each part, with the global norm of every part and the
+count advanced once.
 """
 
 from __future__ import annotations
@@ -133,22 +137,42 @@ class Optimizer:
         a given ``micro_step`` (a captured step's role) is used as it is
         and ``state.mini_step`` is left to the caller
         (:meth:`next_micro_step`)."""
-        grads = [g.detach() for g in grads]
         n = state.mini_step if micro_step is None else micro_step
         if micro_step is None:
             state.mini_step = self.next_micro_step(n)
-        if self.grad_accum > 1:
-            # acc + (g - acc) / (n + 1), in place
-            delta = torch._foreach_sub(grads, state.acc)
-            torch._foreach_div_(delta, n + 1)
-            torch._foreach_add_(state.acc, delta)
-            if n < self.grad_accum - 1:
-                return None
-            grads = [a.clone() for a in state.acc]
-            torch._foreach_zero_(state.acc)
+        grads = self.accumulate(grads, state, n)
+        return None if grads is None else self.apply(grads, state, params)
+
+    def accumulate(self, grads: Sequence[torch.Tensor], state: OptState,
+                   micro_step: int) -> list[torch.Tensor] | None:
+        """``grads`` folded into ``state.acc`` at ``micro_step``: the
+        gradients to apply (the mean, ``acc`` zeroed) on the last
+        micro-step, else None; ``grads`` themselves without accumulation."""
+        grads = [g.detach() for g in grads]
+        if self.grad_accum == 1:
+            return grads
+        # acc + (g - acc) / (n + 1), in place
+        delta = torch._foreach_sub(grads, state.acc)
+        torch._foreach_div_(delta, micro_step + 1)
+        torch._foreach_add_(state.acc, delta)
+        if micro_step < self.grad_accum - 1:
+            return None
+        grads = [a.clone() for a in state.acc]
+        torch._foreach_zero_(state.acc)
+        return grads
+
+    def apply(self, grads: Sequence[torch.Tensor], state: OptState,
+              params: Sequence[torch.Tensor], *, norm: torch.Tensor | None = None,
+              advance: bool = True) -> list[torch.Tensor]:
+        """Clip, then Adam: the updates to add to ``params`` (``state``'s
+        moments advance in place). ``norm``: ``clip_norm``'s global norm
+        when ``grads`` are one part of the leaves (default: their own).
+        ``advance=False`` leaves ``state.count`` to the caller, who
+        advances it once for all the parts."""
         if self.clip_norm is not None:
-            # Leaves may sit on several cards (a pipeline's stages).
-            norm = torch.sqrt(sum(torch.sum(g * g).to(grads[0].device) for g in grads))
+            if norm is None:
+                # Leaves may sit on several cards (a pipeline's stages).
+                norm = torch.sqrt(sum(torch.sum(g * g).to(grads[0].device) for g in grads))
             norms = [norm.to(g.device) for g in grads]
             grads = [torch.where(n < self.clip_norm, g, (g / n) * self.clip_norm)
                      for g, n in zip(grads, norms)]
@@ -181,7 +205,8 @@ class Optimizer:
             torch._foreach_mul_(u, step)
             for i, ui in zip(idx, u):
                 updates[i] = ui
-        count.add_(1)
+        if advance:
+            count.add_(1)
         return updates
 
     def next_micro_step(self, micro_step: int) -> int:

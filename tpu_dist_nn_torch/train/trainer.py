@@ -22,15 +22,20 @@ counterpart of the JAX package's ``jax.jit`` of the step); on the CPU it
 runs eagerly. Epoch-level checkpoints and resume go through
 :mod:`tpu_dist_nn_torch.checkpoint`.
 
-The pipelined trainers are :mod:`tpu_dist_nn_torch.train.pipeline_trainer`
-(dense) and :mod:`tpu_dist_nn_torch.train.hetero_trainer` (conv).
-Left for later slices: the data-parallel ``mesh`` step (a single-stage
-data-parallel placement collapses to one device in the port's Engine).
+With a ``mesh`` (a data-parallel placement's data slots) the dense
+step splits each batch's rows over the data slots: each slot computes
+its rows' loss on its own stream from its own view of the params (a
+peer copy on another card), one backward gives every slot's gradients,
+and they are summed on the params in slot order before the one update
+(:func:`make_train_step`). The pipelined trainers are
+:mod:`tpu_dist_nn_torch.train.pipeline_trainer` (dense) and
+:mod:`tpu_dist_nn_torch.train.hetero_trainer` (conv).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 
 import numpy as np
@@ -44,9 +49,13 @@ from tpu_dist_nn_torch.models.fcnn import forward_logits, spec_from_params
 from tpu_dist_nn_torch.models.network import dense_forward, network_forward, network_logits
 from tpu_dist_nn_torch.obs.registry import REGISTRY
 from tpu_dist_nn_torch.obs.trace import TRACER
+from tpu_dist_nn_torch.parallel.collectives import fork, join, on_slot, psum, take
+from tpu_dist_nn_torch.parallel.mesh import AXIS_DATA
 from tpu_dist_nn_torch.train.metrics import classification_metrics
 from tpu_dist_nn_torch.train.optimizers import Optimizer, apply_updates, build_optimizer
 from tpu_dist_nn_torch.utils.errors import check_full_batch
+
+log = logging.getLogger("tpu_dist_nn_torch.train")
 
 # Trainer metric families (the JAX package's names), updated at epoch
 # boundaries only: the step loop itself stays untouched.
@@ -148,22 +157,63 @@ def conv_flags():
                                       allow_tf32=False)
 
 
-def make_train_step(acts, optimizer: Optimizer):
+def make_train_step(acts, optimizer: Optimizer, mesh=None):
     """``step(wb, opt_state, x, y) -> (wb, opt_state, loss)``: forward,
     autograd backward, optimizer update applied in place; ``loss`` is a
     detached scalar tensor (reading it synchronises). This is the eager
     step; :func:`run_training_loop` captures it on a card.
-    ``micro_step``: see :meth:`Optimizer.update`."""
+    ``micro_step``: see :meth:`Optimizer.update`.
+
+    With ``mesh`` (data slots): the rows split evenly over the data
+    slots, each slot's loss on its stream from its own view of the
+    leaves, the loss the mean of theirs, and each leaf's gradient the
+    sum of the slots' in slot order on the caller's stream (the JAX
+    step's all-reduce); one update. The step carries ``mesh``."""
+
+    def loss_of(wb, x, y):
+        return cross_entropy(forward_logits(_join_params(wb, acts), x), y)
+
+    if mesh is None:
+        def step(wb, opt_state, x, y, *, micro_step=None):
+            leaves = _leaves(wb)
+            loss = loss_of(wb, x, y)
+            grads = torch.autograd.grad(loss, leaves)
+            updates = optimizer.update(grads, opt_state, leaves, micro_step=micro_step)
+            if updates is not None:
+                apply_updates(leaves, updates)
+            return wb, opt_state, loss.detach()
+
+        return step
+    slots = list(mesh.slots[0])  # each data replica's lead
+    n = len(slots)
 
     def step(wb, opt_state, x, y, *, micro_step=None):
         leaves = _leaves(wb)
-        loss = cross_entropy(forward_logits(_join_params(wb, acts), x), y)
-        grads = torch.autograd.grad(loss, leaves)
-        updates = optimizer.update(grads, opt_state, leaves, micro_step=micro_step)
+        caller = fork(slots)
+        views, losses = [], []
+        for slot, xd, yd in zip(slots, x.chunk(n), y.chunk(n)):
+            with on_slot(slot):
+                mine = [take(slot, t.detach()).requires_grad_(True) for t in leaves]
+                views.append(mine)
+                wb_d = [{"w": mine[2 * i], "b": mine[2 * i + 1]} for i in range(len(wb))]
+                losses.append(loss_of(wb_d, take(slot, xd), take(slot, yd)))
+        with on_slot(slots[0]):
+            loss = psum(losses, slots) / n
+        grads = torch.autograd.grad(loss, [t for mine in views for t in mine])
+        join(caller, slots)
+        L = len(leaves)
+        summed = []
+        for i, leaf in enumerate(leaves):
+            total = grads[i].to(leaf.device)
+            for d in range(1, n):
+                total = total + grads[d * L + i].to(leaf.device)
+            summed.append(total)
+        updates = optimizer.update(summed, opt_state, leaves, micro_step=micro_step)
         if updates is not None:
             apply_updates(leaves, updates)
         return wb, opt_state, loss.detach()
 
+    step.mesh = mesh
     return step
 
 
@@ -213,7 +263,8 @@ def run_training_loop(step, params, opt_state, train_data: Dataset, config: Trai
     the next epoch (checkpoint step k = k completed epochs). With every
     leaf on one card, ``step`` (built with ``optimizer``) runs as a
     captured graph (:func:`compile_train_step`); on the CPU, or with
-    leaves on several cards, it is called as it is."""
+    leaves or a step's ``mesh`` slots on several cards, it is called as
+    it is."""
     check_full_batch(len(train_data), config.batch_size)
     history = []
     start_epoch, state = resume_or_init(checkpoints, {"params": params, "opt_state": opt_state})
@@ -221,7 +272,9 @@ def run_training_loop(step, params, opt_state, train_data: Dataset, config: Trai
     devices = {t.device for t in _leaves(params)}
     device = _leaves(params)[0].device
     compiled = None
-    if device.type == "cuda" and len(devices) == 1:
+    slots = getattr(step, "mesh", None)
+    if device.type == "cuda" and len(devices) == 1 and (slots is None
+                                                        or slots.devices == {device}):
         if optimizer is None:
             raise ValueError("a step on the card is captured: pass its optimizer")
         compiled = compile_train_step(step, params, opt_state, optimizer, config.batch_size,
@@ -274,14 +327,33 @@ def run_training_loop(step, params, opt_state, train_data: Dataset, config: Trai
 
 
 def train_fcnn(params, train_data: Dataset, config: TrainConfig = TrainConfig(),
-               eval_data: Dataset | None = None, checkpoints=None):
+               eval_data: Dataset | None = None, checkpoints=None, mesh=None):
     """Train dense params on their device; returns ``(params, history)``.
     The caller's tensors are not modified: the returned params are new
-    contiguous float32 tensors (detached) with the same activation ids."""
+    contiguous float32 tensors (detached) with the same activation ids.
+
+    With ``mesh`` (a data-parallel placement's data slots) each batch's
+    rows split over the data slots (:func:`make_train_step`): the same
+    gradients, the mean over the batch being row-partition-invariant,
+    computed on every slot. A batch size the data axis does not divide
+    trains on one device, with a warning."""
     wb, acts = _split_params(params)
     optimizer = optimizer_for(config, train_data)
     opt_state = optimizer.init(_leaves(wb))
-    step = make_train_step(acts, optimizer)
+    data_size = 1 if mesh is None else mesh.shape.get(AXIS_DATA, 1)
+    if mesh is not None and data_size > 1:
+        if config.batch_size % data_size:
+            # A silent downgrade from data-parallel to single-device
+            # training must be visible in library use.
+            log.warning(
+                "train: batch_size %d not divisible by data axis %d; "
+                "training single-device", config.batch_size, data_size,
+            )
+            step = make_train_step(acts, optimizer)
+        else:
+            step = make_train_step(acts, optimizer, mesh=mesh)
+    else:
+        step = make_train_step(acts, optimizer)
     eval_fn = None
     if eval_data is not None:
         eval_fn = lambda wb_: evaluate_fcnn(_join_params(wb_, acts), eval_data)  # noqa: E731
