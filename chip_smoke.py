@@ -105,8 +105,15 @@ package. Phases, each fatal on failure (exit 1, no result line):
      the conv engine (CONV_TOL of the plain versions). Where grpcio is
      installed, the same over loopback gRPC (``serve_engine``,
      ``GrpcClient``), the CLI's ``up --grpc-port 0`` in a subprocess
-     with ``infer --target`` (its accuracy line equal to the local
-     ``infer``'s), five more ``up --grpc-port`` servers at once (one
+     and ``--metrics-port 0`` with ``infer --target`` (its accuracy line
+     equal to the local ``infer``'s) while a thread sends 64-row
+     Process requests and ``/metrics``, ``/healthz``, ``/profile`` and
+     ``/debug/profile?seconds=1`` are fetched twice (times and zip sizes
+     printed): the final ``tdn_rpc_requests_total{method="Process"}``
+     equal to the requests sent, ``tdn_device_memory_bytes{device=
+     "cuda:0",kind="bytes_in_use"}`` above 0, every ``/healthz`` 200
+     with the model's fingerprint, and each capture's Chrome trace
+     holding a CUDA kernel event of ``chain_kernel``; five more ``up --grpc-port`` servers at once (one
      int8 with its gate on), each SIGTERMed after answering a request,
      every return code 0, and ``python3 -m tpu_dist_nn_torch.bench
      --serving``; without grpcio it prints ``grpc: not installed;
@@ -178,7 +185,8 @@ package. Phases, each fatal on failure (exit 1, no result line):
      the same recipe's step eager (8 steps) and as 4-step supersteps
      (``steps_per_call=4``, its first 16 steps; losses bit-equal to one
      step a call): s/step and tokens/s of each; then the CLI's
-     ``lm`` verb runs 4 steps with ``--steps-per-call 2``.
+     ``lm`` verb runs 4 steps with ``--steps-per-call 2`` and
+     ``--metrics-port 0`` (the bound port printed, free at exit).
 
    * the generation path (``generate_phase``, after the supersteps),
      on the params the 85M path trained, in bf16: ``generate`` greedy at
@@ -235,7 +243,14 @@ package. Phases, each fatal on failure (exit 1, no result line):
      TTFT p50 / p99, tokens/s, slot occupancy, prefill chunks, prefix
      hits / misses / evictions, preemptions, the step graphed and eager
      (ms/step), a prefill chunk's ms, and the static arm's tokens/s
-     (within the budgets) and latency on the same 24 prompts.
+     (within the budgets) and latency on the same 24 prompts. A
+     ``RuntimeSampler`` (registry of its own) reads the scheduler with
+     ``add_generation_scheduler``: one ``sample_once`` after each load
+     request, from the load threads, while the loop replays the captured
+     decode step (which must replay); ``tdn_gen_tokens_total`` must grow
+     by the load's generated tokens, ``tdn_gen_slots_active`` stay in
+     1..16 during the load and read 0 after, and the card's
+     ``tdn_device_memory_bytes`` be above 0 (tick times printed).
    * the model-parallel LM (``model_parallel_phase``, after LM
      serving): BASELINE ``configs[4]``'s per-block pipeline with the
      Megatron split, the 85M LM in bf16 with remat on stage x model
@@ -665,10 +680,127 @@ def fetched_batches(spans) -> list[int]:
     return list(seen.values())
 
 
-def socket_phase(grpc, eng, model_path, data, reqs, tmp) -> None:
+METRICS_CAPTURES = 2  # rounds of /metrics, /healthz, /profile and a 1 s /debug/profile
+METRICS_PATHS = ("/metrics", "/healthz", "/profile", "/debug/profile?seconds=1")
+
+
+def metrics_get(port: int, path: str, timeout: float = 120.0):
+    """``(status, body, seconds)`` of one GET on a metrics endpoint of
+    127.0.0.1."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as r:
+            return r.status, r.read(), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), time.perf_counter() - t0
+
+
+class MetricsLoad:
+    """Process requests of ``rows``, one after another from a thread
+    until :meth:`stop` (one client without retries: each request counts
+    once on the server), and :meth:`scrape`'s rounds of the metrics
+    endpoint made while it runs."""
+
+    def __init__(self, target: str, rows):
+        import threading
+
+        self.target, self.rows = target, rows
+        self.sent, self.errors, self.results = 0, [], []
+        self._halt = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        from tpu_dist_nn_torch.serving.server import GrpcClient
+
+        client = GrpcClient(self.target, retry=None)
+        try:
+            while not self._halt.is_set():
+                client.process(self.rows)
+                self.sent += 1
+        except Exception as e:  # noqa: BLE001 — reported by metrics_checks
+            self.errors.append(f"{type(e).__name__}: {e}")
+        finally:
+            client.close()
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._halt.set()
+        self._thread.join(60.0)
+
+    def scrape(self, port: int) -> None:
+        while self.sent == 0 and not self.errors and self._thread.is_alive():
+            time.sleep(0.01)
+        for _ in range(METRICS_CAPTURES):
+            for path in METRICS_PATHS:
+                self.results.append((path, *metrics_get(port, path)))
+
+
+def chain_kernel_events(zip_body: bytes) -> tuple[int, int]:
+    """``(CUDA kernel events, those of the chain kernel)`` in a
+    ``/debug/profile`` zip's Chrome trace."""
+    import zipfile
+
+    with zipfile.ZipFile(io.BytesIO(zip_body)) as z:
+        events = json.loads(z.read("trace.json")).get("traceEvents", [])
+    kernels = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    return len(kernels), sum("chain_kernel" in str(e.get("name", "")) for e in kernels)
+
+
+def metrics_checks(load: MetricsLoad, final: bytes, other_requests: int, fingerprint: str,
+                   smi_line: str) -> None:
+    """The metrics endpoint of ``up --grpc-port --metrics-port``, scraped
+    while it served: the Process counter equals the requests sent (the
+    load's and ``other_requests``), the card's memory gauge is above 0,
+    every ``/healthz`` is 200 with the model's fingerprint, and every
+    ``/debug/profile`` capture holds a CUDA kernel event of the chain
+    kernel. Fatal on any miss."""
+    from tpu_dist_nn_torch.obs.exposition import parse_prometheus_text
+
+    parsed = parse_prometheus_text(final.decode())
+    want = load.sent + other_requests
+    got = parsed.get('tdn_rpc_requests_total{method="Process"}')
+    mem = parsed.get('tdn_device_memory_bytes{device="cuda:0",kind="bytes_in_use"}')
+    misses = list(load.errors)
+    for path, status, body, sec in load.results:
+        what = f"{status}, {sec * 1e3:.1f} ms, {len(body)} bytes"
+        if path == "/healthz":
+            doc = json.loads(body)
+            what += f", fingerprint {doc.get('fingerprint', '')[:16]}"
+            if status != 200 or doc.get("fingerprint") != fingerprint:
+                misses.append(f"/healthz {status} {doc}")
+        elif path.startswith("/debug/profile"):
+            if status != 200:
+                misses.append(f"{path} {status} {body[:300]!r}")
+            else:
+                n_kernels, n_chain = chain_kernel_events(body)
+                what += f" (zip), {n_kernels} CUDA kernel events, {n_chain} chain_kernel"
+                if n_chain == 0:
+                    misses.append(f"{path}: no chain_kernel CUDA event ({n_kernels} kernels)")
+        elif status != 200:
+            misses.append(f"{path} {status}")
+        print(f"metrics endpoint on {smi_line}: GET {path}: {what}")
+    ok = not misses and got == want and mem is not None and mem > 0
+    print(f"check metrics endpoint of `up --grpc-port --metrics-port` ({METRICS_CAPTURES} rounds "
+          f"while serving): tdn_rpc_requests_total{{method=\"Process\"}} {got} for {want} "
+          f"requests sent ({load.sent} from the load thread, {other_requests} from infer "
+          f"--target); tdn_device_memory_bytes cuda:0 bytes_in_use {mem}; every /healthz 200 "
+          f"with the fingerprint, every capture holding chain_kernel | "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"metrics endpoint: {misses[:4]} (Process counter {got}, want {want}; memory {mem})")
+
+
+def socket_phase(grpc, eng, model_path, data, reqs, tmp, smi_line) -> None:
     """The Process path over loopback gRPC: serve_engine and GrpcClient
-    on the first requests, the CLI's ``up --grpc-port`` with ``infer
-    --target`` against the local ``infer``, and the ``--serving`` bench."""
+    on the first requests, the CLI's ``up --grpc-port --metrics-port``
+    with ``infer --target`` against the local ``infer`` while the
+    metrics endpoint is scraped and profiled (``metrics_checks``), and
+    the ``--serving`` bench."""
     import signal
     import threading
 
@@ -724,7 +856,8 @@ def socket_phase(grpc, eng, model_path, data, reqs, tmp) -> None:
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     cli = [sys.executable, "-m", "tpu_dist_nn_torch.cli"]
     up = subprocess.Popen(cli + ["up", "--config", str(model_path), "--grpc-port", "0",
-                                 "--serve-seconds", "300", "--drain-grace-seconds", "2"],
+                                 "--metrics-port", "0", "--serve-seconds", "300",
+                                 "--drain-grace-seconds", "2"],
                           cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                           text=True)
     try:
@@ -736,13 +869,23 @@ def socket_phase(grpc, eng, model_path, data, reqs, tmp) -> None:
         if not lines or '"grpc_port"' not in lines[-1]:
             fail(f"cli up printed no grpc_port: {lines} {up.stderr.read()[-2000:]}")
         target = f"127.0.0.1:{json.loads(lines[-1])['grpc_port']}"
+        mport = json.loads(lines[0])["metrics_port"]
+        lines = lines[1:]  # the report lines as before: ready first
+        load = MetricsLoad(target, data[:PROCESS_SIZES[2]])
+        scrapes = threading.Thread(target=load.scrape, args=(mport,))
+        load.start()
+        scrapes.start()
         remote = subprocess.run(cli + ["infer", "--target", target, "--inputs", str(examples),
                                        "--batch-size", "64"],
                                 cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        scrapes.join()
+        load.stop()
+        final = metrics_get(mport, "/metrics")[1]
     finally:
         up.send_signal(signal.SIGTERM)
         up_rc = up.wait(timeout=120)
         up_err = up.stderr.read()
+    metrics_checks(load, final, -(-256 // 64), eng.fingerprint(), smi_line)
     local = io.StringIO()
     with contextlib.redirect_stdout(local):
         local_rc = cli_main(["infer", "--config", str(model_path), "--inputs", str(examples),
@@ -958,7 +1101,7 @@ def process_phase(dev, model, conv_model, data, rng, params, q, out_dir, smi_lin
             grpc = None
             print("grpc: not installed; socket phase not run")
         if grpc is not None:
-            socket_phase(grpc, eng, model_path, data, reqs, Path(tmp))
+            socket_phase(grpc, eng, model_path, data, reqs, Path(tmp), smi_line)
 
     # 3. Numbers.
     for key, label in (("f32", "f32, depth 2"), ("f32 depth 1", "f32, depth 1"),
@@ -2035,7 +2178,8 @@ def serving_phase(dev, cfg, eval_rows, out_dir, smi_line) -> None:
 
     from tpu_dist_nn_torch.models.generate import prefill_chunk_into_cache
     from tpu_dist_nn_torch.models.transformer import forward, init_transformer, num_params
-    from tpu_dist_nn_torch.obs.registry import REGISTRY
+    from tpu_dist_nn_torch.obs.registry import REGISTRY, Registry
+    from tpu_dist_nn_torch.obs.runtime import RuntimeSampler
     from tpu_dist_nn_torch.serving.continuous import ContinuousScheduler
     from tpu_dist_nn_torch.serving.server import GrpcClient, serve_lm_generate
 
@@ -2142,6 +2286,21 @@ def serving_phase(dev, cfg, eval_rows, out_dir, smi_line) -> None:
     replies = [None] * R
     queue_idx = iter(range(R))
     qlock = threading.Lock()
+    # The runtime sampler over this scheduler (a registry of its own):
+    # one sample_once after each load request, from the load threads,
+    # while the loop replays the captured decode step.
+    sreg = Registry()
+    sampler = RuntimeSampler(interval=3600.0, registry=sreg)
+    sampler.add_batcher(sched, method="Generate")
+    sampler.add_generation_scheduler(sched)
+    g_slots = sreg.get("tdn_gen_slots_active").labels()
+    slots_seen, tick_ms = [], []
+
+    def sample():
+        t1 = time.perf_counter()
+        sampler.sample_once()
+        tick_ms.append((time.perf_counter() - t1) * 1e3)
+        slots_seen.append(g_slots.value)
 
     def load_worker():
         while True:
@@ -2150,10 +2309,12 @@ def serving_phase(dev, cfg, eval_rows, out_dir, smi_line) -> None:
             if i is None:
                 return
             call(replies, i, i)
+            sample()
 
     sched.ttft_recent.clear()
     by_eos = REGISTRY.get("tdn_gen_requests_retired_total").labels(reason="eos")
-    eos0 = by_eos.value
+    tokens = REGISTRY.get("tdn_gen_tokens_total").labels()
+    eos0, tokens0, replays0 = by_eos.value, tokens.value, sched._graph.replays
     steps0, slot_steps0 = sched.steps_total, sched.slot_steps_total
     chunks0 = sched.prefill_chunks_total
     t0 = time.monotonic()
@@ -2162,6 +2323,7 @@ def serving_phase(dev, cfg, eval_rows, out_dir, smi_line) -> None:
     if errors or any(isinstance(r, str) for r in replies):
         fail(f"serving: load requests failed: {errors[:2]}, "
              f"{[r for r in replies if isinstance(r, str)]}")
+    sample()  # the load has retired: every slot free
     steps = sched.steps_total - steps0
     occupancy = (sched.slot_steps_total - slot_steps0) / max(steps * S, 1)
     lens = [len(generated(replies[i], budget[i])) for i in range(R)]
@@ -2177,6 +2339,23 @@ def serving_phase(dev, cfg, eval_rows, out_dir, smi_line) -> None:
           f"{sched.prefill_chunks_total - chunks0} prefill chunks; prefix hits "
           f"{sched.prefix_hits_total}, misses {sched.prefix_misses_total}, evictions "
           f"{sched.prefix_evictions_total}; first reply {bytes(replies[0][T:T + 40].tolist())!r}")
+    emitted = int(tokens.value - tokens0)
+    replays = sched._graph.replays - replays0
+    mem = sreg.get("tdn_device_memory_bytes").labels(device=f"cuda:{dev.index or 0}",
+                                                     kind="bytes_in_use").value
+    ok_s = (emitted == sum(lens) and 1 <= max(slots_seen[:-1]) <= S and slots_seen[-1] == 0
+            and replays > 0 and mem > 0)
+    print(f"check runtime sampler over the continuous scheduler on {smi_line}: {len(tick_ms)} "
+          f"sample_once calls between the load's requests (tick median "
+          f"{np.median(tick_ms):.3f} ms, max {max(tick_ms):.3f} ms) while the captured decode "
+          f"step replayed {replays} times; tdn_gen_slots_active seen {min(slots_seen[:-1]):g}-"
+          f"{max(slots_seen[:-1]):g} of {S} slots during the load, {slots_seen[-1]:g} after; "
+          f"tdn_gen_tokens_total +{emitted} for {sum(lens)} tokens generated; "
+          f"tdn_gen_slot_occupancy_ratio {sreg.get('tdn_gen_slot_occupancy_ratio').labels().value:.3f}"
+          f"; cuda memory bytes_in_use {mem:.0f} | {'ok' if ok_s else 'FAIL'}")
+    if not ok_s:
+        fail("serving: the runtime sampler's tdn_gen_* gauges disagree with the scheduler or the "
+             "decode graph stopped replaying")
     ok_eos = retired_eos == ended_eos and 1 <= ended_eos < R
     print(f"check load retirement: {ended_eos} replies end on eos within their budgets, "
           f"{R - ended_eos} at their budgets; the scheduler retired {retired_eos} rows on eos | "
@@ -6604,7 +6783,7 @@ def main() -> None:
              "--heads", "12", "--layers", "2", "--seq-len", "1024", "--steps", "4",
              "--batch-size", "4", "--bf16", "--remat", "--lr", "3e-4", "--lr-schedule",
              "cosine", "--warmup-steps", "1", "--eval-batches", "2", "--log-every", "2",
-             "--steps-per-call", "2", "--metrics-out", str(metrics)],
+             "--steps-per-call", "2", "--metrics-out", str(metrics), "--metrics-port", "0"],
             cwd=ROOT, capture_output=True, text=True, timeout=600,
             env={**os.environ, "PYTHONPATH": str(ROOT)},
         )
@@ -6612,6 +6791,22 @@ def main() -> None:
     print(f"cli lm (rc {cli_lm.returncode}): {cli_lm.stdout.strip()}")
     if cli_lm.returncode != 0:
         fail(f"cli lm exited {cli_lm.returncode}: {cli_lm.stderr[-2000:]}")
+    # --metrics-port 0: the bound port on the first line, free at exit.
+    import socket
+
+    lm_port = json.loads(cli_lm.stdout.strip().splitlines()[0]).get("metrics_port")
+    probe = socket.socket()
+    try:
+        probe.bind(("127.0.0.1", lm_port or 0))
+        freed = lm_port is not None
+    except OSError:
+        freed = False
+    finally:
+        probe.close()
+    print(f"check cli lm --metrics-port 0 bound port {lm_port} and freed it at exit | "
+          f"{'ok' if freed else 'FAIL'}")
+    if not freed:
+        fail(f"cli lm --metrics-port: port {lm_port} not printed or still bound")
     report = json.loads(cli_lm.stdout.strip().splitlines()[-1])
     keys = {"train_seconds", "final_train_loss", "eval_split", "loss_nats_per_token",
             "perplexity", "bits_per_byte", "eval_rows_used"}

@@ -396,6 +396,15 @@ QUICK_TESTS = {
     "test_torch_multihost": ["test_two_process_step_parity",
                              "test_two_process_crosshost_pipeline_inference",
                              "test_single_process_topology_noop"],
+    "test_torch_obs": ["test_same_events_render_byte_equal_and_parse_equal[0]",
+                       "test_routes_and_status_codes_match_jax[/metrics-GET]",
+                       "test_engine_health_keys_and_fingerprint_equal_jax[None]"],
+    "test_torch_fleet_obs": ["test_slo_burn_rates_and_budgets_agree[1-10]",
+                             "test_profile_snapshot_and_table_equal[None-5]"],
+    "test_torch_incident": ["test_detectors_fire_on_the_same_deltas_as_jax",
+                            "test_bundle_members_and_manifest_keys_equal_jax[True]"],
+    "test_torch_cli_obs": ["test_metrics_families_and_counters_match_jax",
+                           "test_refusals_are_tdns[argv0]"],
     # ISSUE 10: the codec fast lane's correctness anchor (byte-exact
     # scalar/vectorized equivalence + fuzz agreement), the decode-into-
     # staging path through a real batcher, the codec A/B perf smoke,

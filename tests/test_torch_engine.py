@@ -190,7 +190,7 @@ def test_cli_oracle_and_doctor(model_file, inputs_file, capsys):
 
 
 _BLOCKED_RUN = r"""
-import importlib, importlib.abc, pkgutil, sys
+import importlib, importlib.abc, json, pkgutil, sys
 for name in list(sys.modules):
     if name.split(".")[0] in ("jax", "jaxlib", "tpu_dist_nn"):
         del sys.modules[name]
@@ -373,6 +373,35 @@ for make in (zero.make_zero_lm_train_step, zero.make_fsdp_lm_train_step):
     assert abs(float(zs(zst, zs.init_opt_state(param_leaves(zst)), toks)[2]) - want) < 1e-4
 dp = Engine.up(sys.argv[1], data_parallel=2, devices=["cpu"] * 2)
 assert dp.data_sharded and np.array_equal(dp.infer(xs), Engine.up(sys.argv[1], device="cpu").infer(xs))
+# The metrics plane: up --metrics-port (serving Process where grpcio is
+# installed), scraped from a thread while it stays up, a torch.profiler
+# capture from /debug/profile and a diagnostic bundle.
+import io, threading, time, urllib.request, zipfile
+from tpu_dist_nn_torch import cli as port_cli
+seen = {}
+def scrape():
+    for _ in range(400):
+        if port_cli._live_metrics_servers:
+            break
+        time.sleep(0.05)
+    mport = port_cli._live_metrics_servers[0][0].port
+    for path in ("/healthz", "/debug/profile?seconds=0.1", "/debug/bundle", "/metrics"):
+        with urllib.request.urlopen(f"http://127.0.0.1:{mport}{path}", timeout=60) as r:
+            seen[path] = r.read()
+scraper = threading.Thread(target=scrape)
+scraper.start()
+try:
+    import grpc  # noqa: F401
+    serving = ["--grpc-port", "0"]
+except ImportError:
+    serving = ["--serve"]
+assert main(["up", "--config", sys.argv[1], "--device", "cpu", "--metrics-port", "0",
+             *serving, "--serve-seconds", "6"]) == 0
+scraper.join()
+assert json.loads(seen["/healthz"])["fingerprint"] and not port_cli._live_metrics_servers
+assert b"tdn_engine_infer_rows_total" in seen["/metrics"]
+for path in ("/debug/profile?seconds=0.1", "/debug/bundle"):
+    assert zipfile.ZipFile(io.BytesIO(seen[path])).namelist()
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpu_dist_nn")]
 assert not bad, bad
 print("imported", len(mods), "modules without jax")

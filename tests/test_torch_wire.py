@@ -234,7 +234,10 @@ def test_tracer_records_cross_thread_spans_and_rate_zero_records_nothing():
     names = [s.name for s in t.snapshot(trace_id=root.trace_id)]
     assert names == ["queue_wait", "decode", "rpc.Process"]
     t.record_span("fetch", root.ctx, root.t0, 0.1)
-    assert t.dropped_total == 1 and len(t.snapshot()) == 3
+    # The ring keeps 3 spans; the evicted queue_wait still comes back
+    # through the slowest-trace exemplar that the root's end kept whole.
+    assert t.dropped_total == 1 and t.buffer_len() == 3
+    assert [s.name for s in t.snapshot()] == ["queue_wait", "decode", "rpc.Process", "fetch"]
     t.configure(0.0)
     child = t.start("x", parent=trace.SpanContext.from_header(root.ctx.header()))
     assert not child.sampled and child.ctx.trace_id == root.trace_id

@@ -103,6 +103,7 @@ from tpu_dist_nn_torch.models.network import (
     network_forward,
     network_model_from_params,
 )
+from tpu_dist_nn_torch.obs.goodput import GOODPUT, fcnn_flops_per_row
 from tpu_dist_nn_torch.obs.log import get_logger
 from tpu_dist_nn_torch.obs.registry import REGISTRY
 from tpu_dist_nn_torch.parallel.gpipe import caller_event, gather, launch
@@ -116,10 +117,13 @@ from tpu_dist_nn_torch.parallel.pipeline import (
     pipeline_spec_summary,
     place_pipeline,
     place_pipeline_quantized,
+    row_bucket,
     run_placed,
 )
 from tpu_dist_nn_torch.serving.integrity import GUARD
 from tpu_dist_nn_torch.train.metrics import classification_metrics
+from tpu_dist_nn_torch.train.pipeline_trainer import train_pipelined
+from tpu_dist_nn_torch.train.trainer import TrainConfig, train_fcnn, train_network
 from tpu_dist_nn_torch.utils.device import resolve_device
 from tpu_dist_nn_torch.utils.errors import (
     IntegrityError,
@@ -132,6 +136,49 @@ from tpu_dist_nn_torch.utils.profiling import LatencyStats, device_call_ms
 log = logging.getLogger("tpu_dist_nn_torch.engine")
 slog = get_logger("tpu_dist_nn_torch.engine")
 
+# Engine metric families (the JAX package's names). Host-side float
+# adds only: a time.monotonic() pair around a launch, never a sync.
+_INFER_SECONDS = REGISTRY.histogram(
+    "tdn_engine_infer_seconds", "Engine.infer wall time per call",
+)
+_INFER_ROWS = REGISTRY.counter(
+    "tdn_engine_infer_rows_total",
+    "rows computed by Engine.infer (includes coalescing padding; "
+    "tdn_batch_rows is the useful-rows view)",
+)
+_INFER_ERRORS = REGISTRY.counter(
+    "tdn_engine_infer_errors_total", "Engine.infer calls that raised",
+)
+# The port has no compiles: a launch's row bucket whose CUDA graph is
+# already captured (a pipelined engine on one card), or a launch row
+# count this engine already served (every other placement), is a hit;
+# a first use, which captures the bucket's graph, is a miss.
+_COMPILE_HITS = REGISTRY.counter(
+    "tdn_engine_compile_cache_hits_total",
+    "infer calls whose launch shape was already served (on a pipelined "
+    "engine on one card: its row bucket's CUDA graph was already captured)",
+)
+_COMPILE_MISSES = REGISTRY.counter(
+    "tdn_engine_compile_cache_misses_total",
+    "infer calls whose launch shape was new (on a pipelined engine on one "
+    "card: the first use of a row bucket, which captures its CUDA graph)",
+)
+_TRAIN_SECONDS = REGISTRY.histogram(
+    "tdn_engine_train_seconds", "Engine.train wall time per call",
+    buckets=(1.0, 5.0, 15.0, 60.0, 300.0, 1800.0, 7200.0),
+)
+_TRAIN_CALLS = REGISTRY.counter(
+    "tdn_engine_train_calls_total", "Engine.train invocations",
+)
+# Warm state of the pow2 row-bucket ladder (warm_buckets): how many
+# buckets this process has already run (and, pipelined on one card,
+# captured), so a scrape tells whether a live request can still meet a
+# first use.
+_WARM_BUCKETS = REGISTRY.gauge(
+    "tdn_engine_warm_buckets",
+    "pow2 row-bucket forwards already run (on a pipelined engine on one "
+    "card: captured as CUDA graphs)",
+)
 # Measured at warm-up on quantized engines: f32 time / int8 time for one
 # forward of the largest warm bucket (> 1: int8 pays off); device time
 # on a card, host wall time on the CPU.
@@ -163,6 +210,7 @@ class PendingInference:
     value: torch.Tensor
     done: object
     bad_rows: object = None
+    t0: float = 0.0
 
 
 @dataclasses.dataclass
@@ -251,12 +299,23 @@ class Engine:
                 self._params = params_from_spec(model, dtype, device)
             else:
                 self._plan, self._params = build_network(model, dtype, device)
+        # Goodput accounting: the analytic FLOPs of one row through the
+        # dense chain, recorded per launch at infer_async. None for a
+        # conv model (no FLOP model). The peak resolves here, at
+        # configure time, never on a sampler tick; launches are recorded
+        # whole, so a placement's peak is per-device x its devices.
+        self._flops_per_row = (fcnn_flops_per_row(self.model.layer_sizes)
+                               if model.is_dense else None)
+        if self._flops_per_row:
+            GOODPUT.ensure_peak(device_count=mesh_spec.num_devices, dtype="float32")
         # The int8 path: quantize_fcnn's layers on one program, or the
         # placed stages of the padded int8 contract on a pipeline.
         self._q = None
         if quantize:
             self._quantize()
         self._warm_buckets: set[int] = set()
+        # Launch shapes served (the compile-cache hit / miss proxy).
+        self._seen_launch_keys: set = set()
         self.setup_seconds: float | None = None
         self._int8_measured = False
         # Set by measure_int8_speedup: int8 measured slower than f32, so
@@ -440,7 +499,7 @@ class Engine:
             )
         return out
 
-    def infer_async(self, x) -> PendingInference:
+    def infer_async(self, x, *, useful_rows=None) -> PendingInference:
         """Validate, stage and LAUNCH a batch without waiting for it.
 
         On the card the rows are cast once into pinned host memory
@@ -448,7 +507,37 @@ class Engine:
         device, run through the kernels and copied
         back into pinned memory, all queued on the current CUDA stream;
         :meth:`fetch` is the host sync. Validation errors raise here.
+
+        ``useful_rows`` is the goodput declaration: how many of the rows
+        carry request data (the batcher passes its pre-padding count, so
+        bucket pad is booked as pad under ``path="batcher"``); a direct
+        call counts every row useful under ``path="engine"``.
         """
+        t0 = time.monotonic()
+        try:
+            pending, key = self._launch(x)
+        except Exception:
+            _INFER_ERRORS.inc()
+            raise
+        pending.t0 = t0
+        if self._flops_per_row:
+            rows = int(pending.value.shape[0])
+            if useful_rows is None:
+                GOODPUT.record_rows(self._flops_per_row, rows, rows, path="engine")
+            else:
+                GOODPUT.record_rows(self._flops_per_row, rows, int(useful_rows),
+                                    path="batcher")
+        if key in self._seen_launch_keys:
+            _COMPILE_HITS.inc()
+        else:
+            self._seen_launch_keys.add(key)
+            _COMPILE_MISSES.inc()
+        return pending
+
+    def _launch(self, x) -> tuple[PendingInference, tuple]:
+        """infer_async's body: the handle and the launch's cache key
+        (the row bucket on a captured pipelined forward, else the row
+        count, with the input dtype)."""
         if not self.is_ready:
             raise UnavailableError(
                 "engine is down; relaunch with Engine.up from the model JSON"
@@ -465,9 +554,13 @@ class Engine:
         # int8 and conv paths take them cast.
         dtype = (torch.uint8 if x.dtype == np.uint8 and not self._serves_int8
                  and self._plan is None and self._hp is None else self.dtype)
+        n = int(host.shape[0])
+        graphed = (self.pipelined and self.device.type == "cuda"
+                   and self._hp is None and self.mesh.on_one_card)
+        key = (row_bucket(n) if graphed and n else n, dtype, self._serves_int8)
         if self.device.type == "cpu":
             out = self._forward(host.to(dtype))
-            return PendingInference(out, None)
+            return PendingInference(out, None), key
         staged = torch.empty(host.shape, dtype=dtype, pin_memory=True)
         staged.copy_(host)  # the one cast, straight to the engine dtype
         out = self._forward(staged.to(self.device, non_blocking=True))
@@ -475,7 +568,7 @@ class Engine:
         result.copy_(out, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        return PendingInference(result, done)
+        return PendingInference(result, done), key
 
     def fetch(self, pending: PendingInference) -> np.ndarray:
         """Wait for an :meth:`infer_async` handle; returns host numpy.
@@ -486,17 +579,23 @@ class Engine:
         per-row failover (clean rows ship bit-identical); a launch whose
         rows are ALL bad has nothing to salvage and raises
         :class:`IntegrityError`."""
-        if pending.done is not None:
-            pending.done.synchronize()
-        out = pending.value.numpy()
-        bad = GUARD.bad_rows(out) if GUARD.enabled else None
-        if bad is not None and bad.any():
-            pending.bad_rows = bad
-            if bad.all():
-                raise IntegrityError(
-                    f"numeric guard: all {len(out)} rows of the launch are "
-                    f"non-finite or out of magnitude — refusing to ship the batch"
-                )
+        try:
+            if pending.done is not None:
+                pending.done.synchronize()
+            out = pending.value.numpy()
+            bad = GUARD.bad_rows(out) if GUARD.enabled else None
+            if bad is not None and bad.any():
+                pending.bad_rows = bad
+                if bad.all():
+                    raise IntegrityError(
+                        f"numeric guard: all {len(out)} rows of the launch are "
+                        f"non-finite or out of magnitude — refusing to ship the batch"
+                    )
+        except Exception:
+            _INFER_ERRORS.inc()
+            raise
+        _INFER_SECONDS.observe(time.monotonic() - pending.t0)
+        _INFER_ROWS.inc(len(out))
         return out
 
     @property
@@ -584,6 +683,8 @@ class Engine:
                 self.infer(np.zeros((n, dim), np.float32))
                 self._warm_buckets.add(n)
                 warmed.append(n)
+                # Per bucket: a scrape during a long warm sees progress.
+                _WARM_BUCKETS.set(len(self._warm_buckets))
             n *= 2
         if (warmed and self._q is not None and not self._int8_measured
                 and os.environ.get("TDN_INT8_WARMUP_MEASURE", "1") != "0"):
@@ -761,9 +862,14 @@ class Engine:
         serves the trained weights on every path: ``model`` holds them
         in float64 and an int8 engine is re-quantized.
         """
-        from tpu_dist_nn_torch.train.pipeline_trainer import train_pipelined
-        from tpu_dist_nn_torch.train.trainer import TrainConfig, train_fcnn, train_network
+        _TRAIN_CALLS.inc()
+        t0 = time.monotonic()
+        try:
+            return self._train(train_data, config, eval_data, checkpoints, schedule)
+        finally:
+            _TRAIN_SECONDS.observe(time.monotonic() - t0)
 
+    def _train(self, train_data, config, eval_data, checkpoints, schedule) -> list[dict]:
         validate_schedule(schedule)
         if schedule in ("zb", "zb-v"):
             raise ValueError(
@@ -905,7 +1011,55 @@ class Engine:
 
     @property
     def is_ready(self) -> bool:
+        """Attribute-only readiness (no device work): the one predicate
+        :meth:`health`, ``/healthz`` and the runtime sampler share."""
         return self._params is not None or self._placed is not None or self._hp is not None
+
+    def fingerprint(self) -> str:
+        """Whole-model weights fingerprint
+        (:func:`~tpu_dist_nn_torch.serving.integrity.fingerprint_tree`
+        over every layer's host float64 weights and biases, the JAX
+        Engine's tree), the value ``/healthz`` exposes: one model file
+        gives one fingerprint in both packages, whatever the placement
+        or quantization. Cached per model object (training replaces
+        ``self.model``)."""
+        cached = getattr(self, "_fingerprint_cache", None)
+        if cached is not None and cached[0] is self.model:
+            return cached[1]
+        from tpu_dist_nn_torch.serving.integrity import fingerprint_tree
+
+        tree = {}
+        for i, layer in enumerate(self.model.layers):
+            tree[f"layer{i}/weights"] = layer.weights
+            tree[f"layer{i}/biases"] = layer.biases
+        fp = fingerprint_tree(tree)["model"]
+        self._fingerprint_cache = (self.model, fp)
+        return fp
+
+    def health(self, probe: bool = True) -> dict:
+        """Structured readiness report (the reference's TCP readiness
+        poll, run_grpc_fcnn.py:157-172, as a status). ``probe=False``
+        skips the inference probe: the per-request form ``/healthz``
+        serves (a poller must not launch device work beside serving)."""
+        ready = self.is_ready
+        status = {
+            "ready": ready,
+            "devices": self.mesh_spec.num_devices,
+            "pipelined": self.pipelined,
+            "setup_seconds": self.setup_seconds,
+        }
+        try:
+            status["fingerprint"] = self.fingerprint()
+        except Exception:  # noqa: BLE001 — health must never crash
+            pass
+        if ready and probe:
+            try:
+                out = self.infer(np.zeros((1, self.model.input_dim)))
+                status["probe_ok"] = bool(np.isfinite(out).all())
+            except Exception as e:  # a failing probe is the finding, not a crash
+                status["probe_ok"] = False
+                status["probe_error"] = repr(e)
+        return status
 
 
 

@@ -27,8 +27,8 @@ printed lines:
   with the optimizer controls, per-epoch checkpoints and resume,
   per-epoch report lines, ``--metrics-out`` and ``--out`` (the trained
   model JSON). The step is plain autograd; each epoch's eval runs the
-  chain (and conv) kernels on the card. Left for later slices:
-  ``--metrics-port``; ``--checkpoint-format orbax`` is refused.
+  chain (and conv) kernels on the card. ``--checkpoint-format orbax``
+  is refused.
 * ``lm`` — train and evaluate the byte-level Transformer LM on one
   device (the flash-attention kernels on the card), with ``tdn lm``'s
   corpus tiers, 95/5 split, per-step log lines and final JSON report;
@@ -70,8 +70,30 @@ printed lines:
   trains one program, as ``tdn lm`` does (it builds no mesh there), and
   says so in a log line. ``up``, ``infer`` and ``train`` take
   ``--data-parallel N`` to the Engine's data-sharded placement (N slots;
-  on one card it collapses, as the JAX Engine does on one chip). Left
-  for later slices: ``--metrics-port``.
+  on one card it collapses, as the JAX Engine does on one chip).
+* ``metrics``, ``trace``, ``profile``, ``incident`` and ``debug`` — the
+  clients of a ``--metrics-port`` endpoint: a pretty-printed (or
+  ``--raw``) scrape with the ``/healthz`` verdict; the request spans as
+  a Chrome trace file; the per-stage self-time table and, with
+  ``--capture-seconds``, a ``torch.profiler`` capture zip; the flight
+  recorder's bundles (``ls``, ``show``, ``pull``); an on-demand
+  ``/debug/bundle``. ``--aggregate`` (the router fleet's view) is
+  refused: the fleet is not ported.
+
+The metrics plane (:mod:`tpu_dist_nn_torch.obs`), in the JAX package's
+routes, families and documents: ``up``, ``train`` and ``lm`` take
+``--metrics-port`` (``/metrics``, ``/healthz`` from
+:meth:`~tpu_dist_nn_torch.api.engine.Engine.health` through the drain,
+``/trace``, ``/logs``, ``/profile``, ``/debug/profile``,
+``/debug/bundle``; with a serving path the runtime sampler adds
+``/timeseries`` and ``/goodput``) and ``--trace-sample-rate``; ``up``
+and ``lm`` take ``--slo-latency-p99-ms`` / ``--slo-availability``
+(``/slo``, the burn-rate admission governor) and ``--incident-dir`` /
+``--incident-max`` / ``--incident-cooldown`` (the flight recorder);
+``infer`` and ``lm`` take ``--profile-dir`` (a ``torch.profiler``
+Chrome trace of the run), and every verb takes the global
+``--log-json``. In a multi-process job only process 0 binds the
+endpoint.
 
 Every engine-side verb runs on the card unless ``--device cpu`` is
 given.
@@ -93,8 +115,10 @@ refused, as are ``up --grpc-port``, ``--sample-pipeline-stages`` and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
+import os
 import sys
 import time
 
@@ -147,6 +171,263 @@ def _process_count() -> int:
     from tpu_dist_nn_torch.parallel.multihost import process_count
 
     return process_count()
+
+
+# Live (server, sampler) pairs, drained by main()'s finally so an error
+# path anywhere in a command cannot leak a bound port or a sampler
+# thread into an in-process caller (tests run main() directly).
+_live_metrics_servers: list = []
+
+
+def _start_metrics_server(args, health_fn=None):
+    """Start the /metrics + /healthz endpoint when --metrics-port was
+    passed; prints the bound port as a JSON line (``port=0`` picks an
+    ephemeral one). Returns the server or None. In a multi-process job
+    only process 0 binds (every process binding one port of a shared
+    host would collide). A busy port is a user error (ValueError ->
+    rc 2), not a traceback."""
+    port = getattr(args, "metrics_port", None)
+    if port is None:
+        return None
+    if _process_count() > 1:
+        from tpu_dist_nn_torch.parallel.multihost import process_index
+
+        if process_index() != 0:
+            return None
+    from tpu_dist_nn_torch.obs import start_http_server
+
+    try:
+        server = start_http_server(port, health_fn=health_fn)
+    except OSError as e:
+        raise ValueError(f"--metrics-port {port} could not bind: {e}") from e
+    _live_metrics_servers.append([server, None])
+    print(json.dumps({"metrics_port": server.port}), flush=True)
+    return server
+
+
+def _stop_metrics_server(server, sampler=None) -> None:
+    if sampler is not None:
+        sampler.stop()
+    if server is not None:
+        server.close()
+        _live_metrics_servers[:] = [e for e in _live_metrics_servers if e[0] is not server]
+
+
+def _drain_metrics_servers() -> None:
+    """Close anything a command's error path left running (close() is
+    idempotent, so the normal path's _stop_metrics_server and this sweep
+    compose)."""
+    for server, sampler in list(_live_metrics_servers):
+        _stop_metrics_server(server, sampler)
+
+
+def _add_metrics_args(p, help_port: str, help_rate: str) -> None:
+    p.add_argument("--metrics-port", type=int, default=None, metavar="PORT", help=help_port)
+    p.add_argument("--trace-sample-rate", type=float, default=None, metavar="RATE",
+                   help=help_rate)
+
+
+def _add_slo_args(p) -> None:
+    """The SLO flags shared by the serving verbs (up / lm): declaring an
+    objective turns on the burn-rate tracker over the endpoint's
+    time-series ring."""
+    p.add_argument("--slo-latency-p99-ms", type=float, default=None, metavar="MS",
+                   help="latency objective: p99 of this command's request-latency "
+                        "histogram must stay <= MS. Exports "
+                        "tdn_slo_burn_rate{window=fast|slow} / "
+                        "tdn_slo_error_budget_remaining, serves GET /slo, and emits "
+                        "rate-limited slo.burn events while the fast window burns > 1.0")
+    p.add_argument("--slo-availability", type=float, default=None, metavar="FRACTION",
+                   help="availability objective in (0, 1), e.g. 0.999: at least this "
+                        "fraction of requests must succeed (same exports as the "
+                        "latency SLO)")
+
+
+def _validate_slo_flags(args, needs: str | None = None) -> None:
+    """Fail bad SLO flags BEFORE engine bring-up. ``needs`` names the
+    serving flag the tracker rides on for this command (without it the
+    flags would be silently inert)."""
+    lat = getattr(args, "slo_latency_p99_ms", None)
+    if lat is not None and lat <= 0:
+        raise ValueError(f"--slo-latency-p99-ms must be > 0, got {lat}")
+    avail = getattr(args, "slo_availability", None)
+    if avail is not None and not 0.0 < avail < 1.0:
+        raise ValueError(
+            f"--slo-availability must be in (0, 1), got {avail} "
+            "(e.g. 0.999 for three nines)"
+        )
+    if lat is None and avail is None:
+        return
+    if getattr(args, "metrics_port", None) is None:
+        raise ValueError(
+            "--slo-latency-p99-ms/--slo-availability need "
+            "--metrics-port: the SLO tracker rides the runtime "
+            "sampler and serves GET /slo there"
+        )
+    if needs is not None and getattr(args, needs.replace("-", "_"), None) is None:
+        raise ValueError(
+            f"--slo-latency-p99-ms/--slo-availability need --{needs} "
+            "on this command (no serving path, nothing to measure)"
+        )
+
+
+def _wire_fleet_obs(args, metrics_server, sampler, method: str, scheduler):
+    """Attach the observability plane to one serving command: a
+    time-series ring sampled every tick (GET /timeseries), the goodput
+    tracker's MFU / pad tick (GET /goodput), and, when SLO flags were
+    passed, the burn-rate tracker (GET /slo, tdn_slo_* gauges, slo.burn
+    events) over ``method``'s requests (the latency SLO covers submit to
+    result, availability the aborted RPCs), with an AdmissionGovernor
+    over ``scheduler``'s core, which maps a sustained fast burn to
+    admission pressure, one SLO class at a time. Returns (ring,
+    tracker)."""
+    from tpu_dist_nn_torch.obs.goodput import GOODPUT
+    from tpu_dist_nn_torch.obs.slo import SLOTracker, availability_objective, latency_objective
+    from tpu_dist_nn_torch.obs.timeseries import TimeSeriesRing
+
+    ring = TimeSeriesRing()
+    # Goodput ticks BEFORE the ring collects (the sampler's order), so
+    # /timeseries records this tick's tdn_mfu_ratio.
+    sampler.add_goodput(GOODPUT)
+    sampler.add_timeseries(ring)
+    objectives = []
+    lat = getattr(args, "slo_latency_p99_ms", None)
+    if lat is not None:
+        objectives.append(latency_objective("request_latency_p99", "tdn_batch_wait_seconds",
+                                            lat / 1000.0, q=0.99, match={"method": method}))
+    avail = getattr(args, "slo_availability", None)
+    if avail is not None:
+        objectives.append(availability_objective("availability", avail,
+                                                 total_family="tdn_rpc_requests_total",
+                                                 bad_family="tdn_rpc_errors_total"))
+    tracker = None
+    if objectives:
+        tracker = SLOTracker(ring, objectives)
+        sampler.add_slo_tracker(tracker)
+        core = getattr(scheduler, "_core", None) or getattr(scheduler, "_sched_core", None)
+        if core is not None:
+            from tpu_dist_nn_torch.serving.sched_core import AdmissionGovernor
+
+            sampler.add_admission_governor(AdmissionGovernor(tracker, [core]))
+    metrics_server.attach(timeseries=ring, slo=tracker, goodput=GOODPUT)
+    return ring, tracker
+
+
+def _add_incident_args(p) -> None:
+    """The flight-recorder flags shared by the serving verbs (up / lm):
+    an incident directory arms the detectors."""
+    p.add_argument("--incident-dir", default=None, metavar="DIR",
+                   help="arm the flight recorder: anomaly detectors (SLO fast burn, "
+                        "error/shed spikes, breaker opens) run on the runtime-sampler "
+                        "tick and snapshot a diagnostic bundle zip (trace ring, "
+                        "/profile, /timeseries window, log ring, /slo, /metrics, "
+                        "manifest) into DIR on trigger; crashes (unhandled exception, "
+                        "SIGABRT) capture too. Costs the request path nothing until a "
+                        "detector fires. Needs --metrics-port (the detectors ride the "
+                        "sampler)")
+    p.add_argument("--incident-max", type=int, default=20, metavar="N",
+                   help="keep at most N incident bundles in --incident-dir; the oldest "
+                        "are pruned (default 20)")
+    p.add_argument("--incident-cooldown", type=float, default=300.0, metavar="SECONDS",
+                   help="minimum spacing between captures of the SAME detector "
+                        "(default 300); an ongoing incident re-captures after the "
+                        "cooldown, a flapping one cannot fill the store")
+
+
+def _validate_incident_flags(args, needs: str | None = None) -> None:
+    """Fail bad flight-recorder flags BEFORE engine bring-up; ``needs``
+    as for :func:`_validate_slo_flags`."""
+    if getattr(args, "incident_max", 20) < 1:
+        raise ValueError(f"--incident-max must be >= 1, got {args.incident_max}")
+    if getattr(args, "incident_cooldown", 300.0) <= 0:
+        raise ValueError(f"--incident-cooldown must be > 0, got {args.incident_cooldown}")
+    if getattr(args, "incident_dir", None) is None:
+        return
+    if getattr(args, "metrics_port", None) is None:
+        raise ValueError(
+            "--incident-dir needs --metrics-port: the detectors ride "
+            "the runtime sampler and the bundles are served from "
+            "GET /incidents there"
+        )
+    if needs is not None and getattr(args, needs.replace("-", "_"), None) is None:
+        raise ValueError(
+            f"--incident-dir needs --{needs} on this command (no "
+            "serving path, nothing to record)"
+        )
+
+
+def _wire_incident_recorder(args, metrics_server, sampler, ring, tracker) -> None:
+    """Attach the flight recorder to one serving command: mounts
+    /incidents, /incidents/get and the recorder's /debug/bundle on the
+    endpoint and, when --incident-dir armed it, registers the detector
+    pass on the sampler tick and the crash hooks."""
+    from tpu_dist_nn_torch.obs.incident import (
+        FlightRecorder,
+        IncidentStore,
+        default_detectors,
+        incident_routes,
+        install_crash_hook,
+    )
+
+    store = None
+    detectors = ()
+    if getattr(args, "incident_dir", None):
+        store = IncidentStore(args.incident_dir, max_incidents=args.incident_max)
+        detectors = default_detectors()
+    recorder = FlightRecorder(store, detectors=detectors, ring=ring, slo=tracker,
+                              cooldown=getattr(args, "incident_cooldown", 300.0))
+    # The surface mounts even disarmed: /debug/bundle costs nothing at
+    # rest, and /incidents 404s with the --incident-dir hint.
+    metrics_server.add_routes(incident_routes(recorder))
+    if store is not None:
+        sampler.add_incident_recorder(recorder)
+        install_crash_hook(recorder)
+        print(json.dumps({
+            "incident_dir": store.directory,
+            "incident_max": store.max_incidents,
+            "incident_detectors": [getattr(d, "name", type(d).__name__) for d in detectors],
+        }), flush=True)
+
+
+def _serving_sampler(args, metrics_server, server, method: str, engine=None):
+    """The runtime sampler over one serving command's batcher (and its
+    continuous scheduler's slots, its engine), with the observability
+    plane and the flight recorder attached, started; None without an
+    endpoint."""
+    if metrics_server is None or server.batcher is None:
+        return None
+    from tpu_dist_nn_torch.obs import TRACER, RuntimeSampler
+
+    sampler = RuntimeSampler()
+    sampler.add_batcher(server.batcher, method=method)
+    if getattr(server, "scheduler", None) is not None:
+        sampler.add_generation_scheduler(server.scheduler)
+    if engine is not None:
+        sampler.add_engine(engine)
+    sampler.add_tracer(TRACER)
+    ring, tracker = _wire_fleet_obs(args, metrics_server, sampler, method, server.batcher)
+    _wire_incident_recorder(args, metrics_server, sampler, ring, tracker)
+    sampler.start()
+    for entry in _live_metrics_servers:  # main()'s drain stops it too
+        if entry[0] is metrics_server:
+            entry[1] = sampler
+    return sampler
+
+
+def _apply_trace_sample_rate(args) -> None:
+    """Configure the process tracer's head-sampling rate from
+    ``--trace-sample-rate`` (an out-of-range rate is a user error before
+    any bring-up). Unset leaves the tracer's default (1.0, or
+    TDN_TRACE_SAMPLE_RATE)."""
+    rate = getattr(args, "trace_sample_rate", None)
+    if rate is None:
+        return
+    from tpu_dist_nn_torch.obs import TRACER
+
+    try:
+        TRACER.configure(sample_rate=rate)
+    except ValueError as e:
+        raise ValueError(f"--trace-sample-rate: {e}") from e
 
 
 def _parse_distribution(text):
@@ -223,6 +504,9 @@ def cmd_up(args) -> int:
     optionally serve it."""
     from tpu_dist_nn_torch.serving.resilience import GracefulDrain
 
+    _apply_trace_sample_rate(args)
+    _validate_slo_flags(args, needs="grpc-port")
+    _validate_incident_flags(args, needs="grpc-port")
     watermarks = _parse_class_watermarks(args.class_watermarks)
     if args.grpc_port is not None and _process_count() > 1:
         # Before engine bring-up: knowable up front.
@@ -231,6 +515,16 @@ def cmd_up(args) -> int:
             "host would dispatch collectives the other hosts never "
             "join (deadlock); serve from a single-process engine"
         )
+    # Bind /metrics + /healthz BEFORE the engine bring-up: a busy port
+    # fails in seconds. The health closure late-binds `engine`; until it
+    # exists /healthz reports not-ready 503, which is what bring-up is.
+    # probe=False: a per-request probe from the HTTP thread would launch
+    # device work beside the serving path. The drain wraps the closure,
+    # so SIGTERM flips /healthz to NOT_SERVING the instant it starts.
+    drain = GracefulDrain(grace_seconds=args.drain_grace_seconds)
+    metrics_server = _start_metrics_server(
+        args, health_fn=drain.wrap_health(lambda: engine.health(probe=False)))
+    sampler = None
     # A server warms its bucket ladder at bring-up, so a quantized
     # engine's warm-up gate decides at the largest serving bucket.
     engine = _engine_from_args(
@@ -248,7 +542,6 @@ def cmd_up(args) -> int:
     if args.grpc_port is not None:
         from tpu_dist_nn_torch.serving.server import serve_engine
 
-        drain = GracefulDrain(grace_seconds=args.drain_grace_seconds)
         server, bound = serve_engine(
             engine, args.grpc_port, warm_rows=args.serve_warm_rows,
             max_pending_rows=args.max_pending_rows,
@@ -259,6 +552,9 @@ def cmd_up(args) -> int:
         drain.add_server(server)
         drain.install_signal_handler()
         print(json.dumps({"grpc_port": bound}), flush=True)
+        # The observability plane over the Process path: /timeseries,
+        # /goodput, (with --slo-*) /slo, and the flight recorder.
+        sampler = _serving_sampler(args, metrics_server, server, "Process", engine)
 
         def teardown():
             # Every thread that can touch CUDA ends before the engine
@@ -268,12 +564,14 @@ def cmd_up(args) -> int:
             if not server.join_closed(args.drain_grace_seconds + 10.0):
                 log.warning("serving threads still alive after the drain; downing the engine")
             engine.down()
+            _stop_metrics_server(metrics_server, sampler)
 
         _serve_loop(engine, max_seconds=args.serve_seconds,
                     teardown=teardown, stop_event=drain.drained)
         return 0
     if args.serve:
         _serve_loop(engine, max_seconds=args.serve_seconds)
+    _stop_metrics_server(metrics_server)
     return 0
 
 
@@ -344,6 +642,7 @@ def cmd_infer(args) -> int:
         ignored = [name for name, bad in (
             ("--config", args.config is not None),
             ("--quantize", args.quantize is not None),
+            ("--profile-dir", args.profile_dir is not None),
             ("--distribution", args.distribution is not None),
             ("--data-parallel", args.data_parallel != 1),
             ("--device", args.device is not None),
@@ -369,7 +668,14 @@ def cmd_infer(args) -> int:
             print(f"Label: {y[args.input_index]}  predicted: {int(out.argmax())}")
         return 0
     labels = y if (y >= 0).all() else None
-    result = engine.run_inference(x, labels=labels, batch_size=args.batch_size)
+    if args.profile_dir:
+        from tpu_dist_nn_torch.utils.profiling import capture_trace
+
+        with capture_trace(args.profile_dir, engine.device):
+            result = engine.run_inference(x, labels=labels, batch_size=args.batch_size)
+        log.info("device trace written to %s", args.profile_dir)
+    else:
+        result = engine.run_inference(x, labels=labels, batch_size=args.batch_size)
     for i, bs in enumerate(result.batch_seconds):
         log.info("batch %d took %.4f seconds", i, bs)
     if len(result.batch_seconds) > 1:
@@ -618,15 +924,10 @@ def cmd_train(args) -> int:
     from tpu_dist_nn_torch.api.engine import Engine
     from tpu_dist_nn_torch.core.schema import load_model
     from tpu_dist_nn_torch.models.fcnn import init_fcnn, spec_from_params
-    from tpu_dist_nn_torch.obs.trace import TRACER
     from tpu_dist_nn_torch.train.trainer import TrainConfig
     from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
 
-    if args.trace_sample_rate is not None:
-        try:
-            TRACER.configure(sample_rate=args.trace_sample_rate)
-        except ValueError as e:
-            raise ValueError(f"--trace-sample-rate: {e}") from e
+    _apply_trace_sample_rate(args)
     _refuse_orbax(args)
     _validate_metrics_out(args.metrics_out)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -680,10 +981,15 @@ def cmd_train(args) -> int:
         grad_accum=args.grad_accum,
     )
     checkpoints = _checkpoint_manager(args)
+    # Scrapers watch the run live (the trainer's step / loss / checkpoint
+    # families); /healthz mirrors the engine while it trains (probe=False:
+    # no device work from the HTTP thread mid-step).
+    metrics_server = _start_metrics_server(args, health_fn=lambda: engine.health(probe=False))
     try:
         history = engine.train(data, cfg, eval_data=eval_data, checkpoints=checkpoints,
                                schedule=args.schedule)
     finally:
+        _stop_metrics_server(metrics_server)
         if hasattr(checkpoints, "close"):
             checkpoints.close()
     if args.metrics_out:
@@ -1123,14 +1429,15 @@ def _lm_stream_demo(args) -> int:
         client.close()
 
 
-def _serve_generation(args, params, cfg, device, report) -> None:
+def _serve_generation(args, params, cfg, device, report, drain, metrics_server) -> None:
     """Serve generation from the trained params until
-    ``--serve-seconds`` pass, SIGINT, or SIGTERM (a graceful drain); the
-    report, with its ``serving`` block, is printed before blocking."""
-    from tpu_dist_nn_torch.serving.resilience import GracefulDrain
+    ``--serve-seconds`` pass, SIGINT, or SIGTERM (``drain``, a graceful
+    drain); the report, with its ``serving`` block, is printed before
+    blocking. With ``metrics_server`` the runtime sampler reads the
+    endpoint's scheduler (the ``tdn_gen_*`` slot gauges with the
+    continuous one) and the observability plane rides its tick."""
     from tpu_dist_nn_torch.serving.server import serve_lm_generate
 
-    drain = GracefulDrain(grace_seconds=args.drain_grace_seconds)
     server, bound = serve_lm_generate(
         params, cfg, args.serve_generate, max_new_tokens=args.serve_new_tokens,
         prompt_len=args.serve_prompt_len, num_stages=args.serve_stages,
@@ -1159,6 +1466,7 @@ def _serve_generation(args, params, cfg, device, report) -> None:
         report["serving"]["gen_slots"] = args.gen_slots
         report["serving"]["prefix_cache_blocks"] = args.prefix_cache_blocks
         report["serving"]["prefill_chunk"] = args.prefill_chunk
+    sampler = _serving_sampler(args, metrics_server, server, "Generate")
     print(json.dumps(report), flush=True)
     try:
         # A SIGTERM-initiated drain ends the wait early.
@@ -1170,6 +1478,7 @@ def _serve_generation(args, params, cfg, device, report) -> None:
     # Every serving thread ends before the process lets go of the card.
     if not server.join_closed(args.drain_grace_seconds + 10.0):
         log.warning("serving threads still alive after the drain")
+    _stop_metrics_server(metrics_server, sampler)
 
 
 def _sample(args, params, cfg, prompt, generator, device):
@@ -1236,6 +1545,9 @@ def cmd_lm(args) -> int:
     )
     from tpu_dist_nn_torch.utils.device import resolve_device
 
+    _apply_trace_sample_rate(args)
+    _validate_slo_flags(args, needs="serve-generate")
+    _validate_incident_flags(args, needs="serve-generate")
     _refuse_orbax(args)
     device = resolve_device(args.device)
     _validate_parallel(args)
@@ -1326,13 +1638,29 @@ def cmd_lm(args) -> int:
             )
             pipeline["globalize"] = lambda b: global_batch(  # noqa: E731
                 global_mesh, b, assume_replicated=True)
+    # Live telemetry for the whole run: training counters during the
+    # loop, serving counters if --serve-generate follows. No engine
+    # here, so /healthz is a bare liveness probe, gated by the drain so
+    # a SIGTERM mid-serve flips it to NOT_SERVING.
+    from tpu_dist_nn_torch.serving.resilience import GracefulDrain
+
+    drain = GracefulDrain(grace_seconds=args.drain_grace_seconds)
+    metrics_server = _start_metrics_server(args, health_fn=drain.wrap_health(None))
     t0 = time.monotonic()
+    trace_ctx = contextlib.nullcontext()
+    if args.profile_dir:
+        from tpu_dist_nn_torch.utils.profiling import capture_trace
+
+        trace_ctx = capture_trace(args.profile_dir, device)
     try:
-        params, history = train_lm(params, cfg, batches, train_cfg, checkpoints=checkpoints,
-                                   **pipeline)
+        with trace_ctx:
+            params, history = train_lm(params, cfg, batches, train_cfg,
+                                       checkpoints=checkpoints, **pipeline)
     finally:
         if hasattr(checkpoints, "close"):
             checkpoints.close()
+    if args.profile_dir:
+        log.info("device trace written to %s", args.profile_dir)
     train_seconds = time.monotonic() - t0
     for h in history:
         log.info("step %d: loss %.4f (%.2fs)", h["step"], h["loss"], h["seconds"])
@@ -1372,9 +1700,337 @@ def cmd_lm(args) -> int:
         # shorter than the bytes.
         report["sample"] = decode(sample_row)
     if args.serve_generate is not None:
-        _serve_generation(args, params, cfg, device, report)
+        _serve_generation(args, params, cfg, device, report, drain, metrics_server)
         return 0
     print(json.dumps(report))
+    _stop_metrics_server(metrics_server)
+    return 0
+
+
+# ------------------------------------------------ the endpoint's clients
+
+
+def _refuse_aggregate(args) -> None:
+    if getattr(args, "aggregate", False):
+        raise ValueError(
+            "--aggregate is not ported: the fleet view needs the router "
+            "plane and its collection (obs/collect.py); point --target at "
+            "one process's --metrics-port endpoint instead (drop the flag)"
+        )
+
+
+def _endpoint_base(target: str) -> str:
+    """Normalize a --target (host:port or URL) to a base URL, for every
+    verb that talks to a --metrics-port endpoint."""
+    if "://" not in target:
+        target = f"http://{target}"
+    return target.rstrip("/")
+
+
+def _endpoint_get(base: str, path: str, timeout: float, method: str = "GET") -> bytes:
+    """Fetch one endpoint route, mapping connection failures to the
+    CLI's user-error convention (ValueError -> rc 2); a non-200 reply's
+    JSON verdict is shown, not just its status line."""
+    import urllib.error
+    import urllib.request
+
+    url = base + path
+    try:
+        req = urllib.request.Request(url, data=(b"" if method == "POST" else None),
+                                     method=method)
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.read()
+    except urllib.error.HTTPError as e:
+        try:
+            detail = e.read().decode(errors="replace").strip()
+        except OSError:
+            detail = ""
+        raise ValueError(f"{url} returned HTTP {e.code}" + (f": {detail}" if detail else "")) from e
+    except (urllib.error.URLError, OSError) as e:
+        raise ValueError(f"could not fetch {url}: {e}") from e
+
+
+def cmd_metrics(args) -> int:
+    """One-shot scrape of a running --metrics-port endpoint: fetch
+    /metrics and pretty-print the tdn_* families (or dump the raw text),
+    then the /healthz verdict."""
+    import urllib.error
+    import urllib.request
+
+    base = _endpoint_base(args.target)
+    if args.profile and not args.aggregate:
+        raise ValueError(
+            "--profile rides the fleet fan-out: pass --aggregate too "
+            "(for one process, use `tdn profile --target ...`)"
+        )
+    if args.timeseries and not args.aggregate:
+        raise ValueError(
+            "--timeseries rides the fleet fan-out: pass --aggregate "
+            "too (for one process, curl GET /timeseries?family=...)"
+        )
+    _refuse_aggregate(args)
+    text = _endpoint_get(base, "/metrics", args.timeout).decode()
+    if args.raw:
+        print(text, end="")
+        return 0
+    from tpu_dist_nn_torch.obs import parse_prometheus_text
+
+    parsed = parse_prometheus_text(text)
+    kinds = {k.split(":", 1)[1]: v for k, v in parsed.items() if str(k).startswith("__type__:")}
+    series = {k: v for k, v in parsed.items() if not str(k).startswith("__type__:")}
+    for name in sorted(kinds):
+        kind = kinds[name]
+        if kind == "histogram":
+            # One line per labeled series: count / sum / mean (the
+            # bucket detail stays in --raw).
+            prefix = name + "_count"
+            for s in sorted(series):
+                if s == prefix or s.startswith(prefix + "{"):
+                    labels = s[len(prefix):]
+                    count = series[s]
+                    total = series.get(name + "_sum" + labels, 0.0)
+                    mean = total / count if count else 0.0
+                    print(f"[histogram] {name}{labels} count={int(count)} "
+                          f"sum={total:.6g} mean={mean:.6g}")
+        else:
+            for s in sorted(series):
+                if s == name or s.startswith(name + "{"):
+                    print(f"[{kind}] {s} = {series[s]:g}")
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=args.timeout) as resp:
+            print(f"healthz: {resp.read().decode().strip()}")
+    except urllib.error.HTTPError as e:
+        # 503 carries the not-ready health JSON: that IS the report.
+        print(f"healthz [{e.code}]: {e.read().decode().strip()}")
+    except (urllib.error.URLError, OSError) as e:
+        print(f"healthz: unavailable ({e})")
+    return 0
+
+
+def cmd_trace(args) -> int:
+    """Pull a running endpoint's recorded request spans as a Chrome
+    trace-event file (``trace --target host:metrics-port -o trace.json``,
+    then open it in Perfetto or ``chrome://tracing``) and print a
+    summary: the slowest spans by self time and the cursor for the next
+    ``--since`` poll. ``--trace-id`` pulls one trace."""
+    base = _endpoint_base(args.target)
+    if args.aggregate and args.since is not None:
+        raise ValueError(
+            "--since is a single-endpoint incremental cursor and "
+            "does not combine with --aggregate (the fleet stitch "
+            "pulls every process's ring)"
+        )
+    _refuse_aggregate(args)
+    path = "/trace"
+    params = []
+    if args.limit is not None:
+        params.append(f"limit={args.limit}")
+    if args.trace_id is not None:
+        params.append(f"trace_id={args.trace_id}")
+    if args.since is not None:
+        params.append(f"since={args.since}")
+    if params:
+        path += "?" + "&".join(params)
+    body = _endpoint_get(base, path, args.timeout)
+    try:
+        doc = json.loads(body)
+        events = doc["traceEvents"]
+    except (ValueError, KeyError, TypeError) as e:
+        raise ValueError(f"{base}{path} did not return a Chrome trace-event document: {e}") from e
+    with open(args.out, "wb") as f:
+        f.write(body)
+    spans = [e for e in events if e.get("ph") == "X"]
+    traces = {e["args"]["trace_id"] for e in spans if "trace_id" in e.get("args", {})}
+    # Slowest spans by SELF time (child time subtracted): a slow fetch
+    # must not inflate its rpc.Process parent's row.
+    from tpu_dist_nn_torch.obs.profile import SpanRecord, compute_self_times
+
+    records = [
+        SpanRecord(e["name"], e["args"].get("trace_id", ""),
+                   e["args"].get("span_id", f"_anon{i}"), e["args"].get("parent_id"),
+                   e["ts"] / 1e6, e.get("dur", 0) / 1e6)
+        for i, e in enumerate(spans) if "args" in e
+    ]
+    selfs = compute_self_times(records)
+    by_self = sorted(records, key=lambda r: selfs.get(r.span_id, 0.0), reverse=True)[:3]
+    print(json.dumps({
+        "out": args.out,
+        "events": len(events),
+        "spans": len(spans),
+        "traces": len(traces),
+        "slowest": [
+            {"name": r.name,
+             "self_ms": round(selfs.get(r.span_id, 0.0) * 1e3, 3),
+             "dur_ms": round(r.dur * 1e3, 3),
+             "trace_id": r.trace_id or None}
+            for r in by_self
+        ],
+        "slowest_ranked_by": "self_time",
+        "cursor": doc.get("cursor"),
+        "open_with": "https://ui.perfetto.dev or chrome://tracing",
+    }))
+    return 0
+
+
+def cmd_profile(args) -> int:
+    """Pull a running endpoint's per-stage self-time breakdown (the
+    "where does the time go" table) and, with ``--capture-seconds``, an
+    on-demand ``torch.profiler`` capture from ``/debug/profile``: a zip
+    holding the Chrome trace (``trace.json``; on a card with the CUDA
+    kernels), where the JAX package's holds a TensorBoard directory."""
+    from tpu_dist_nn_torch.obs.profile import format_profile_table
+
+    base = _endpoint_base(args.target)
+    path = "/profile"
+    params = []
+    if args.window is not None:
+        params.append(f"window={args.window}")
+    if args.top is not None:
+        params.append(f"top={args.top}")
+    if params:
+        path += "?" + "&".join(params)
+    body = _endpoint_get(base, path, args.timeout)
+    try:
+        doc = json.loads(body)
+        doc["methods"]
+    except (ValueError, KeyError, TypeError) as e:
+        raise ValueError(f"{base}{path} did not return a /profile document: {e}") from e
+    if args.json:
+        print(json.dumps(doc))
+    else:
+        print(format_profile_table(doc))
+    if args.capture_seconds is not None:
+        # Fetched directly: the endpoint's degrades arrive as HTTP
+        # 503 / 409 with a JSON reason in the body, and that reason is
+        # the user-facing error.
+        import urllib.error
+        import urllib.request
+
+        url = f"{base}/debug/profile?seconds={args.capture_seconds}"
+        try:
+            with urllib.request.urlopen(
+                    # The HTTP wait IS the capture window plus writeout.
+                    url, timeout=args.timeout + float(args.capture_seconds) + 30.0) as resp:
+                cap = resp.read()
+        except urllib.error.HTTPError as e:
+            body = e.read().decode(errors="replace").strip()
+            raise ValueError(f"device capture unavailable (HTTP {e.code}): {body}") from e
+        except (urllib.error.URLError, OSError) as e:
+            raise ValueError(f"could not fetch {url}: {e}") from e
+        if not cap.startswith(b"PK"):
+            raise ValueError(f"device capture unavailable: {cap.decode(errors='replace').strip()}")
+        with open(args.capture_out, "wb") as f:
+            f.write(cap)
+        print(json.dumps({
+            "device_capture": args.capture_out,
+            "seconds": args.capture_seconds,
+            "bytes": len(cap),
+            "open_with": "unzip, then load trace.json in ui.perfetto.dev or "
+                         "chrome://tracing",
+        }))
+    return 0
+
+
+def _fmt_age(seconds: float) -> str:
+    if seconds < 90:
+        return f"{seconds:.0f}s"
+    if seconds < 5400:
+        return f"{seconds / 60:.0f}m"
+    return f"{seconds / 3600:.1f}h"
+
+
+def cmd_incident(args) -> int:
+    """Browse a serving endpoint's flight-recorder store (``incident
+    ls|show|pull --target host:metrics-port``): list the captured
+    bundles, print one manifest, or download one zip."""
+    import urllib.parse
+
+    base = _endpoint_base(args.target)
+    if args.action == "ls":
+        doc = json.loads(_endpoint_get(base, "/incidents", args.timeout))
+        incidents = doc.get("incidents", [])
+        print(f"{len(incidents)} incident(s) in {doc.get('directory')} "
+              f"(max {doc.get('max_incidents')}, "
+              f"{doc.get('captured_total', 0)} captured this boot)")
+        now = time.time()
+        for m in incidents:
+            if "error" in m and "trigger" not in m:
+                print(f"  {m.get('incident_id', '?'):<44} {m['error']}")
+                continue
+            age = _fmt_age(max(now - float(m.get("captured_at", now)), 0))
+            size = int(m.get("bytes", 0))
+            reason = str(m.get("reason", ""))[:60]
+            print(f"  {m.get('incident_id', '?'):<44} "
+                  f"{m.get('trigger', '?'):<22} {age:>5} ago "
+                  f"{size / 1024:>7.1f}KB  {reason}")
+        return 0
+    if not args.id:
+        raise ValueError(
+            f"tdn incident {args.action} needs an incident id "
+            "(see `tdn incident ls`)"
+        )
+    if args.action == "show":
+        doc = json.loads(_endpoint_get(base, "/incidents", args.timeout))
+        for m in doc.get("incidents", []):
+            if m.get("incident_id") == args.id:
+                print(json.dumps(m, indent=2))
+                return 0
+        raise ValueError(f"no incident {args.id!r} on {base} (see `tdn incident ls`)")
+    data = _endpoint_get(base, "/incidents/get?id=" + urllib.parse.quote(args.id, safe=""),
+                         args.timeout)
+    if not data.startswith(b"PK"):
+        raise ValueError(
+            f"{base}/incidents/get did not return a bundle zip: "
+            f"{data[:200].decode(errors='replace')}"
+        )
+    out = args.out or f"{args.id}.zip"
+    with open(out, "wb") as f:
+        f.write(data)
+    print(json.dumps({
+        "out": out, "incident_id": args.id, "bytes": len(data),
+        "open_with": "unzip; trace.json loads in ui.perfetto.dev",
+    }))
+    return 0
+
+
+def cmd_debug(args) -> int:
+    """On-demand diagnostic capture (``debug bundle --target
+    host:metrics-port``): GET /debug/bundle on a running endpoint and
+    save the zip; prints its id and sections."""
+    import io
+    import urllib.parse
+    import zipfile
+
+    base = _endpoint_base(args.target)
+    params = []
+    if args.no_fleet:
+        params.append("fleet=0")
+    if args.reason:
+        params.append("reason=" + urllib.parse.quote(args.reason, safe=""))
+    path = "/debug/bundle" + ("?" + "&".join(params) if params else "")
+    # The HTTP wait covers the capture itself.
+    data = _endpoint_get(base, path, args.timeout + 30.0)
+    if not data.startswith(b"PK"):
+        raise ValueError(
+            f"{base}{path} did not return a bundle zip: "
+            f"{data[:200].decode(errors='replace')}"
+        )
+    with open(args.out, "wb") as f:
+        f.write(data)
+    summary = {"out": args.out, "bytes": len(data)}
+    try:
+        with zipfile.ZipFile(io.BytesIO(data)) as z:
+            manifest = json.loads(z.read("manifest.json"))
+        summary["incident_id"] = manifest.get("incident_id")
+        summary["sections"] = manifest.get("sections")
+        replicas = manifest.get("replicas")
+        if replicas is not None:
+            summary["replicas"] = [{k: r[k] for k in ("target", "error") if k in r}
+                                   for r in replicas]
+    except (KeyError, ValueError, zipfile.BadZipFile):
+        summary["warning"] = "bundle has no readable manifest.json"
+    summary["open_with"] = "unzip; trace.json loads in ui.perfetto.dev"
+    print(json.dumps(summary))
     return 0
 
 
@@ -1382,6 +2038,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m tpu_dist_nn_torch.cli",
         description="PyTorch/CUDA port of tpu-dist-nn",
+    )
+    parser.add_argument(
+        "--log-json", action="store_true",
+        default=os.environ.get("TDN_LOG_JSON", "") == "1",
+        help="emit logs as one JSON object per line (structured "
+             "records keep their event/fields; everything else "
+             "degrades to {'event': message}) — env: TDN_LOG_JSON=1",
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -1425,8 +2088,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-SLO-class shed fractions of --max-pending-rows, e.g. "
                         "'critical=1.0,standard=1.0,best_effort=0.5' (the default)")
     p.add_argument("--drain-grace-seconds", type=float, default=5.0,
-                   help="graceful-drain window on SIGTERM: new RPCs are refused "
-                        "and in-flight ones get this long to finish")
+                   help="graceful-drain window on SIGTERM: /healthz flips "
+                        "NOT_SERVING, new RPCs are refused and in-flight ones get "
+                        "this long to finish")
+    _add_metrics_args(
+        p, "also expose /metrics (Prometheus text), /healthz (Engine.health as "
+           "JSON), and /trace (Chrome trace-event spans) on this port "
+           "(0 = ephemeral, printed as a JSON line)",
+        "head-sampling rate for request-scoped tracing in [0, 1]: 1 traces "
+        "every request (default), 0 disables recording entirely (env: "
+        "TDN_TRACE_SAMPLE_RATE)")
+    _add_slo_args(p)
+    _add_incident_args(p)
     _add_multihost_args(p)
     p.set_defaults(fn=cmd_up)
 
@@ -1453,6 +2126,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["critical", "standard", "best_effort"],
                    help="with --target: send this x-tdn-class SLO class on "
                         "every RPC (queue priority and shed watermark)")
+    p.add_argument("--profile-dir",
+                   help="capture a torch.profiler trace (CUDA kernels on a card) "
+                        "of the inference here, as Chrome trace JSON")
     _add_multihost_args(p)
     p.set_defaults(fn=cmd_infer)
 
@@ -1516,8 +2192,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write checkpoints on a background thread")
     p.add_argument("--checkpoint-format", choices=["native", "orbax"], default="native",
                    help="native .npz store (orbax is not ported)")
-    p.add_argument("--trace-sample-rate", type=float, default=None, metavar="RATE",
-                   help="head-sampling rate for the run trace (epoch spans) in [0, 1]")
+    _add_metrics_args(
+        p, "expose /metrics + /healthz for the duration of the training run "
+           "(0 = ephemeral, printed as a JSON line)",
+        "head-sampling rate for the run trace (epoch spans on /trace) in [0, 1]")
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu' for the plain PyTorch path")
     _add_multihost_args(p)
@@ -1607,6 +2285,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="recompute each block's activations in the backward")
     p.add_argument("--eval-batches", type=int, default=0,
                    help="cap the held-out eval at N batches (0 = the full split)")
+    p.add_argument("--profile-dir",
+                   help="capture a torch.profiler trace (CUDA kernels on a card) of "
+                        "the training loop here, as Chrome trace JSON")
     p.add_argument("--log-every", type=int, default=50,
                    help="record the loss every N steps (each record waits for the device)")
     p.add_argument("--metrics-out",
@@ -1685,9 +2366,118 @@ def build_parser() -> argparse.ArgumentParser:
                    help="x-tdn-session affinity key for --stream behind a router")
     p.add_argument("--device", default=None,
                    help="'cuda' (default) or 'cpu' for the plain PyTorch path")
+    _add_metrics_args(
+        p, "expose /metrics + /healthz for the run — training counters during "
+           "the loop, serving counters under --serve-generate (0 = ephemeral, "
+           "printed as a JSON line)",
+        "head-sampling rate for request-scoped tracing in [0, 1] (log-interval "
+        "spans during the loop, per-request spans under --serve-generate)")
+    _add_slo_args(p)
+    _add_incident_args(p)
     _add_multihost_args(p)
     p.set_defaults(fn=cmd_lm)
+
+    _add_endpoint_verbs(sub)
     return parser
+
+
+def _add_endpoint_verbs(sub) -> None:
+    """The clients of a --metrics-port endpoint: metrics, trace,
+    profile, incident, debug."""
+    target_help = "host:port of a running --metrics-port endpoint"
+    p = sub.add_parser("metrics",
+                       help="one-shot scrape of a --metrics-port endpoint "
+                            "(pretty-printed or --raw)")
+    p.add_argument("--target", required=True, help=target_help)
+    p.add_argument("--raw", action="store_true",
+                   help="dump the Prometheus text exposition as-is")
+    p.add_argument("--aggregate", action="store_true",
+                   help="fleet view over a router endpoint (not ported: refused)")
+    p.add_argument("--profile", action="store_true",
+                   help="with --aggregate: the fleet's merged /profile")
+    p.add_argument("--timeseries", default=None, metavar="FAMILY",
+                   help="with --aggregate: the fleet's /timeseries for FAMILY")
+    p.add_argument("--timeout", type=float, default=5.0,
+                   help="HTTP timeout in seconds (default 5)")
+    p.set_defaults(fn=cmd_metrics)
+
+    p = sub.add_parser("trace",
+                       help="pull recorded request spans from a --metrics-port "
+                            "endpoint as a Chrome trace-event file (Perfetto-loadable)")
+    p.add_argument("--target", required=True, help=target_help)
+    p.add_argument("-o", "--out", default="trace.json",
+                   help="output path (default trace.json); open in "
+                        "https://ui.perfetto.dev or chrome://tracing")
+    p.add_argument("--limit", type=int, default=None,
+                   help="at most N most-recent ring-buffer spans "
+                        "(slowest-trace exemplars always included)")
+    p.add_argument("--aggregate", action="store_true",
+                   help="stitch a router fleet's traces (not ported: refused)")
+    p.add_argument("--trace-id", default=None, metavar="ID",
+                   help="pull only this trace (the id a log line or an "
+                        "x-tdn-trace-id trailer named) instead of the whole ring")
+    p.add_argument("--since", type=int, default=None, metavar="CURSOR",
+                   help="incremental pull: only spans that finished after this "
+                        "cursor (the 'cursor' value the previous pull printed)")
+    p.add_argument("--timeout", type=float, default=5.0,
+                   help="HTTP timeout in seconds (default 5)")
+    p.set_defaults(fn=cmd_trace)
+
+    p = sub.add_parser("profile",
+                       help="pull a --metrics-port endpoint's per-stage self-time "
+                            "breakdown (the 'where does the time go' table), "
+                            "optionally with an on-demand torch.profiler capture")
+    p.add_argument("--target", required=True, help=target_help)
+    p.add_argument("--window", type=float, default=None,
+                   help="only traces whose root ended within the last N seconds "
+                        "(default: everything buffered)")
+    p.add_argument("--top", type=int, default=5,
+                   help="slowest exemplar traces per method (default 5)")
+    p.add_argument("--json", action="store_true",
+                   help="dump the raw /profile JSON instead of the table")
+    p.add_argument("--capture-seconds", type=float, default=None, metavar="N",
+                   help="also capture a torch.profiler trace (CUDA kernels on a "
+                        "card) for N seconds via /debug/profile (a JSON 503 where "
+                        "the profiler cannot start)")
+    p.add_argument("--capture-out", default="device_profile.zip",
+                   help="where the capture zip lands (default device_profile.zip)")
+    p.add_argument("--timeout", type=float, default=5.0,
+                   help="HTTP timeout in seconds (default 5)")
+    p.set_defaults(fn=cmd_profile)
+
+    p = sub.add_parser("incident",
+                       help="browse a serving endpoint's flight-recorder store: "
+                            "anomaly/crash-triggered diagnostic bundles")
+    p.add_argument("action", choices=["ls", "show", "pull"],
+                   help="ls = list captured bundles; show ID = print one "
+                        "manifest; pull ID = download the zip")
+    p.add_argument("id", nargs="?", default=None,
+                   help="incident id (from `incident ls`)")
+    p.add_argument("--target", required=True,
+                   help="host:port of a running --metrics-port endpoint started "
+                        "with --incident-dir")
+    p.add_argument("-o", "--out", default=None,
+                   help="pull: output path (default <id>.zip)")
+    p.add_argument("--timeout", type=float, default=5.0,
+                   help="HTTP timeout in seconds (default 5)")
+    p.set_defaults(fn=cmd_incident)
+
+    p = sub.add_parser("debug",
+                       help="on-demand diagnostic capture from a running endpoint "
+                            "(debug bundle --target ...)")
+    p.add_argument("what", choices=["bundle"],
+                   help="bundle = GET /debug/bundle and save the zip")
+    p.add_argument("--target", required=True, help=target_help)
+    p.add_argument("-o", "--out", default="bundle.zip",
+                   help="output path (default bundle.zip)")
+    p.add_argument("--reason", default=None,
+                   help="free-text reason recorded in the manifest")
+    p.add_argument("--no-fleet", action="store_true",
+                   help="against a router: capture the router process only")
+    p.add_argument("--timeout", type=float, default=10.0,
+                   help="HTTP timeout in seconds (default 10; the request itself "
+                        "gets +30s for the capture)")
+    p.set_defaults(fn=cmd_debug)
 
 
 def main(argv=None) -> int:
@@ -1695,6 +2485,10 @@ def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s - %(levelname)s - %(message)s"
     )
+    if args.log_json:
+        from tpu_dist_nn_torch.obs.log import setup_json_logging
+
+        setup_json_logging()
     try:
         _init_multihost(args)
         return args.fn(args)
@@ -1704,6 +2498,9 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     finally:
+        # An endpoint a command's error path left running must not
+        # outlive the command (in-process callers would meet the port).
+        _drain_metrics_servers()
         from tpu_dist_nn_torch.parallel.multihost import shutdown
 
         shutdown()

@@ -185,6 +185,36 @@ class Metric:
                 )
         return child
 
+    def remove(self, **labels) -> None:
+        """Drop one child series (a label value that has left the
+        system): without this the label set only grows, and the dead
+        series keeps exposing its last value. No-op when the child never
+        existed."""
+        if set(labels) != set(self.labelnames):
+            raise ValueError(
+                f"{self.name}: expected labels {self.labelnames}, got "
+                f"{tuple(labels)}"
+            )
+        key = tuple(str(labels[ln]) for ln in self.labelnames)
+        with self._lock:
+            self._children.pop(key, None)
+
+    def remove_matching(self, **labels) -> None:
+        """Drop every child series whose values match the given SUBSET
+        of labels, where :meth:`remove` needs the full label set."""
+        unknown = set(labels) - set(self.labelnames)
+        if unknown:
+            raise ValueError(
+                f"{self.name}: unknown labels {tuple(sorted(unknown))}; "
+                f"has {self.labelnames}"
+            )
+        idx = {ln: i for i, ln in enumerate(self.labelnames)}
+        want = {idx[ln]: str(v) for ln, v in labels.items()}
+        with self._lock:
+            for key in [k for k in self._children
+                        if all(k[i] == v for i, v in want.items())]:
+                self._children.pop(key, None)
+
     # Unlabeled convenience: metric.inc() == metric.labels().inc().
     def _default(self) -> _Child:
         if self.labelnames:
@@ -283,10 +313,42 @@ class Registry:
         with self._lock:
             return list(self._metrics.values())
 
+    def reset(self) -> None:
+        """Drop every family (test isolation only: callers holding a
+        Metric reference would silently detach)."""
+        with self._lock:
+            self._metrics.clear()
+
 
 # The process-wide registry every instrumentation site of the port
 # publishes into and :func:`render` renders.
 REGISTRY = Registry()
+
+
+def bridge_latency_stats(stats, name: str | None = None,
+                         registry: Registry | None = None,
+                         buckets=None, **labels):
+    """Teach an existing :class:`~tpu_dist_nn_torch.utils.profiling.LatencyStats`
+    to ALSO feed a registry histogram: its callers (``summary()``,
+    ``percentile()``) keep working, and every span it records from now
+    on lands in ``{name}`` (default ``tdn_<stats.name>_seconds``).
+    Returns ``stats``."""
+    reg = registry if registry is not None else REGISTRY
+    metric = reg.histogram(
+        name or f"tdn_{stats.name}_seconds",
+        f"bridged from LatencyStats({stats.name!r})",
+        labels=tuple(labels),
+        buckets=buckets,
+    )
+    child = metric.labels(**labels) if labels else metric.labels()
+    inner = stats.record
+
+    def record(seconds: float) -> None:
+        inner(seconds)
+        child.observe(seconds)
+
+    stats.record = record
+    return stats
 
 
 def _escape_help(text: str) -> str:

@@ -411,6 +411,7 @@ class ContinuousScheduler:
         self._warm_req: tuple | None = None  # guarded-by: _cond
         self.rows_total = 0        # rows that entered a slot
         self.batches_total = 0     # step launches (steps_total aliases it)
+        self.overlapped_total = 0  # N/A here; kept for sampler parity
         self.preempted_total = 0   # rows evicted for a critical bind
         self.slot_steps_total = 0  # active slots summed over steps
         self.retired_total = 0     # rows retired (eos + max_tokens + cancelled)
@@ -615,6 +616,15 @@ class ContinuousScheduler:
     @property
     def expired_total(self) -> int:
         return self._sched_core.expired_total
+
+    def queue_depth(self) -> int:
+        """Entries awaiting a slot (lock-free, the runtime sampler's
+        per-tick read): queued fresh items plus preempted rows awaiting
+        resume."""
+        return self._sched_core.queue_depth() + len(self._resume)
+
+    def pending_by_class(self) -> dict:
+        return self._sched_core.pending_by_class()
 
     @property
     def slots(self) -> int:

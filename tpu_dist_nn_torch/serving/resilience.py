@@ -31,6 +31,7 @@ import random
 import signal
 import threading
 import time
+import uuid
 
 from tpu_dist_nn_torch.obs.registry import REGISTRY
 
@@ -38,6 +39,11 @@ log = logging.getLogger(__name__)
 
 # Retries the CLIENT issued, per method — the acceptance signal that a
 # faulty run recovered through the policy rather than by luck.
+# Stable for the life of this process, different every boot: /healthz
+# carries it (GracefulDrain.wrap_health) so a poller can tell a
+# restarted server on a reused address from the same process answering.
+BOOT_ID = uuid.uuid4().hex
+
 CLIENT_RETRIES = REGISTRY.counter(
     "tdn_client_retries_total",
     "retry attempts issued by GrpcClient after a retryable status",
@@ -270,15 +276,19 @@ class CircuitBreaker:
 class GracefulDrain:
     """The drain sequence for one serving process.
 
-    Wire-up (``cmd_up`` does exactly this):
+    Wire-up (``cmd_up`` / ``cmd_lm`` do exactly this):
 
-    1. ``add_server(server)`` for each gRPC server (whose wrapped
+    1. construct BEFORE the metrics endpoint, so :meth:`wrap_health`
+       can gate ``/healthz``;
+    2. ``add_server(server)`` for each gRPC server (whose wrapped
        ``stop`` already closes its batcher after the grace window —
        :func:`~tpu_dist_nn_torch.serving.server._wrap_server_stop`);
-    2. ``install_signal_handler()`` (best-effort: signal handlers only
+    3. ``install_signal_handler()`` (best-effort: signal handlers only
        install from the main thread; tests call :meth:`begin` directly).
 
-    On SIGTERM / ``begin()``: ``tdn_server_draining`` → 1, then every
+    On SIGTERM / ``begin()``: ``tdn_server_draining`` → 1 and
+    ``/healthz`` flips NOT_SERVING *first* (a load balancer must stop
+    routing before the port refuses), then every
     server stops accepting new RPCs while in-flight calls get
     ``grace_seconds`` to finish; ``drained`` is set when they have.
     ``begin`` is idempotent — the signal handler and the teardown path
@@ -301,6 +311,33 @@ class GracefulDrain:
     def add_server(self, server) -> None:
         with self._lock:
             self._servers.append(server)
+
+    def wrap_health(self, health_fn=None):
+        """Wrap a ``/healthz`` closure: while draining, ``ready`` is
+        forced False (HTTP 503, NOT_SERVING) and ``draining: true``
+        names why, whatever the engine underneath reports. Every payload
+        also carries this process's ``boot_id``."""
+
+        def health():
+            if self.draining.is_set():
+                # Draining is the headline; a probe failing mid-drain
+                # (the engine may already be down) must not erase it.
+                base = {}
+                try:
+                    if health_fn is not None:
+                        base = dict(health_fn())
+                except Exception as e:  # noqa: BLE001 — drain wins
+                    base = {"error": repr(e)}
+                base["ready"] = False
+                base["draining"] = True
+                base.setdefault("boot_id", BOOT_ID)
+                return base
+            base = dict(health_fn()) if health_fn is not None else {"ready": True}
+            base.setdefault("draining", False)
+            base.setdefault("boot_id", BOOT_ID)
+            return base
+
+        return health
 
     def install_signal_handler(self, signals=(signal.SIGTERM,)) -> bool:
         """Route SIGTERM (by default) to :meth:`begin`. Best-effort:

@@ -2,8 +2,8 @@
 serving batcher.
 
 Port of :class:`tpu_dist_nn.serving.sched_core.SchedCore` and its class
-table, with the continuous scheduler's row pop and the stream-aware
-deadline slide (the burn-rate governor waits for the fleet planes):
+table, with the continuous scheduler's row pop, the stream-aware deadline
+slide and the burn-rate governor:
 
 * **SLO classes.** Every entry carries a class (``critical`` /
   ``standard`` / ``best_effort``, the ``x-tdn-class`` header end to
@@ -14,6 +14,13 @@ deadline slide (the burn-rate governor waits for the fleet planes):
   best_effort 0.5, standard and critical 1.0). An oversized request
   against an EMPTY queue is always admitted: the watermark bounds
   backlog, not request size.
+* **Burn-rate tightening.** An :class:`AdmissionGovernor` on the
+  runtime-sampler tick maps the
+  :class:`~tpu_dist_nn_torch.obs.slo.SLOTracker` fast-window verdict to
+  a pressure level, ONE CLASS AT A TIME: sustained fast burn > 1 first
+  sheds all best_effort admissions (level 1), then standard too
+  (level 2); critical admission is never tightened. Sustained calm
+  steps the pressure back down.
 * **Deadline-aware expiry.** An entry whose caller budget (gRPC deadline
   or ``x-tdn-timeout-ms`` hint) ran out while it queued is failed
   DEADLINE_EXCEEDED at pop instead of riding a launch.
@@ -93,6 +100,12 @@ EXPIRED = REGISTRY.counter(
     "because their caller budget was already exhausted (work the "
     "device never burned a launch on)",
     labels=("method", "slo_class"),
+)
+PRESSURE = REGISTRY.gauge(
+    "tdn_sched_pressure",
+    "admission tightening level from the burn-rate governor (0 = "
+    "none, 1 = best_effort shed, 2 = standard shed too; critical "
+    "admission is never tightened)",
 )
 
 
@@ -178,6 +191,9 @@ class SchedCore:
         self.requests_total = 0  # guarded-by: cond
         self.shed_total = 0  # guarded-by: cond
         self.expired_total = 0  # guarded-by: cond
+        # Burn-rate tightening level (0..2), written by the governor's
+        # sampler tick, read at admission. Plain int store/load.
+        self.pressure = 0
         # Drain-rate window for the shed replies' retry-after hint:
         # (monotonic, rows) completions over the last _DRAIN_WINDOW_S.
         self._drained: collections.deque = collections.deque()  # guarded-by: _drain_lock
@@ -201,14 +217,41 @@ class SchedCore:
 
     # ------------------------------------------------------------ admit
 
+    def tightened(self, slo_class: str) -> bool:
+        """Is this class's admission shut by the burn-rate governor?
+        Pressure closes one class at a time from the bottom of the
+        ladder (level 1: best_effort, level 2: standard; critical is
+        never tightened). A tightened class sheds UNCONDITIONALLY: the
+        empty-queue exemption is for the row watermark, and honouring
+        it here would re-admit most traffic between launches while the
+        SLO burns."""
+        rank = CLASS_RANK.get(slo_class, 1)
+        return (self.pressure >= 1
+                and rank >= len(SLO_CLASSES) - self.pressure)
+
     def effective_watermark(self, slo_class: str) -> float | None:
-        """The class's shed threshold (None = unbounded)."""
+        """The class's shed threshold (None = unbounded); tightening
+        is :meth:`tightened`, checked separately at admission."""
+        if self.tightened(slo_class):
+            return 0.0
         if self._max_pending_rows is None:
             return None
         return self._fractions[slo_class] * self._max_pending_rows
 
     def has_pending(self) -> bool:  # caller-holds: cond
         return any(self._queues[cls] for cls in SLO_CLASSES)
+
+    def queue_depth(self) -> int:
+        """Entries queued (lock-free snapshot for the sampler)."""
+        return sum(len(q) for q in self._queues.values())
+
+    def pending_by_class(self) -> dict[str, int]:
+        """Rows pending per class (sampled into
+        tdn_sched_class_pending_rows)."""
+        with self.cond:
+            return {cls: sum(len(it["x"]) - it.get("next_row", 0)
+                             for it in self._queues[cls])
+                    for cls in SLO_CLASSES}
 
     def pending_items(self) -> list:
         """Flattened queue snapshot in pop order (tests)."""
@@ -252,7 +295,10 @@ class SchedCore:
             # device is already minutes behind on. An oversized request
             # against an EMPTY queue is admitted — it could otherwise
             # never run; the watermark bounds backlog, not batch size.
-            if (watermark is not None and self.has_pending()
+            # A pressure-TIGHTENED class has no such exemption: the
+            # burn governor shut its admission outright.
+            if self.tightened(cls) or (
+                    watermark is not None and self.has_pending()
                     and self.pending_rows + n > watermark):
                 self.shed_total += 1
                 self._m_shed.inc()
@@ -271,7 +317,8 @@ class SchedCore:
             slog.warning(
                 "batcher.shed", method=self.method, slo_class=cls,
                 pending_rows=shed_pending, rows=n,
-                watermark=watermark, retry_after_ms=retry_after,
+                watermark=watermark, pressure=self.pressure,
+                retry_after_ms=retry_after,
             )
             e = ResourceExhaustedError(
                 f"serving queue at capacity for class {cls} "
@@ -479,3 +526,55 @@ class SchedCore:
         rate = drained / span  # rows per second
         ms = int(backlog / rate * 1000.0)
         return max(RETRY_AFTER_MIN_MS, min(RETRY_AFTER_MAX_MS, ms))
+
+
+class AdmissionGovernor:
+    """Maps the SLO tracker's fast-window burn verdict to the cores'
+    admission pressure, one class at a time.
+
+    Ticked by the runtime sampler AFTER the SLO trackers evaluate
+    (``RuntimeSampler.add_admission_governor``), so the verdict it
+    reads is this tick's. Tick-pure: it reads the tracker's cached
+    ``status()`` (never recomputes windows) and flips an int.
+
+    ``raise_after`` consecutive breaching ticks tighten one more
+    class; ``lower_after`` consecutive calm ticks release one — the
+    asymmetry keeps a flapping burn from strobing best_effort
+    admission open and shut.
+    """
+
+    def __init__(self, tracker, cores, *, raise_after: int = 2,
+                 lower_after: int = 6, max_level: int = 2):
+        self.tracker = tracker
+        self.cores = list(cores)
+        self.raise_after = int(raise_after)
+        self.lower_after = int(lower_after)
+        self.max_level = min(int(max_level), len(SLO_CLASSES) - 1)
+        self.level = 0
+        self._hot = 0
+        self._calm = 0
+
+    def tick(self) -> int:
+        doc = self.tracker.status()
+        burning = any(o.get("burning") for o in doc.get("objectives", ()))
+        if burning:
+            self._hot += 1
+            self._calm = 0
+            if self.level < self.max_level and self._hot >= self.raise_after:
+                self.level += 1
+                self._hot = 0
+                slog.warning(
+                    "sched.tightened", level=self.level,
+                    shedding=list(SLO_CLASSES[len(SLO_CLASSES) - self.level:]),
+                )
+        else:
+            self._calm += 1
+            self._hot = 0
+            if self.level > 0 and self._calm >= self.lower_after:
+                self.level -= 1
+                self._calm = 0
+                slog.info("sched.loosened", level=self.level)
+        for core in self.cores:
+            core.pressure = self.level
+        PRESSURE.set(float(self.level))
+        return self.level

@@ -180,10 +180,22 @@ class Batcher:
         # passes its decode runner; a device tensor it returns is
         # fetched by the drain stage). Coalescing, bucketing,
         # abandonment and error fan-out are the same either way.
+        # An engine whose infer_async takes ``useful_rows`` is told each
+        # launch's pre-padding row count, so the goodput plane books
+        # bucket pad exactly (a fake with a one-argument infer_async
+        # keeps working).
+        self._useful_aware = False
         if run_fn is not None:
             self._dispatch_fn, self._fetch_fn = run_fn, _to_host
         else:
             self._dispatch_fn, self._fetch_fn = engine.infer_async, engine.fetch
+            try:
+                import inspect
+
+                self._useful_aware = "useful_rows" in inspect.signature(
+                    engine.infer_async).parameters
+            except (TypeError, ValueError):
+                pass
         # Post-fetch accounting seam: (materialized output, useful_rows,
         # launched_rows, dead_rows=) after each drain — the static
         # Generate path's goodput record. Never fails a request.
@@ -209,6 +221,14 @@ class Batcher:
         # batches < requests under load is the evidence of coalescing.
         self.batches_total = 0
         self.rows_total = 0
+        # Launches issued while a previously launched batch had not
+        # finished draining (tdn_batcher_overlap_ratio =
+        # overlapped_total / batches_total), and the rows launched and
+        # not yet drained (the sampler's in-flight gauge).
+        self.overlapped_total = 0
+        self.inflight_rows = 0
+        self.inflight_batches = 0
+        self._stats_lock = threading.Lock()
         self._m_submits = _SUBMITS.labels(method=method)
         self._m_abandoned = _ABANDONED.labels(method=method)
         self._m_launches = _LAUNCHES.labels(method=method)
@@ -239,6 +259,13 @@ class Batcher:
     @property
     def expired_total(self) -> int:
         return self._core.expired_total
+
+    def queue_depth(self) -> int:
+        """Entries queued (lock-free; the runtime sampler's per-tick read)."""
+        return self._core.queue_depth()
+
+    def pending_by_class(self) -> dict:
+        return self._core.pending_by_class()
 
     def submit(self, x, timeout: float | None = None, ctx=None,
                slo_class: str = "standard") -> np.ndarray:
@@ -372,6 +399,9 @@ class Batcher:
                 # Completions feed the drain-rate window behind the
                 # shed replies' x-tdn-retry-after-ms hint.
                 self._core.note_drained(sum(len(it["x"]) for it in group))
+            with self._stats_lock:
+                self.inflight_batches -= 1
+                self.inflight_rows -= launched_rows
             self._release(key, buf)
             self._slots.release()
             for it in group:
@@ -420,11 +450,12 @@ class Batcher:
                     t_stage = time.monotonic()
                     xs, key, buf = self._stage(group)
                     t_launch = time.monotonic()
+                    kw = {"useful_rows": group_rows} if self._useful_aware else {}
                     if traced:
                         with _trace.annotation_sink() as notes:
-                            handle = self._dispatch_fn(xs)
+                            handle = self._dispatch_fn(xs, **kw)
                     else:
-                        handle = self._dispatch_fn(xs)
+                        handle = self._dispatch_fn(xs, **kw)
                     t_launched = time.monotonic()
                     for it in traced:
                         _trace.TRACER.record_span(
@@ -451,6 +482,13 @@ class Batcher:
                 self.batches_total += 1
                 self._m_launches.inc()
                 self._m_rows.observe(group_rows)
+                with self._stats_lock:
+                    if self.inflight_batches:
+                        # A prior batch is still materializing while
+                        # this one launched: that IS the overlap.
+                        self.overlapped_total += 1
+                    self.inflight_batches += 1
+                    self.inflight_rows += len(xs)
                 if self._serial:
                     self._drain_one(group, handle, key, buf, len(xs))
                 else:

@@ -88,6 +88,8 @@ import torch
 
 from tpu_dist_nn_torch.checkpoint.store import flush, resume_or_init
 from tpu_dist_nn_torch.kernels.flash_attention import default_attn_fn
+from tpu_dist_nn_torch.obs import trace as _trace
+from tpu_dist_nn_torch.obs.registry import REGISTRY
 from tpu_dist_nn_torch.models.transformer import (
     TransformerConfig,
     lm_loss,
@@ -104,6 +106,34 @@ from tpu_dist_nn_torch.parallel.one_f_one_b import validate_schedule
 from tpu_dist_nn_torch.train.graphs import CompiledStep
 from tpu_dist_nn_torch.train.optimizers import Optimizer, apply_updates, build_optimizer
 from tpu_dist_nn_torch.utils.errors import InvalidArgumentError
+
+# LM training metric families (the JAX package's names). Updated ONLY at
+# log / checkpoint boundaries, the points that already read the loss
+# (a host sync), so the instrumentation adds no sync to the step loop.
+_LM_STEPS = REGISTRY.counter(
+    "tdn_train_steps_total", "optimizer steps completed", labels=("trainer",),
+)
+_LM_TOKENS = REGISTRY.counter(
+    "tdn_train_tokens_total", "training tokens consumed (targets)",
+    labels=("trainer",),
+)
+_LM_LOSS = REGISTRY.gauge(
+    "tdn_train_loss", "latest recorded training loss", labels=("trainer",),
+)
+_LM_TOKENS_PER_S = REGISTRY.gauge(
+    "tdn_train_tokens_per_second",
+    "training throughput between the last two log boundaries",
+    labels=("trainer",),
+)
+_LM_STEP_SECONDS = REGISTRY.histogram(
+    "tdn_train_step_seconds",
+    "mean wall time per optimizer step over a logging interval",
+    labels=("trainer",),
+)
+_LM_CHECKPOINTS = REGISTRY.counter(
+    "tdn_checkpoint_saves_total", "checkpoint save events",
+    labels=("trainer",),
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -580,6 +610,9 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
     def run_group(group):
         """Run one group (one step, or one superstep), log and save it."""
         nonlocal compiled
+        n_history_before = len(history)
+        obs["steps"] += len(group)
+        obs["tokens"] += sum(int(b.shape[0]) * max(int(b.shape[1]) - 1, 0) for _, b in group)
         stack = np.stack([np.asarray(b if globalize is None else globalize(b))
                           for _, b in group])
         if graphed:
@@ -600,14 +633,39 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
                 # float() is the host sync: at most one fetch a group.
                 history.append({"step": i + 1, "loss": float(out[j]),
                                 "seconds": time.monotonic() - t0})
+        if len(history) > n_history_before:
+            # A log boundary: the float(loss) above waited for the
+            # device, so the wall time here measures finished work.
+            # Publish the interval's throughput, then reset the window.
+            now = time.monotonic()
+            dt = max(now - obs["t_last"], 1e-9)
+            if run_span.sampled:
+                _trace.TRACER.record_span(
+                    "log_interval", run_span.ctx, obs["t_last"], dt,
+                    attrs={"step": history[-1]["step"], "steps": obs["steps"],
+                           "tokens": obs["tokens"], "loss": history[-1]["loss"]},
+                )
+            _LM_LOSS.labels(trainer="lm").set(history[-1]["loss"])
+            _LM_STEPS.labels(trainer="lm").inc(obs["steps"])
+            _LM_TOKENS.labels(trainer="lm").inc(obs["tokens"])
+            _LM_TOKENS_PER_S.labels(trainer="lm").set(obs["tokens"] / dt)
+            _LM_STEP_SECONDS.labels(trainer="lm").observe(dt / obs["steps"])
+            obs.update(tokens=0, steps=0, t_last=now)
         if checkpoints is not None and any(
                 (i + 1) % every == 0 or i == train_cfg.steps - 1 for i, _ in group):
             done = group[-1][0] + 1
             checkpoints.save(done, {"params": params, "opt_state": opt_state},
                              metadata={"step": done, "loss": float(out[-1])})
+            _LM_CHECKPOINTS.labels(trainer="lm").inc()
 
     history = []
     t0 = time.monotonic()
+    # Throughput between log boundaries: tokens / steps since the last
+    # logged entry. One trace a run, its log-interval spans recorded at
+    # the log boundary (where the loss read already synchronised).
+    obs = {"tokens": 0, "steps": 0, "t_last": t0}
+    run_span = _trace.TRACER.start(
+        "train.lm", attrs={"steps": train_cfg.steps, "batch_size": train_cfg.batch_size})
     try:
         group = []
         for i, batch in enumerate(batches):
@@ -631,6 +689,8 @@ def train_lm(params: dict, cfg: TransformerConfig, batches: Iterable[np.ndarray]
         raise
     else:
         flush(checkpoints)
+    finally:
+        run_span.end()
     if getattr(step, "unshard_params", None) is not None:
         return tree_map(lambda a: a.detach(), step.unshard_params(params)), history
     params = tree_map(lambda a: a.detach(), params)

@@ -5,7 +5,11 @@ copy (the source of the "p50 batch latency" figures);
 :func:`cuda_time_ms` times device work with CUDA events, the card's
 counterpart of the JAX package's device traces; :func:`cuda_graph_time_ms`
 and :func:`device_call_ms` do the same with the host's launch cost taken
-out.
+out. :func:`capture_trace` (``--profile-dir``) and
+:func:`capture_chrome_trace` (``GET /debug/profile``) record a
+``torch.profiler`` session, CUDA kernels included on a card, as a Chrome
+trace, where the JAX package writes a ``jax.profiler`` TensorBoard
+directory.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import os
+import tempfile
 import time
 from typing import Iterator
 
@@ -182,3 +188,47 @@ def device_call_ms(fn, *, calls: int = 7) -> float:
         marks.append((start, stop))
     torch.cuda.synchronize()
     return float(np.median([a.elapsed_time(b) for a, b in marks]))
+
+
+def _profiler_activities() -> list:
+    from torch.profiler import ProfilerActivity
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    return acts
+
+
+@contextlib.contextmanager
+def capture_trace(log_dir, device=None) -> Iterator[object]:
+    """Record a ``torch.profiler`` session around the body and write its
+    Chrome trace into ``log_dir`` (``trace_<pid>_<ms>.json``; open it in
+    Perfetto or ``chrome://tracing``): the host's ops, and on a machine
+    with a card the CUDA kernels (CUPTI). On exit the body's ``device``
+    (a CUDA device; default: the current one, when this process has used
+    a card) is synchronized before the session stops, so the capture
+    holds every kernel issued inside it. Yields the profiler."""
+    os.makedirs(log_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=_profiler_activities())
+    with prof:
+        try:
+            yield prof
+        finally:
+            if device is not None and torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+            elif device is None and torch.cuda.is_available() and torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+    path = os.path.join(str(log_dir), f"trace_{os.getpid()}_{int(time.time() * 1000)}.json")
+    prof.export_chrome_trace(path)
+
+
+def capture_chrome_trace(fn) -> bytes:
+    """Run ``fn()`` inside :func:`capture_trace` (the session covers
+    whatever every thread of the process launches meanwhile) and return
+    the session's Chrome trace JSON."""
+    with tempfile.TemporaryDirectory(prefix="tdn_device_profile_") as tmp:
+        with capture_trace(tmp):
+            fn()
+        (path,) = os.scandir(tmp)
+        with open(path.path, "rb") as f:
+            return f.read()
